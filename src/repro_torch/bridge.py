@@ -1,0 +1,102 @@
+"""Carry trained parameters into the port.
+
+The port cannot train yet, so its main path runs on parameters trained by
+the JAX package.  These functions take them duck-typed — objects with the
+reference's field names (``Cascade``: ``feats`` of ``HaarFeature``-like
+objects or (kind, y, x, h, w) rows, ``thresholds``, ``polarity``,
+``alphas``, ``stage_sizes``, ``stage_thresholds``; ``FaceNN``: ``w1``,
+``b1``, ``w2``, ``b2``), with any array type numpy can read — and build the
+port's own ``Cascade`` / ``FaceNN``.
+
+:func:`load_fa_reference` reads ``assets/fa_reference.npz``: the
+full-width §III workload's trained parameters, scan and calibrated
+capacities, and the JAX executor's outputs on ``security_video()``
+(written by ``benchmarks/torch_export_fa_reference.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from repro_torch.camera.face_nn import FaceNN
+from repro_torch.camera.viola_jones import Cascade, HaarFeature
+from repro_torch.device import resolve_device, to_numpy
+
+ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
+
+
+def _feature(f) -> HaarFeature:
+    if hasattr(f, "kind"):
+        return HaarFeature(int(f.kind), int(f.y), int(f.x), int(f.h),
+                           int(f.w))
+    kind, y, x, h, w = (int(v) for v in f)
+    return HaarFeature(kind, y, x, h, w)
+
+
+def cascade_from(ref) -> Cascade:
+    """The port's ``Cascade`` from a reference ``Cascade`` (or anything with
+    its fields)."""
+    return Cascade(
+        feats=[_feature(f) for f in ref.feats],
+        thresholds=to_numpy(ref.thresholds),
+        polarity=to_numpy(ref.polarity),
+        alphas=to_numpy(ref.alphas),
+        stage_sizes=[int(s) for s in ref.stage_sizes],
+        stage_thresholds=to_numpy(ref.stage_thresholds))
+
+
+def face_nn_from(ref, device=None) -> FaceNN:
+    """The port's ``FaceNN`` (float32 tensors on ``device``, the card when
+    None) from a reference ``FaceNN`` (or anything with its fields)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(to_numpy(a).astype(np.float32), device=dev)
+
+    return FaceNN(w1=t(ref.w1), b1=t(ref.b1), w2=t(ref.w2), b2=t(ref.b2))
+
+
+@dataclasses.dataclass(frozen=True)
+class FAReference:
+    """The full-width §III workload and the JAX executor's answer on it."""
+
+    cascade: Cascade
+    nn: FaceNN
+    scan: dict                    # scale_factor, step, adaptive
+    video: dict                   # security_video() arguments
+    frame_capacity: int
+    window_capacity: int
+    cascade_capacities: list
+    outputs: dict                 # FAExecResult fields as numpy arrays
+
+
+def load_fa_reference(path=None, device=None) -> FAReference:
+    """Load the exported reference; the NN goes to ``device`` (the card
+    when None)."""
+    with np.load(ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+
+    ref = SimpleNamespace(**{k: z[k] for k in (
+        "feats", "thresholds", "polarity", "alphas", "stage_sizes",
+        "stage_thresholds")})
+    nn = SimpleNamespace(**{k: z[k] for k in ("w1", "b1", "w2", "b2")})
+    sf, st, ad = (float(v) for v in z["scan"])
+    n_frames, h, w, motion_frames, seed = (int(v) for v in z["video"])
+    return FAReference(
+        cascade=cascade_from(ref),
+        nn=face_nn_from(nn, device),
+        scan=dict(scale_factor=sf, step=st, adaptive=bool(ad)),
+        video=dict(n_frames=n_frames, h=h, w=w, motion_frames=motion_frames,
+                   faces_in_motion=float(z["video_faces_in_motion"]),
+                   seed=seed),
+        frame_capacity=int(z["frame_capacity"]),
+        window_capacity=int(z["window_capacity"]),
+        cascade_capacities=[int(c) for c in z["cascade_capacities"]],
+        outputs={k: z[k] for k in ("motion", "n_windows", "n_auth",
+                                   "window_id", "window_valid", "scores",
+                                   "total_dropped")})

@@ -1,0 +1,288 @@
+"""§III frame-to-auth executor (the port of the JAX package's
+``camera/pipelines.py``: ``FAExecResult``, ``FunnelStages`` and
+``FaceAuthExecutor``).
+
+The funnel runs in this order, on one device, with fixed shapes from
+batch to batch once calibrated:
+
+1. motion gate — frame-difference scores; motion frames are compacted
+   stably to a prefix of ``frame_capacity`` frames;
+2. fused detection — ``FusedDetector``: one integral-image launch, one
+   Haar-stage launch per cascade stage, over every compacted frame;
+3. window gather — up to ``window_capacity`` detected windows per frame,
+   nearest-resampled to 20x20 (integer-exact replica of
+   ``viola_jones.extract_windows``); overflow is dropped and counted;
+4. int8 NN tail — both layers through the int8 GEMM kernel with static
+   scales and the LUT sigmoid in the kernel.
+
+Every stage takes a leading stream dimension: :meth:`run_streams` runs S
+camera feeds as one batch (the reference's vmap), and ``__call__`` is the
+S = 1 case.  ``batch_step`` and the telemetry counters of the reference
+come with the serving slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.camera.face_nn import make_sigmoid_lut
+from repro_torch.camera.motion import motion_mask, motion_score
+from repro_torch.camera.viola_jones import BASE, FusedDetector
+from repro_torch.device import resolve_device
+from repro_torch.kernels.quant_matmul.ops import (
+    nn_forward_quantized,
+    quantize_nn,
+)
+
+
+@dataclasses.dataclass
+class FAExecResult:
+    """One stream's funnel output, every tensor in source-frame order.
+
+    Leading axis B = frames in the batch (a leading S axis from
+    :meth:`FaceAuthExecutor.run_streams`).  ``window_id`` indexes the
+    detector's ``grid.positions``; slots beyond a frame's detections carry
+    ``window_id == -1`` / ``window_valid == False`` / ``scores == 0``.
+    """
+
+    motion: torch.Tensor            # (B,) bool — passed motion detection
+    n_windows: torch.Tensor         # (B,) int32 exact detection count
+    n_auth: torch.Tensor            # (B,) int32 authenticated windows
+    scores: torch.Tensor            # (B, W) f32 NN scores
+    window_id: torch.Tensor         # (B, W) int32 grid position id, -1 = padding
+    window_valid: torch.Tensor      # (B, W) bool
+    auth: torch.Tensor              # (B, W) bool score > threshold
+    windows_dropped: torch.Tensor   # (B,) int32 detections beyond capacity
+    motion_dropped: torch.Tensor    # () int32 motion frames beyond capacity
+    cascade_dropped: torch.Tensor   # (B,) int32 detector-internal drops
+
+    def total_dropped(self) -> int:
+        """Sum of every drop counter — 0 means the funnel was lossless."""
+        return int(self.motion_dropped.sum() + self.windows_dropped.sum()
+                   + self.cascade_dropped.sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class FunnelStages:
+    """The funnel's stage functions, every tensor with a leading stream
+    axis S; rebuilt by :meth:`FaceAuthExecutor._rebuild`."""
+
+    motion: object     # frames -> (mframes, fidx, fvalid, motion, motion_dropped)
+    detect: object     # (mframes, fvalid) -> (dmask, n_win_m, casc_drop_m)
+    gather: object     # (mframes, dmask, n_win_m) -> (patches, wsel, wvalid, win_dropped_m)
+    nn: object         # (patches, wvalid) -> (s, auth, n_auth_m)
+    scatter: object    # source-frame-order result dict
+    window_capacity: int
+
+
+class FaceAuthExecutor:
+    """The §III hot path: motion -> Viola-Jones -> 400-8-1 NN on one
+    device, through the integral-image, Haar-stage and int8 GEMM kernels
+    on a card.  Arguments are the reference's, less its JAX-only options
+    (``use_pallas``, ``interpret``, ``stream_parallel``, ``telemetry``),
+    plus ``device`` (the card when None)."""
+
+    def __init__(self, cascade, nn, h: int, w: int, *, lut=None,
+                 lut_meta=None, scale_factor: float = 1.25,
+                 step: float = 0.025, adaptive: bool = True,
+                 strictness: float = 0.0, capacities=None,
+                 motion_threshold: float = 0.004, motion_factor: int = 8,
+                 frame_capacity: int | None = None,
+                 window_capacity: int = 64, bits: int = 8,
+                 auth_threshold: float = 0.5, device=None):
+        self.device = resolve_device(device)
+        if lut is None:
+            lut, lut_meta = make_sigmoid_lut(device=self.device)
+        elif lut_meta is None:
+            raise ValueError("pass lut_meta alongside an explicit lut")
+        self.lut = torch.as_tensor(lut, dtype=torch.float32,
+                                   device=self.device)
+        self.lut_meta = lut_meta
+        self.det = FusedDetector(
+            cascade, h, w, scale_factor=scale_factor, step=step,
+            adaptive=adaptive, strictness=strictness, capacities=capacities,
+            device=self.device)
+        self._pos = torch.as_tensor(
+            np.asarray(self.det.grid.positions, np.int64).reshape(-1, 3),
+            device=self.device)                                  # (n, 3)
+        self.nn = nn
+        self.qnn = quantize_nn(nn, bits=bits, device=self.device)
+        self.motion_threshold = float(motion_threshold)
+        self.motion_factor = int(motion_factor)
+        self.frame_capacity = frame_capacity
+        self.window_capacity = int(window_capacity)
+        self.auth_threshold = float(auth_threshold)
+        self._rebuild()
+
+    # -- the funnel ----------------------------------------------------------
+
+    def _rebuild(self):
+        dev = self.device
+        det, qnn, lut, meta = self.det, self.qnn, self.lut, self.lut_meta
+        pos = self._pos
+        W = int(self.window_capacity)
+        fcap = self.frame_capacity
+        thr, factor = self.motion_threshold, self.motion_factor
+        auth_thr = self.auth_threshold
+
+        def stage_motion(frames):
+            """-- 1. motion gating + frame compaction to capacity M ------"""
+            S, B = frames.shape[:2]
+            M = B if fcap is None else max(1, min(int(fcap), B))
+            msc = motion_score(frames[:, :-1], frames[:, 1:], factor)
+            motion = torch.cat([torch.zeros((S, 1), dtype=torch.bool,
+                                            device=dev), msc > thr], dim=1)
+            order = torch.argsort((~motion).to(torch.int8), dim=1,
+                                  stable=True)
+            fidx = order[:, :M]
+            fvalid = torch.gather(motion, 1, fidx)
+            motion_dropped = (motion.sum(dim=1) - M).clamp(min=0).to(
+                torch.int32)
+            mframes = frames[torch.arange(S, device=dev)[:, None], fidx]
+            return mframes, fidx, fvalid, motion, motion_dropped
+
+        def stage_detect(mframes, fvalid):
+            """-- 2. fused VJ front-end, masked by the motion gate; its
+            internal capacity drops on motion frames surface too --------"""
+            S, M, h, w = mframes.shape
+            dmask, _surv, ddrop = det.apply(mframes.reshape(S * M, h, w))
+            dmask = dmask.reshape(S, M, -1) & fvalid[..., None]
+            casc_drop_m = torch.where(
+                fvalid, ddrop.reshape(S, M, -1).sum(dim=-1),
+                torch.zeros_like(fvalid, dtype=ddrop.dtype)).to(torch.int32)
+            n_win_m = dmask.sum(dim=-1).to(torch.int32)
+            return dmask, n_win_m, casc_drop_m
+
+        def stage_gather(mframes, dmask, n_win_m):
+            """-- 3. capacity-padded window gather + 20x20 resample ------
+
+            Survivors are ranked by prefix count and scattered into W
+            slots; overflow and dead windows go to a discard slot W that
+            is sliced off (its duplicate writes are the only
+            order-dependent ones)."""
+            S, M, n = dmask.shape
+            h, w = mframes.shape[-2:]
+            col = torch.arange(n, device=dev).expand(S, M, n)
+            rank = torch.cumsum(dmask.to(torch.int64), dim=-1) - 1
+            slot = torch.where(dmask & (rank < W), rank,
+                               torch.full_like(rank, W))
+            wsel = torch.zeros((S, M, W + 1), dtype=torch.int64,
+                               device=dev).scatter_(-1, slot, col)[..., :W]
+            wvalid = (torch.arange(W, device=dev)
+                      < n_win_m.clamp(max=W)[..., None])
+            win_dropped_m = (n_win_m - W).clamp(min=0)
+            wpos = pos[wsel]                                   # (S, M, W, 3)
+            wy, wx, ww = wpos[..., 0], wpos[..., 1], wpos[..., 2]
+            t = torch.arange(BASE, device=dev)
+            # integer-exact replica of extract_windows' nearest resample:
+            # (arange(20) * win // 20).clip(0, win - 1)
+            off = torch.minimum(t * ww[..., None] // BASE,
+                                ww[..., None] - 1)             # (S, M, W, 20)
+            rows = (wy[..., None] + off).clamp(0, h - 1)
+            cols = (wx[..., None] + off).clamp(0, w - 1)
+            si = torch.arange(S, device=dev).reshape(S, 1, 1, 1, 1)
+            mi = torch.arange(M, device=dev).reshape(1, M, 1, 1, 1)
+            patches = mframes[si, mi, rows[..., :, None], cols[..., None, :]]
+            return patches, wsel, wvalid, win_dropped_m
+
+        def stage_nn(patches, wvalid):
+            """-- 4. int8 NN tail (both layers on the int8 GEMM kernel) --"""
+            S, M, Wc = patches.shape[:3]
+            x = patches.reshape(S * M * Wc, BASE * BASE)
+            s = nn_forward_quantized(qnn, x, lut, meta).reshape(S, M, Wc)
+            s = torch.where(wvalid, s, torch.zeros_like(s))
+            auth = wvalid & (s > auth_thr)
+            n_auth_m = auth.sum(dim=-1).to(torch.int32)
+            return s, auth, n_auth_m
+
+        def stage_scatter(B, fidx, motion, motion_dropped, n_win_m,
+                          casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
+                          n_auth_m):
+            """-- back to source-frame order -----------------------------"""
+            S = fidx.shape[0]
+            si = torch.arange(S, device=dev)[:, None]
+
+            def put(fill, vals):
+                out = torch.full((S, B) + tuple(vals.shape[2:]), fill,
+                                 dtype=vals.dtype, device=dev)
+                out[si, fidx] = vals
+                return out
+
+            wid = torch.where(wvalid, wsel, torch.full_like(wsel, -1))
+            return dict(
+                motion=motion,
+                n_windows=put(0, n_win_m),
+                n_auth=put(0, n_auth_m),
+                scores=put(0.0, s),
+                window_id=put(-1, wid.to(torch.int32)),
+                window_valid=put(False, wvalid),
+                auth=put(False, auth),
+                windows_dropped=put(0, win_dropped_m.to(torch.int32)),
+                motion_dropped=motion_dropped,
+                cascade_dropped=put(0, casc_drop_m),
+            )
+
+        self.stages = FunnelStages(
+            motion=stage_motion, detect=stage_detect, gather=stage_gather,
+            nn=stage_nn, scatter=stage_scatter, window_capacity=W)
+
+    def _funnel(self, frames: torch.Tensor) -> dict:
+        """(S, B, h, w) f32 on the executor's device -> result dict with a
+        leading S axis."""
+        st = self.stages
+        B = frames.shape[1]
+        mframes, fidx, fvalid, motion, motion_dropped = st.motion(frames)
+        dmask, n_win_m, casc_drop_m = st.detect(mframes, fvalid)
+        patches, wsel, wvalid, win_dropped_m = st.gather(
+            mframes, dmask, n_win_m)
+        s, auth, n_auth_m = st.nn(patches, wvalid)
+        return st.scatter(B, fidx, motion, motion_dropped, n_win_m,
+                          casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
+                          n_auth_m)
+
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames, dtype=torch.float32,
+                               device=self.device)
+
+    # -- calibration ---------------------------------------------------------
+
+    def calibrate(self, frames, margin: float = 2.0, quantum: int = 32,
+                  frame_margin: float = 1.25):
+        """Measure the funnel on calibration frames and set every capacity
+        from it: the detector's cascade capacities, the motion-frame
+        capacity and the per-frame window capacity.  Returns
+        (frame_capacity, window_capacity, cascade_capacities)."""
+        frames = self._frames(frames)
+        mask, _ = motion_mask(frames, self.motion_threshold,
+                              self.motion_factor)
+        midx = torch.nonzero(mask).flatten()
+        max_w = 1
+        if len(midx):
+            self.det.calibrate(frames[midx[:4]])
+            dets, _stats = self.det.detect(frames[midx])
+            max_w = max((len(d) for d in dets), default=1)
+        fcap = int(math.ceil(len(midx) * frame_margin))
+        self.frame_capacity = int(min(len(frames),
+                                      max(4, (fcap + 3) // 4 * 4)))
+        wcap = (int(math.ceil(max_w * margin)) // quantum + 1) * quantum
+        self.window_capacity = int(min(self.det.n_windows,
+                                       max(quantum, wcap)))
+        self._rebuild()
+        return (self.frame_capacity, self.window_capacity,
+                list(self.det.capacities))
+
+    # -- execution -----------------------------------------------------------
+
+    def __call__(self, frames) -> FAExecResult:
+        """One stream: (B, h, w) frames -> :class:`FAExecResult`."""
+        out = self._funnel(self._frames(frames)[None])
+        return FAExecResult(**{k: v[0] for k, v in out.items()})
+
+    def run_streams(self, frames) -> FAExecResult:
+        """S independent feeds: (S, B, h, w) -> FAExecResult with a leading
+        S axis, all streams in one batch on one device."""
+        return FAExecResult(**self._funnel(self._frames(frames)))

@@ -1,0 +1,2 @@
+"""Haar cascade-stage kernel: CUDA (``cuda.py``), plain PyTorch
+(``ref.py``), dispatch by tensor device (``ops.py``)."""

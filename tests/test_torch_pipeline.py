@@ -1,0 +1,158 @@
+"""The port's §III executor against the JAX package's, on JAX-trained
+weights carried over by the bridge, at the sizes of the reference's own
+executor tests (tests/test_camera_pipeline.py:130-144: a 6x20 cascade,
+scan (1.4, 4.0, False), 14 frames).
+
+The only arithmetic the two executors do not share is the association of
+the float32 integral image (sequential rows-then-columns in the port,
+XLA's cumsum in the reference).  So the port is held twice: reading the
+reference's integral tables, its whole funnel is bit-equal to the
+reference's; reading its own, at most 2 windows flip (the reference's
+borderline allowance, tests/test_detect.py:130) and every window both
+find has a bit-equal score.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.camera import integral as jint
+from repro.camera.face_nn import train_face_nn
+from repro.camera.pipelines import FaceAuthExecutor as JaxExecutor
+from repro.camera.synthetic import face_dataset, security_video
+from repro.camera.viola_jones import make_feature_pool, train_cascade
+
+from repro_torch.bridge import cascade_from, face_nn_from
+from repro_torch.camera.pipelines import FaceAuthExecutor
+
+# the test files run in parallel worker processes: one intra-op thread
+# per process keeps PyTorch's CPU kernels from oversubscribing the cores
+torch.set_num_threads(1)
+
+SCAN = dict(scale_factor=1.4, step=4.0, adaptive=False)
+FIELDS = ("motion", "n_windows", "n_auth", "scores", "window_id",
+          "window_valid", "auth", "windows_dropped", "motion_dropped",
+          "cascade_dropped")
+
+
+def read_jax_integrals(det):
+    """Make a port detector read the JAX package's integral tables."""
+    def integrals(frames):
+        B, f = frames.shape[0], frames.numpy()
+        return tuple(
+            torch.from_numpy(np.array(jint.integral_image(jnp.asarray(a))))
+            .reshape(B, -1) for a in (f, f * f))
+    det.integrals = integrals
+
+
+def matched_scores(res_a, res_b):
+    """(windows found by one side only, score pairs of those both found)."""
+    flips, pairs = 0, []
+    for i in range(len(res_a["motion"])):
+        a = dict(zip(res_a["window_id"][i][res_a["window_valid"][i]],
+                     res_a["scores"][i][res_a["window_valid"][i]]))
+        b = dict(zip(res_b["window_id"][i][res_b["window_valid"][i]],
+                     res_b["scores"][i][res_b["window_valid"][i]]))
+        flips += len(set(a) ^ set(b))
+        pairs += [(a[k], b[k]) for k in set(a) & set(b)]
+    return flips, np.array(pairs, np.float32).reshape(-1, 2)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    X, y, _ = face_dataset(n_per_class=250, seed=0)
+    casc = train_cascade(X, y, make_feature_pool(n=200), n_stages=6,
+                         per_stage=20, seed=0)
+    nn = train_face_nn(X, y, steps=300)
+    frames, _ = security_video(n_frames=14, motion_frames=6, seed=1)
+    h, w = frames.shape[1:]
+    jx = JaxExecutor(casc, nn, h, w, **SCAN)
+    jcaps = jx.calibrate(frames)
+    tx = FaceAuthExecutor(cascade_from(casc), face_nn_from(nn, "cpu"), h, w,
+                          device="cpu", **SCAN)
+    tcaps = tx.calibrate(frames)
+    same = FaceAuthExecutor(cascade_from(casc), face_nn_from(nn, "cpu"), h,
+                            w, device="cpu", **SCAN)
+    read_jax_integrals(same.det)
+    same_caps = same.calibrate(frames)
+    return dict(casc=casc, nn=nn, frames=frames, jx=jx, tx=tx, jcaps=jcaps,
+                tcaps=tcaps, same=same, same_caps=same_caps,
+                jres=jx(frames), tres=tx(frames), sres=same(frames))
+
+
+def _np(res):
+    return {k: np.asarray(getattr(res, k)) for k in FIELDS}
+
+
+def test_capacities_equal(setup):
+    assert setup["tcaps"] == setup["same_caps"] == setup["jcaps"]
+
+
+def test_bit_equal_on_the_reference_tables(setup):
+    """Motion, counts, window ids and scores all array-equal (scores bit
+    for bit) once the port reads the reference's integral tables."""
+    j, t = _np(setup["jres"]), _np(setup["sres"])
+    for k in FIELDS:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert int(t["n_windows"].sum()) > 0 and int(t["motion"].sum()) > 0
+    assert setup["sres"].total_dropped() == setup["jres"].total_dropped() == 0
+
+
+def test_own_tables_within_borderline_allowance(setup):
+    j, t = _np(setup["jres"]), _np(setup["tres"])
+    for k in ("motion", "motion_dropped", "windows_dropped",
+              "cascade_dropped"):
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    flips, pairs = matched_scores(j, t)
+    assert flips <= 2
+    assert np.abs(t["n_windows"] - j["n_windows"]).sum() <= flips
+    assert abs(int(t["n_auth"].sum()) - int(j["n_auth"].sum())) <= flips
+    assert len(pairs) >= int(j["n_windows"].sum()) - flips
+    np.testing.assert_array_equal(pairs[:, 0].view(np.int32),
+                                  pairs[:, 1].view(np.int32))
+    assert t["scores"].dtype == np.float32
+    np.testing.assert_array_equal(t["scores"][~t["window_valid"]], 0)
+    assert setup["tres"].total_dropped() == 0
+
+
+def test_tight_capacities_drop_and_count_like_the_reference(setup):
+    """Overflow never corrupts results: frames and windows beyond capacity
+    are dropped and counted exactly as the reference counts them."""
+    frames, h, w = setup["frames"], 144, 176
+    kw = dict(window_capacity=2, frame_capacity=3, **SCAN)
+    j = _np(JaxExecutor(setup["casc"], setup["nn"], h, w, **kw)(frames))
+    port = FaceAuthExecutor(cascade_from(setup["casc"]),
+                            face_nn_from(setup["nn"], "cpu"), h, w,
+                            device="cpu", **kw)
+    read_jax_integrals(port.det)
+    t = _np(port(frames))
+    for k in FIELDS:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert int(t["motion_dropped"]) > 0 and int(t["windows_dropped"].sum()) > 0
+
+
+def test_run_streams_equals_single_calls(setup):
+    tx, frames = setup["tx"], setup["frames"]
+    streams = np.stack([frames, np.roll(frames, 3, axis=0)])
+    r = tx.run_streams(streams)
+    assert r.n_windows.shape[0] == 2 and r.motion_dropped.shape == (2,)
+    for s in range(2):
+        one = tx(streams[s])
+        for k in FIELDS:
+            assert torch.equal(getattr(r, k)[s], getattr(one, k)), k
+
+
+def test_stages_are_the_funnel(setup):
+    """Composing the stage functions by hand gives the executor's output."""
+    tx, frames = setup["tx"], setup["frames"]
+    st = tx.stages
+    fr = torch.as_tensor(frames)[None]
+    mframes, fidx, fvalid, motion, mdrop = st.motion(fr)
+    dmask, n_win_m, casc_drop = st.detect(mframes, fvalid)
+    patches, wsel, wvalid, wdrop = st.gather(mframes, dmask, n_win_m)
+    assert patches.shape[-2:] == (20, 20)
+    s, auth, n_auth = st.nn(patches, wvalid)
+    out = st.scatter(len(frames), fidx, motion, mdrop, n_win_m, casc_drop,
+                     wsel, wvalid, wdrop, s, auth, n_auth)
+    assert torch.equal(out["scores"][0], setup["tres"].scores)
