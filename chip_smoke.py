@@ -13,16 +13,36 @@ first use, into ``build/repro_torch``), then:
    checks the result against the JAX executor's (same capacities, same
    motion frames, at most 2 window flips, bit-equal scores on the windows
    both found);
-2. kernel phase — at the shapes the funnel gives them, runs each kernel
+2. timing phase — the funnel's time per frame and ``run_streams`` at
+   S = 1 and S = 64 streams, by the host clock, before any profiler
+   session has run;
+3. offload phase — splits the calibrated executor at every cut (sensor,
+   motion, vj, nn) at every codec width (None, 16, 8, 4 bits) with
+   ``FaceAuthOffloadExecutor`` and runs the 62 frames through each, with
+   the launch counters set to 0 before each run: the raw split must equal
+   the fused result field for field; every run's windows and auths must
+   lie within 2 of the JAX split executor's at the same cut and width
+   (``assets/offload_reference.npz``); sensor-cut and motion-cut payloads
+   must hash equal to the JAX record with the same wire bytes; vj and nn
+   bytes may differ by the flipped windows only; the 8-bit nn cut keeps
+   every auth decision; bytes shrink down the funnel; every coded run
+   launches ``wire_encode`` and ``wire_decode``.  Then a ``CutController``
+   calibrates all four cuts on the card (8 bits, energy regime, the
+   backscatter link at the calibrated J/B), solves, checks that its choice
+   is the measured optimum, executes the chosen cut, holds the result to
+   the sweep's run of that cut and to the JAX record, and times it;
+4. kernel phase — at the shapes the funnel gives them, runs each kernel
    and its plain PyTorch version on the card on the same inputs and holds
-   them together (``quant_matmul`` and ``haar_stage`` bit-exact,
-   ``integral_image`` within an rtol of 1e-6 of the table's largest entry;
-   both run the same sequential float32 sums, so 0 is expected), and
-   times the kernel, the plain version and a PyTorch library call where
-   one computes the same function;
-3. timing phase — the funnel's time per frame, ``run_streams`` at S = 1
-   and S = 64 streams, and a profile of one call of each that splits its
-   device time by kernel.
+   them together (``quant_matmul``, ``haar_stage``, ``wire_encode`` and
+   ``wire_decode`` bit-exact, ``integral_image`` within an rtol of 1e-6 of
+   the table's largest entry; both run the same sequential float32 sums,
+   so 0 is expected), and times the kernel, the plain version and a
+   PyTorch library call where one computes the same function (CUDA events
+   around back-to-back calls);
+5. profile phase — every torch.profiler session of the run: each kernel's
+   device time per launch, the device time by kernel of one call at S = 1,
+   S = 64 and the executed offload cut, with the funnel's host time just
+   before and just after the sessions.
 
 Any failed check raises.  The last lines of standard output are one JSON
 object with a line per kernel, the card's name and power limit, and
@@ -32,6 +52,8 @@ the repository beside it, the script exits with a non-zero code.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -51,6 +73,9 @@ PEAK_INT8_OPS_S = 1979e12       # int8 tensor cores
 INTEGRAL_RTOL = 1e-6            # of max |table|: same sums in the same order
 MAX_WINDOW_FLIPS = 2            # tests/test_detect.py:130 borderline allowance
 STREAMS = 64
+CUTS = ("sensor", "motion", "vj", "nn")
+# the node duties of examples/camera_offload.py (vj at leakage only)
+DUTIES = {"sensor": 1.0, "motion": 1.0, "vj": 0.0, "nn": 1.0}
 
 
 def gpu_name_and_power() -> str:
@@ -102,11 +127,41 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def kernel_row(name, module, launches, err, ms, plain_ms, library_ms,
-               n_bytes, n_ops, peak_ops):
+def launch_device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device milliseconds of one launch of the CUDA kernel named
+    ``kernel``, by torch.profiler over ``reps`` calls of ``fn``: the
+    kernel alone, without the host time between launches that CUDA events
+    around back-to-back calls also count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and kernel in e.key]
+    count = sum(e.count for e in events)
+    if count != reps:
+        raise AssertionError(f"profiler saw {count} launches of {kernel}, "
+                             f"expected {reps}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
+def kernel_row(probes, name, module, launches, err, fn, plain_ms,
+               library_ms, n_bytes, n_ops, peak_ops):
+    """One line of the kernels JSON; ``fn`` launches the kernel once and
+    goes into ``probes`` for the profile phase."""
+    ms = device_ms(fn)
+    probes.append((name, fn))
     t_bytes, t_ops, b_by = bound(n_bytes, n_ops, peak_ops)
+    replaces = module.REPLACES
+    if isinstance(replaces, dict):          # one source, several kernels
+        replaces = replaces[name]
     row = {"name": name, "route": "cuda", "source": module.SOURCE,
-           "replaces": module.REPLACES, "launches": launches,
+           "replaces": replaces, "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops), "bound_by": b_by,
            "library_ms": library_ms}
@@ -120,7 +175,8 @@ def kernel_row(name, module, launches, err, ms, plain_ms, library_ms,
 
 def kernel_phase(ex, frames, launches):
     """Each kernel against its plain version at the main path's shapes;
-    ``launches`` are the main path's counts."""
+    ``launches`` are the main path's counts.  Returns the JSON rows and
+    (name, launch-once function) pairs for the profile phase."""
     import torch
 
     from repro_torch.kernels.haar_frontend import cuda as hcuda
@@ -131,7 +187,7 @@ def kernel_phase(ex, frames, launches):
     from repro_torch.kernels.quant_matmul.ops import quantize_static
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
-    rows = []
+    rows, probes = [], []
     st = ex.stages
     mframes, _fidx, fvalid, _motion, _md = st.motion(frames[None])
     mf = mframes[0]
@@ -144,8 +200,8 @@ def kernel_phase(ex, frames, launches):
     if err > INTEGRAL_RTOL * float(want.abs().max()):
         raise AssertionError(f"integral_image: max |err| {err}")
     rows.append(kernel_row(
-        "integral_image", icuda, launches["integral_image"], err,
-        device_ms(lambda: icuda.integral_image_cuda(x)),
+        probes, "integral_image", icuda, launches["integral_image"], err,
+        lambda: icuda.integral_image_cuda(x),
         device_ms(lambda: integral_image_ref(x), reps=3, warm=1),
         device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1)),
         4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S))
@@ -180,8 +236,8 @@ def kernel_phase(ex, frames, launches):
                    + offsets.numel() + sz * 8 + 3 * sz)
     n_ops = rows_ * cap * sz * 21      # 8 mul + 8 add, scale, sub, sign, 2 mul, add
     rows.append(kernel_row(
-        "haar_stage", hcuda, launches["haar_stage"], 0.0,
-        device_ms(lambda: hcuda.haar_stage_cuda(ii, items, *tables)),
+        probes, "haar_stage", hcuda, launches["haar_stage"], 0.0,
+        lambda: hcuda.haar_stage_cuda(ii, items, *tables),
         device_ms(lambda: haar_stage_ref(ii, items, *tables), reps=3,
                   warm=1),
         None, n_bytes, n_ops, PEAK_F32_OPS_S))
@@ -224,12 +280,76 @@ def kernel_phase(ex, frames, launches):
     m, k = x_q.shape
     n = q.w1_q.shape[1]
     rows.append(kernel_row(
-        "quant_matmul", qcuda, launches["quant_matmul"], 0.0,
-        device_ms(lambda: qcuda.quant_matmul_cuda(x_q, q.w1_q, lut, **kw1)),
+        probes, "quant_matmul", qcuda, launches["quant_matmul"], 0.0,
+        lambda: qcuda.quant_matmul_cuda(x_q, q.w1_q, lut, **kw1),
         device_ms(lambda: quant_matmul_ref(x_q, q.w1_q, lut, **kw1)),
         lib_ms, m * k + k * n + 4 * (n + lut.numel() + m * n),
         2 * m * k * n, PEAK_INT8_OPS_S))
-    return rows
+    rows += codec_rows(probes, ex, frames, launches)
+    return rows, probes
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit-for-bit equality (float tensors compared as int32 words)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def codec_rows(probes, ex, frames, launches):
+    """``wire_encode`` / ``wire_decode`` against their plain versions at
+    the sensor cut (8 and 16 bits) and the vj cut (4 bits), timed at the
+    sensor cut's 8-bit shape; ``launches`` are the offload path's counts
+    (one of each per batch and cut)."""
+    import torch
+
+    from repro_torch.kernels.wire_codec import cuda as wcuda
+    from repro_torch.kernels.wire_codec.ops import BLOCK, SCALE_BYTES
+    from repro_torch.kernels.wire_codec.ref import (
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    def blocks_of(x):
+        return x.reshape(-1, BLOCK).contiguous()
+
+    st = ex.stages
+    mframes, _fidx, fvalid, _motion, _md = st.motion(frames[None])
+    dmask, n_win_m, _cd = st.detect(mframes, fvalid)
+    patches, _wsel, wvalid, _wd = st.gather(mframes, dmask, n_win_m)
+    sensor = blocks_of(frames)
+    vj = blocks_of(torch.where(wvalid[0, :, :, None, None], patches[0], 0.0))
+    for label, blocks, bits in (("sensor", sensor, 8), ("vj", vj, 4),
+                                ("sensor", sensor, 16)):
+        packed, scales = wcuda.wire_encode_cuda(blocks, bits)
+        want_p, want_s = wire_encode_ref(blocks, bits=bits)
+        if not (_bits_equal(packed, want_p) and _bits_equal(scales, want_s)):
+            raise AssertionError(f"wire_encode {label} {bits}-bit differs "
+                                 "from plain")
+        got = wcuda.wire_decode_cuda(packed, scales, bits)
+        if not _bits_equal(got, wire_decode_ref(packed, scales, bits=bits)):
+            raise AssertionError(f"wire_decode {label} {bits}-bit differs "
+                                 "from plain")
+        print(f"wire codec {label} cut {tuple(blocks.shape)} {bits}-bit: "
+              "kernels == plain bit for bit", flush=True)
+
+    n, nb = sensor.numel(), sensor.shape[0]
+    packed, scales = wcuda.wire_encode_cuda(sensor, 8)
+    wire = n + SCALE_BYTES * nb                # 8-bit bytes + scales
+    return [
+        kernel_row(
+            probes, "wire_encode", wcuda, launches["wire_encode"], 0.0,
+            lambda: wcuda.wire_encode_cuda(sensor, 8),
+            device_ms(lambda: wire_encode_ref(sensor, bits=8)), None,
+            4 * n + wire, 5 * n, PEAK_F32_OPS_S),   # abs, max, div, round, clamp
+        kernel_row(
+            probes, "wire_decode", wcuda, launches["wire_decode"], 0.0,
+            lambda: wcuda.wire_decode_cuda(packed, scales, 8),
+            device_ms(lambda: wire_decode_ref(packed, scales, bits=8)), None,
+            wire + 4 * n, n, PEAK_F32_OPS_S),
+    ]
 
 
 def main_phase(ex, frames, ref):
@@ -283,7 +403,175 @@ def main_phase(ex, frames, ref):
         raise AssertionError(f"{flips} window flips > {MAX_WINDOW_FLIPS}")
     if abs(n_auth - int(o["n_auth"].sum())) > flips:
         raise AssertionError("auth count differs beyond the window flips")
-    return counts, res
+    return counts, res, flips
+
+
+def check_counts(label, r, off, key):
+    """Windows and auths of a split run against the JAX split executor's
+    at the same cut and width: each within the borderline allowance (the
+    record holds counts, so a flip is seen only as a count)."""
+    n_win, n_auth = int(r.n_windows.sum()), int(r.n_auth.sum())
+    ref_win, ref_auth = off.n_windows[key], off.n_auth[key]
+    if (abs(n_win - ref_win) > MAX_WINDOW_FLIPS
+            or abs(n_auth - ref_auth) > MAX_WINDOW_FLIPS):
+        raise AssertionError(
+            f"{label}: {n_win} windows, {n_auth} auth; reference {ref_win}, "
+            f"{ref_auth}: more than {MAX_WINDOW_FLIPS} apart")
+    return n_win, n_auth
+
+
+def offload_phase(ex, frames, res, flips):
+    """Every cut at every codec width against the fused result and the JAX
+    split executor's record, then the cut controller on the card.  Returns
+    the launch counts of the controller's executed cut and its profile
+    target (label, call, wall ms)."""
+    import torch
+
+    from repro_torch.bridge import load_offload_reference
+    from repro_torch.camera.offload import (
+        BACKSCATTER,
+        CutController,
+        FaceAuthOffloadExecutor,
+    )
+    from repro_torch.camera.pipelines import (
+        FAWorkloadStats,
+        calibrate_fa,
+        fa_pipeline,
+        fa_profiles,
+    )
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wire_codec.ops import wire_bytes
+
+    fields = ("motion", "n_windows", "n_auth", "scores", "window_id",
+              "window_valid", "auth", "windows_dropped", "motion_dropped",
+              "cascade_dropped")
+    codec_field = {"sensor": "frames", "motion": "mframes"}
+    off = load_offload_reference()
+    offs, nbytes, results = {}, {}, {}
+    for cut in CUTS:
+        for bits in (None, 16, 8, 4):
+            split = offs[(cut, bits)] = FaceAuthOffloadExecutor(
+                ex, cut, bits=bits)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            r, payload = split(frames)
+            results[(cut, bits)] = r
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+            nb = nbytes[(cut, bits)] = payload.nbytes()
+            want = off.nbytes[(cut, bits)]
+            n_win, n_auth = check_counts(f"{cut} {bits}", r, off, (cut, bits))
+            print(f"offload {cut:6s} bits={bits}: {nb:.3f} B on the wire "
+                  f"(reference {want:.3f}), {payload.capacity_bytes():.3f} B "
+                  f"padded, {n_win} windows, {n_auth} auth (reference "
+                  f"{off.n_windows[(cut, bits)]}, {off.n_auth[(cut, bits)]});"
+                  f" launches {counts}", flush=True)
+            if not torch.isfinite(r.scores).all():
+                raise AssertionError(f"{cut} {bits}: non-finite scores")
+            if bits is None:
+                for f in fields:
+                    if not torch.equal(getattr(r, f), getattr(res, f)):
+                        raise AssertionError(f"{cut} raw split: {f} differs "
+                                             "from the fused funnel")
+            elif (counts.get("wire_encode", 0) < 1
+                  or counts.get("wire_decode", 0) < 1):
+                raise AssertionError(f"{cut} {bits}: wire codec not launched")
+            if cut in codec_field:
+                if nb != want:
+                    raise AssertionError(f"{cut} {bits}: {nb} wire bytes != "
+                                         f"reference {want}")
+                if bits is not None:
+                    name = codec_field[cut]
+                    for arr, ref_sha in ((name, off.packed_sha256),
+                                         (name + "_scales", off.scales_sha256)):
+                        got = hashlib.sha256(
+                            payload.arrays[arr].cpu().numpy().tobytes()
+                        ).hexdigest()
+                        if got != ref_sha[(cut, bits)]:
+                            raise AssertionError(f"{cut} {bits}: {arr} hash "
+                                                 "differs from the reference")
+            else:
+                per_window = 400 if cut == "vj" else 1
+                window_b = (wire_bytes(per_window, bits) + 4.0
+                            + (0.125 if cut == "nn" else 0.0))
+                if abs(nb - want) > flips * window_b:
+                    raise AssertionError(
+                        f"{cut} {bits}: {nb} wire bytes, reference {want}: "
+                        f"more than {flips} flipped windows' worth")
+            if cut == "nn" and bits == 8:
+                for f in ("motion", "n_windows", "n_auth", "auth",
+                          "window_id", "window_valid"):
+                    if not torch.equal(getattr(r, f), getattr(res, f)):
+                        raise AssertionError(f"8-bit nn cut changed {f}")
+                d = float((r.scores - res.scores).abs().max())
+                if d >= 1.0 / 127:
+                    raise AssertionError(f"8-bit nn cut moved a score by {d}")
+    print("offload: raw splits == fused at every cut; sensor/motion payload "
+          "hashes and bytes == reference at 16/8/4 bits; windows and auths "
+          f"within {MAX_WINDOW_FLIPS} of the reference at every cut and "
+          "width", flush=True)
+    for bits in (None, 16, 8, 4):
+        b = [nbytes[(cut, bits)] for cut in CUTS]
+        if not b[0] > b[1] > b[2] > b[3]:
+            raise AssertionError(f"bits={bits}: bytes do not shrink down "
+                                 f"the funnel: {b}")
+
+    B = frames.shape[0]
+    stats = FAWorkloadStats(
+        n_frames=B, motion_frames=max(int(res.motion.sum()), 1),
+        windows_to_nn=max(int(res.n_windows.sum()), 1))
+    cal = calibrate_fa(stats)
+    profiles = fa_profiles()
+    profiles["nn"] = cal.nn_profile()
+    link = dataclasses.replace(BACKSCATTER,
+                               joules_per_byte=cal.rf_joules_per_byte)
+    ctl = CutController(
+        lambda cut: offs[(cut, 8)], cuts=CUTS, template=fa_pipeline(stats),
+        profiles=profiles, link=link, regime="energy", unit_rate_hz=1.0,
+        duties=DUTIES)
+    for m in ctl.calibrate(frames, reps=10):
+        print(f"controller cut={m.cut:6s} node={1e3 * m.node_s / B:.5f} ms "
+              f"cloud={1e3 * m.cloud_s / B:.5f} ms per frame "
+              f"(node {1e3 * m.node_s:.4f} ms, cloud {1e3 * m.cloud_s:.4f} ms"
+              f" per {B}-frame batch), wire {m.bytes_per_unit:.3f} B/frame "
+              f"(padded {m.capacity_bytes / B:.3f})", flush=True)
+    rep = ctl.report()
+    for cut in CUTS:
+        print(f"controller objective {cut:6s} measured "
+              f"{1e6 * rep.measured_objectives[cut]:.4f} uW, predicted "
+              f"{1e6 * rep.predicted_objectives[cut]:.4f} uW", flush=True)
+    print(f"controller: chosen={rep.chosen_cut} measured_best="
+          f"{rep.measured_best_cut} agrees={rep.agrees} rank_agreement="
+          f"{rep.rank_agreement:.2f}", flush=True)
+    if not rep.agrees:
+        raise AssertionError("the controller's choice is not the measured "
+                             "optimum")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    result, payload, sol = ctl.execute(frames)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    print(f"offload path (controller executes cut={sol.cut_after}, 8-bit): "
+          f"{payload.nbytes() / B:.3f} B/frame, launches {counts}",
+          flush=True)
+    for name in ("integral_image", "haar_stage", "quant_matmul",
+                 "wire_encode", "wire_decode"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"offload path never launched {name}")
+    # the executed cut is the sweep's run of the same cut and width, which
+    # was held to the JAX record above; hold the executed result to both
+    check_counts(f"executed {sol.cut_after} 8", result, off,
+                 (sol.cut_after, 8))
+    swept = results[(sol.cut_after, 8)]
+    for f in fields:
+        if not torch.equal(getattr(result, f), getattr(swept, f)):
+            raise AssertionError(f"executed cut: {f} differs from the sweep")
+    chosen = offs[(sol.cut_after, 8)]
+    wall = host_ms(lambda: chosen(frames))
+    print(f"offload cut={sol.cut_after} 8-bit: {wall:.4f} ms per {B}-frame "
+          "batch, node and cloud (median of 7)", flush=True)
+    return counts, (f"offload cut={sol.cut_after} 8-bit",
+                    lambda: chosen(frames), wall)
 
 
 def profile_phase(label, fn, wall_ms):
@@ -311,6 +599,9 @@ def profile_phase(label, fn, wall_ms):
 
 
 def timing_phase(ex, frames, res):
+    """Host-clock times of the funnel, run before any profiler session
+    (a profiler session leaves per-launch host cost behind it).  Returns
+    the profile targets (label, call, wall ms)."""
     import torch
 
     B = frames.shape[0]
@@ -333,8 +624,30 @@ def timing_phase(ex, frames, res):
     print(f"run_streams: S=1 {1e3 * B / ms1:.1f} frames/s, S={STREAMS} "
           f"{1e3 * STREAMS * B / msS:.1f} frames/s ({msS:.3f} ms per batch, "
           f"peak {peak:.2f} GiB)", flush=True)
-    profile_phase("S=1", lambda: ex(frames), ms)
-    profile_phase(f"S={STREAMS}", lambda: ex.run_streams(streams), msS)
+    return [("S=1", lambda: ex(frames), ms),
+            (f"S={STREAMS}", lambda: ex.run_streams(streams), msS)]
+
+
+def profiles_phase(ex, frames, targets, probes):
+    """Every torch.profiler session of the run, after every host-clock and
+    CUDA-event time: each kernel's device time per launch, then each
+    target's device time by kernel.  The funnel's host time is taken again
+    just before and just after the sessions, to tell what the sessions
+    leave behind from what the earlier phases do."""
+    B = frames.shape[0]
+    ms = host_ms(lambda: ex(frames))
+    print(f"funnel before the profiler sessions, after the other phases: "
+          f"{ms / B:.4f} ms per frame ({ms:.3f} ms per {B}-frame batch, "
+          "median of 7)", flush=True)
+    for name, fn in probes:
+        print(f"kernel {name}: device time per launch "
+              f"{launch_device_ms(fn, name + '_kernel'):.4f} ms "
+              "(torch.profiler, 20 launches)", flush=True)
+    for label, fn, wall in targets:
+        profile_phase(label, fn, wall)
+    ms = host_ms(lambda: ex(frames))
+    print(f"funnel after the profiler sessions: {ms / B:.4f} ms per frame "
+          f"({ms:.3f} ms per {B}-frame batch, median of 7)", flush=True)
 
 
 def main() -> int:
@@ -373,9 +686,12 @@ def main() -> int:
     if caps != want:
         raise AssertionError(f"capacities {caps} != reference {want}")
 
-    counts, res = main_phase(ex, frames, ref)
-    rows = kernel_phase(ex, frames, counts)
-    timing_phase(ex, frames, res)
+    counts, res, flips = main_phase(ex, frames, ref)
+    targets = timing_phase(ex, frames, res)
+    offload_counts, offload_target = offload_phase(ex, frames, res, flips)
+    rows, probes = kernel_phase(ex, frames, {**counts, **{
+        k: offload_counts[k] for k in ("wire_encode", "wire_decode")}})
+    profiles_phase(ex, frames, targets + [offload_target], probes)
 
     print(json.dumps({"kernels": rows}))
     print(gpu_name_and_power())

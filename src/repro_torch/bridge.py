@@ -12,6 +12,10 @@ port's own ``Cascade`` / ``FaceNN``.
 full-width §III workload's trained parameters, scan and calibrated
 capacities, and the JAX executor's outputs on ``security_video()``
 (written by ``benchmarks/torch_export_fa_reference.py``).
+:func:`load_offload_reference` reads ``assets/offload_reference.npz``: the
+JAX split executor's wire bytes, payload hashes and counts on the same
+workload at every cut and codec width (written by
+``benchmarks/torch_export_offload_reference.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from repro_torch.camera.viola_jones import Cascade, HaarFeature
 from repro_torch.device import resolve_device, to_numpy
 
 ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
+OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -100,3 +105,49 @@ def load_fa_reference(path=None, device=None) -> FAReference:
         outputs={k: z[k] for k in ("motion", "n_windows", "n_auth",
                                    "window_id", "window_valid", "scores",
                                    "total_dropped")})
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadReference:
+    """The JAX split executor on the full-width §III workload.  Dicts are
+    keyed by (cut, bits), bits None for the raw f32 payload."""
+
+    nbytes: dict                  # measured wire bytes of the payload
+    capacity_bytes: dict          # padded wire bytes of the payload
+    n_windows: dict               # total windows of the result
+    n_auth: dict                  # total auths of the result
+    packed_sha256: dict           # sensor/motion cuts at 16, 8, 4 bits
+    scales_sha256: dict
+    stats: dict                   # FAWorkloadStats fields of the fused run
+    analytic_bytes: dict          # cut -> fa_pipeline bytes per frame
+    calibration: dict             # calibrate_fa constants
+
+
+def load_offload_reference(path=None) -> OffloadReference:
+    with np.load(OFFLOAD_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    cuts = [str(c) for c in z["cuts"]]
+    bits = [None if int(b) == 0 else int(b) for b in z["bits"]]
+
+    def grid(a, cast):
+        return {(c, b): cast(a[i, j]) for i, c in enumerate(cuts)
+                for j, b in enumerate(bits)}
+
+    hashed = [(str(c), int(b)) for c in z["hash_cuts"]
+              for b in z["hash_bits"]]
+    return OffloadReference(
+        nbytes=grid(z["nbytes"], float),
+        capacity_bytes=grid(z["capacity_bytes"], float),
+        n_windows=grid(z["n_windows"], int),
+        n_auth=grid(z["n_auth"], int),
+        packed_sha256=dict(zip(hashed, (str(h) for h in
+                                        z["packed_sha256"].reshape(-1)))),
+        scales_sha256=dict(zip(hashed, (str(h) for h in
+                                        z["scales_sha256"].reshape(-1)))),
+        stats=dict(zip(("n_frames", "motion_frames", "windows_to_nn"),
+                       (int(v) for v in z["stats"]))),
+        analytic_bytes=dict(zip(cuts, (float(v) for v in
+                                       z["analytic_bytes"]))),
+        calibration=dict(zip(("rf_joules_per_byte", "nn_effective_w",
+                              "base_compute_w"),
+                             (float(v) for v in z["calibration"]))))

@@ -1,0 +1,250 @@
+"""Cut-point split executor of the §III funnel: node half, wire payload,
+cloud half (the port of the JAX package's ``FaceAuthOffloadExecutor``).
+
+:class:`FaceAuthOffloadExecutor` splits the funnel at any of its four
+block boundaries.  Both halves compose the same stage functions the fused
+:class:`~repro_torch.camera.pipelines.FaceAuthExecutor` runs
+(``FunnelStages``), so the split can never drift from the on-node math.
+The port's stages close over their constants and take a leading stream
+axis; the split executor runs one stream (S = 1) and its payload tensors
+carry no stream axis, as the reference's do.
+
+The wire payload between the halves is typed (``payloads.WirePayload``)
+and optionally compressed by the wire codec (``kernels/wire_codec``: the
+CUDA kernels on the card) at 16/8/4 bits; ``bits=None`` ships the raw f32
+runtime representation, the uncompressed baseline.  Measured wire bytes
+are computed on the device for valid payload elements only, with the
+reference's float32 arithmetic step for step.
+
+Cut payload contracts (DESIGN.md §10):
+
+    sensor  frames (B,h,w)            [codec]
+    motion  mframes (M,h,w)           [codec] + fidx/motion/drop sideband
+    vj      patches (M,W,20,20)       [codec] + wsel/counts sideband
+    nn      scores (M,W)              [codec] + auth bits + counts sideband
+
+The §IV ``VROffloadExecutor`` comes with the VR slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.camera.offload.payloads import (
+    SESSION_SIDEBAND_NAMES,
+    PayloadSchema,
+    WirePayload,
+)
+from repro_torch.camera.pipelines import FAExecResult
+from repro_torch.kernels.wire_codec.ops import (
+    wire_bytes,
+    wire_bytes_dynamic,
+    wire_decode,
+    wire_encode,
+)
+
+_I32_B = 4.0          # index / count sideband bytes per valid entry
+_BOOL_B = 1.0 / 8.0   # booleans ship bit-packed
+
+
+class _Codec:
+    """Static codec configuration of one split executor."""
+
+    def __init__(self, bits, block):
+        if bits not in (None, 4, 8, 16):
+            raise ValueError(f"codec bits must be None/4/8/16, got {bits}")
+        self.bits = bits
+        self.block = int(block)
+
+    def enc(self, arrays: dict, name: str, x: torch.Tensor):
+        """Pack field ``x`` into ``arrays``."""
+        if self.bits is None:
+            arrays[name] = x.to(torch.float32)
+            return
+        packed, scales = wire_encode(x, bits=self.bits, block=self.block)
+        arrays[name] = packed
+        arrays[name + "_scales"] = scales
+
+    def dec(self, arrays: dict, name: str, shape) -> torch.Tensor:
+        """Unpack field ``name`` back to f32 of ``shape``."""
+        if self.bits is None:
+            return arrays[name].reshape(shape)
+        return wire_decode(arrays[name], arrays[name + "_scales"],
+                           tuple(shape), bits=self.bits, block=self.block)
+
+    def dyn_bytes(self, n_values: torch.Tensor) -> torch.Tensor:
+        return wire_bytes_dynamic(n_values, self.bits, block=self.block)
+
+    def static_bytes(self, n_values: int) -> float:
+        return wire_bytes(n_values, self.bits, block=self.block)
+
+
+class FaceAuthOffloadExecutor:
+    """Split §III funnel: node-side prefix, wire payload, cloud-side suffix.
+
+    Construct *after* ``base.calibrate(...)`` — the split reads the base
+    executor's stage functions and capacities.  ``encode`` is the node
+    half, ``decode_run`` the cloud half; ``__call__`` runs both and
+    returns ``(FAExecResult, WirePayload)``.  With ``bits=None`` the result
+    is equal to the fused executor's at every cut, field for field.
+    """
+
+    CUTS = ("sensor", "motion", "vj", "nn")
+
+    PAYLOAD_SCHEMA = {
+        "sensor": PayloadSchema(codec=("frames",),
+                                session=SESSION_SIDEBAND_NAMES),
+        "motion": PayloadSchema(codec=("mframes",),
+                                i32=("fidx", "motion_dropped"),
+                                bools=("motion",),
+                                session=SESSION_SIDEBAND_NAMES),
+        "vj": PayloadSchema(codec=("patches",),
+                            i32=("wsel", "n_win", "win_dropped", "casc_drop",
+                                 "fidx", "motion_dropped"),
+                            bools=("motion",),
+                            session=SESSION_SIDEBAND_NAMES),
+        "nn": PayloadSchema(codec=("scores",),
+                            i32=("wsel", "n_win", "win_dropped", "casc_drop",
+                                 "fidx", "motion_dropped"),
+                            bools=("motion", "auth"),
+                            session=SESSION_SIDEBAND_NAMES),
+    }
+
+    def __init__(self, base, cut: str, *, bits: int | None = None,
+                 block: int = 256):
+        if cut not in self.CUTS:
+            raise ValueError(f"cut {cut!r} not in {self.CUTS}")
+        self.base = base
+        self.cut = cut
+        self.codec = _Codec(bits, block)
+        self.bits = self.codec.bits
+        self._st = base.stages
+        self._h, self._w = base.det.grid.h, base.det.grid.w
+
+    # -- node side -----------------------------------------------------------
+
+    def _node_fn(self, frames: torch.Tensor):
+        """(B, h, w) f32 -> (arrays, wire_b), every tensor without the
+        stream axis."""
+        st, cdc = self._st, self.codec
+        cut = self.cut
+        B = frames.shape[0]
+        h, w = self._h, self._w
+        arrays: dict = {}
+        if cut == "sensor":
+            cdc.enc(arrays, "frames", frames)
+            wire_b = torch.tensor(cdc.static_bytes(B * h * w),
+                                  dtype=torch.float32, device=frames.device)
+            return arrays, wire_b
+
+        mframes, fidx, fvalid, motion, motion_dropped = st.motion(
+            frames[None])
+        n_valid_f = fvalid.sum().to(torch.float32)
+        side = _I32_B * n_valid_f + _BOOL_B * B + _I32_B  # fidx+motion+drop
+        if cut == "motion":
+            # zero the capacity-padding frames (fidx padding points at real
+            # non-motion frames): a zero quantizes to zero exactly, so
+            # padding cannot perturb the codec's block scales; the cloud
+            # half masks everything by fvalid, so results are unchanged
+            cdc.enc(arrays, "mframes",
+                    torch.where(fvalid[0, :, None, None], mframes[0], 0.0))
+            arrays.update(fidx=fidx[0].to(torch.int32), motion=motion[0],
+                          motion_dropped=motion_dropped[0])
+            wire_b = cdc.dyn_bytes(n_valid_f * (h * w)) + side
+            return arrays, wire_b
+
+        dmask, n_win_m, casc_drop_m = st.detect(mframes, fvalid)
+        patches, wsel, wvalid, win_dropped_m = st.gather(
+            mframes, dmask, n_win_m)
+        n_valid_w = wvalid.sum().to(torch.float32)
+        # per processed valid frame: n_win + win_dropped + casc_drop counts
+        side = side + _I32_B * 3 * n_valid_f
+        common = dict(wsel=wsel[0].to(torch.int32), n_win=n_win_m[0],
+                      win_dropped=win_dropped_m[0], casc_drop=casc_drop_m[0],
+                      fidx=fidx[0].to(torch.int32), motion=motion[0],
+                      motion_dropped=motion_dropped[0])
+        if cut == "vj":
+            # zero padding windows (wsel defaults to position 0) — the same
+            # scale isolation as the motion cut above
+            cdc.enc(arrays, "patches",
+                    torch.where(wvalid[0, :, :, None, None], patches[0],
+                                0.0))
+            arrays.update(common)
+            wire_b = (cdc.dyn_bytes(n_valid_w * patches.shape[-1]
+                                    * patches.shape[-2])
+                      + _I32_B * n_valid_w + side)
+            return arrays, wire_b
+
+        s, auth, _n_auth_m = st.nn(patches, wvalid)
+        cdc.enc(arrays, "scores", s[0])
+        arrays.update(common, auth=auth[0])
+        wire_b = (cdc.dyn_bytes(n_valid_w) + _BOOL_B * n_valid_w
+                  + _I32_B * n_valid_w + side)
+        return arrays, wire_b
+
+    # -- cloud side ----------------------------------------------------------
+
+    def _cloud_fn(self, arrays: dict, frames_shape) -> dict:
+        st, cdc = self._st, self.codec
+        cut = self.cut
+        h, w = self._h, self._w
+        W = st.window_capacity
+        if cut == "sensor":
+            frames = cdc.dec(arrays, "frames", frames_shape)
+            mframes, fidx, fvalid, motion, motion_dropped = st.motion(
+                frames[None])
+        else:
+            fidx = arrays["fidx"].long()[None]
+            motion = arrays["motion"][None]
+            motion_dropped = arrays["motion_dropped"][None]
+            fvalid = motion[:, fidx[0]]
+        B = motion.shape[1]
+        M = fidx.shape[1]
+
+        if cut in ("sensor", "motion"):
+            if cut == "motion":
+                mframes = cdc.dec(arrays, "mframes", (M, h, w))[None]
+            dmask, n_win_m, casc_drop_m = st.detect(mframes, fvalid)
+            patches, wsel, wvalid, win_dropped_m = st.gather(
+                mframes, dmask, n_win_m)
+        else:
+            wsel = arrays["wsel"][None]
+            n_win_m = arrays["n_win"][None]
+            win_dropped_m = arrays["win_dropped"][None]
+            casc_drop_m = arrays["casc_drop"][None]
+            wvalid = (torch.arange(W, dtype=torch.int32,
+                                   device=wsel.device)[None, None, :]
+                      < n_win_m.clamp(max=W)[..., None])
+
+        if cut == "nn":
+            s = torch.where(wvalid, cdc.dec(arrays, "scores", (M, W))[None],
+                            0.0)
+            auth = arrays["auth"][None]
+            n_auth_m = auth.sum(dim=-1).to(torch.int32)
+        else:
+            if cut == "vj":
+                patches = cdc.dec(arrays, "patches", (M, W, 20, 20))[None]
+            s, auth, n_auth_m = st.nn(patches, wvalid)
+
+        return st.scatter(B, fidx, motion, motion_dropped, n_win_m,
+                          casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
+                          n_auth_m)
+
+    # -- execution -----------------------------------------------------------
+
+    def encode(self, frames) -> WirePayload:
+        """Node half: (B, h, w) frames -> wire payload."""
+        frames = self.base._frames(frames)
+        arrays, wire_b = self._node_fn(frames)
+        return WirePayload(cut=self.cut, bits=self.bits, arrays=arrays,
+                           meta={"frames_shape": tuple(frames.shape)},
+                           wire_b=wire_b)
+
+    def decode_run(self, payload: WirePayload):
+        """Cloud half: wire payload -> FAExecResult."""
+        out = self._cloud_fn(payload.arrays, payload.meta["frames_shape"])
+        return FAExecResult(**{k: v[0] for k, v in out.items()})
+
+    def __call__(self, frames):
+        payload = self.encode(frames)
+        return self.decode_run(payload), payload

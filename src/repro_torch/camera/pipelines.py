@@ -19,6 +19,11 @@ Every stage takes a leading stream dimension: :meth:`run_streams` runs S
 camera feeds as one batch (the reference's vmap), and ``__call__`` is the
 S = 1 case.  ``batch_step`` and the telemetry counters of the reference
 come with the serving slice.
+
+The module also holds the §III pipeline as a ``core.pipeline.Pipeline``
+of work descriptors with its calibrated cost profiles (``fa_pipeline``,
+``fa_profiles``, ``calibrate_fa``), which the offload cut controller
+scores against measurement.
 """
 
 from __future__ import annotations
@@ -32,6 +37,14 @@ import torch
 from repro_torch.camera.face_nn import make_sigmoid_lut
 from repro_torch.camera.motion import motion_mask, motion_score
 from repro_torch.camera.viola_jones import BASE, FusedDetector
+from repro_torch.core.costmodel import (
+    IMAGE_SENSOR,
+    MOTION_ASIC,
+    NN_ASIC,
+    VJ_ASIC,
+    HardwareProfile,
+)
+from repro_torch.core.pipeline import Block, BlockKind, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quant_matmul.ops import (
     nn_forward_quantized,
@@ -286,3 +299,122 @@ class FaceAuthExecutor:
         """S independent feeds: (S, B, h, w) -> FAExecResult with a leading
         S axis, all streams in one batch on one device."""
         return FAExecResult(**self._funnel(self._frames(frames)))
+
+
+# ---------------------------------------------------------------------------
+# §III face authentication pipeline (WISPCam: 176x144 @ 1 FPS)
+# ---------------------------------------------------------------------------
+
+FRAME_H, FRAME_W = 144, 176
+FRAME_BYTES = FRAME_H * FRAME_W          # 8-bit pixels
+WINDOW_PIXELS = 400                      # 20x20 window to the NN
+NN_MACS = 400 * 8 + 8                    # 400-8-1 topology
+
+
+@dataclasses.dataclass(frozen=True)
+class FAWorkloadStats:
+    """Funnel statistics measured on the (synthetic) security workload.
+
+    Paper §III-D: 62 frames -> 12 pass motion -> 40 windows to the NN
+    (≈3.33 windows per motion frame), ~7.9k scan positions per frame at
+    fine parameters.
+    """
+
+    n_frames: int = 62
+    motion_frames: int = 12
+    windows_to_nn: int = 40
+    scan_windows_per_frame: float = 7900.0
+    vj_stage_evals_per_frame: float = 11000.0   # masked-cascade measurement hook
+
+    @property
+    def motion_sel(self) -> float:
+        return self.motion_frames / self.n_frames
+
+    @property
+    def windows_per_motion_frame(self) -> float:
+        return self.windows_to_nn / self.motion_frames
+
+    @property
+    def nn_windows_per_second(self) -> float:     # at 1 FPS source rate
+        return self.windows_to_nn / self.n_frames
+
+
+def fa_pipeline(stats: FAWorkloadStats) -> Pipeline:
+    """Block pipeline of Fig. 2.  Work is per *source frame* (1 FPS); the
+    selectivity chain scales downstream blocks exactly like the paper's
+    duty-cycling argument."""
+    wpf = stats.windows_per_motion_frame
+    blocks = (
+        Block("sensor", flops=0.0, bytes_in=0.0, bytes_out=FRAME_BYTES,
+              kind=BlockKind.SOURCE),
+        Block("motion", flops=3 * FRAME_BYTES, bytes_in=FRAME_BYTES,
+              bytes_out=FRAME_BYTES, kind=BlockKind.OPTIONAL,
+              selectivity=stats.motion_sel),
+        # VJ on a motion-passed frame: integral image + cascade stages;
+        # output = detected windows (de-integral-ized 20x20 crops).
+        # selectivity = fraction of motion frames with >=1 detection (every
+        # motion frame in the measured workload); bytes_out = windows per
+        # surviving frame — the 40-windows/62-s payload the paper charges.
+        Block("vj", flops=2 * FRAME_BYTES + 9 * stats.vj_stage_evals_per_frame,
+              bytes_in=FRAME_BYTES,
+              bytes_out=wpf * WINDOW_PIXELS, kind=BlockKind.OPTIONAL,
+              selectivity=1.0),
+        Block("nn", flops=2 * NN_MACS * wpf, bytes_in=wpf * WINDOW_PIXELS,
+              bytes_out=1.0 / 8.0,       # 1-bit decision
+              requires=("vj",)),         # NN input = FD's 20x20 windows
+    )
+    return Pipeline("face_auth", blocks)
+
+
+def fa_profiles() -> dict:
+    return {"sensor": IMAGE_SENSOR, "motion": MOTION_ASIC,
+            "vj": VJ_ASIC, "nn": NN_ASIC}
+
+
+# -- calibration --------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FACalibration:
+    rf_joules_per_byte: float
+    nn_effective_w: float         # leakage+duty effective power of the NN block
+    base_compute_w: float         # sensor+motion+vj through-VJ compute power
+
+    def rf_link(self) -> HardwareProfile:
+        return HardwareProfile(name="rf_link",
+                               joules_per_byte=self.rf_joules_per_byte)
+
+    def nn_profile(self) -> HardwareProfile:
+        # the calibrated value IS the block's average power (leakage-dominated
+        # + duty-scaled dynamic); both rails set so duty drops out
+        return dataclasses.replace(
+            NN_ASIC, p_active_w=self.nn_effective_w,
+            p_leak_w=self.nn_effective_w)
+
+
+def calibrate_fa(stats: FAWorkloadStats,
+                 sensor_w: float = IMAGE_SENSOR.p_active_w,
+                 motion_w: float = MOTION_ASIC.p_active_w,
+                 vj_eff_w: float = VJ_ASIC.p_leak_w,
+                 plus_pct: float = 0.28,
+                 crossover: float = 2.68) -> FACalibration:
+    """Solve the two paper constraints for (e_c, P_nn_eff).
+
+    Let C = compute power through VJ, B = bytes/s after VJ.  Then
+      (1)  C + P_nn + e_c*B_nn = (1 + plus_pct) * (C + e_c*B)
+      (2)  P_nn = crossover * e_c * (B - B_nn)              [tie at k*e_c]
+    With B_nn ~ 0:  e_c*B = C * plus_pct / (crossover - 1 - plus_pct)
+                    P_nn  = crossover * e_c * B.
+    """
+    C = sensor_w + motion_w + vj_eff_w
+    B = stats.nn_windows_per_second * WINDOW_PIXELS      # bytes/s after VJ
+    # Post-NN uplink traffic: one 1-bit authentication decision per source
+    # frame at the 1 FPS source rate = 1/8 byte/s.  This tiny residual is
+    # what keeps the crossover equation (2) exactly solvable rather than
+    # assuming B_nn = 0; it feeds the e_c denominator below.
+    B_nn = 1.0 / 8.0
+    ec_B = C * plus_pct / (crossover - 1.0 - plus_pct)
+    e_c = ec_B / (B - B_nn * crossover / (crossover - 1.0 - plus_pct))
+    p_nn = crossover * e_c * (B - B_nn)
+    return FACalibration(rf_joules_per_byte=e_c, nn_effective_w=p_nn,
+                         base_compute_w=C)

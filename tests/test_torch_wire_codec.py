@@ -1,0 +1,213 @@
+"""The port's wire codec against the JAX package's.
+
+The port's plain codec (what a CPU tensor runs, and what the CUDA kernels
+are held against on the card) must give the JAX package's jitted
+``wire_encode`` / ``wire_decode`` bit for bit: packed bytes, scales and
+decoded values, through the JAX oracle and through the Pallas kernel in
+interpret mode.  Under ``jit`` the JAX scale ``absmax / qmax`` is computed
+as ``absmax * f32(1/qmax)``; the sweep below is made of blocks where the
+two differ, so a port that divided would fail it.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.core.reduction import dequantize_int8 as jax_dequantize_int8
+from repro.core.reduction import quantize_int8 as jax_quantize_int8
+from repro.kernels.wire_codec import ops as jops
+
+from repro_torch.core.reduction import dequantize_int8, quantize_int8
+from repro_torch.kernels.wire_codec import ops as tops
+from repro_torch.kernels.wire_codec.cuda import (
+    wire_decode_cuda,
+    wire_encode_cuda,
+)
+from repro_torch.kernels.wire_codec.ref import (
+    pack_ref,
+    quantize_blocks_ref,
+    unpack_ref,
+)
+
+# the test files run in parallel worker processes: one intra-op thread
+# per process keeps PyTorch's CPU kernels from oversubscribing the cores
+torch.set_num_threads(1)
+
+ROUTES = ("oracle", "pallas")
+
+
+def _jax_encode(x, bits, route, block=256):
+    return jops.wire_encode(jnp.asarray(x), bits=bits, block=block,
+                            use_pallas=route == "pallas",
+                            interpret=route == "pallas")
+
+
+def _jax_decode(p, s, shape, bits, route, block=256):
+    return jops.wire_decode(jnp.asarray(p), jnp.asarray(s), tuple(shape),
+                            bits=bits, block=block,
+                            use_pallas=route == "pallas",
+                            interpret=route == "pallas")
+
+
+def _assert_codec_equal(x, bits, route, block=256):
+    """Encode and decode ``x`` in both packages; bit-equal bytes, scales
+    and values.  Returns the port's (packed, scales)."""
+    jp, js = _jax_encode(x, bits, route, block)
+    tp, ts = tops.wire_encode(torch.from_numpy(x), bits=bits, block=block)
+    assert tp.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    jy = _jax_decode(jp, js, x.shape, bits, route, block)
+    ty = tops.wire_decode(tp, ts, x.shape, bits=bits, block=block)
+    np.testing.assert_array_equal(ty.numpy().view(np.int32),
+                                  np.asarray(jy).view(np.int32))
+    return tp, ts
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("shape", [(512,), (3, 97), (7, 20, 20), (1,),
+                                   (40, 256), (5, 333)])
+def test_codec_bit_equal_to_jax(shape, bits, route):
+    """Random payloads, with a partial last block where the size is not a
+    multiple of 256, and negative values."""
+    x = (np.random.default_rng(11).standard_normal(shape) * 11.0).astype(
+        np.float32)
+    tp, ts = _assert_codec_equal(x, bits, route)
+    assert tp.shape == (-(-x.size // 256), 256 * bits // 8)
+    assert ts.shape == (tp.shape[0], 1)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_zero_block_and_extremes(bits, route):
+    x = np.concatenate([np.zeros(256), [127.0, -127.0, 1e-8, -1e-8],
+                        np.zeros(252)]).astype(np.float32)
+    tp, ts = _assert_codec_equal(x, bits, route)
+    assert float(ts[0, 0]) == 1.0                  # an all-zero block
+    assert not tp[0].any()
+
+
+def _tie_blocks(bits, rng, n_blocks=64):
+    """Blocks whose values sit on exact half-steps of their scale, so
+    ``x / scale`` is k + 0.5 exactly and round-half-to-even decides."""
+    qmax = 2 ** (bits - 1) - 1
+    r = np.float32(1.0) / np.float32(qmax)
+    blocks = np.zeros((n_blocks, 256), np.float32)
+    for i in range(n_blocks):
+        a = np.float32(qmax * 2.0 ** int(rng.integers(-6, 4)))
+        scale = np.float32(a * r)
+        k = rng.integers(-qmax, qmax, 256).astype(np.float32)
+        ties = (k + np.float32(0.5)) * scale
+        blocks[i] = ties.astype(np.float32)
+        blocks[i, 0] = a                           # sets the block's absmax
+    return blocks
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_ties_round_half_to_even(bits, route):
+    blocks = _tie_blocks(bits, np.random.default_rng(bits))
+    qmax = 2 ** (bits - 1) - 1
+    scale = (np.abs(blocks).max(1, keepdims=True)
+             * (np.float32(1) / np.float32(qmax))).astype(np.float32)
+    y = blocks / scale
+    exact_ties = np.abs(y - np.floor(y)) == np.float32(0.5)
+    assert exact_ties.sum() > 1000                 # the crafted ties survive
+    _assert_codec_equal(blocks, bits, route)
+    q, _s = quantize_blocks_ref(torch.from_numpy(blocks), bits)
+    np.testing.assert_array_equal(q.numpy()[exact_ties],
+                                  np.round(y[exact_ties]))
+
+
+def _reciprocal_sweep(bits, n_blocks=4096, seed=0):
+    """Blocks whose absmax gives ``absmax / qmax != absmax * f32(1/qmax)``
+    in float32."""
+    qmax = np.float32(2 ** (bits - 1) - 1)
+    rng = np.random.default_rng(seed)
+    found = []
+    while sum(len(f) for f in found) < n_blocks:
+        a = rng.uniform(1e-3, 1e3, 200_000).astype(np.float32)
+        div = a / qmax
+        mul = a * (np.float32(1.0) / qmax)
+        found.append(a[div != mul])
+    a = np.concatenate(found)[:n_blocks]
+    blocks = (rng.uniform(-1.0, 1.0, (n_blocks, 256)) * a[:, None]).astype(
+        np.float32)
+    col = rng.integers(0, 256, n_blocks)
+    sign = np.where(rng.random(n_blocks) < 0.5, -1.0, 1.0).astype(np.float32)
+    blocks[np.arange(n_blocks), col] = sign * a
+    return blocks, a
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_scale_is_the_reciprocal_multiply(bits, route):
+    blocks, a = _reciprocal_sweep(bits)
+    _tp, ts = _assert_codec_equal(blocks, bits, route)
+    qmax = np.float32(2 ** (bits - 1) - 1)
+    assert (ts.numpy()[:, 0] != a / qmax).all()    # a division would fail
+    np.testing.assert_array_equal(ts.numpy()[:, 0],
+                                  a * (np.float32(1.0) / qmax))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_pack_unpack_lossless(bits):
+    qmax = 2 ** (bits - 1) - 1
+    q = torch.from_numpy(np.random.default_rng(2).integers(
+        -qmax, qmax + 1, (6, 256)).astype(np.int32))
+    assert torch.equal(unpack_ref(pack_ref(q, bits), bits), q)
+
+
+def test_quantize_int8_matches_jitted_reference():
+    x = (np.random.default_rng(3).standard_normal((5, 333)) * 7.0).astype(
+        np.float32)
+    jq, js = jax.jit(lambda v: jax_quantize_int8(v, block=256))(x)
+    tq, ts = quantize_int8(torch.from_numpy(x), block=256)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jd = jax.jit(lambda a, b: jax_dequantize_int8(a, b, x.shape))(jq, js)
+    td = dequantize_int8(tq, ts, x.shape)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    # the wire codec at 8 bits is the same quantizer
+    y = tops.wire_roundtrip(torch.from_numpy(x), bits=8)
+    assert torch.equal(y, td)
+
+
+def test_wire_bytes_exact():
+    for n in (0, 1, 255, 256, 257, 4096, 6138 * 256, 28 * 192 * 400):
+        for bits in (None, 4, 8, 16):
+            for block in (256, 100):
+                assert tops.wire_bytes(n, bits, block=block) == \
+                    jops.wire_bytes(n, bits, block=block), (n, bits, block)
+
+
+@pytest.mark.parametrize("block", [256, 100])
+@pytest.mark.parametrize("bits", [None, 4, 8, 16])
+def test_wire_bytes_dynamic_bit_equal(bits, block):
+    n = np.concatenate([np.arange(-3, 3000), np.random.default_rng(4)
+                        .integers(0, 4_000_000, 5000)]).astype(np.int32)
+    want = jax.jit(lambda v: jops.wire_bytes_dynamic(v, bits, block=block))(
+        jnp.asarray(n))
+    got = tops.wire_bytes_dynamic(torch.from_numpy(n), bits, block=block)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """No fallback: the kernels' wrappers take CUDA tensors only."""
+    blocks = torch.zeros((2, 256))
+    with pytest.raises(ValueError):
+        wire_encode_cuda(blocks, 8)
+    with pytest.raises(ValueError):
+        wire_decode_cuda(torch.zeros((2, 256), dtype=torch.int8),
+                         torch.ones((2, 1)), 8)
+
+
+def test_bad_widths_raise():
+    with pytest.raises(ValueError):
+        tops.wire_encode(torch.zeros(10), bits=6)
