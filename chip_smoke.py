@@ -39,10 +39,41 @@ first use, into ``build/repro_torch``), then:
    so 0 is expected), and times the kernel, the plain version and a
    PyTorch library call where one computes the same function (CUDA events
    around back-to-back calls);
-5. profile phase — every torch.profiler session of the run: each kernel's
+5. VR phase — the §IV rig at full width (8 pairs ``stereo_pair(2160,
+   3840, seed=s)``, sigma 16, max_disp 32, 8 refinement steps,
+   ``assets/vr_reference.npz``): one rig frame with the launch counters
+   set to 0 (5 ``integral_image`` and 8 ``bilateral_blur`` launches),
+   its depth, panorama and frame times (host clock, median of 5) and
+   peak memory; pair 0 on the card against the port on the CPU (rough
+   disparity equal, splatted grids bit-equal, depth and panoramas within
+   DEPTH_ATOL / PANO_ATOL); the card against the JAX record on four
+   256x256 crops of pair 0 (every differing winner a near tie, below) and
+   on the left panorama; the working size (8 pairs of 270x480): >= 99%
+   rough agreement per pair and near ties only, depth with JAX's rough
+   injected within INJECTED_ATOL, left panorama.  Then every cut x bits
+   of ``VROffloadExecutor`` at full width (raw split == fused, wire bytes
+   == the record, every coded field's bytes, scales and decode == the
+   plain codec's on the same card tensors, capture payload hashes ==
+   JAX's at 16/8/4 bits, the left panorama within the code's half step,
+   the 8-bit knee, codec launched) and a ``CutController`` in the
+   throughput regime that must pick the measured optimum; then the
+   ``bilateral_blur`` row (8 x 136x241x17, bit-exact over all 8 steps,
+   cuDNN ``conv3d`` as the library call) and an ``integral_image`` row at
+   the cost volume's shape (64 x 2164x3844, bit-exact);
+6. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
-   S = 64 and the executed offload cut, with the funnel's host time just
-   before and just after the sessions.
+   S = 64, the VR rig frame and the executed offload cut, with the
+   funnel's host time just before and just after the sessions.
+
+Near tie: a rough-disparity winner d_port that differs from JAX's d_jax
+must satisfy |SAD64(d_port) - SAD64(d_jax)| <= 2 max(E_port, E_jax),
+SAD64 the float64 sum of the same float32 pixel differences and E each
+side's largest |SAD32 - SAD64| over the region and all hypotheses.  A
+winner picked on float32 SADs with error at most E is within 2E of every
+other hypothesis in float64, so the rule needs no a-priori bound.
+Panoramas are held within PANO_ATOL except at pixels whose float64 warp
+coordinate lies within NEAR_TOL of an integer or of the valid range's
+border, where the reference's float32 map may take another pixel.
 
 Any failed check raises.  The last lines of standard output are one JSON
 object with a line per kernel, the card's name and power limit, and
@@ -151,11 +182,11 @@ def launch_device_ms(fn, kernel: str, reps: int = 20) -> float:
 
 
 def kernel_row(probes, name, module, launches, err, fn, plain_ms,
-               library_ms, n_bytes, n_ops, peak_ops):
+               library_ms, n_bytes, n_ops, peak_ops, reps=20, shape=None):
     """One line of the kernels JSON; ``fn`` launches the kernel once and
     goes into ``probes`` for the profile phase."""
-    ms = device_ms(fn)
-    probes.append((name, fn))
+    ms = device_ms(fn, reps=reps)
+    probes.append((name if shape is None else f"{name} {shape}", fn))
     t_bytes, t_ops, b_by = bound(n_bytes, n_ops, peak_ops)
     replaces = module.REPLACES
     if isinstance(replaces, dict):          # one source, several kernels
@@ -165,8 +196,10 @@ def kernel_row(probes, name, module, launches, err, fn, plain_ms,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops), "bound_by": b_by,
            "library_ms": library_ms}
+    if shape is not None:
+        row["shape"] = shape
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-    print(f"kernel {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    print(f"kernel {probes[-1][0]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={lib} bound_ms={max(t_bytes, t_ops):.4f} "
           f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}) "
           f"launches_per_batch={launches} max_abs_err={err:g}", flush=True)
@@ -204,7 +237,8 @@ def kernel_phase(ex, frames, launches):
         lambda: icuda.integral_image_cuda(x),
         device_ms(lambda: integral_image_ref(x), reps=3, warm=1),
         device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1)),
-        4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S))
+        4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
+        shape="x".join(map(str, x.shape))))
     # the VR slice's 4K eye frame must run right too (speed is later work)
     big = torch.rand((1, 2160, 3840), device=x.device,
                      generator=torch.Generator(device=x.device).manual_seed(0))
@@ -574,6 +608,490 @@ def offload_phase(ex, frames, res, flips):
                     lambda: chosen(frames), wall)
 
 
+# -- §IV VR rig ---------------------------------------------------------------
+
+VR_CUTS = ("capture", "depth", "stitch")
+DEPTH_ATOL = 1e-5     # card vs CPU port: same IEEE operations, 0 expected
+PANO_ATOL = 1e-6      # tests/test_stitch.py's own tolerance
+INJECTED_ATOL = 1e-5  # XLA's FMA in slice_grid; 1.9e-6 at the CPU fixtures
+NEAR_TOL = 1e-3       # float32 warp coordinates at 4K are off by < 5e-4
+CODEC_SLACK = 1e-6    # float32 rounding of the scale, x / scale and blend
+
+
+def vr_rig(h, w, seeds, device):
+    from repro_torch.camera.synthetic import stereo_pair
+
+    import torch
+    pairs = [stereo_pair(h=h, w=w, seed=s)[:2] for s in seeds]
+    return (torch.as_tensor(np.stack([p[0] for p in pairs]), device=device),
+            torch.as_tensor(np.stack([p[1] for p in pairs]), device=device))
+
+
+def cost_volume64(left, right, max_disp: int, patch: int, y0: int, x0: int,
+                  hh: int, ww: int):
+    """(max_disp + 1, hh, ww) float64 SADs at rows y0.., columns x0..: the
+    same float32 pixel differences as ``bssa.cost_volume``, summed directly
+    in float64 with edge replication.  ``cost_volume - cost_volume64`` is
+    the rounding of the float32 box sums, which decides the near-tie rule
+    for winners that differ between two float32 implementations."""
+    import torch
+
+    h, w = left.shape
+    pad = patch // 2
+    dev = left.device
+    ys = torch.arange(y0 - pad, y0 + hh + pad, device=dev).clamp(0, h - 1)
+    xs = torch.arange(x0 - pad, x0 + ww + pad, device=dev).clamp(0, w - 1)
+    lw = left[ys][:, xs]
+    out = torch.empty((max_disp + 1, hh, ww), dtype=torch.float64,
+                      device=dev)
+    for d in range(max_disp + 1):
+        diff = (lw - right[ys][:, (xs - d).clamp(0, w - 1)]).abs().double()
+        s = torch.zeros((hh, ww), dtype=torch.float64, device=dev)
+        for dy in range(patch):
+            for dx in range(patch):
+                s += diff[dy:dy + hh, dx:dx + ww]
+        out[d] = s
+    return out
+
+
+def near_integer_canvas(h: int, w: int, n: int, focal: float | None = None,
+                        overlap_frac: float = 0.15,
+                        tol: float = NEAR_TOL) -> np.ndarray:
+    """(h, total_w) bool over the canvas of ``stitch_ring`` on n views of
+    (h, w): the pixels fed by a view pixel whose float64 source coordinate
+    lies within ``tol`` of an integer or of the valid range's border.
+    Only there may a float32 map (the reference's) pick another source
+    pixel than the port's."""
+    from repro_torch.camera.stitch import warp_coords
+
+    f = focal or 0.8 * w
+    x, y = warp_coords(h, w, f)
+
+    def near(c, hi):
+        return ((np.abs(c - np.round(c)) < tol) | (np.abs(c) < tol)
+                | (np.abs(c - hi) < tol))
+
+    view = near(x, w) | near(y, h)
+    step = w - int(w * overlap_frac)
+    canvas = np.zeros((h, step * (n - 1) + w), bool)
+    for i in range(n):
+        canvas[:, i * step:i * step + w] |= view
+    return canvas
+
+
+def near_tie_check(label, left, right, d_port, d_jax, e_jax, y0, x0, md):
+    """Every pixel where the card's winner differs from JAX's is a near
+    tie: |SAD64(d_port) - SAD64(d_jax)| <= 2 max(E_port, E_jax), E_port
+    measured here from the card's own cost volume.  Returns (agreement,
+    near ties, E_port)."""
+    import torch
+
+    from repro_torch.camera.bssa import cost_volume
+
+    hh, ww = d_jax.shape
+    vol = cost_volume(left, right, md)[:, y0:y0 + hh, x0:x0 + ww]
+    if not torch.equal(vol.argmin(dim=0), d_port):
+        raise AssertionError(f"{label}: cost volume does not give the "
+                             "rough disparity's winners")
+    vol64 = cost_volume64(left, right, md, 5, y0, x0, hh, ww)
+    e_port = float((vol.double() - vol64).abs().max())
+    tau = 2 * max(e_port, float(e_jax))
+    dis = d_port != d_jax
+    gap = (vol64.gather(0, d_port[None]) - vol64.gather(0, d_jax[None]))[0]
+    worst = float(gap.abs()[dis].max()) if bool(dis.any()) else 0.0
+    if worst > tau:
+        raise AssertionError(f"{label}: a disagreement {worst} exceeds "
+                             f"tau = {tau}")
+    return 1.0 - float(dis.double().mean()), int(dis.sum()), e_port
+
+
+def pano_check(label, got, want, near):
+    """Panorama samples against JAX's within PANO_ATOL, except where a
+    float32 warp map may pick another source pixel."""
+    diff = np.abs(got - want)
+    bad = int(((diff > PANO_ATOL) & ~near).sum())
+    at_near = float(diff[near].max()) if near.any() else 0.0
+    print(f"{label}: {got.size} samples, {int((diff == 0).sum())} bit-equal,"
+          f" max |diff| {float(diff[~near].max()):g} off {int(near.sum())} "
+          f"near-integer samples (max there {at_near:g})", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: {bad} samples off by more than "
+                             f"{PANO_ATOL}")
+
+
+def vr_phase(vr):
+    """§IV VR rig at full width: one counted rig frame, timings, the card
+    against the port on the CPU and against the JAX record, the working
+    size against the JAX record.  Returns (executor, views, launch
+    counts, rig-frame wall ms)."""
+    import torch
+
+    from repro_torch.camera import bssa
+    from repro_torch.camera.pipelines import VR_FPS_TARGET, VRRigExecutor
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bilateral_blur.ops import refine_grid
+
+    p = vr.params
+    H, W = vr.full_hw
+    md = p["max_disp"]
+    spec = bssa.GridSpec(p["sigma_spatial"])
+    kw = dict(max_disp=md, n_iters=p["n_iters"], ipd_px=p["ipd_px"])
+    ex = VRRigExecutor(spec, device="cuda", **kw)
+    if ((ex.spec.sigma_spatial, ex.max_disp, ex.n_iters, ex.ipd_px)
+            != (p["sigma_spatial"], md, p["n_iters"], p["ipd_px"])
+            or p["n_pairs"] != len(p["seeds"])):
+        raise AssertionError(f"rig parameters differ from the record {p}")
+    t0 = time.perf_counter()
+    lefts, rights = vr_rig(H, W, p["seeds"], "cuda")
+    print(f"VR rig: {len(p['seeds'])} pairs of {H}x{W}, sigma "
+          f"{p['sigma_spatial']}, max_disp {md}, n_iters {p['n_iters']}, "
+          f"ipd {p['ipd_px']} (views made in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 1. one counted rig frame
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    lp, rp, depths = ex(lefts, rights)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_chunks = -(-(md + 1) // 8)
+    print(f"VR path launches: {counts} (expected integral_image "
+          f"{n_chunks}, bilateral_blur {p['n_iters']}); peak "
+          f"{peak:.2f} GiB", flush=True)
+    if (counts.get("integral_image", 0) != n_chunks
+            or counts.get("bilateral_blur", 0) != p["n_iters"]):
+        raise AssertionError(f"VR path launches {counts}")
+    if tuple(lp.shape) != vr.full_pano_shape or depths.shape != lefts.shape:
+        raise AssertionError(f"VR shapes {tuple(lp.shape)} "
+                             f"{tuple(depths.shape)}")
+    for name, t in (("left pano", lp), ("right pano", rp), ("depth", depths)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"VR {name} is not finite")
+    ms_depth = host_ms(lambda: ex.depth_maps(lefts, rights), reps=5)
+    ms_pano = host_ms(lambda: ex.panorama(lefts, rights, depths), reps=5)
+    ms_frame = host_ms(lambda: ex(lefts, rights), reps=5)
+    print(f"VR rig frame: depth {ms_depth:.3f} ms, panorama {ms_pano:.3f} ms"
+          f", whole frame {ms_frame:.3f} ms = {1e3 / ms_frame:.2f} FPS "
+          f"(target {VR_FPS_TARGET:g}; host clock, synchronised, median of "
+          "5)", flush=True)
+
+    # 2. the card against the port on the CPU, pair 0, full width
+    t0 = time.perf_counter()
+    cpu = VRRigExecutor(spec, device="cpu", **kw)
+    l0, r0 = lefts[:1], rights[:1]
+    rough_c = bssa.rough_disparity(l0, r0, md)
+    rough_h = bssa.rough_disparity(l0.cpu(), r0.cpu(), md)
+    if not torch.equal(rough_c.cpu(), rough_h):
+        raise AssertionError("pair 0 rough disparity: card != CPU")
+    gc = bssa.splat(l0, rough_c, spec)
+    gh = bssa.splat(l0.cpu(), rough_h, spec)
+    for a, b in zip(gc, gh):
+        if not _bits_equal(a.cpu(), b):
+            raise AssertionError("pair 0 splatted grids: card != CPU")
+    d_c = ex.depth_maps(l0, r0)
+    d_h = cpu.depth_maps(l0.cpu(), r0.cpu())
+    pc, ph = ex.panorama(l0, r0, d_c), cpu.panorama(l0.cpu(), r0.cpu(), d_h)
+    errs = [max_abs_err(d_c.cpu(), d_h)] + [max_abs_err(a.cpu(), b)
+                                             for a, b in zip(pc, ph)]
+    print(f"VR pair 0 card vs CPU port: rough equal, grids bit-equal, "
+          f"depth max |diff| {errs[0]:g}, panoramas {errs[1]:g} "
+          f"{errs[2]:g} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if errs[0] > DEPTH_ATOL or max(errs[1:]) > PANO_ATOL:
+        raise AssertionError(f"pair 0 card vs CPU: {errs}")
+
+    # 3. the card against JAX at full width: the four crops, the panorama
+    crop = p["crop"]
+    rough0 = bssa.rough_disparity(lefts[0], rights[0], md).to(torch.int64)
+    for (y0, x0), want, e_jax in zip(vr.full_crop_origins, vr.full_crops,
+                                     vr.full_e_jax):
+        y0, x0 = int(y0), int(x0)
+        d_jax = torch.as_tensor(want.astype(np.int64), device="cuda")
+        agree, n_tie, e_port = near_tie_check(
+            f"4K crop ({y0}, {x0})", lefts[0], rights[0],
+            rough0[y0:y0 + crop, x0:x0 + crop], d_jax, e_jax, y0, x0, md)
+        print(f"VR 4K crop ({y0},{x0}): agreement {agree:.5f}, {n_tie} near "
+              f"ties, E_port {e_port:g}, E_jax {float(e_jax):g}", flush=True)
+    s = p["full_pano_stride"]
+    near = near_integer_canvas(H, W, len(p["seeds"]))
+    pano_check("VR 4K left panorama vs JAX", lp.cpu().numpy()[::s, ::s],
+               vr.full_lpano, near[::s, ::s])
+    s = p["full_stride"]
+    dd = np.abs(depths[0].cpu().numpy()[::s, ::s] - vr.full_depth0)
+    hist = np.stack([np.bincount(
+        bssa.rough_disparity(lefts[i], rights[i], md).to(torch.int64)
+        .reshape(-1).cpu().numpy(), minlength=md + 1)
+        for i in range(len(p["seeds"]))])
+    print(f"VR 4K pair 0 depth vs JAX at stride {s}: max |diff| "
+          f"{float(dd.max()):g}, mean {float(dd.mean()):g}; rough histograms"
+          f": {int(np.abs(hist - vr.full_hist).sum()) // 2} of "
+          f"{int(vr.full_hist.sum())} pixels moved between bins", flush=True)
+
+    # 4. the card against JAX at the working size
+    h, w = vr.work_hw
+    wl, wr = vr_rig(h, w, p["seeds"], "cuda")
+    wrough = bssa.rough_disparity(wl, wr, md).to(torch.int64)
+    for i in range(len(p["seeds"])):
+        d_jax = torch.as_tensor(vr.work_rough[i].astype(np.int64),
+                                device="cuda")
+        agree, n_tie, e_port = near_tie_check(
+            f"working pair {i}", wl[i], wr[i], wrough[i], d_jax,
+            vr.work_e_jax[i], 0, 0, md)
+        print(f"VR {h}x{w} pair {i}: agreement {agree:.5f}, {n_tie} near "
+              f"ties, E_port {e_port:g}, E_jax {float(vr.work_e_jax[i]):g}",
+              flush=True)
+        if agree < 0.99:
+            raise AssertionError(f"working pair {i}: agreement {agree}")
+    injected = torch.as_tensor(vr.work_rough[0].astype(np.float32),
+                               device="cuda")
+    gv, gw = bssa.splat(wl[0], injected, spec)
+    dep = bssa.slice_grid(*refine_grid(gv, gw, p["n_iters"]), wl[0], spec)
+    err = max_abs_err(dep.cpu(), torch.as_tensor(vr.work_depth0))
+    print(f"VR {h}x{w} pair 0 with JAX's rough injected: depth max |diff| "
+          f"{err:g} (atol {INJECTED_ATOL:g})", flush=True)
+    if err > INJECTED_ATOL:
+        raise AssertionError(f"injected-rough depth differs by {err}")
+    wlp, _ = ex.panorama(wl, wr, torch.zeros_like(wl))
+    s = p["work_pano_stride"]
+    pano_check(f"VR {h}x{w} left panorama vs JAX",
+               wlp.cpu().numpy()[::s, ::s], vr.work_lpano,
+               near_integer_canvas(h, w, len(p["seeds"]))[::s, ::s])
+    return ex, (lefts, rights), (lp, rp, depths), counts, ms_frame
+
+
+def codec_fields_check(label, split, pay, sources):
+    """Each codec field of a VR payload against the plain codec on the
+    same card tensors, bit for bit: the kernel's bytes and scales against
+    the plain encode of the field's source, and the executor's decode of
+    them (the kernel) against the plain decode."""
+    from repro_torch.core.reduction import flat_blocks
+    from repro_torch.kernels.wire_codec.ref import (
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    cdc = split.codec
+    for field, src in sources.items():
+        packed, scales = pay.arrays[field], pay.arrays[field + "_scales"]
+        want_p, want_s = wire_encode_ref(
+            flat_blocks(src, cdc.block).contiguous(), bits=cdc.bits)
+        if not (_bits_equal(packed, want_p) and _bits_equal(scales, want_s)):
+            raise AssertionError(f"{label}: wire_encode of {field} "
+                                 f"{tuple(packed.shape)} differs from plain")
+        del want_p, want_s
+        got = cdc.dec(pay.arrays, field, tuple(src.shape))
+        want = wire_decode_ref(packed, scales, bits=cdc.bits).reshape(-1)[
+            :src.numel()].reshape(src.shape)
+        if not _bits_equal(got, want):
+            raise AssertionError(f"{label}: wire_decode of {field} "
+                                 f"{tuple(packed.shape)} differs from plain")
+
+
+def vr_offload_phase(vr, ex, views, fused):
+    """Every cut x bits of ``VROffloadExecutor`` at full width against the
+    fused rig frame, the JAX record and the plain codec, then the cut
+    controller in the throughput regime.  Returns the codec launch counts
+    of a coded run."""
+    import torch
+
+    from repro_torch.camera.offload import (
+        ETH_25G_LINK,
+        CutController,
+        VROffloadExecutor,
+    )
+    from repro_torch.camera.pipelines import (
+        VRWorkloadStats,
+        vr_pipeline,
+        vr_profiles,
+    )
+    from repro_torch.core.costmodel import VIRTEX_FPGA
+    from repro_torch.kernels import _build
+
+    lefts, rights = views
+    lp0, rp0, depths = fused
+    # what each cut's rig half encodes, from the fused rig frame; the raw
+    # split's payload must hold exactly these tensors
+    sources = {"lefts": lefts, "rights": rights, "depths": depths,
+               "left_pano": lp0, "right_pano": rp0}
+    amax = float(lefts.abs().max())
+    offs, err, codec_counts, swept = {}, {}, {}, {}
+    for cut in VR_CUTS:
+        fields = {f: sources[f]
+                  for f in VROffloadExecutor.PAYLOAD_SCHEMA[cut].codec}
+        for bits in (None, 16, 8, 4):
+            split = offs[(cut, bits)] = VROffloadExecutor(ex, cut, bits=bits)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            (lp, rp), pay = split(lefts, rights)
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+            nb, want = pay.nbytes(), vr.full_wire_b[(cut, bits)]
+            err[(cut, bits)] = max_abs_err(lp, lp0)
+            print(f"VR offload {cut:7s} bits={bits}: {nb:.1f} B on the wire "
+                  f"(reference {want:.1f}), left pano max |diff| "
+                  f"{err[(cut, bits)]:g}; launches {counts}", flush=True)
+            if nb != want:
+                raise AssertionError(f"VR {cut} {bits}: wire bytes {nb} != "
+                                     f"{want}")
+            if bits is None:
+                if not (torch.equal(lp, lp0) and torch.equal(rp, rp0)):
+                    raise AssertionError(f"VR {cut} raw split differs from "
+                                         "the fused rig frame")
+                for f, src in fields.items():
+                    if not torch.equal(pay.arrays[f].reshape(src.shape),
+                                       src):
+                        raise AssertionError(f"VR {cut} raw payload {f} is "
+                                             "not the fused frame's")
+            elif (counts.get("wire_encode", 0) < 1
+                  or counts.get("wire_decode", 0) < 1):
+                raise AssertionError(f"VR {cut} {bits}: codec not launched")
+            else:
+                codec_counts = counts
+                codec_fields_check(f"VR {cut} {bits}-bit", split, pay,
+                                   fields)
+                # the left panorama depends on no coded field but the
+                # left views (or is coded itself), and blends values with
+                # weights summing to 1: its error is at most the code's
+                # half step, amax / (2 qmax), plus float32 rounding
+                half = amax / (2 * (2 ** (bits - 1) - 1))
+                if err[(cut, bits)] > half + CODEC_SLACK:
+                    raise AssertionError(
+                        f"VR {cut} {bits}-bit: left pano error "
+                        f"{err[(cut, bits)]} above the half step {half}")
+            if bits == 8:
+                swept[cut] = lp
+            if cut == "capture" and bits is not None:
+                for field in ("lefts", "lefts_scales", "rights",
+                              "rights_scales"):
+                    got = hashlib.sha256(
+                        pay.arrays[field].cpu().numpy().tobytes()).hexdigest()
+                    if got != vr.capture_sha256[(bits, field)]:
+                        raise AssertionError(f"VR capture {bits}: {field} "
+                                             "hash differs from JAX's")
+            del pay, lp, rp
+    if not (err[("capture", 8)] < 0.02
+            and err[("capture", 4)] > err[("capture", 8)]):
+        raise AssertionError(f"VR knee: 8-bit {err[('capture', 8)]}, 4-bit "
+                             f"{err[('capture', 4)]}")
+    print("VR offload: raw splits == fused at every cut; wire bytes == JAX "
+          "record at every cut x bits; codec kernels == plain bit for bit on "
+          "every coded field; capture payload hashes == JAX at 16/8/4 bits; "
+          "left pano within the code's half step at every coded run (views'"
+          f" max |x| {amax:g}); knee: 8-bit {err[('capture', 8)]:g} < 0.02, "
+          f"4-bit {err[('capture', 4)]:g} above it", flush=True)
+
+    ctl = CutController(
+        lambda cut: offs[(cut, 8)], cuts=VR_CUTS,
+        template=vr_pipeline(VRWorkloadStats()),
+        profiles=vr_profiles(VIRTEX_FPGA), link=ETH_25G_LINK,
+        regime="throughput")
+    for m in ctl.calibrate(lefts, rights, units=1, reps=3):
+        print(f"VR controller cut={m.cut:7s} node {1e3 * m.node_s:.3f} ms, "
+              f"cloud {1e3 * m.cloud_s:.3f} ms, wire {m.wire_bytes:.1f} B "
+              "per rig frame", flush=True)
+    rep = ctl.report()
+    print("VR controller FPS per cut (measured, predicted): " + ", ".join(
+        f"{c} {-rep.measured_objectives[c]:.2f} "
+        f"{-rep.predicted_objectives[c]:.2f}" for c in VR_CUTS), flush=True)
+    print(f"VR controller: chosen={rep.chosen_cut} measured_best="
+          f"{rep.measured_best_cut} agrees={rep.agrees}", flush=True)
+    if not rep.agrees:
+        raise AssertionError("VR controller's choice is not the measured "
+                             "optimum")
+    (lp, _rp), _pay, sol = ctl.execute(lefts, rights)
+    if not torch.equal(lp, swept[sol.cut_after]):
+        raise AssertionError(f"VR executed cut {sol.cut_after} differs from "
+                             "the sweep's run of it")
+    print(f"VR controller executed cut={sol.cut_after} 8-bit: left panorama "
+          "equal to the sweep's run of that cut", flush=True)
+    return codec_counts
+
+
+def vr_kernel_rows(probes, ex, views, counts):
+    """``bilateral_blur`` at the rig's grid shape and ``integral_image`` at
+    the cost-volume shape, each against its plain version on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.camera import bssa
+    from repro_torch.kernels.bilateral_blur import cuda as bcuda
+    from repro_torch.kernels.bilateral_blur.ref import blur_ref
+    from repro_torch.kernels.integral_image import cuda as icuda
+    from repro_torch.kernels.integral_image.ref import integral_image_ref
+
+    lefts, rights = views
+    rows = []
+    rough = bssa.rough_disparity(lefts, rights, ex.max_disp)
+    val, wt = bssa.splat(lefts, rough, ex.spec)
+    v, w = val, wt
+    for step in range(ex.n_iters):           # every step of the refinement
+        got = bcuda.bilateral_blur_cuda(v, w)
+        want = blur_ref(v, w)
+        if not (_bits_equal(got[0], want[0]) and _bits_equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"bilateral_blur step {step} differs from "
+                                 "plain")
+        v, w = got
+    both = torch.stack([val, wt]).reshape(-1, 1, *val.shape[1:])
+    weight = torch.tensor([0.25, 0.5, 0.25], device=val.device)
+    weight = (weight[:, None, None] * weight[None, :, None]
+              * weight[None, None, :])[None, None]
+
+    def library():
+        return F.conv3d(F.pad(both, (1, 1, 1, 1, 1, 1), mode="replicate"),
+                        weight)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # float32, as the kernel
+    try:
+        lib_ms = device_ms(library)
+        lib_err = max_abs_err(library().reshape(2, *val.shape),
+                              torch.stack(bcuda.bilateral_blur_cuda(val, wt)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"bilateral_blur {tuple(val.shape)}: kernel == plain bit for bit "
+          f"over all {ex.n_iters} steps; conv3d (cuDNN, TF32 off) max |diff|"
+          f" {lib_err:g}", flush=True)
+    n = val.numel()
+    rows.append(kernel_row(
+        probes, "bilateral_blur", bcuda, counts["bilateral_blur"], 0.0,
+        lambda: bcuda.bilateral_blur_cuda(val, wt),
+        device_ms(lambda: blur_ref(val, wt)), lib_ms, 2 * 2 * 4 * n,
+        2 * 15 * n, PEAK_F32_OPS_S, shape="x".join(map(str, val.shape))))
+
+    # integral_image at the cost volume's shape: one chunk of 8 hypotheses
+    # of every pair, edge-padded |left - shifted right|
+    P, h, w_ = lefts.shape
+    ds = torch.arange(8, device=lefts.device)
+    xs = (torch.arange(w_, device=lefts.device)[None] - ds[:, None]).clamp(
+        0, w_ - 1)
+    rs = torch.gather(rights[:, None].expand(P, 8, h, w_), 3,
+                      xs[None, :, None, :].expand(P, 8, h, w_))
+    x = F.pad((lefts[:, None] - rs).abs(), (2, 2, 2, 2),
+              mode="replicate").reshape(P * 8, h + 4, w_ + 4)
+    del rs
+    got = icuda.integral_image_cuda(x)
+    if not torch.equal(got, integral_image_ref(x)):
+        raise AssertionError("integral_image at the cost-volume shape "
+                             "differs from plain")
+    print(f"integral_image {tuple(x.shape)}: kernel == plain bit for bit",
+          flush=True)
+    row = kernel_row(
+        probes, "integral_image", icuda, counts["integral_image"], 0.0,
+        lambda: icuda.integral_image_cuda(x),
+        device_ms(lambda: integral_image_ref(x), reps=1, warm=1),
+        device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1), reps=3),
+        4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
+        reps=3, shape="x".join(map(str, x.shape)))
+    rows.append(row)
+    print(f"integral_image per rig frame: {counts['integral_image']} "
+          f"launches, bound {counts['integral_image'] * row['bound_ms']:.3f}"
+          f" ms, kernel {counts['integral_image'] * row['ms']:.3f} ms",
+          flush=True)
+    return rows
+
+
 def profile_phase(label, fn, wall_ms):
     """Device time by kernel over one call (torch.profiler), against the
     call's unprofiled wall time."""
@@ -639,9 +1157,10 @@ def profiles_phase(ex, frames, targets, probes):
     print(f"funnel before the profiler sessions, after the other phases: "
           f"{ms / B:.4f} ms per frame ({ms:.3f} ms per {B}-frame batch, "
           "median of 7)", flush=True)
-    for name, fn in probes:
-        print(f"kernel {name}: device time per launch "
-              f"{launch_device_ms(fn, name + '_kernel'):.4f} ms "
+    for label, fn in probes:
+        kernel = label.split()[0] + "_kernel"
+        print(f"kernel {label}: device time per launch "
+              f"{launch_device_ms(fn, kernel):.4f} ms "
               "(torch.profiler, 20 launches)", flush=True)
     for label, fn, wall in targets:
         profile_phase(label, fn, wall)
@@ -658,7 +1177,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.bridge import load_fa_reference
+        from repro_torch.bridge import load_fa_reference, load_vr_reference
         from repro_torch.camera.pipelines import FaceAuthExecutor
         from repro_torch.camera.synthetic import security_video
         from repro_torch.kernels import _build
@@ -691,6 +1210,13 @@ def main() -> int:
     offload_counts, offload_target = offload_phase(ex, frames, res, flips)
     rows, probes = kernel_phase(ex, frames, {**counts, **{
         k: offload_counts[k] for k in ("wire_encode", "wire_decode")}})
+
+    vr = load_vr_reference()
+    vr_ex, views, fused, vr_counts, vr_ms = vr_phase(vr)
+    vr_offload_phase(vr, vr_ex, views, fused)
+    del fused
+    rows += vr_kernel_rows(probes, vr_ex, views, vr_counts)
+    targets.append(("VR rig frame", lambda: vr_ex(*views), vr_ms))
     profiles_phase(ex, frames, targets + [offload_target], probes)
 
     print(json.dumps({"kernels": rows}))

@@ -16,6 +16,11 @@ capacities, and the JAX executor's outputs on ``security_video()``
 JAX split executor's wire bytes, payload hashes and counts on the same
 workload at every cut and codec width (written by
 ``benchmarks/torch_export_offload_reference.py``).
+:func:`load_vr_reference` reads ``assets/vr_reference.npz``: the JAX VR
+rig executor's rough disparities, depth, panorama samples and split
+executor wire bytes on the §IV rig at the working size (8 pairs of
+270x480) and at full width (8 pairs of 2160x3840), with the parameters it
+ran (written by ``benchmarks/torch_export_vr_reference.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from repro_torch.device import resolve_device, to_numpy
 
 ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
 OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
+VR_ASSET = ASSET.parent / "vr_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -151,3 +157,62 @@ def load_offload_reference(path=None) -> OffloadReference:
         calibration=dict(zip(("rf_joules_per_byte", "nn_effective_w",
                               "base_compute_w"),
                              (float(v) for v in z["calibration"]))))
+
+
+@dataclasses.dataclass(frozen=True)
+class VRReference:
+    """The JAX VR rig on ``stereo_pair(h, w, seed=s)``, s < n_pairs, at the
+    working size and at full width.  Wire-byte dicts are keyed by
+    (cut, bits), bits None for the raw f32 payload.  ``e_jax`` values are
+    the largest |SAD32 - SAD64| of the JAX cost volume over a region's
+    pixels and all hypotheses (the near-tie rule's rounding error)."""
+
+    params: dict                  # n_pairs, sigma_spatial, max_disp, ...
+    work_hw: tuple
+    work_rough: np.ndarray        # (n_pairs, h, w) uint8
+    work_e_jax: np.ndarray        # (n_pairs,) per whole pair
+    work_depth0: np.ndarray       # (h, w) f32, pair 0
+    work_lpano: np.ndarray        # left panorama [::work_pano_stride] x2
+    work_wire_b: dict
+    full_hw: tuple
+    full_hist: np.ndarray         # (n_pairs, max_disp + 1) rough histogram
+    full_crop_origins: np.ndarray  # (4, 2) top-left corners (y, x)
+    full_crops: np.ndarray        # (4, crop, crop) uint8, pair 0
+    full_e_jax: np.ndarray        # (4,) per crop
+    full_depth0: np.ndarray       # pair 0 depth [::full_stride] x2
+    full_lpano: np.ndarray        # left panorama [::full_pano_stride] x2
+    full_pano_shape: tuple
+    full_wire_b: dict
+    capture_sha256: dict          # (bits, field) -> hex, full width
+
+
+def load_vr_reference(path=None) -> VRReference:
+    with np.load(VR_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    cuts = [str(c) for c in z["cuts"]]
+    bits = [None if int(b) == 0 else int(b) for b in z["bits"]]
+
+    def grid(a):
+        return {(c, b): float(a[i, j]) for i, c in enumerate(cuts)
+                for j, b in enumerate(bits)}
+
+    fields = ("lefts", "lefts_scales", "rights", "rights_scales")
+    sha = {(int(b), f): str(z["full_capture_sha256"][j, k])
+           for j, b in enumerate(z["hash_bits"])
+           for k, f in enumerate(fields)}
+    params = {k: z[k].item() for k in (
+        "n_pairs", "sigma_spatial", "max_disp", "n_iters", "ipd_px",
+        "patch", "crop", "work_pano_stride", "full_stride",
+        "full_pano_stride")}
+    params["seeds"] = [int(s) for s in z["seeds"]]
+    return VRReference(
+        params=params, work_hw=tuple(int(v) for v in z["work_hw"]),
+        work_rough=z["work_rough"], work_e_jax=z["work_e_jax"],
+        work_depth0=z["work_depth0"], work_lpano=z["work_lpano"],
+        work_wire_b=grid(z["work_wire_b"]),
+        full_hw=tuple(int(v) for v in z["full_hw"]),
+        full_hist=z["full_hist"], full_crop_origins=z["full_crop_origins"],
+        full_crops=z["full_crops"], full_e_jax=z["full_e_jax"],
+        full_depth0=z["full_depth0"], full_lpano=z["full_lpano"],
+        full_pano_shape=tuple(int(v) for v in z["full_pano_shape"]),
+        full_wire_b=grid(z["full_wire_b"]), capture_sha256=sha)

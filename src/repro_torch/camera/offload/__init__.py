@@ -4,8 +4,8 @@ Splits the live §III executor at any legal cut point into a node half and
 a cloud half with a typed, codec-compressed wire payload between them;
 replays measured payload traces through a link simulator; and closes the
 loop from measured executors back into ``core.placement.solve_cut`` via
-the cut controller.  The resilience layer and the §IV split executor come
-with later slices.
+the cut controller; the §IV rig splits the same way
+(``VROffloadExecutor``).  The resilience layer comes with a later slice.
 """
 
 from repro_torch.camera.offload.controller import (
@@ -13,7 +13,10 @@ from repro_torch.camera.offload.controller import (
     CutController,
     CutMeasurement,
 )
-from repro_torch.camera.offload.executors import FaceAuthOffloadExecutor
+from repro_torch.camera.offload.executors import (
+    FaceAuthOffloadExecutor,
+    VROffloadExecutor,
+)
 from repro_torch.camera.offload.link import (
     BACKSCATTER,
     ETH_25G_LINK,
@@ -42,6 +45,7 @@ __all__ = [
     "LinkReport",
     "PayloadSchema",
     "SESSION_SIDEBAND",
+    "VROffloadExecutor",
     "WirePayload",
     "link_energy_w",
     "simulate_shared_link",

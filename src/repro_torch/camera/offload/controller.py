@@ -20,8 +20,9 @@ The fitted pipeline marks every block CORE: the split executors always
 run the full funnel prefix on the node side, so the controller optimizes
 *where to cut*, the axis the runtime actually has.  The windowed re-solve,
 the degradation ladder and the telemetry hook come with the resilience and
-serving slices, and the reference's ``byte_scale`` / ``time_scale`` (which
-scale small-resolution §IV measurements up) with the VR slice.
+serving slices.  The reference's ``byte_scale`` / ``time_scale`` scale
+a toy-resolution §IV rig up to 16 x 4K; the port measures the rig at 16 x
+4K itself, so it has no use for them.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Cut-point split executor of the §III funnel: node half, wire payload,
-cloud half (the port of the JAX package's ``FaceAuthOffloadExecutor``).
+"""Cut-point split executors: node half, wire payload, cloud half (the
+port of the JAX package's ``FaceAuthOffloadExecutor`` and
+``VROffloadExecutor``).
 
 :class:`FaceAuthOffloadExecutor` splits the funnel at any of its four
 block boundaries.  Both halves compose the same stage functions the fused
@@ -16,14 +17,22 @@ runtime representation, the uncompressed baseline.  Measured wire bytes
 are computed on the device for valid payload elements only, with the
 reference's float32 arithmetic step for step.
 
+:class:`VROffloadExecutor` splits the §IV rig pipeline (raw views /
+depth maps / panorama) around :class:`~repro_torch.camera.pipelines.VRRigExecutor`'s
+per-rig depth and stitch functions.
+
 Cut payload contracts (DESIGN.md §10):
 
+  face_auth
     sensor  frames (B,h,w)            [codec]
     motion  mframes (M,h,w)           [codec] + fidx/motion/drop sideband
     vj      patches (M,W,20,20)       [codec] + wsel/counts sideband
     nn      scores (M,W)              [codec] + auth bits + counts sideband
-
-The §IV ``VROffloadExecutor`` comes with the VR slice.
+  vr_video
+    capture lefts,rights (P,h,w)      [codec]
+    depth   depths (P,h,w) + views    [codec]  (stitch needs full-res views,
+                                      so the mid cut ships more than raw)
+    stitch  left/right panoramas      [codec]
 """
 
 from __future__ import annotations
@@ -247,4 +256,101 @@ class FaceAuthOffloadExecutor:
 
     def __call__(self, frames):
         payload = self.encode(frames)
+        return self.decode_run(payload), payload
+
+
+# ---------------------------------------------------------------------------
+# §IV VR rig
+# ---------------------------------------------------------------------------
+
+
+class VROffloadExecutor:
+    """Split §IV rig pipeline around :class:`VRRigExecutor`'s stages.
+
+    ``encode(lefts, rights)`` is the rig-side half, ``decode_run`` the
+    cloud side; results are ``(left_pano, right_pano)``.  Depth runs over
+    all camera pairs at once inside whichever half owns it, exactly as the
+    fused executor runs it, so with ``bits=None`` the panoramas equal the
+    fused executor's.  Every payload field is dense, so the wire bytes are
+    static: the reference's Python-float sum, as a float32 scalar.
+    """
+
+    CUTS = ("capture", "depth", "stitch")
+
+    PAYLOAD_SCHEMA = {
+        "capture": PayloadSchema(codec=("lefts", "rights"),
+                                 session=SESSION_SIDEBAND_NAMES),
+        "depth": PayloadSchema(codec=("depths", "lefts", "rights"),
+                               session=SESSION_SIDEBAND_NAMES),
+        "stitch": PayloadSchema(codec=("left_pano", "right_pano"),
+                                session=SESSION_SIDEBAND_NAMES),
+    }
+
+    def __init__(self, base, cut: str, *, bits: int | None = None,
+                 block: int = 256):
+        if cut not in self.CUTS:
+            raise ValueError(f"cut {cut!r} not in {self.CUTS}")
+        self.base = base
+        self.cut = cut
+        self.codec = _Codec(bits, block)
+        self.bits = self.codec.bits
+        self._depth = base.pair_depth
+        self._pano = base.pano_fn
+
+    def _node_fn(self, lefts: torch.Tensor, rights: torch.Tensor):
+        """(P, h, w) x2 -> (arrays, wire_b, pano shapes or None)."""
+        cdc = self.codec
+        n = lefts.numel()
+        arrays: dict = {}
+        pano_shapes = None
+        if self.cut == "capture":
+            cdc.enc(arrays, "lefts", lefts)
+            cdc.enc(arrays, "rights", rights)
+            wire_b = 2 * cdc.static_bytes(n)
+        elif self.cut == "depth":
+            depths = self._depth(lefts, rights)
+            cdc.enc(arrays, "depths", depths)
+            cdc.enc(arrays, "lefts", lefts)
+            cdc.enc(arrays, "rights", rights)
+            wire_b = 3 * cdc.static_bytes(n)
+        else:                                      # stitch: full on-node
+            depths = self._depth(lefts, rights)
+            lp, rp = self._pano(lefts, rights, depths)
+            cdc.enc(arrays, "left_pano", lp)
+            cdc.enc(arrays, "right_pano", rp)
+            wire_b = (cdc.static_bytes(lp.numel())
+                      + cdc.static_bytes(rp.numel()))
+            pano_shapes = (tuple(lp.shape), tuple(rp.shape))
+        return arrays, torch.tensor(wire_b, dtype=torch.float32,
+                                    device=lefts.device), pano_shapes
+
+    def encode(self, lefts, rights) -> WirePayload:
+        """Rig half: (P, h, w) views x2 -> wire payload."""
+        lefts, rights = self.base._views(lefts), self.base._views(rights)
+        arrays, wire_b, pano_shapes = self._node_fn(lefts, rights)
+        return WirePayload(
+            cut=self.cut, bits=self.bits, arrays=arrays,
+            meta={"view_shape": tuple(lefts.shape),
+                  "pano_shapes": pano_shapes},
+            wire_b=wire_b)
+
+    def decode_run(self, payload: WirePayload):
+        """Cloud half: wire payload -> (left_pano, right_pano)."""
+        cdc, arrays = self.codec, payload.arrays
+        view_shape = payload.meta["view_shape"]
+        if self.cut == "capture":
+            lefts = cdc.dec(arrays, "lefts", view_shape)
+            rights = cdc.dec(arrays, "rights", view_shape)
+            return self._pano(lefts, rights, self._depth(lefts, rights))
+        if self.cut == "depth":
+            depths = cdc.dec(arrays, "depths", view_shape)
+            lefts = cdc.dec(arrays, "lefts", view_shape)
+            rights = cdc.dec(arrays, "rights", view_shape)
+            return self._pano(lefts, rights, depths)
+        left_shape, right_shape = payload.meta["pano_shapes"]
+        return (cdc.dec(arrays, "left_pano", left_shape),
+                cdc.dec(arrays, "right_pano", right_shape))
+
+    def __call__(self, lefts, rights):
+        payload = self.encode(lefts, rights)
         return self.decode_run(payload), payload

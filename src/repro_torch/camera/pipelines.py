@@ -23,25 +23,33 @@ come with the serving slice.
 The module also holds the §III pipeline as a ``core.pipeline.Pipeline``
 of work descriptors with its calibrated cost profiles (``fa_pipeline``,
 ``fa_profiles``, ``calibrate_fa``), which the offload cut controller
-scores against measurement.
+scores against measurement, and the §IV VR rig: its work descriptors
+(``VRWorkloadStats``, ``vr_pipeline``, ``vr_profiles``) and its executor
+``VRRigExecutor`` (BSSA depth of every camera pair, then the stereo
+panorama).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.camera.bssa import bssa_depth
 from repro_torch.camera.face_nn import make_sigmoid_lut
 from repro_torch.camera.motion import motion_mask, motion_score
+from repro_torch.camera.stitch import stereo_panorama
 from repro_torch.camera.viola_jones import BASE, FusedDetector
 from repro_torch.core.costmodel import (
+    ARM_A9,
     IMAGE_SENSOR,
     MOTION_ASIC,
     NN_ASIC,
     VJ_ASIC,
+    ZYNQ_FPGA,
     HardwareProfile,
 )
 from repro_torch.core.pipeline import Block, BlockKind, Pipeline
@@ -418,3 +426,120 @@ def calibrate_fa(stats: FAWorkloadStats,
     p_nn = crossover * e_c * (B - B_nn)
     return FACalibration(rf_joules_per_byte=e_c, nn_effective_w=p_nn,
                          base_compute_w=C)
+
+
+# ---------------------------------------------------------------------------
+# §IV VR pipeline (16x 4K cameras @ 30 FPS target)
+# ---------------------------------------------------------------------------
+
+VR_CAMS = 16
+VR_W, VR_H = 3840, 2160                   # 4K per camera
+VR_FPS_TARGET = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class VRWorkloadStats:
+    """Per-frame work for the 2-camera pipeline slice of Fig. 13 (x8 pairs
+    gives the 16-camera rig; the paper plots 2 of 16 cameras)."""
+
+    grid_sigma: int = 16                  # pixels per grid vertex
+    disp_range: int = 32
+    refine_iters: int = 8
+
+    @property
+    def pixels(self) -> float:
+        return 2 * VR_W * VR_H            # a camera pair
+
+    def grid_vertices(self) -> float:
+        gy = VR_H / self.grid_sigma
+        gx = VR_W / self.grid_sigma
+        return gy * gx * 17.0             # 16 intensity bins + 1
+
+    def rough_flops(self) -> float:       # SAD block matching
+        return self.pixels / 2 * self.disp_range * 8
+
+    def refine_flops(self) -> float:      # iterated 3-axis [1,2,1] blurs, v+w
+        return self.grid_vertices() * self.refine_iters * 3 * 4 * 2
+
+
+def vr_pipeline(stats: VRWorkloadStats) -> Pipeline:
+    """B1 capture -> B2 ISP/rectify -> B3 grid construction (data expands)
+    -> B4 depth refinement (dominant) -> B5 stitch/compose.  Bytes from
+    Fig. 13's shape: biggest intermediate into the depth block; small depth
+    maps after."""
+    px = stats.pixels
+    raw = px * 1.0                         # 8-bit Bayer off the sensor
+    rgb = px * 3.0
+    grid = stats.grid_vertices() * 8.0     # f32 (value, weight) per vertex
+    depth = px / 2 * 2.0                   # 16-bit depth map per pair
+    # stitch output = encoded stereo panorama slice (the paper's only
+    # uploadable intermediate; video-rate panoramas ship compressed)
+    pano = 2 * 8192 * 4096 * 3.0 / 8 / 50.0
+    blocks = (
+        Block("capture", flops=0.0, bytes_in=0.0, bytes_out=raw,
+              kind=BlockKind.SOURCE),
+        Block("isp", flops=20 * px, bytes_in=raw, bytes_out=rgb),
+        # grid construction = splatting (cheap, bandwidth-ish); the rough
+        # disparity estimate belongs to the stereo solve itself and moves
+        # with it onto the accelerator
+        Block("grid", flops=2 * px, bytes_in=rgb, bytes_out=rgb + grid),
+        Block("depth",
+              flops=stats.rough_flops() / 16 + stats.refine_flops() * 420,
+              bytes_in=rgb + grid, bytes_out=depth),
+        Block("stitch", flops=2 * px, bytes_in=depth + rgb, bytes_out=pano),
+    )
+    return Pipeline("vr_video", blocks)
+
+
+def vr_profiles(depth_device: HardwareProfile) -> dict:
+    """depth_device is the knob (CPU/GPU/FPGA); Fig. 14's passing "FPGA"
+    configuration uses the Table II production target (VIRTEX_FPGA)."""
+    return {"capture": IMAGE_SENSOR, "isp": ZYNQ_FPGA, "grid": ARM_A9,
+            "depth": depth_device, "stitch": ARM_A9}
+
+
+class VRRigExecutor:
+    """The §IV hot path: BSSA depth of every camera pair (rough disparity
+    through the integral-image kernel -> splat -> ``refine_grid`` through
+    the bilateral-blur kernel -> slice), then the stereo panorama (batched
+    cylindrical warp + one scatter-add feather blend).
+
+    The pairs are the leading batch axis on one device: one integral-image
+    launch per hypothesis chunk and one blur launch per refinement step
+    cover the whole rig.  Arguments are the reference's, less its JAX-only
+    options (``use_pallas``, ``interpret``, ``rig_parallel``,
+    ``telemetry``), plus ``device`` (the card when None).
+    """
+
+    def __init__(self, spec, max_disp: int = 32, n_iters: int = 8,
+                 ipd_px: float = 6.0, device=None):
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.max_disp = max_disp
+        self.n_iters = n_iters
+        self.ipd_px = ipd_px
+        # the handles the split executors compose (camera/offload)
+        self.pair_depth = functools.partial(
+            bssa_depth, spec=spec, max_disp=max_disp, n_iters=n_iters)
+        self.pano_fn = functools.partial(stereo_panorama, ipd_px=ipd_px)
+
+    def _views(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def depth_maps(self, lefts, rights) -> torch.Tensor:
+        """(n_pairs, h, w) x2 -> (n_pairs, h, w) refined depth."""
+        return self.pair_depth(self._views(lefts), self._views(rights))
+
+    def panorama(self, lefts, rights, depths):
+        """(left_pano, right_pano) from per-pair views + depth maps."""
+        return self.pano_fn(self._views(lefts), self._views(rights),
+                            self._views(depths))
+
+    def __call__(self, lefts, rights):
+        """Full rig frame: returns (left_pano, right_pano, depths)."""
+        lefts, rights = self._views(lefts), self._views(rights)
+        depths = self.depth_maps(lefts, rights)
+        left_pano, right_pano = self.panorama(lefts, rights, depths)
+        return left_pano, right_pano, depths

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cost_volume64, near_integer_canvas
 from test_torch_pipeline import matched_scores
 
 from repro_torch.bridge import (
@@ -141,3 +142,97 @@ def test_port_payloads_match_the_offload_asset(ref, cut):
             got = hashlib.sha256(
                 payload.arrays[arr].numpy().tobytes()).hexdigest()
             assert got == want[(cut, bits)], (arr, bits)
+
+
+# -- the VR reference (assets/vr_reference.npz) -------------------------------
+
+
+@pytest.fixture(scope="module")
+def vr():
+    from repro_torch.bridge import load_vr_reference
+    return load_vr_reference()
+
+
+def test_vr_asset_is_small_and_holds_the_rig_parameters(vr):
+    from repro_torch.bridge import VR_ASSET
+    from repro_torch.camera.pipelines import VR_H, VR_W, VRWorkloadStats
+
+    assert os.path.getsize(VR_ASSET) <= 1.5e6
+    stats = VRWorkloadStats()
+    p = vr.params
+    assert (p["n_pairs"], p["sigma_spatial"], p["max_disp"], p["n_iters"],
+            p["ipd_px"], p["patch"]) == (8, stats.grid_sigma,
+                                         stats.disp_range,
+                                         stats.refine_iters, 6.0, 5)
+    assert p["seeds"] == list(range(8))
+    assert vr.full_hw == (VR_H, VR_W) and vr.work_hw == (270, 480)
+    assert vr.work_rough.shape == (8, 270, 480)
+    assert vr.work_rough.max() <= 32 and vr.work_depth0.shape == (270, 480)
+    assert vr.full_crops.shape == (4, 256, 256)
+    assert (vr.full_hist.sum(axis=1) == VR_H * VR_W).all()
+    assert vr.full_pano_shape == (VR_H, 7 * (VR_W - 576) + VR_W)
+    assert (vr.full_e_jax > 0).all() and (vr.work_e_jax > 0).all()
+    assert len(vr.capture_sha256) == 12
+
+
+def test_vr_asset_wire_bytes_are_the_port_formula(vr):
+    """The asset's wire bytes are what the port's split executor charges:
+    views and depths P*h*w values each, the panoramas' own sizes."""
+    from repro_torch.kernels.wire_codec.ops import wire_bytes
+
+    for (h, w), table in ((vr.work_hw, vr.work_wire_b),
+                          (vr.full_hw, vr.full_wire_b)):
+        pano = h * (7 * (w - int(w * 0.15)) + w)
+        for bits in (None, 16, 8, 4):
+            n = 8 * h * w
+            want = {"capture": 2 * wire_bytes(n, bits),
+                    "depth": 3 * wire_bytes(n, bits),
+                    "stitch": 2 * wire_bytes(pano, bits)}
+            for cut, b in want.items():
+                assert table[(cut, bits)] == float(np.float32(b)), (cut, bits)
+
+
+def test_port_matches_vr_asset_at_working_size(vr):
+    """What chip_smoke.py holds the card to at the working size, on the
+    CPU (the same float32 sums): rough disparity agrees with JAX on >= 99%
+    of every pair and every disagreement is a near tie; with JAX's rough of
+    pair 0 injected the depth is within 1e-5 of JAX's (XLA's FMA in
+    slice_grid); the left panorama within 1e-6 of JAX's except where a
+    float32 warp map may pick another pixel."""
+    from repro_torch.camera import bssa
+    from repro_torch.camera.pipelines import VRRigExecutor
+    from repro_torch.camera.synthetic import stereo_pair
+    from repro_torch.kernels.bilateral_blur.ops import refine_grid
+
+    h, w = vr.work_hw
+    md = vr.params["max_disp"]
+    pairs = [stereo_pair(h=h, w=w, seed=s)[:2] for s in vr.params["seeds"]]
+    lefts = torch.tensor(np.stack([p[0] for p in pairs]))
+    rights = torch.tensor(np.stack([p[1] for p in pairs]))
+    ex = VRRigExecutor(bssa.GridSpec(vr.params["sigma_spatial"]),
+                       max_disp=md, n_iters=vr.params["n_iters"],
+                       ipd_px=vr.params["ipd_px"], device="cpu")
+    rough = bssa.rough_disparity(lefts, rights, md).numpy().astype(np.int64)
+    for p in range(len(pairs)):
+        vol = bssa.cost_volume(lefts[p], rights[p], md).numpy()
+        vol64 = cost_volume64(lefts[p], rights[p], md, 5, 0, 0, h,
+                              w).numpy()
+        want = vr.work_rough[p].astype(np.int64)
+        assert (rough[p] == want).mean() >= 0.99
+        # E_jax from the asset stands in for the JAX cost volume
+        e_jax = vr.work_e_jax[p]
+        e_port = np.abs(vol - vol64).max()
+        yy, xx = np.mgrid[0:h, 0:w]
+        gap = np.abs(vol64[rough[p], yy, xx] - vol64[want, yy, xx])
+        assert (gap <= 2 * max(e_port, e_jax)).all()
+    spec = ex.spec
+    gv, gw = bssa.splat(lefts[0], torch.tensor(vr.work_rough[0],
+                                               dtype=torch.float32), spec)
+    depth = bssa.slice_grid(*refine_grid(gv, gw, ex.n_iters), lefts[0], spec)
+    np.testing.assert_allclose(depth.numpy(), vr.work_depth0, rtol=0,
+                               atol=1e-5)
+    lp, _rp = ex.panorama(lefts, rights, torch.zeros_like(lefts))
+    s = vr.params["work_pano_stride"]
+    near = near_integer_canvas(h, w, len(pairs))[::s, ::s]
+    diff = np.abs(lp.numpy()[::s, ::s] - vr.work_lpano)
+    assert (diff[~near] <= 1e-6).all()
