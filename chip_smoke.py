@@ -60,10 +60,37 @@ first use, into ``build/repro_torch``), then:
    ``bilateral_blur`` row (8 x 136x241x17, bit-exact over all 8 steps,
    cuDNN ``conv3d`` as the library call) and an ``integral_image`` row at
    the cost volume's shape (64 x 2164x3844, bit-exact);
-6. profile phase — every torch.profiler session of the run: each kernel's
+6. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
+   weights drawn on the card (seed 0): a ``generate`` call (the function
+   ``repro_torch.launch.serve`` calls) on 8 prompts of 4096 tokens (numpy
+   seed 1) for 32 greedy tokens, with the launch counters set to 0, must
+   launch ``flash_attention`` 48 times (yi) or ``rwkv_wkv`` 32 times
+   (rwkv), all in prefill; prefill ms, decode ms per token, generated
+   tokens/s (host clock, median of 3), peak memory, every logit finite.
+   Each kernel is held to its plain version on the inputs it got in that
+   prefill (flash atol = rtol = 2e-2 in bf16; WKV outputs and final state
+   within 2e-4 of the plain version's largest entry, with the path's zero
+   u and again with a seeded nonzero u).  Then each model at full width,
+   4 layers deep, in float32: the full forward against prefill + 4 decode
+   steps (B 2, S 1000), within 7e-4 of the largest |logit| (E, the
+   model's own one-ulp sensitivity, printed beside it); the JAX record
+   (``assets/lm_reference.npz``) on the card; and ``flash_attention`` on
+   random inputs at ``KERNEL_SHAPES``' prefill_32k (8 x 32768 x 128,
+   causal, and with a window of 4096; bf16 within 4e-3 + 2^-7 |x|, and
+   float32 within atol = rtol = 2e-5), each timed beside SDPA's flash
+   backend where it has the same mask;
+7. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
-   S = 64, the VR rig frame and the executed offload cut, with the
-   funnel's host time just before and just after the sessions.
+   S = 64, the VR rig frame, the executed offload cut and one serve call
+   of each LM, with the funnel's host time just before and just after the
+   sessions.
+
+One-ulp sensitivity E: how far a model's logits move, relative to the
+largest |logit|, when every weight moves by one ulp up or down at random.
+These random-weight models amplify float32 rounding layer by layer, so
+the port and XLA, two float32 computations of the same function that
+round differently, are held to max(1e-4, E): no further apart than one
+model moves under a one-ulp move of its weights.
 
 Near tie: a rough-disparity winner d_port that differs from JAX's d_jax
 must satisfy |SAD64(d_port) - SAD64(d_jax)| <= 2 max(E_port, E_jax),
@@ -99,6 +126,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM, NVIDIA's data sheet (dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12          # float32 outside the tensor cores
+PEAK_BF16_OPS_S = 989e12        # bf16 tensor cores, dense
 PEAK_INT8_OPS_S = 1979e12       # int8 tensor cores
 
 INTEGRAL_RTOL = 1e-6            # of max |table|: same sums in the same order
@@ -1092,6 +1120,456 @@ def vr_kernel_rows(probes, ex, views, counts):
     return rows
 
 
+# -- LM serving ---------------------------------------------------------------
+
+LM_KERNEL = {"yi-9b": "flash_attention", "rwkv6-7b": "rwkv_wkv"}
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 4096, 32
+PARITY_B, PARITY_S, PARITY_EXTRA, PARITY_LAYERS = 2, 1000, 4, 4
+# Full-width prefill/decode parity, of max |logit|: about 3x the largest
+# reading (2.21e-4 yi, 2.14e-4 rwkv6; tests/test_models.py:88's 1e-4 is
+# below the float32 noise of these models at full width, see E below)
+PARITY_REL = 7e-4
+FLASH_TOL = 2e-2      # tests/test_kernels.py:43, bf16 atol = rtol
+# Random 8 x 32768 flash rows: bf16 outputs within about 4x the largest
+# reading (9.8e-4) plus one bf16 spacing (2^-7 of |x|: both sides round
+# one float32 value), and the same inputs in float32 within
+# tests/test_kernels.py:43's float32 atol = rtol
+FLASH_32K_ATOL, FLASH_32K_RTOL = 4e-3, 2.0 ** -7
+FLASH_F32_TOL = 2e-5
+WKV_REL = 2e-4        # tests/test_kernels.py:372, of max |plain|
+WKV_BONUS_STD = 0.3   # a nonzero u, as tests/test_kernels.py:368 draws it
+RECORD_REL = 1e-4     # floor of the JAX-record bound, below
+
+
+def lm_record_check(model, rec):
+    """The port against one JAX record (``assets/lm_reference.npz``):
+    prefill logits and each teacher-forced decode step within
+    max(RECORD_REL, E) of that step's largest |logit|, E the JAX model's
+    own float32 sensitivity (its logits' move under a one-ulp move of every
+    weight); greedy tokens equal to JAX's up to the first step where JAX's
+    top two logits are closer than that bound (a near tie).  Returns
+    (worst relative error, bound, greedy steps compared)."""
+    import torch
+
+    from repro_torch.serve.engine import generate
+
+    dev = model.device
+    tol = max(RECORD_REL, rec.sensitivity)
+    prompts = torch.as_tensor(rec.prompts, dtype=torch.long, device=dev)
+    logits, cache = model.prefill(prompts)
+    got = [logits]
+    cache = model.pad_cache(cache, rec.teacher.shape[1])
+    s = prompts.shape[1]
+    for i in range(rec.teacher.shape[1]):
+        tok = torch.as_tensor(rec.teacher[:, i:i + 1], dtype=torch.long,
+                              device=dev)
+        lg, cache = model.decode_step(tok, cache, s + i)
+        got.append(lg[:, 0])
+    got = torch.stack(got, dim=1).float().cpu().numpy()
+    want = np.concatenate([rec.prefill_logits[:, None], rec.decode_logits],
+                          axis=1)
+    if not np.isfinite(got).all():
+        raise AssertionError("non-finite logits")
+    rel = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+    worst = float(rel.max())
+    if worst > tol:
+        step = np.unravel_index(rel.argmax(), rel.shape)
+        raise AssertionError(f"logits {worst:.3g} from JAX at (row, step) "
+                             f"{step}, bound {tol:.3g}")
+    greedy = generate(model, prompts, rec.greedy.shape[1]).cpu().numpy()
+    compared = 0
+    for row in range(greedy.shape[0]):
+        for t in range(greedy.shape[1]):
+            if rec.greedy_gap[row, t] < tol * rec.greedy_max[row, t]:
+                break
+            if greedy[row, t] != rec.greedy[row, t]:
+                raise AssertionError(f"greedy token (row {row}, step {t}) "
+                                     f"{greedy[row, t]} != JAX's "
+                                     f"{rec.greedy[row, t]}")
+            compared += 1
+    return worst, tol, compared
+
+
+class _Capture:
+    """Records the arguments of the first call of ``module.name`` while
+    active (the inputs a kernel gets on the main path)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            if self.args is None:
+                self.args = tuple(a.clone() for a in args)
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def lm_serve_phase(arch, device):
+    """One full-width model in bf16: a counted serve call (8 x 4096-token
+    prompts, 32 greedy tokens), times, peak memory, finite logits, and the
+    inputs its first kernel launch got.  Returns (model, prompts, kernel
+    launches per serve call, serve ms, the captured kernel inputs)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.serve.engine import generate, stream
+
+    kernel = LM_KERNEL[arch]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=0)
+    torch.cuda.synchronize()
+    print(f"{arch}: {model.n_params() / 1e9:.3f} B parameters in "
+          f"{cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = make_prompts(cfg, LM_REQUESTS, LM_PROMPT, seed=1, device=device)
+
+    def serve():
+        return generate(model, prompts, LM_GEN)
+
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    toks = serve()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _build.reset_launches()
+    model.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_counts = dict(_build.launches)
+    print(f"{arch} serve call launches {counts}, prefill alone "
+          f"{prefill_counts}", flush=True)
+    want = cfg.n_layers
+    other = ({"flash_attention", "rwkv_wkv"} - {kernel}).pop()
+    if (counts.get(kernel, 0) != want or prefill_counts.get(kernel, 0) != want
+            or counts.get(other, 0)):
+        raise AssertionError(f"{arch}: {counts.get(kernel, 0)} {kernel} "
+                             f"launches per serve call, "
+                             f"{prefill_counts.get(kernel, 0)} in prefill; "
+                             f"expected {want}, all in prefill")
+
+    ops_module, fn = ((flash_ops, "flash_attention")
+                      if kernel == "flash_attention" else
+                      (wkv_ops, "rwkv_wkv"))
+    with _Capture(ops_module, fn) as cap:
+        steps = list(stream(model, prompts, LM_GEN))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(lg).all()) for _t, lg in steps)
+    same = torch.equal(torch.stack([t for t, _lg in steps], 1), toks)
+    del steps
+    if not finite or not same:
+        raise AssertionError(f"{arch}: finite logits {finite}, stream == "
+                             f"generate {same}")
+
+    prefill_ms = host_ms(lambda: model.prefill(prompts), reps=3)
+    serve_ms = host_ms(serve, reps=3)
+    decode_ms = (serve_ms - prefill_ms) / (LM_GEN - 1)
+    print(f"{arch} serve ({LM_REQUESTS} x {LM_PROMPT} prompt tokens, "
+          f"{LM_GEN} greedy tokens): prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per token, serve call {serve_ms:.3f} ms = "
+          f"{1e3 * LM_REQUESTS * LM_GEN / serve_ms:.1f} generated tokens/s "
+          f"(host clock, median of 3); peak {peak / 2 ** 30:.2f} GiB "
+          f"({resident / 2 ** 30:.2f} GiB resident before the call); every "
+          "logit finite", flush=True)
+    return model, prompts, want, serve_ms, cap.args
+
+
+def lm_parity_phase(arch, device):
+    """Full width, PARITY_LAYERS deep, float32: the full forward (kernel)
+    against prefill (kernel) + decode steps (plain), within PARITY_REL of
+    the largest |logit|.  E, this model's own float32 sensitivity (how far
+    the forward's logits move when every weight moves by one ulp), is
+    printed beside it."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32)
+    model = build_model(cfg, device, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (PARITY_B, PARITY_S + PARITY_EXTRA)), device=device)
+    full = model.logits(toks)
+    logits, cache = model.prefill(toks[:, :PARITY_S])
+    errs = [float((logits - full[:, PARITY_S - 1]).abs().max())]
+    cache = model.pad_cache(cache, PARITY_EXTRA)
+    for t in range(PARITY_S, PARITY_S + PARITY_EXTRA):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    del cache
+    top = float(full.abs().max())
+    rel = max(errs) / top
+    gen = torch.Generator(device=device).manual_seed(4)
+    with torch.no_grad():
+        for p in model.parameters():
+            up = torch.rand(p.shape, generator=gen, device=device) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+    sens = float((model.logits(toks) - full).abs().max()) / top
+    print(f"{arch} float32, {PARITY_LAYERS} layers, B={PARITY_B}, "
+          f"S={PARITY_S} + {PARITY_EXTRA}: prefill/decode vs forward "
+          f"max |diff| {max(errs):.4g} of max |logit| {top:.4g} (rel "
+          f"{rel:.3g}, per step {[f'{e / top:.3g}' for e in errs]}); "
+          f"bound {PARITY_REL:g}; one-ulp sensitivity E {sens:.3g}",
+          flush=True)
+    if not torch.isfinite(full).all() or rel >= PARITY_REL:
+        raise AssertionError(f"{arch}: prefill/decode diverge from the "
+                             f"forward ({rel:.3g} >= {PARITY_REL:g})")
+
+
+def lm_record_phase(device):
+    """The JAX record's reduced float32 configs on the card, through the
+    kernels."""
+    import torch
+
+    from repro_torch.bridge import (
+        lm_params_from,
+        load_lm_reference,
+        numpy_lm_params,
+    )
+    from repro_torch.kernels import _build
+
+    for name, rec in load_lm_reference().items():
+        model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
+                               device=device)
+        _build.reset_launches()
+        worst, tol, compared = lm_record_check(model, rec)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        kernel = LM_KERNEL[rec.cfg.name]
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"record {name}: {kernel} never launched")
+        print(f"JAX record {name} ({rec.cfg.n_layers} layers, "
+              f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens): "
+              f"logits within {worst:.3g} of JAX (bound {tol:.3g}, E "
+              f"{rec.sensitivity:.3g}); {compared} of {rec.greedy.size} "
+              f"greedy tokens compared, all equal; launches {counts}",
+              flush=True)
+
+
+def _causal_pairs(s: int, window=None) -> int:
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
+              label="", f32=False):
+    """``flash_attention`` against its plain streaming form on (q, k, v)
+    in the model's layout (bf16, within atol + rtol |plain|; with ``f32``
+    also the same inputs in float32 within FLASH_F32_TOL), timed beside
+    ``scaled_dot_product_attention`` (no window only)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+    from repro_torch.kernels.flash_attention.ops import expand_kv
+    from repro_torch.kernels.flash_attention.ref import mha_streaming
+    from repro_torch.models.layers import pin_matmul_precision
+
+    pin_matmul_precision()
+    b, s, H, d = q.shape
+    KV = k.shape[2]
+    scale = d ** -0.5
+    pos = torch.arange(s, device=q.device)
+
+    def plain(q=q, k=k, v=v):
+        return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), pos, pos,
+                             scale, window=window)
+
+    def outside(got, want, atol, rtol):
+        return int(((got.double() - want.double()).abs()
+                    > atol + rtol * want.double().abs()).sum())
+
+    got = fcuda.flash_attention_cuda(q, k, v, window=window, scale=scale)
+    want = plain()
+    err = max_abs_err(got, want)
+    rms = float(want.double().square().mean().sqrt())
+    note = (f"flash_attention {label}: bf16 max |err| {err:g} (max |plain| "
+            f"{float(want.abs().max()):g}, rms {rms:.4g}; bound {atol:g} + "
+            f"{rtol:g} |plain|)")
+    n_bad = outside(got, want, atol, rtol)
+    if f32:
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        want32 = plain(q32, k32, v32)
+        got32 = fcuda.flash_attention_cuda(q32, k32, v32, window=window,
+                                           scale=scale)
+        note += (f"; float32 max |err| {max_abs_err(got32, want32):g} "
+                 f"(atol = rtol = {FLASH_F32_TOL:g})")
+        n_bad += outside(got32, want32, FLASH_F32_TOL, FLASH_F32_TOL)
+        del q32, k32, v32, want32, got32
+    print(note, flush=True)
+    if n_bad:
+        raise AssertionError(f"flash_attention {label}: {n_bad} values "
+                             "outside the bound")
+    plain_ms = device_ms(plain, reps=2, warm=1)
+    lib_ms = None
+    if window is None:           # SDPA has no sliding window but a dense mask
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+
+        try:
+            lib_err = max_abs_err(library().transpose(1, 2), want)
+            lib_ms = device_ms(library)
+            print(f"flash_attention {label}: SDPA (flash backend) max |diff| "
+                  f"{lib_err:g}", flush=True)
+        except RuntimeError as e:     # backend rules of SDPA
+            print(f"SDPA not timed: {e}", flush=True)
+    del want
+    esize = q.element_size()
+    n_bytes = esize * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 4 * b * H * d * _causal_pairs(s, window)
+    return kernel_row(
+        probes, "flash_attention", fcuda, launches, err,
+        lambda: fcuda.flash_attention_cuda(q, k, v, window=window,
+                                           scale=scale),
+        plain_ms, lib_ms, n_bytes, n_ops, PEAK_BF16_OPS_S, reps=5,
+        shape=label)
+
+
+def wkv_row(probes, args, launches):
+    """``rwkv_wkv`` against the plain sequential recurrence: outputs and
+    final state within WKV_REL of the plain version's largest entry.  On
+    the path's own inputs; again with a seeded nonzero u (the path's bonus
+    is zero, as the model initialises it); and on inputs drawn as
+    tests/test_kernels.py:363-368 draws them, where the bonus must move
+    the plain outputs by at least 10 WKV_REL, so that a kernel that drops
+    or misplaces it cannot pass."""
+    import torch
+
+    from repro_torch.kernels.rwkv_scan import cuda as wcuda
+    from repro_torch.kernels.rwkv_scan.ref import wkv_ref
+
+    r, k, v, w, u = args
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+
+    def plain(r, k, v, w, u):
+        heads = [t.transpose(1, 2).reshape(B * H, T, t.shape[-1])
+                 for t in (r, k, v, w)]
+        out, state = wkv_ref(*heads, u.expand(B, H, K).reshape(B * H, K))
+        return (out.reshape(B, H, T, V).transpose(1, 2),
+                state.reshape(B, H, K, V))
+
+    def check(rkvw, u, label):
+        out, state = wcuda.rwkv_wkv_cuda(*rkvw, u)
+        want_out, want_state = plain(*rkvw, u)
+        err = max_abs_err(out, want_out)
+        rel_out = err / float(want_out.abs().max())
+        rel_state = max_abs_err(state, want_state) / float(
+            want_state.abs().max())
+        print(f"rwkv_wkv {tuple(r.shape)}, {label}: relative error "
+              f"{rel_out:.3g} (outputs), {rel_state:.3g} (final state), "
+              f"bound {WKV_REL}", flush=True)
+        if not (rel_out < WKV_REL and rel_state < WKV_REL):
+            raise AssertionError(f"rwkv_wkv ({label}) differs from the "
+                                 "plain recurrence")
+        return err, state, want_out
+
+    def bonus_moves(want_out, rkvw):
+        zero_u, _ = plain(*rkvw, torch.zeros_like(u))
+        return max_abs_err(want_out, zero_u) / float(want_out.abs().max())
+
+    gen = torch.Generator(device=u.device).manual_seed(5)
+
+    def draw(shape, std):
+        return std * torch.randn(shape, generator=gen, device=u.device,
+                                 dtype=u.dtype)
+
+    path = (r, k, v, w)
+    err, state, _ = check(path, u, "the path's inputs and u (max |u| "
+                          f"{float(u.abs().max()):g})")
+    bonus = draw(u.shape, WKV_BONUS_STD)
+    _, _, want = check(path, bonus, f"the path's inputs, u ~ "
+                       f"{WKV_BONUS_STD} N(0, 1)")
+    print(f"rwkv_wkv: that bonus moves the plain outputs on the path's "
+          f"inputs by {bonus_moves(want, path):.3g} of their largest",
+          flush=True)
+    drawn = (draw(r.shape, 0.5), draw(k.shape, 0.5), draw(v.shape, 0.5),
+             torch.sigmoid(draw(w.shape, 2.0)))
+    _, _, want = check(drawn, bonus, "drawn as tests/test_kernels.py:363")
+    moved = bonus_moves(want, drawn)
+    print(f"rwkv_wkv: on the drawn inputs the bonus moves the plain outputs "
+          f"by {moved:.3g} of their largest (must be >= {10 * WKV_REL:g})",
+          flush=True)
+    if moved < 10 * WKV_REL:
+        raise AssertionError("the bonus check cannot see a dropped bonus")
+    del want, drawn
+    plain_ms = device_ms(lambda: plain(r, k, v, w, u), reps=1, warm=0)
+    # bytes: r, k, v, w and out once, u and the state; operations: the
+    # chunked form (chunk L = 32) per (b, h) and chunk: the inter-chunk and
+    # state products 4 L K V, the strictly lower intra-chunk scores and
+    # product 2 * L(L-1)/2 * (K + V), the diagonal 3 L K + 2 L V
+    L = 32
+    per_chunk = 4 * L * K * V + L * (L - 1) * (K + V) + 3 * L * K + 2 * L * V
+    n_ops = B * H * (-(-T // L)) * per_chunk
+    n_bytes = 4 * (r.numel() * 3 + v.numel() * 2 + u.numel() + state.numel())
+    return kernel_row(
+        probes, "rwkv_wkv", wcuda, launches, err,
+        lambda: wcuda.rwkv_wkv_cuda(r, k, v, w, u), plain_ms, None, n_bytes,
+        n_ops, PEAK_F32_OPS_S, reps=5, shape="x".join(map(str, r.shape)))
+
+
+def lm_phase(probes, device="cuda"):
+    """The LM serving slice: each model at full width, the kernel rows on
+    its own inputs, the float32 consistency check and the JAX record.
+    Returns the kernel rows and the profile targets (one serve call per
+    model)."""
+    import torch
+
+    from repro_torch.configs.shapes import KERNEL_SHAPES
+    from repro_torch.serve.engine import generate
+
+    rows, targets = [], []
+    for arch in LM_KERNEL:
+        model, prompts, launches, serve_ms, args = lm_serve_phase(arch,
+                                                                   device)
+        targets.append((f"{arch} serve call",
+                        lambda m=model, p=prompts: generate(m, p, LM_GEN),
+                        serve_ms))
+        if arch == "yi-9b":
+            q, k, v = args
+            rows.append(flash_row(probes, q, k, v, launches, FLASH_TOL,
+                                  FLASH_TOL,
+                                  label="x".join(map(str, q.shape))))
+        else:
+            rows.append(wkv_row(probes, args, launches))
+        del args
+        torch.cuda.empty_cache()
+    for arch in LM_KERNEL:
+        lm_parity_phase(arch, device)
+    lm_record_phase(device)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(3)
+    case = {c["case"]: c for c in KERNEL_SHAPES["flash_attention"]}
+    b, s, d = (case["prefill_32k"][k] for k in ("bh", "s", "d"))
+    q, k, v = (torch.randn((b, s, 1, d), device=device, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    for window in (None, 4096):     # not on the path: no launches there
+        rows.append(flash_row(
+            probes, q, k, v, 0, FLASH_32K_ATOL, FLASH_32K_RTOL,
+            window=window, f32=True,
+            label=f"{b}x{s}x1x{d}" + (f" window {window}" if window else "")))
+    return rows, targets
+
+
 def profile_phase(label, fn, wall_ms):
     """Device time by kernel over one call (torch.profiler), against the
     call's unprofiled wall time."""
@@ -1217,6 +1695,9 @@ def main() -> int:
     del fused
     rows += vr_kernel_rows(probes, vr_ex, views, vr_counts)
     targets.append(("VR rig frame", lambda: vr_ex(*views), vr_ms))
+    lm_rows, lm_targets = lm_phase(probes)
+    rows += lm_rows
+    targets += lm_targets
     profiles_phase(ex, frames, targets + [offload_target], probes)
 
     print(json.dumps({"kernels": rows}))

@@ -21,6 +21,14 @@ rig executor's rough disparities, depth, panorama samples and split
 executor wire bytes on the §IV rig at the working size (8 pairs of
 270x480) and at full width (8 pairs of 2160x3840), with the parameters it
 ran (written by ``benchmarks/torch_export_vr_reference.py``).
+
+The LM stack has no trained weights: :func:`numpy_lm_params` draws a
+parameter tree in the JAX ``Model.init`` layout from numpy's generator, so
+the same weights can go to the JAX model and, through
+:func:`lm_params_from`, to the port's.  :func:`load_lm_reference` reads
+``assets/lm_reference.npz``: the JAX model's logits and greedy tokens on
+two reduced float32 configs with those weights (written by
+``benchmarks/torch_export_lm_reference.py``).
 """
 
 from __future__ import annotations
@@ -34,11 +42,15 @@ import torch
 
 from repro_torch.camera.face_nn import FaceNN
 from repro_torch.camera.viola_jones import Cascade, HaarFeature
+from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, to_numpy
+from repro_torch.models.layers import numpy_leaf, tree_map
+from repro_torch.models.transformer import Model, model_specs
 
 ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
 OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
 VR_ASSET = ASSET.parent / "vr_reference.npz"
+LM_ASSET = ASSET.parent / "lm_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -216,3 +228,63 @@ def load_vr_reference(path=None) -> VRReference:
         full_depth0=z["full_depth0"], full_lpano=z["full_lpano"],
         full_pano_shape=tuple(int(v) for v in z["full_pano_shape"]),
         full_wire_b=grid(z["full_wire_b"]), capture_sha256=sha)
+
+
+def numpy_lm_params(cfg, seed: int) -> dict:
+    """A parameter tree for ``cfg`` laid out as the JAX ``Model(cfg).init``
+    tree (``stack/sub{j}`` leaves with a leading period axis), float32,
+    each leaf drawn from its spec's distribution with numpy's generator
+    seeded with ``seed``, leaves in the reference's flatten order."""
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda s: numpy_leaf(s, rng), model_specs(cfg))
+
+
+def lm_params_from(params_np: dict, cfg, device=None) -> Model:
+    """The port's ``Model`` for ``cfg`` on ``device`` (the card when None)
+    holding a parameter tree in the JAX layout (numpy arrays, or anything
+    numpy reads as float32): ``stack/sub{j}[i]`` goes to layer
+    ``i * period + j``, each leaf cast to its spec's dtype."""
+    return Model(cfg, device).load_tree(params_np)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMRecord:
+    """The JAX model on one reduced float32 config with
+    ``numpy_lm_params(cfg, seed)`` weights.  Prompts run through
+    ``prefill``; ``teacher`` tokens are then fed one ``decode_step`` at a
+    time; ``greedy`` is ``generate``'s output from the prompts, with the
+    gap between the top two logits and the largest |logit| of each step.
+    ``sensitivity`` is how far the JAX logits move, relative to a step's
+    largest |logit|, when every weight moves by one ulp."""
+
+    cfg: object
+    seed: int
+    sensitivity: float
+    prompts: np.ndarray           # (b, s) int32
+    teacher: np.ndarray           # (b, n) int32
+    prefill_logits: np.ndarray    # (b, vocab) f32
+    decode_logits: np.ndarray     # (b, n, vocab) f32
+    greedy: np.ndarray            # (b, n) int32
+    greedy_gap: np.ndarray        # (b, n) f32
+    greedy_max: np.ndarray        # (b, n) f32
+
+
+def load_lm_reference(path=None) -> dict:
+    """name -> :class:`LMRecord` (names: "yi", "rwkv")."""
+    import json
+
+    with np.load(LM_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    out = {}
+    for name in (str(n) for n in z["names"]):
+        desc = json.loads(str(z[f"{name}_config"]))
+        cfg = dataclasses.replace(
+            get_config(desc["arch"], smoke=desc["smoke"]),
+            param_dtype=torch.float32, **desc["overrides"])
+        out[name] = LMRecord(
+            cfg=cfg, seed=int(z["seed"]),
+            sensitivity=float(z[f"{name}_sensitivity"]), **{
+            f: z[f"{name}_{f}"] for f in (
+                "prompts", "teacher", "prefill_logits", "decode_logits",
+                "greedy", "greedy_gap", "greedy_max")})
+    return out

@@ -1,0 +1,38 @@
+"""Causal (optionally sliding-window) attention in the model's layout.
+
+A CUDA tensor goes to the hand-written kernel, which reads kv head
+``h // (H // KV)`` for query head ``h`` and masks the ragged edge itself; a
+CPU tensor goes to the plain streaming form with the kv heads repeated, as
+the JAX model computes it.  There is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention.cuda import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import mha_streaming
+
+
+def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(b, t, KV, d) -> (b, t, H, d), each kv head repeated H // KV times."""
+    g = n_heads // k.shape[2]
+    return k if g == 1 else torch.repeat_interleave(k, g, dim=2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window=None, scale=None) -> torch.Tensor:
+    """q: (b, s, H, d); k/v: (b, t, KV, d) with KV | H -> (b, s, H, d);
+    query i and key j sit at positions i and j."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), window=window,
+                                    scale=scale)
+    H = q.shape[2]
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), q_pos, k_pos,
+                         scale, window=window)

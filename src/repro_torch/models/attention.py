@@ -1,0 +1,145 @@
+"""Attention (GQA / MQA / MHA, sliding window) with KV caches: the non-MLA
+part of the JAX package's ``models/attention.py``.
+
+Prefill attention goes through ``kernels.flash_attention.ops``: the
+hand-written kernel on a CUDA tensor, the plain streaming form (the
+reference's ``_mha_streaming``, ``ref.mha_streaming`` there) on a CPU
+tensor.  Decode is the dense form over the
+cache, all softmax math in float32.  MLA, cross-attention and the
+bidirectional encoder are not ported yet (ROADMAP.md queue 1: the rest of
+the LM stack).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import STREAM_NEG_INF as NEG_INF
+from repro_torch.models.layers import apply_rope, dense, rms_norm, spec
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1: the rest of the LM "
+        "stack)")
+
+
+def attn_specs(cfg) -> dict:
+    if cfg.attn_type == "mla":
+        raise _not_ported("MLA attention")
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    dt = cfg.param_dtype
+    out = {
+        "wq": spec((d, H, hd), dtype=dt),
+        "wk": spec((d, KV, hd), dtype=dt),
+        "wv": spec((d, KV, hd), dtype=dt),
+        "wo": spec((H, hd, d), dtype=dt),
+    }
+    if cfg.attn_bias:
+        out["bq"] = spec((H, hd), "zeros", dtype=dt)
+        out["bk"] = spec((KV, hd), "zeros", dtype=dt)
+        out["bv"] = spec((KV, hd), "zeros", dtype=dt)
+    if cfg.qk_norm:
+        out["q_norm"] = spec((hd,), "ones", dtype=dt)
+        out["k_norm"] = spec((hd,), "ones", dtype=dt)
+    return out
+
+
+def _project_qkv(params, cfg, x):
+    q = dense(params["wq"], x, "bsd,dhe->bshe")
+    k = dense(params["wk"], x, "bsd,dke->bske")
+    v = dense(params["wv"], x, "bsd,dke->bske")
+    if cfg.attn_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(params["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(params["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def attention_train(params, cfg, x, positions, return_kv=False):
+    """Full-sequence causal attention.  x: (b, s, d)."""
+    q, k, v = _project_qkv(params, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.window if cfg.attn_type == "swa" else None
+    out = flash_ops.flash_attention(q, k, v, window=window,
+                                    scale=1.0 / math.sqrt(cfg.d_head))
+    y = dense(params["wo"], out, "bshe,hed->bsd")
+    if return_kv:
+        return y, _ring_cache_entry(cfg, k, v)
+    return y
+
+
+def _ring_cache_entry(cfg, k, v):
+    """Prefill K/V in the decode cache's layout.  Full attention: as is.
+    SWA: the last ``window`` positions at ring slots ``pos % window``."""
+    if cfg.attn_type != "swa":
+        return {"k": k, "v": v}
+    S, W = k.shape[1], cfg.window
+    if S <= W:
+        def pad(a):
+            return torch.cat([a, a.new_zeros((a.shape[0], W - S)
+                                             + a.shape[2:])], dim=1)
+        return {"k": pad(k), "v": pad(v)}
+    # slot i <- largest position p < S with p % W == i
+    slots = torch.arange(W, device=k.device)
+    pos = (S - 1) - ((S - 1 - slots) % W)
+    return {"k": k[:, pos], "v": v[:, pos]}
+
+
+def init_cache(cfg, batch: int, max_seq: int, device):
+    """A zero decode cache.  SWA caches only the window (ring buffer)."""
+    if cfg.attn_type == "mla":
+        raise _not_ported("MLA attention")
+    seq = min(max_seq, cfg.window) if cfg.attn_type == "swa" else max_seq
+    shape = (batch, seq, cfg.n_kv, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device)}
+
+
+def attention_decode(params, cfg, x, cache, position: int):
+    """One-token decode against a populated cache.
+
+    x: (b, 1, d); position: index of the new token.  Returns (out, cache):
+    the new K/V are written into ``cache`` in place (SWA: at ring slot
+    ``position % window``), where the reference returns an updated copy.
+    Query head h reads kv head h // (H / KV); all softmax math in float32.
+    """
+    b = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.d_head
+    q, k_new, v_new = _project_qkv(params, cfg, x)
+    pos_arr = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
+
+    swa = cfg.attn_type == "swa"
+    slot = position % cfg.window if swa else position
+    k, v = cache["k"], cache["v"]
+    k[:, slot] = k_new[:, 0]
+    v[:, slot] = v_new[:, 0]
+
+    S = k.shape[1]
+    idx = torch.arange(S, device=x.device)
+    if swa:
+        # slot i holds the absolute position p with p % window == i and
+        # p in (position - window, position]
+        W = cfg.window
+        base = position - (position % W)
+        k_pos = torch.where(idx <= (position % W), base + idx, base - W + idx)
+        valid = (k_pos >= 0) & (k_pos > position - W) & (k_pos <= position)
+    else:
+        valid = idx <= position
+
+    qg = q.float().reshape(b, 1, KV, H // KV, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(hd)
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    out = out.reshape(b, 1, H, hd).to(x.dtype)
+    return dense(params["wo"], out, "bshe,hed->bsd"), cache

@@ -1,0 +1,350 @@
+"""Model assembly for the dense and RWKV families (the JAX package's
+``models/transformer.py`` on one card).
+
+The reference stacks parameters and caches per period of layer kinds and
+scans over them; here each layer is an ``nn.Module`` in a Python loop and
+the cache is a list with one dict per layer.  ``Model.specs()`` still
+returns the reference's stacked tree (``stack/sub{j}`` with a leading
+period axis), which is what :meth:`Model.init` draws from, what
+:meth:`Model.load_tree` reads and what ``bridge.numpy_lm_params`` builds.
+
+MoE, MLA, Mamba and encoder-decoder configurations raise
+``NotImplementedError`` at construction; of the ten configs, yi-9b,
+codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b and rwkv6-7b
+run.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm
+from repro_torch.models.layers import (
+    dense,
+    embed,
+    embed_spec,
+    fill_,
+    gelu_mlp,
+    layer_norm,
+    param_count,
+    param_dict,
+    pin_matmul_precision,
+    rms_norm,
+    spec,
+    stack_specs,
+    swiglu,
+    tree_leaves,
+    unembed,
+)
+
+
+def layer_kind(cfg, i: int) -> tuple:
+    """(mixer, mlp) kind of decoder layer ``i``."""
+    if cfg.mixer == "rwkv":
+        return ("rwkv", "rwkv_cm")
+    if cfg.mixer == "mamba":
+        is_attn = bool(cfg.attn_every) and (i % cfg.attn_every == cfg.attn_offset)
+        mixer = "attn" if is_attn else "mamba"
+    else:
+        mixer = "attn"
+    mlp = cfg.mlp_type
+    if cfg.moe is not None and i >= cfg.first_dense and i % cfg.moe_every == cfg.moe_offset:
+        mlp = "moe"
+    return (mixer, mlp)
+
+
+def layer_kinds(cfg) -> list:
+    return [layer_kind(cfg, i) for i in range(cfg.n_layers)]
+
+
+def find_period(kinds: list) -> int:
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and kinds == kinds[:p] * (n // p):
+            return p
+    return n
+
+
+def unsupported(cfg):
+    """What of ``cfg`` the port cannot run yet, or None."""
+    if cfg.moe is not None:
+        return "MoE"
+    if cfg.attn_type == "mla":
+        return "MLA attention"
+    if cfg.mixer == "mamba":
+        return "Mamba"
+    if cfg.is_encdec:
+        return "the encoder-decoder"
+    if cfg.first_dense:
+        return "a dense prefix"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Single-layer specs / forward
+# ---------------------------------------------------------------------------
+
+
+def _norm_specs(cfg):
+    d, dt = cfg.d_model, cfg.param_dtype
+    if cfg.norm_type == "ln":
+        return {"scale": spec((d,), "ones", dtype=dt),
+                "bias": spec((d,), "zeros", dtype=dt)}
+    return {"scale": spec((d,), "ones", dtype=dt)}
+
+
+def _apply_norm(p, cfg, x):
+    if cfg.norm_type == "ln":
+        return layer_norm(p["scale"], p["bias"], x, cfg.norm_eps)
+    return rms_norm(p["scale"], x, cfg.norm_eps)
+
+
+def _mlp_specs(cfg, kind: str):
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    if kind == "swiglu":
+        return {"w_gate": spec((d, f), dtype=dt),
+                "w_up": spec((d, f), dtype=dt),
+                "w_down": spec((f, d), dtype=dt)}
+    if kind == "gelu":
+        return {"w_fc": spec((d, f), dtype=dt),
+                "b_fc": spec((f,), "zeros", dtype=dt),
+                "w_proj": spec((f, d), dtype=dt),
+                "b_proj": spec((d,), "zeros", dtype=dt)}
+    if kind == "rwkv_cm":
+        return ssm.rwkv_channel_mix_specs(cfg)
+    raise ValueError(kind)
+
+
+def _mixer_specs(cfg, kind: str):
+    if kind == "attn":
+        return attn.attn_specs(cfg)
+    if kind == "rwkv":
+        return ssm.rwkv_time_mix_specs(cfg)
+    raise ValueError(kind)
+
+
+def decoder_layer_specs(cfg, kind: tuple) -> dict:
+    mixer, mlp = kind
+    return {"norm1": _norm_specs(cfg), "mixer": _mixer_specs(cfg, mixer),
+            "norm2": _norm_specs(cfg), "mlp": _mlp_specs(cfg, mlp)}
+
+
+def _apply_mlp(p, cfg, kind: str, x, cm_state=None):
+    """Returns (out, new channel-mix state or None)."""
+    if kind == "swiglu":
+        return swiglu(p["w_gate"], p["w_up"], p["w_down"], x), None
+    if kind == "gelu":
+        return gelu_mlp(p["w_fc"], p["b_fc"], p["w_proj"], p["b_proj"], x), None
+    if kind == "rwkv_cm":
+        return ssm.rwkv_channel_mix(p, cfg, x, cm_state)
+    raise ValueError(kind)
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm decoder layer: norm1 -> mixer -> norm2 -> MLP, each
+    residual.  Its parameters sit in one ``ParameterDict`` per part, under
+    the reference's names."""
+
+    def __init__(self, cfg, kind: tuple, device):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        specs = decoder_layer_specs(cfg, kind)
+        for part in ("norm1", "mixer", "norm2", "mlp"):
+            setattr(self, part, param_dict(specs[part], device))
+
+    def forward(self, x, positions):
+        """Full sequence -> (x, this layer's decode-cache entry)."""
+        cfg = self.cfg
+        mixer, mlp = self.kind
+        h = _apply_norm(self.norm1, cfg, x)
+        if mixer == "attn":
+            mo, entry = attn.attention_train(self.mixer, cfg, h, positions,
+                                             return_kv=True)
+        else:
+            mo, entry = ssm.rwkv_time_mix(self.mixer, cfg, h)
+        x = x + mo
+        h = _apply_norm(self.norm2, cfg, x)
+        mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h)
+        if new_cm is not None:
+            entry = dict(entry, x_prev_cm=new_cm)
+        return x + mo, entry
+
+    def decode(self, x, cache, position: int):
+        """One token against this layer's cache -> (x, new cache)."""
+        cfg = self.cfg
+        mixer, mlp = self.kind
+        h = _apply_norm(self.norm1, cfg, x)
+        if mixer == "attn":
+            mo, new_cache = attn.attention_decode(self.mixer, cfg, h, cache,
+                                                  position)
+        else:
+            mo, new_cache = ssm.rwkv_time_mix(self.mixer, cfg, h, cache)
+        x = x + mo
+        h = _apply_norm(self.norm2, cfg, x)
+        cm_state = cache["x_prev_cm"] if mixer == "rwkv" else None
+        mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h, cm_state)
+        if new_cm is not None:
+            new_cache = dict(new_cache, x_prev_cm=new_cm)
+        return x + mo, new_cache
+
+
+def model_specs(cfg) -> dict:
+    """The reference's parameter spec tree for ``cfg`` (stacked layers)."""
+    kinds = layer_kinds(cfg)
+    period = find_period(kinds)
+    out = {"embed": embed_spec(cfg.vocab, cfg.d_model, cfg.param_dtype),
+           "stack": stack_specs({f"sub{j}": decoder_layer_specs(cfg, k)
+                                 for j, k in enumerate(kinds[:period])},
+                                len(kinds) // period),
+           "final_norm": _norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = {"w": spec((cfg.d_model, cfg.vocab), "scaled",
+                                    0.02 / math.sqrt(cfg.d_model),
+                                    dtype=cfg.param_dtype)}
+    return out
+
+
+class Model(nn.Module):
+    """A configured architecture on one device: specs, init, the full
+    forward, prefill and decode.  Parameters are allocated on ``device``
+    (the card when None) and filled by :meth:`init` or :meth:`load_tree`.
+    Building a model pins the matrix-product precision
+    (``layers.pin_matmul_precision``)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        what = unsupported(cfg)
+        if what is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported yet (ROADMAP.md queue 1: "
+                "the rest of the LM stack)")
+        pin_matmul_precision()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.kinds = layer_kinds(cfg)
+        self.period = find_period(self.kinds)
+        specs = self.specs()
+        self.embed = param_dict(specs["embed"], self.device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, k, self.device)
+                                    for k in self.kinds)
+        self.final_norm = param_dict(specs["final_norm"], self.device)
+        self.unembed = (param_dict(specs["unembed"], self.device)
+                        if "unembed" in specs else None)
+
+    # -- parameters ------------------------------------------------------
+    def specs(self) -> dict:
+        return model_specs(self.cfg)
+
+    def n_params(self) -> int:
+        return param_count(self.specs())
+
+    def _leaves(self):
+        """(path, spec, tensors) for every leaf of the reference's tree;
+        ``tensors`` are the port's parameters that hold its slices along
+        the stacked axis (one for an unstacked leaf)."""
+        for path, s in tree_leaves(self.specs()):
+            if path[0] == "stack":
+                j = int(path[1][3:])
+                part, name = path[2], path[3]
+                yield path, s, [getattr(self.layers[i], part)[name]
+                                for i in range(j, len(self.layers),
+                                               self.period)]
+            else:
+                yield path, s, [getattr(self, path[0])[path[1]]]
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """Draw every parameter from its spec's distribution, leaf by leaf
+        in the reference's flatten order.  As in the reference
+        (``_init_leaf`` on the stacked tree), a stacked leaf's fan-in is
+        its leading axis: the number of periods."""
+        for _path, s, tensors in self._leaves():
+            for t in tensors:
+                fill_(t, s, generator)
+        return self
+
+    @torch.no_grad()
+    def load_tree(self, tree: dict):
+        """Copy a parameter tree in the reference's layout (numpy or
+        anything numpy reads) into the model, cast to each spec's dtype."""
+        for path, s, tensors in self._leaves():
+            a = tree
+            for k in path:
+                a = a[k]
+            a = np.asarray(a, dtype=np.float32)
+            if a.shape != s.shape:
+                raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
+                                 f"expected {s.shape}")
+            if path[0] != "stack":
+                a = a[None]
+            for i, t in enumerate(tensors):
+                t.copy_(torch.tensor(a[i]))
+        return self
+
+    # -- forward -----------------------------------------------------------
+    def _head(self, x):
+        x = _apply_norm(self.final_norm, self.cfg, x)
+        if self.cfg.tie_embeddings:
+            return unembed(self.embed, x)
+        return dense(self.unembed["w"], x, "bsd,dv->bsv")
+
+    def _positions(self, tokens):
+        b, s = tokens.shape
+        return torch.arange(s, dtype=torch.int32,
+                            device=tokens.device).expand(b, s)
+
+    @torch.no_grad()
+    def logits(self, tokens):
+        """tokens: (b, s) -> logits (b, s, vocab), the full forward."""
+        x = embed(self.embed, tokens)
+        positions = self._positions(tokens)
+        for layer in self.layers:
+            x, _entry = layer(x, positions)
+        return self._head(x)
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Process a full prompt -> (last-token logits (b, vocab), decode
+        cache: one dict per layer).  The cache holds the prompt's length
+        (SWA: the window); ``pad_cache`` extends it for generation."""
+        x = embed(self.embed, tokens)
+        positions = self._positions(tokens)
+        cache = []
+        for layer in self.layers:
+            x, entry = layer(x, positions)
+            cache.append(entry)
+        return self._head(x[:, -1:])[:, 0], cache
+
+    def pad_cache(self, cache, extra: int):
+        """Grow full-attention caches by ``extra`` zero positions."""
+        if self.cfg.attn_type == "swa" or self.cfg.mixer == "rwkv":
+            return cache    # ring buffer / recurrent state: fixed size
+
+        def grow(a):
+            return torch.cat([a, a.new_zeros((a.shape[0], extra)
+                                             + a.shape[2:])], dim=1)
+
+        return [{"k": grow(c["k"]), "v": grow(c["v"])} for c in cache]
+
+    def init_cache(self, batch: int, max_seq: int):
+        return [attn.init_cache(self.cfg, batch, max_seq, self.device)
+                if kind[0] == "attn" else
+                ssm.rwkv_state_init(self.cfg, batch, self.device)
+                for kind in self.kinds]
+
+    @torch.no_grad()
+    def decode_step(self, token, cache, position: int):
+        """token: (b, 1) -> (logits (b, 1, vocab), cache).  Attention
+        caches are updated in place."""
+        x = embed(self.embed, token)
+        new_cache = []
+        for layer, c in zip(self.layers, cache):
+            x, nc = layer.decode(x, c, position)
+            new_cache.append(nc)
+        return self._head(x), new_cache

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cost_volume64, near_integer_canvas
+from chip_smoke import cost_volume64, lm_record_check, near_integer_canvas
 from test_torch_pipeline import matched_scores
 
 from repro_torch.bridge import (
@@ -236,3 +236,41 @@ def test_port_matches_vr_asset_at_working_size(vr):
     near = near_integer_canvas(h, w, len(pairs))[::s, ::s]
     diff = np.abs(lp.numpy()[::s, ::s] - vr.work_lpano)
     assert (diff[~near] <= 1e-6).all()
+
+
+@pytest.fixture(scope="module")
+def lm():
+    from repro_torch.bridge import load_lm_reference
+
+    return load_lm_reference()
+
+
+def test_lm_asset_is_small_and_holds_the_records(lm):
+    from repro_torch.bridge import LM_ASSET
+
+    assert os.path.getsize(LM_ASSET) < 1 << 20
+    assert sorted(lm) == ["rwkv", "yi"]
+    yi, rwkv = lm["yi"].cfg, lm["rwkv"].cfg
+    assert (yi.name, yi.n_layers, yi.d_model, yi.n_heads, yi.n_kv,
+            yi.d_head, yi.d_ff, yi.vocab) == ("yi-9b", 2, 256, 8, 1, 128,
+                                              512, 512)
+    assert (rwkv.mixer, rwkv.n_layers, rwkv.d_model) == ("rwkv", 3, 128)
+    for rec in lm.values():
+        assert rec.cfg.param_dtype == torch.float32
+        assert rec.prompts.shape == (4, 650) and rec.teacher.shape == (4, 16)
+        assert rec.decode_logits.shape == (4, 16, rec.cfg.vocab)
+        assert rec.greedy.shape == (4, 16) and 0 < rec.sensitivity < 1e-3
+
+
+@pytest.mark.parametrize("name", ["yi", "rwkv"])
+def test_port_matches_lm_asset(lm, name):
+    """What chip_smoke.py holds the card to, on the CPU: prefill and 16
+    teacher-forced decode logits within max(1e-4, E) of JAX's, greedy
+    tokens equal up to the first near tie."""
+    from repro_torch.bridge import lm_params_from, numpy_lm_params
+
+    rec = lm[name]
+    model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
+                           device="cpu")
+    worst, tol, compared = lm_record_check(model, rec)
+    assert worst < tol and compared >= 32

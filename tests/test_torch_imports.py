@@ -1,8 +1,12 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and the LM
+stack imports and serves on the CPU in a process where neither can be
+imported."""
 
 import ast
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -32,3 +36,33 @@ def test_no_jax_and_no_reference_package(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), (
             f"{path.relative_to(REPO)} imports {name}")
+
+
+LM_MODULES = ["configs.lm_archs", "configs.registry", "configs.shapes",
+              "models.layers", "models.attention", "models.ssm",
+              "models.transformer", "serve.engine", "launch.serve",
+              "kernels.flash_attention.ops", "kernels.rwkv_scan.ops",
+              "bridge"]
+
+
+def test_lm_stack_runs_without_jax():
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {LM_MODULES!r}:\n"
+        "    importlib.import_module('repro_torch.' + m)\n"
+        "from repro_torch.launch.serve import main\n"
+        "main(['--device', 'cpu', '--arch', 'rwkv6-7b', '--requests', '2',"
+        " '--prompt-len', '5', '--gen', '2'])\n"
+        "assert not any(k.split('.')[0] in ('jax', 'repro') for k in "
+        "sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[serve]" in out.stdout
