@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (at
-first use, into ``build/repro_torch``), then:
+first use, into ``build/repro_torch``) and checks with ``cuobjdump -sass``
+that the bf16 flash kernel is a ``wgmma`` kernel (HGMMA in its SASS, none
+in the float32 one), then:
 
 1. main-path phase — builds ``FaceAuthExecutor`` at full width (62 frames
    of 144x176, the paper's scan, the 10x33-trained cascade and the
@@ -33,10 +35,10 @@ first use, into ``build/repro_torch``), then:
    the sweep's run of that cut and to the JAX record, and times it;
 4. kernel phase — at the shapes the funnel gives them, runs each kernel
    and its plain PyTorch version on the card on the same inputs and holds
-   them together (``quant_matmul``, ``haar_stage``, ``wire_encode`` and
-   ``wire_decode`` bit-exact, ``integral_image`` within an rtol of 1e-6 of
-   the table's largest entry; both run the same sequential float32 sums,
-   so 0 is expected), and times the kernel, the plain version and a
+   them together (``quant_matmul``, ``haar_stage``, ``wire_encode``,
+   ``wire_decode`` and ``integral_image`` bit-exact; ``integral_image``
+   also on a 4K eye frame and two shapes ragged against its strips and
+   tiles), and times the kernel, the plain version and a
    PyTorch library call where one computes the same function (CUDA events
    around back-to-back calls);
 5. VR phase — the §IV rig at full width (8 pairs ``stereo_pair(2160,
@@ -77,8 +79,10 @@ first use, into ``build/repro_torch``), then:
    (``assets/lm_reference.npz``) on the card; and ``flash_attention`` on
    random inputs at ``KERNEL_SHAPES``' prefill_32k (8 x 32768 x 128,
    causal, and with a window of 4096; bf16 within 4e-3 + 2^-7 |x|, and
-   float32 within atol = rtol = 2e-5), each timed beside SDPA's flash
-   backend where it has the same mask;
+   float32 within atol = rtol = 2e-5) and at yi's heads with S = 4000
+   (ragged against the kernel's 128-row tiles; bf16), each timed beside
+   SDPA where it has the same mask.  bf16 runs the ``wgmma`` kernel and
+   float32 the CUDA-core one; each flash row names the kernel that ran;
 7. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, the executed offload cut and one serve call
@@ -129,7 +133,6 @@ PEAK_F32_OPS_S = 67e12          # float32 outside the tensor cores
 PEAK_BF16_OPS_S = 989e12        # bf16 tensor cores, dense
 PEAK_INT8_OPS_S = 1979e12       # int8 tensor cores
 
-INTEGRAL_RTOL = 1e-6            # of max |table|: same sums in the same order
 MAX_WINDOW_FLIPS = 2            # tests/test_detect.py:130 borderline allowance
 STREAMS = 64
 CUTS = ("sensor", "motion", "vj", "nn")
@@ -143,6 +146,38 @@ def gpu_name_and_power() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def wgmma_check():
+    """The bf16 flash kernel is a ``wgmma`` kernel: the SASS of the built
+    library (``cuobjdump -sass``) holds HGMMA, the ``wgmma`` instruction,
+    in both its head sizes; the float32 kernel holds none."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    flash = {k: v for k, v in counts.items() if "flash_attention_kernel" in k}
+    for name, n in sorted(flash.items()):
+        print(f"SASS {name}: {n} HGMMA", flush=True)
+    bf16 = [n for name, n in flash.items() if "tensor_core" in name]
+    f32 = [n for name, n in flash.items() if "cuda_core" in name]
+    if len(bf16) != 2 or not all(bf16) or len(f32) != 2 or any(f32):
+        raise AssertionError("expected HGMMA in both bf16 flash kernels and "
+                             "in neither float32 one")
+    print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma); the "
+          "float32 kernel's none", flush=True)
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -256,27 +291,29 @@ def kernel_phase(ex, frames, launches):
     # -- integral_image: frames and frames^2 of the motion batch, one launch
     x = torch.cat([mf, mf * mf]).contiguous()
     got = icuda.integral_image_cuda(x)
-    want = integral_image_ref(x)
-    err = max_abs_err(got, want)
-    if err > INTEGRAL_RTOL * float(want.abs().max()):
-        raise AssertionError(f"integral_image: max |err| {err}")
+    if not torch.equal(got, integral_image_ref(x)):
+        raise AssertionError("integral_image at the funnel's shape differs "
+                             "from plain")
     rows.append(kernel_row(
-        probes, "integral_image", icuda, launches["integral_image"], err,
+        probes, "integral_image", icuda, launches["integral_image"], 0.0,
         lambda: icuda.integral_image_cuda(x),
         device_ms(lambda: integral_image_ref(x), reps=3, warm=1),
         device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1)),
         4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
         shape="x".join(map(str, x.shape))))
-    # the VR slice's 4K eye frame must run right too (speed is later work)
-    big = torch.rand((1, 2160, 3840), device=x.device,
-                     generator=torch.Generator(device=x.device).manual_seed(0))
-    got_big, want_big = icuda.integral_image_cuda(big), integral_image_ref(big)
-    err_big = max_abs_err(got_big, want_big)
-    if err_big > INTEGRAL_RTOL * float(want_big.abs().max()):
-        raise AssertionError(f"integral_image 2160x3840: max |err| {err_big}")
-    print(f"integral_image 1x2160x3840: kernel_ms="
-          f"{device_ms(lambda: icuda.integral_image_cuda(big), reps=5):.3f} "
-          f"max_abs_err={err_big:g}", flush=True)
+    # the VR slice's 4K eye frame, and shapes ragged against the kernel's
+    # strips (64 rows) and tiles (128 columns), with values up to 1e6
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    for shape, top in (((1, 2160, 3840), 1.0), ((3, 1000, 1001), 1e6),
+                       ((2, 65, 4097), 1e6)):
+        img = top * torch.rand(shape, device=x.device, generator=gen)
+        if not torch.equal(icuda.integral_image_cuda(img),
+                           integral_image_ref(img)):
+            raise AssertionError(f"integral_image {shape} differs from "
+                                 "plain")
+    print(f"integral_image {tuple(x.shape)}, 1x2160x3840, 3x1000x1001, "
+          "2x65x4097: kernel == plain bit for bit", flush=True)
+    del img
 
     # -- haar_stage: stage 0 over every window of every motion frame
     det = ex.det
@@ -1130,11 +1167,13 @@ PARITY_B, PARITY_S, PARITY_EXTRA, PARITY_LAYERS = 2, 1000, 4, 4
 # below the float32 noise of these models at full width, see E below)
 PARITY_REL = 7e-4
 FLASH_TOL = 2e-2      # tests/test_kernels.py:43, bf16 atol = rtol
-# Random 8 x 32768 flash rows: bf16 outputs within about 4x the largest
-# reading (9.8e-4) plus one bf16 spacing (2^-7 of |x|: both sides round
-# one float32 value), and the same inputs in float32 within
+# Random-input flash rows (8 x 32768 x 1 head, and yi's heads at a ragged
+# S): bf16 outputs within 4e-3 (about 4x the 32k reading of a kernel
+# that keeps P in float32, 9.8e-4) plus one bf16 spacing (2^-7 of |x|:
+# both sides round one float32 value), and the same inputs in float32 within
 # tests/test_kernels.py:43's float32 atol = rtol
 FLASH_32K_ATOL, FLASH_32K_RTOL = 4e-3, 2.0 ** -7
+FLASH_RAGGED_S = 4000
 FLASH_F32_TOL = 2e-5
 WKV_REL = 2e-4        # tests/test_kernels.py:372, of max |plain|
 WKV_BONUS_STD = 0.3   # a nonzero u, as tests/test_kernels.py:368 draws it
@@ -1365,12 +1404,18 @@ def _causal_pairs(s: int, window=None) -> int:
     return sum(min(i + 1, window) for i in range(s))
 
 
+# which kernel of csrc/flash_attention.cu runs for each dtype
+FLASH_KERNEL = {"bfloat16": "tensor_core (wgmma + TMA)",
+                "float32": "cuda_core (float32 CUDA cores)"}
+
+
 def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
               label="", f32=False):
     """``flash_attention`` against its plain streaming form on (q, k, v)
-    in the model's layout (bf16, within atol + rtol |plain|; with ``f32``
-    also the same inputs in float32 within FLASH_F32_TOL), timed beside
-    ``scaled_dot_product_attention`` (no window only)."""
+    in the model's layout (bf16, within atol + rtol |plain|), timed beside
+    ``scaled_dot_product_attention`` (no window only).  With ``f32`` the
+    same inputs in float32 too (within FLASH_F32_TOL), a row of their own.
+    Each row names the kernel that ran."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1385,63 +1430,64 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
     KV = k.shape[2]
     scale = d ** -0.5
     pos = torch.arange(s, device=q.device)
-
-    def plain(q=q, k=k, v=v):
-        return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), pos, pos,
-                             scale, window=window)
-
-    def outside(got, want, atol, rtol):
-        return int(((got.double() - want.double()).abs()
-                    > atol + rtol * want.double().abs()).sum())
-
-    got = fcuda.flash_attention_cuda(q, k, v, window=window, scale=scale)
-    want = plain()
-    err = max_abs_err(got, want)
-    rms = float(want.double().square().mean().sqrt())
-    note = (f"flash_attention {label}: bf16 max |err| {err:g} (max |plain| "
-            f"{float(want.abs().max()):g}, rms {rms:.4g}; bound {atol:g} + "
-            f"{rtol:g} |plain|)")
-    n_bad = outside(got, want, atol, rtol)
-    if f32:
-        q32, k32, v32 = (t.float() for t in (q, k, v))
-        want32 = plain(q32, k32, v32)
-        got32 = fcuda.flash_attention_cuda(q32, k32, v32, window=window,
-                                           scale=scale)
-        note += (f"; float32 max |err| {max_abs_err(got32, want32):g} "
-                 f"(atol = rtol = {FLASH_F32_TOL:g})")
-        n_bad += outside(got32, want32, FLASH_F32_TOL, FLASH_F32_TOL)
-        del q32, k32, v32, want32, got32
-    print(note, flush=True)
-    if n_bad:
-        raise AssertionError(f"flash_attention {label}: {n_bad} values "
-                             "outside the bound")
-    plain_ms = device_ms(plain, reps=2, warm=1)
-    lib_ms = None
-    if window is None:           # SDPA has no sliding window but a dense mask
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def library():
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=KV != H)
-
-        try:
-            lib_err = max_abs_err(library().transpose(1, 2), want)
-            lib_ms = device_ms(library)
-            print(f"flash_attention {label}: SDPA (flash backend) max |diff| "
-                  f"{lib_err:g}", flush=True)
-        except RuntimeError as e:     # backend rules of SDPA
-            print(f"SDPA not timed: {e}", flush=True)
-    del want
-    esize = q.element_size()
-    n_bytes = esize * (2 * q.numel() + k.numel() + v.numel())
     n_ops = 4 * b * H * d * _causal_pairs(s, window)
-    return kernel_row(
-        probes, "flash_attention", fcuda, launches, err,
-        lambda: fcuda.flash_attention_cuda(q, k, v, window=window,
-                                           scale=scale),
-        plain_ms, lib_ms, n_bytes, n_ops, PEAK_BF16_OPS_S, reps=5,
-        shape=label)
+
+    def one(q, k, v, atol, rtol, backend, peak_ops, launches):
+        dtype = str(q.dtype).split(".")[-1]
+
+        def plain():
+            return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), pos,
+                                 pos, scale, window=window)
+
+        got = fcuda.flash_attention_cuda(q, k, v, window=window, scale=scale)
+        want = plain()
+        err = max_abs_err(got, want)
+        rms = float(want.double().square().mean().sqrt())
+        n_bad = int(((got.double() - want.double()).abs()
+                     > atol + rtol * want.double().abs()).sum())
+        print(f"flash_attention {label} {dtype}, kernel {FLASH_KERNEL[dtype]}"
+              f": max |err| {err:g} (max |plain| {float(want.abs().max()):g},"
+              f" rms {rms:.4g}; bound {atol:g} + {rtol:g} |plain|)",
+              flush=True)
+        if n_bad:
+            raise AssertionError(f"flash_attention {label} {dtype}: {n_bad} "
+                                 "values outside the bound")
+        del got
+        plain_ms = device_ms(plain, reps=2, warm=1)
+        lib_ms = None
+        if window is None:       # SDPA has no sliding window but a dense mask
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def library():
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+
+            try:
+                lib_err = max_abs_err(library().transpose(1, 2), want)
+                lib_ms = device_ms(library)
+                print(f"flash_attention {label} {dtype}: SDPA ({backend.name}"
+                      f" backend) max |diff| {lib_err:g}", flush=True)
+            except RuntimeError as e:     # backend rules of SDPA
+                print(f"SDPA not timed: {e}", flush=True)
+        del want
+        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        row = kernel_row(
+            probes, "flash_attention", fcuda, launches, err,
+            lambda: fcuda.flash_attention_cuda(q, k, v, window=window,
+                                               scale=scale),
+            plain_ms, lib_ms, n_bytes, n_ops, peak_ops, reps=5,
+            shape=label if dtype == "bfloat16" else f"{label} {dtype}")
+        row["kernel"] = FLASH_KERNEL[dtype]
+        return row
+
+    rows = [one(q, k, v, atol, rtol, SDPBackend.FLASH_ATTENTION,
+                PEAK_BF16_OPS_S, launches)]
+    if f32:                      # not on the path: the serve call is bf16
+        rows.append(one(*(t.float() for t in (q, k, v)), FLASH_F32_TOL,
+                        FLASH_F32_TOL, SDPBackend.EFFICIENT_ATTENTION,
+                        PEAK_F32_OPS_S, 0))
+    return rows
 
 
 def wkv_row(probes, args, launches):
@@ -1534,6 +1580,7 @@ def lm_phase(probes, device="cuda"):
     model)."""
     import torch
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import KERNEL_SHAPES
     from repro_torch.serve.engine import generate
 
@@ -1546,9 +1593,8 @@ def lm_phase(probes, device="cuda"):
                         serve_ms))
         if arch == "yi-9b":
             q, k, v = args
-            rows.append(flash_row(probes, q, k, v, launches, FLASH_TOL,
-                                  FLASH_TOL,
-                                  label="x".join(map(str, q.shape))))
+            rows += flash_row(probes, q, k, v, launches, FLASH_TOL,
+                              FLASH_TOL, label="x".join(map(str, q.shape)))
         else:
             rows.append(wkv_row(probes, args, launches))
         del args
@@ -1563,10 +1609,20 @@ def lm_phase(probes, device="cuda"):
     q, k, v = (torch.randn((b, s, 1, d), device=device, generator=gen)
                .to(torch.bfloat16) for _ in range(3))
     for window in (None, 4096):     # not on the path: no launches there
-        rows.append(flash_row(
+        rows += flash_row(
             probes, q, k, v, 0, FLASH_32K_ATOL, FLASH_32K_RTOL,
             window=window, f32=True,
-            label=f"{b}x{s}x1x{d}" + (f" window {window}" if window else "")))
+            label=f"{b}x{s}x1x{d}" + (f" window {window}" if window else ""))
+    del q, k, v
+    # yi's heads at a prompt length ragged against the kernel's 128-row
+    # tiles, random inputs: off the path as well
+    cfg = get_config("yi-9b")
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v = (torch.randn((LM_REQUESTS, FLASH_RAGGED_S, heads, cfg.d_head),
+                           device=device, generator=gen).to(torch.bfloat16)
+               for heads in (cfg.n_heads, cfg.n_kv, cfg.n_kv))
+    rows += flash_row(probes, q, k, v, 0, FLASH_32K_ATOL, FLASH_32K_RTOL,
+                      label="x".join(map(str, q.shape)))
     return rows, targets
 
 
@@ -1671,6 +1727,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    wgmma_check()
 
     ref = load_fa_reference(device="cuda")
     frames_np, _truth = security_video(**ref.video)

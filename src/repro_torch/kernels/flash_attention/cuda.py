@@ -1,4 +1,6 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``)."""
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``):
+one C entry point that launches the ``wgmma`` + TMA kernel for bf16 and
+the float32 CUDA-core kernel for float32."""
 
 from __future__ import annotations
 

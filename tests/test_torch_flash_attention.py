@@ -136,3 +136,181 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     _, (tq, tk, tv) = qkv([(1, 8, 2, 64)] * 3, 5)
     with pytest.raises(ValueError, match="CUDA"):
         fcuda.flash_attention_cuda(tq, tk, tv)
+
+
+# -- the bf16 CUDA kernel's numerics, emulated with torch ops --------------
+#
+# The bf16 kernel (csrc/flash_attention.cu, tensor_core) multiplies bf16 q
+# and k on the tensor cores with float32 sums, scales S in float32 after
+# the product, keeps the running max and row sum in float32 over key tiles
+# of 128, rounds P to two bf16 terms (hi = bf16(p), lo = bf16(p - hi))
+# before P V (float32 accumulate) and rounds the output once to bf16.
+# ``tensor_core_emulation`` does the same with torch ops; it is held to the
+# plain streaming form within the bounds that chip_smoke.py holds the
+# kernel to on the card: 2e-2 + 2e-2 |x| on the model's own inputs,
+# 4e-3 + 2^-7 |x| on random unit-scale inputs.
+
+BK = 128
+MODEL_BOUND = (2e-2, 2e-2)
+RANDOM_BOUND = (4e-3, 2.0 ** -7)
+
+
+def tensor_core_emulation(q, k, v, scale, window=None, fold_scale=False,
+                          one_bf16_p=False):
+    """q: (b, s, H, d), k/v: (b, t, KV, d) bf16 -> (b, s, H, d) bf16.
+    ``fold_scale`` rounds q * scale to bf16 before the product instead;
+    ``one_bf16_p`` keeps only P's first bf16 term (FlashAttention's P)."""
+    b, s, H, d = q.shape
+    t = k.shape[1]
+    kf, vf = expand_kv(k, H).float(), expand_kv(v, H).float()
+    qf = (q.float() * scale).bfloat16().float() if fold_scale else q.float()
+    q_pos = torch.arange(s)[:, None]
+    m = torch.full((b, H, s), -1e30)
+    l = torch.zeros((b, H, s))
+    acc = torch.zeros((b, H, s, d))
+    for k0 in range(0, t, BK):
+        logits = torch.einsum("bshd,bchd->bhsc", qf, kf[:, k0:k0 + BK])
+        if not fold_scale:
+            logits = logits * scale
+        k_pos = torch.arange(k0, min(t, k0 + BK))[None]
+        valid = k_pos <= q_pos
+        if window is not None:
+            valid &= k_pos > q_pos - window
+        logits = torch.where(valid, logits, torch.tensor(-1e30))
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        lo = torch.zeros_like(p) if one_bf16_p else (p - hi).bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhsc,bchd->bhsd", hi, vf[:, k0:k0 + BK]) + torch.einsum(
+            "bhsc,bchd->bhsd", lo, vf[:, k0:k0 + BK])
+        m = m_new
+    return (acc / l.clamp_min(1e-37)[..., None]).transpose(1, 2).bfloat16()
+
+
+def plain_bf16(q, k, v, scale, window=None):
+    H, s, t = q.shape[2], q.shape[1], k.shape[1]
+    return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), torch.arange(s),
+                         torch.arange(t), scale, window=window)
+
+
+def worst(got, want, bound):
+    """Largest |got - want| / (atol + rtol |want|): <= 1 is inside."""
+    atol, rtol = bound
+    err = (got.double() - want.double()).abs()
+    return float((err / (atol + rtol * want.double().abs())).max())
+
+
+def bf16_qkv(b, s, H, KV, d, seed, qk_scale=1.0, v_scale=1.0):
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, amp):
+        return torch.tensor(amp * rng.standard_normal(shape)).bfloat16()
+
+    return (draw((b, s, H, d), qk_scale), draw((b, s, KV, d), qk_scale),
+            draw((b, s, KV, d), v_scale))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_numerics_at_model_scale(d):
+    """q and k at ~30x unit scale, as the random-weight models make them
+    (logits of ~1e3, near one-hot rows); ragged, grouped."""
+    q, k, v = bf16_qkv(2, 600, 4, 2, d, 10, qk_scale=30.0)
+    got = tensor_core_emulation(q, k, v, d ** -0.5)
+    assert worst(got, plain_bf16(q, k, v, d ** -0.5), MODEL_BOUND) <= 1
+
+
+@pytest.fixture(scope="module")
+def yi_prefill_inputs():
+    """The q, k, v every layer's attention gets in the prefill of the
+    tests/test_torch_lm.py yi-family fixture (yi's smoke config, the JAX
+    model's ``init`` at PRNGKey(42) bridged), on a 2 x 300-token prompt,
+    ragged against the kernel's 128-key tiles."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import registry as jax_registry
+    from repro.models.transformer import Model as JaxModel
+    from repro_torch.bridge import lm_params_from
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    jc = dataclasses.replace(jax_registry.get_config("yi-9b", smoke=True),
+                             param_dtype=jnp.float32)
+    pc = dataclasses.replace(registry.get_config("yi-9b", smoke=True),
+                             param_dtype=torch.float32)
+    params = JaxModel(jc).init(jax.random.PRNGKey(42))
+    model = lm_params_from(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), params), pc, device="cpu")
+    toks = np.random.default_rng(7).integers(0, jc.vocab, (2, 300))
+    captured = []
+    real = flash_ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        captured.append((q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                         kw["scale"]))
+        return real(q, k, v, **kw)
+
+    flash_ops.flash_attention = spy
+    try:
+        model.prefill(torch.as_tensor(toks))
+    finally:
+        flash_ops.flash_attention = real
+    assert len(captured) == pc.n_layers
+    return captured
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_tensor_core_numerics_on_yi_prefill(yi_prefill_inputs, window):
+    """Each layer's prefill inputs, causal and with yi-swa's window."""
+    for q, k, v, scale in yi_prefill_inputs:
+        got = tensor_core_emulation(q, k, v, scale, window)
+        assert worst(got, plain_bf16(q, k, v, scale, window),
+                     MODEL_BOUND) <= 1
+
+
+@pytest.mark.parametrize("b,s,H,KV,d,window", [
+    (2, 1000, 4, 2, 128, None),
+    (2, 1000, 4, 1, 64, 256),
+    (1, 777, 2, 2, 128, 100),
+])
+def test_tensor_core_numerics_random(b, s, H, KV, d, window):
+    q, k, v = bf16_qkv(b, s, H, KV, d, 11)
+    got = tensor_core_emulation(q, k, v, d ** -0.5, window)
+    assert worst(got, plain_bf16(q, k, v, d ** -0.5, window),
+                 RANDOM_BOUND) <= 1
+
+
+def test_folding_scale_into_bf16_q_breaks_the_model_bound():
+    """Why the kernel scales S in float32 after the product: rounding
+    q * scale to bf16 moves logits of ~1e3 by units, and at d = 128 (scale
+    1/sqrt(128), not a power of two) that reorders near-one-hot rows far
+    outside the bound.  At d = 64 or yi's smoke d_head 16 the scale is a
+    power of two and folding it is exact."""
+    q, k, v = bf16_qkv(2, 600, 4, 2, 128, 10, qk_scale=30.0)
+    want = plain_bf16(q, k, v, 128 ** -0.5)
+    assert worst(tensor_core_emulation(q, k, v, 128 ** -0.5), want,
+                 MODEL_BOUND) <= 1
+    assert worst(tensor_core_emulation(q, k, v, 128 ** -0.5,
+                                       fold_scale=True), want,
+                 MODEL_BOUND) > 10
+
+
+def test_one_bf16_p_breaks_the_model_bound_at_full_width_scale():
+    """Why the kernel carries P as two bf16 terms: one bf16 P errs by up
+    to 2^-9 of |v| per term, and yi-9b's full-width prefill gives v at ~9x
+    unit scale (outputs with rms 8.9, up to 49, on the card).  At that
+    scale one bf16 P leaves the bound in its tail (on the card it put 104
+    of 1.3e8 values outside, 0.25 off); hi + lo stays inside.  The tail
+    needs samples: at 2 x 2048 x 8 heads one bf16 P reaches 1.1-1.4 times
+    the bound for three of the seeds 0-3, hi + lo at most 0.82."""
+    q, k, v = bf16_qkv(2, 2048, 8, 2, 128, 0, qk_scale=30.0, v_scale=9.0)
+    want = plain_bf16(q, k, v, 128 ** -0.5)
+    assert worst(tensor_core_emulation(q, k, v, 128 ** -0.5), want,
+                 MODEL_BOUND) <= 1
+    assert worst(tensor_core_emulation(q, k, v, 128 ** -0.5,
+                                       one_bf16_p=True), want,
+                 MODEL_BOUND) > 1
