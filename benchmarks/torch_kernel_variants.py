@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """A/B of design variants of two hand-written CUDA kernels, on one card.
 
-    python3 benchmarks/torch_kernel_variants.py [--json OUT]
+    python3 benchmarks/torch_kernel_variants.py [--only SECTION ...] [--json OUT]
 
 Builds variants of ``src/repro_torch/csrc/integral_image.cu`` (rows per
-strip ``RS`` and the blocks per SM of its ``__launch_bounds__``) and of
+strip ``RS`` and the blocks per SM of its ``__launch_bounds__``; section
+``integral``), of the bf16 kernel of
 ``src/repro_torch/csrc/flash_attention.cu`` (P V from one bf16 term of P,
-FlashAttention's P, instead of the committed hi + lo pair) by text
-substitution of the committed sources, each with ``nvcc`` into a library
+FlashAttention's P, instead of the committed hi + lo pair; ``flash``) and
+of its float32 kernel (masks on every tile or on cut tiles only, blocks
+of 64 or 128 queries, the order of the q k^T fragment loads and the
+unrolling of P V; ``flash_f32``) by text substitution of
+the committed sources, each with ``nvcc`` into a library
 of its own under ``build/variants/``.  Each variant is checked against
 the plain PyTorch version on the same inputs, then all are timed with CUDA
 events in turns (A, B, ..., B, A) on one card.  Prints one line per
@@ -46,7 +50,7 @@ def build(name, source, nvcc, flags):
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     regs = [line.split("ptxas info    :")[-1].strip()
             for line in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in line]
+            if "registers" in line or "spill" in line]
     print(f"{name}: {'; '.join(regs)}", flush=True)
     return ctypes.CDLL(lib)
 
@@ -200,10 +204,146 @@ def flash_variants(nvcc, flags):
         torch.cuda.empty_cache()
     return result
 
+# the float32 kernel's q k^T loop and loop heads as committed
+F32_QK = """#pragma unroll 2
+    for (int d4 = 0; d4 < D; d4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * D + d4);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float4 kk =
+            load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = __fmaf_rn(comp(a[i], e), comp(kk, e), s[i][j]);
+      }
+    }
+"""
+# the same products with the KJ k float4 loaded first, then one q float4
+# at a time: 4 KJ + 4 fragment registers instead of 32 + 4
+F32_QK_K_FIRST = """#pragma unroll 2
+    for (int d4 = 0; d4 < D; d4 += 4) {
+      float4 kf[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kf[j] = load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = load4(Qs + (ty * 8 + i) * D + d4);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = __fmaf_rn(comp(a, e), comp(kf[j], e), s[i][j]);
+      }
+    }
+"""
+F32_PV = "#pragma unroll 8\n    for (int kk = 0; kk < BK; ++kk) {"
+F32_MASK = """        const int col = k0 + tx + 16 * j;
+        bool valid = col < Tk && col <= row;
+        if (window > 0) valid = valid && col > row - window;
+        if (!valid) s[i][j] = kNegInf;
+"""
+# the mask only in tiles that the key end, the diagonal or the window's
+# edge cut
+F32_MASK_CUT = """        if (k0 + BK > Tk || k0 + BK - 1 > q0 ||
+            (window > 0 && k0 <= q0 + BQ - 1 - window)) {
+""" + F32_MASK + "        }\n"
+F32_TILE = "constexpr int BQ = 128;             // queries of a block\n"
+
+
+def flash_f32_variants(nvcc, flags):
+    """The float32 kernel at prefill_32k (8 x 32768 x 128, causal and a
+    4096 window), each variant held to the plain streaming form within
+    2e-5, timed in turns beside SDPA's efficient backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention.ref import mha_streaming
+    from repro_torch.models.layers import pin_matmul_precision
+
+    pin_matmul_precision()
+    text = open(os.path.join(ROOT, "src/repro_torch/csrc/flash_attention.cu")
+                ).read()
+    if not all(t in text for t in (F32_QK, F32_PV, F32_TILE, F32_MASK)):
+        raise RuntimeError("flash_attention.cu no longer has the float32 "
+                           "loops this script edits")
+
+    k_first = text.replace(F32_QK, F32_QK_K_FIRST)
+    variants = {
+        "committed": text,
+        "mask_cut_tiles": text.replace(F32_MASK, F32_MASK_CUT),
+        "k_first": text.replace(F32_QK, F32_QK_K_FIRST),
+        # blocks of 64 queries (4 warps), 132 KB of shared memory: one SM
+        # holds one of them all the same
+        "bq64": text.replace(F32_TILE, F32_TILE.replace("128;", "64; ")),
+        "pv_unroll4": text.replace(F32_PV, F32_PV.replace("unroll 8",
+                                                          "unroll 4")),
+    }
+    fns = {}
+    for name, src in variants.items():
+        fn = build(f"flash_f32_{name}", src, nvcc, flags).repro_flash_attention
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def call(name, q, k, v, window):
+        b, s, H, d = q.shape
+        o = torch.empty_like(q)
+        rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       0, b, s, k.shape[1], H, k.shape[2], d,
+                       ctypes.c_float(d ** -0.5), window or 0,
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"flash f32 {name}: CUDA error {rc}")
+        return o
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, d = 8, 32768, 128
+    q, k, v = (torch.randn((b, s, 1, d), device="cuda", generator=gen)
+               for _ in range(3))
+    pos = torch.arange(s, device="cuda")
+    result = {}
+    for window in (None, 4096):
+        want = mha_streaming(q, k, v, pos, pos, d ** -0.5, window=window)
+        label = f"{b}x{s}x1x{d}" + (f" window {window}" if window else "")
+        entry = {}
+        for name in fns:
+            err = float((call(name, q, k, v, window) - want).abs().max())
+            if err > 2e-5:
+                raise AssertionError(f"flash f32 {name} {label}: max |err| "
+                                     f"{err:g}")
+            entry[name] = {"max_abs_err": err}
+        del want
+        times = in_turns({name: (lambda n=name: call(n, q, k, v, window))
+                          for name in fns}, 2)
+        for name in fns:
+            entry[name]["ms"] = times[name]
+        if window is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+            entry["sdpa_efficient"] = {"ms": [device_ms(sdpa, 2)]}
+        print(f"flash_attention float32 {label}: ms " + ", ".join(
+            f"{n} {' / '.join(f'{t:.4f}' for t in e['ms'])}"
+            for n, e in entry.items()), flush=True)
+        result[label] = entry
+    return result
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="write the readings here")
+    parser.add_argument("--only", nargs="+", default=list(SECTIONS),
+                        choices=list(SECTIONS), help="sections to run")
     args = parser.parse_args()
     import torch
 
@@ -218,8 +358,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS
-    out = {"card": card, "integral_image": integral_variants(nvcc, flags),
-           "flash_attention": flash_variants(nvcc, flags)}
+    out = {"card": card}
+    for section in args.only:
+        out[section] = SECTIONS[section](nvcc, flags)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
@@ -227,6 +368,9 @@ def main() -> int:
             json.dump(out, f, indent=1)
     return 0
 
+
+SECTIONS = {"integral": integral_variants, "flash": flash_variants,
+            "flash_f32": flash_f32_variants}
 
 if __name__ == "__main__":
     sys.exit(main())

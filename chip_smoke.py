@@ -5,8 +5,8 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (at
 first use, into ``build/repro_torch``) and checks with ``cuobjdump -sass``
-that the bf16 flash kernel is a ``wgmma`` kernel (HGMMA in its SASS, none
-in the float32 one), then:
+that the bf16 flash kernel is a ``wgmma`` kernel (HGMMA in its SASS) and
+that the float32 one holds no tensor-core instruction, then:
 
 1. main-path phase — builds ``FaceAuthExecutor`` at full width (62 frames
    of 144x176, the paper's scan, the 10x33-trained cascade and the
@@ -35,12 +35,16 @@ in the float32 one), then:
    the sweep's run of that cut and to the JAX record, and times it;
 4. kernel phase — at the shapes the funnel gives them, runs each kernel
    and its plain PyTorch version on the card on the same inputs and holds
-   them together (``quant_matmul``, ``haar_stage``, ``wire_encode``,
-   ``wire_decode`` and ``integral_image`` bit-exact; ``integral_image``
-   also on a 4K eye frame and two shapes ragged against its strips and
-   tiles), and times the kernel, the plain version and a
-   PyTorch library call where one computes the same function (CUDA events
-   around back-to-back calls);
+   them together (``quant_nn``, ``quant_matmul``, ``haar_stage``,
+   ``wire_encode``, ``wire_decode`` and ``integral_image`` bit-exact;
+   ``integral_image`` also on a 4K eye frame and two shapes ragged against
+   its strips and tiles; ``quant_nn``, the whole NN in one launch, also on
+   the S = 64 windows and at 1, 17 and 5,377 rows; ``quant_matmul``, the
+   general GEMM, at both NN layers, 1024^3 and 1000 x 1000 x 24), and
+   times the kernel, the plain version and a PyTorch library call where
+   one computes the same function (CUDA events around back-to-back calls;
+   the library call's device time, all its kernels, in the profile
+   phase);
 5. VR phase — the §IV rig at full width (8 pairs ``stereo_pair(2160,
    3840, seed=s)``, sigma 16, max_disp 32, 8 refinement steps,
    ``assets/vr_reference.npz``): one rig frame with the launch counters
@@ -81,8 +85,9 @@ in the float32 one), then:
    causal, and with a window of 4096; bf16 within 4e-3 + 2^-7 |x|, and
    float32 within atol = rtol = 2e-5) and at yi's heads with S = 4000
    (ragged against the kernel's 128-row tiles; bf16), each timed beside
-   SDPA where it has the same mask.  bf16 runs the ``wgmma`` kernel and
-   float32 the CUDA-core one; each flash row names the kernel that ran;
+   SDPA (the window as a dense boolean mask).  bf16 runs the ``wgmma``
+   kernel and float32 the CUDA-core one; each flash row names the kernel
+   that ran;
 7. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, the executed offload cut and one serve call
@@ -151,7 +156,9 @@ def gpu_name_and_power() -> str:
 def wgmma_check():
     """The bf16 flash kernel is a ``wgmma`` kernel: the SASS of the built
     library (``cuobjdump -sass``) holds HGMMA, the ``wgmma`` instruction,
-    in both its head sizes; the float32 kernel holds none."""
+    in both its head sizes (24 at D 128, 20 at D 64); the float32 kernel
+    holds no tensor-core instruction (HGMMA or HMMA): its products stay
+    float32 FMAs, never TF32.  The int8 kernels' IMMA counts are printed."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -161,23 +168,30 @@ def wgmma_check():
     sass = subprocess.run([tool, "-sass", str(_build.build())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+    ops = ("HGMMA", "HMMA", "IMMA")
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                counts[fn][op] += f" {op}" in line
+    for name, n in sorted(counts.items()):
+        if "flash_attention_kernel" in name or "quant_" in name:
+            print(f"SASS {name}: " + ", ".join(f"{n[op]} {op}" for op in ops),
+                  flush=True)
     flash = {k: v for k, v in counts.items() if "flash_attention_kernel" in k}
-    for name, n in sorted(flash.items()):
-        print(f"SASS {name}: {n} HGMMA", flush=True)
-    bf16 = [n for name, n in flash.items() if "tensor_core" in name]
-    f32 = [n for name, n in flash.items() if "cuda_core" in name]
-    if len(bf16) != 2 or not all(bf16) or len(f32) != 2 or any(f32):
-        raise AssertionError("expected HGMMA in both bf16 flash kernels and "
-                             "in neither float32 one")
-    print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma); the "
-          "float32 kernel's none", flush=True)
+    bf16 = sorted(n["HGMMA"] for name, n in flash.items()
+                  if "tensor_core" in name)
+    f32 = [n["HGMMA"] + n["HMMA"] for name, n in flash.items()
+           if "cuda_core" in name]
+    if bf16 != [20, 24] or len(f32) != 2 or any(f32):
+        raise AssertionError("expected 24 and 20 HGMMA in the bf16 flash "
+                             "kernels and no tensor-core instruction in the "
+                             f"float32 ones: {bf16}, {f32}")
+    print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma), 24 "
+          "and 20; the float32 kernel's no HGMMA or HMMA", flush=True)
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -221,11 +235,38 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def launch_device_ms(fn, kernel: str, reps: int = 20) -> float:
+def launch_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds of one launch of the CUDA kernel named
     ``kernel``, by torch.profiler over ``reps`` calls of ``fn``: the
     kernel alone, without the host time between launches that CUDA events
-    around back-to-back calls also count."""
+    around back-to-back calls also count.  The profiler now and then drops
+    a kernel's record; a session that does not see exactly ``reps``
+    launches is taken again, and after ``tries`` such sessions the call
+    fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and kernel in e.key]
+        count = sum(e.count for e in events)
+        if count == reps:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+        print(f"profiler saw {count} launches of {kernel}, expected {reps}: "
+              "profiling again", flush=True)
+    raise AssertionError(f"profiler saw {count} launches of {kernel}, "
+                         f"expected {reps}, in each of {tries} sessions")
+
+
+def call_device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one call of ``fn``, summed over every CUDA
+    kernel it launches (torch.profiler over ``reps`` calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,20 +277,20 @@ def launch_device_ms(fn, kernel: str, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and kernel in e.key]
-    count = sum(e.count for e in events)
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {kernel}, "
-                             f"expected {reps}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+              if str(e.device_type).endswith("CUDA")]
+    if not events:
+        raise AssertionError("profiler saw no CUDA kernel")
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
 
 def kernel_row(probes, name, module, launches, err, fn, plain_ms,
-               library_ms, n_bytes, n_ops, peak_ops, reps=20, shape=None):
+               library_ms, n_bytes, n_ops, peak_ops, reps=20, shape=None,
+               library_fn=None):
     """One line of the kernels JSON; ``fn`` launches the kernel once and
-    goes into ``probes`` for the profile phase."""
+    goes into ``probes`` for the profile phase, with ``library_fn`` (the
+    library call timed as ``library_ms``), which fills the row's
+    ``device_ms`` and ``library_device_ms`` there."""
     ms = device_ms(fn, reps=reps)
-    probes.append((name if shape is None else f"{name} {shape}", fn))
     t_bytes, t_ops, b_by = bound(n_bytes, n_ops, peak_ops)
     replaces = module.REPLACES
     if isinstance(replaces, dict):          # one source, several kernels
@@ -261,6 +302,8 @@ def kernel_row(probes, name, module, launches, err, fn, plain_ms,
            "library_ms": library_ms}
     if shape is not None:
         row["shape"] = shape
+    probes.append((name if shape is None else f"{name} {shape}", fn, row,
+                   library_fn))
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
     print(f"kernel {probes[-1][0]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={lib} bound_ms={max(t_bytes, t_ops):.4f} "
@@ -279,9 +322,6 @@ def kernel_phase(ex, frames, launches):
     from repro_torch.kernels.haar_frontend.ref import haar_stage_ref
     from repro_torch.kernels.integral_image import cuda as icuda
     from repro_torch.kernels.integral_image.ref import integral_image_ref
-    from repro_torch.kernels.quant_matmul import cuda as qcuda
-    from repro_torch.kernels.quant_matmul.ops import quantize_static
-    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
     rows, probes = [], []
     st = ex.stages
@@ -300,7 +340,8 @@ def kernel_phase(ex, frames, launches):
         device_ms(lambda: integral_image_ref(x), reps=3, warm=1),
         device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1)),
         4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
-        shape="x".join(map(str, x.shape))))
+        shape="x".join(map(str, x.shape)),
+        library_fn=lambda: torch.cumsum(torch.cumsum(x, -2), -1)))
     # the VR slice's 4K eye frame, and shapes ragged against the kernel's
     # strips (64 rows) and tiles (128 columns), with values up to 1e6
     gen = torch.Generator(device=x.device).manual_seed(0)
@@ -341,51 +382,133 @@ def kernel_phase(ex, frames, launches):
                   warm=1),
         None, n_bytes, n_ops, PEAK_F32_OPS_S))
 
-    # -- quant_matmul: both NN layers on the main path's windows
+    # -- the NN kernel: the whole 400-8-1 NN on the main path's windows
     dmask, n_win_m, _cd = st.detect(mframes, fvalid)
     patches, _wsel, _wv, _wd = st.gather(mframes, dmask, n_win_m)
     xw = patches.reshape(-1, 400)
+    rows += nn_rows(probes, ex, frames, xw, launches)
+    rows += gemm_rows(probes, ex, xw, launches)
+    rows += codec_rows(probes, ex, frames, launches)
+    return rows, probes
+
+
+def nn_rows(probes, ex, frames, xw, launches):
+    """The NN kernel (``quant_nn``) against its plain version, the
+    two-layer path of ``ref.nn_forward_ref`` on the same card tensors, bit
+    for bit: on the funnel's own windows at S = 1 and at S = 64 streams,
+    and on seeded pixels at m = 1, 17 and 5,377 (ragged against its 16-row
+    tiles); timed on the S = 1 windows."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import cuda as qcuda
+    from repro_torch.kernels.quant_matmul.ref import nn_forward_ref
+
+    q, lut = ex.qnn, ex.lut
+    lo, hi, _entries = ex.lut_meta
+    args = q.kernel_args(lut, lo, hi)
+
+    def plain(x):
+        return nn_forward_ref(x, q.w1_q, q.b1, q.w2_q, q.b2, lut, lut_lo=lo,
+                              lut_hi=hi, **q.scales())
+
+    st = ex.stages
+    streams = torch.stack([torch.roll(frames, 5 * s, dims=0)
+                           for s in range(STREAMS)])
+    mf, _fidx, fv, _motion, _md = st.motion(streams)
+    dm, n_win, _cd = st.detect(mf, fv)
+    x64 = st.gather(mf, dm, n_win)[0].reshape(-1, 400)
+    del streams, mf, dm
+    gen = torch.Generator(device=xw.device).manual_seed(5)
+    cases = [("S=1 windows", xw), (f"S={STREAMS} windows", x64)] + [
+        (f"m={m}", torch.rand((m, 400), device=xw.device, generator=gen))
+        for m in (1, 17, 5377)]
+    for label, x in cases:
+        if not _bits_equal(qcuda.quant_nn_cuda(x, args), plain(x)):
+            raise AssertionError(f"quant_nn {label} {tuple(x.shape)} differs "
+                                 "from plain")
+    print("quant_nn: kernel == plain two-layer path bit for bit on "
+          + ", ".join(f"{label} ({x.shape[0]} rows)" for label, x in cases),
+          flush=True)
+    del x64, cases
+    m = xw.shape[0]
+    n_bytes = 4 * m * 400 + 400 * 8 + 8 + 4 * (8 + 1 + lut.numel() + m)
+    n_ops = 2 * m * 400 * 8 + 2 * m * 8
+    return [kernel_row(
+        probes, "quant_nn", qcuda, launches["quant_nn"], 0.0,
+        lambda: qcuda.quant_nn_cuda(xw, args), device_ms(lambda: plain(xw)),
+        None, n_bytes, n_ops, PEAK_INT8_OPS_S, shape=f"{m}x400 S=1")]
+
+
+def gemm_rows(probes, ex, xw, launches):
+    """The general int8 GEMM (``quant_matmul``) against
+    ``quant_matmul_ref`` bit for bit: both NN layers on the funnel's
+    windows, 1024^3, and 1000 x 1000 x 24 (ragged against its tiles, rows
+    not 16-byte multiples), each with and without bias and LUT.  Rows at
+    the NN's layer-1 shape and at 1024^3, beside ``torch._int_mm``."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import cuda as qcuda
+    from repro_torch.kernels.quant_matmul.ref import (
+        quant_matmul_ref,
+        quantize_static,
+    )
+
     q, lut = ex.qnn, ex.lut
     lo, hi, _entries = ex.lut_meta
     x_q = quantize_static(xw, q.scale_x, q.qmax)
-    x_q_host = quantize_static(xw.cpu(), q.scale_x, q.qmax)
-    if not torch.equal(x_q.cpu(), x_q_host):
+    if not torch.equal(x_q.cpu(), quantize_static(xw.cpu(), q.scale_x,
+                                                  q.qmax)):
         raise AssertionError("quantize_static differs between card and host")
-    scale1 = float(np.float32(q.scale_x * q.scale_w1))
-    kw1 = dict(scale=scale1, bias=q.b1, lut_lo=lo, lut_hi=hi)
+    kw1 = dict(scale=float(np.float32(q.scale_x * q.scale_w1)), bias=q.b1,
+               lut_lo=lo, lut_hi=hi)
     h = qcuda.quant_matmul_cuda(x_q, q.w1_q, lut, **kw1)
-    if not torch.equal(h, quant_matmul_ref(x_q, q.w1_q, lut, **kw1)):
+    if not _bits_equal(h, quant_matmul_ref(x_q, q.w1_q, lut, **kw1)):
         raise AssertionError("quant_matmul layer 1 differs from plain")
     h_q = quantize_static(h, q.scale_h, q.qmax)
     kw2 = dict(scale=float(np.float32(q.scale_h * q.scale_w2)), bias=q.b2,
                lut_lo=lo, lut_hi=hi)
-    y = qcuda.quant_matmul_cuda(h_q, q.w2_q, lut, **kw2)
-    if not torch.equal(y, quant_matmul_ref(h_q, q.w2_q, lut, **kw2)):
+    if not _bits_equal(qcuda.quant_matmul_cuda(h_q, q.w2_q, lut, **kw2),
+                       quant_matmul_ref(h_q, q.w2_q, lut, **kw2)):
         raise AssertionError("quant_matmul layer 2 differs from plain")
-    gen = torch.Generator(device=x.device).manual_seed(1)
-    a = torch.randint(-127, 128, (1024, 1024), dtype=torch.int8,
-                      device=x.device, generator=gen)
-    b = torch.randint(-127, 128, (1024, 1024), dtype=torch.int8,
-                      device=x.device, generator=gen)
-    kw_big = dict(scale=1.0, apply_lut=False)
-    if not torch.equal(qcuda.quant_matmul_cuda(a, b, lut, **kw_big),
-                       quant_matmul_ref(a, b, lut, **kw_big)):
-        raise AssertionError("quant_matmul 1024^3 differs from plain")
-    try:
-        lib_ms = device_ms(lambda: torch._int_mm(x_q, q.w1_q))
-    except RuntimeError as e:             # shape rules of _int_mm
-        print(f"torch._int_mm not timed: {e}", flush=True)
-        lib_ms = None
-    m, k = x_q.shape
-    n = q.w1_q.shape[1]
-    rows.append(kernel_row(
-        probes, "quant_matmul", qcuda, launches["quant_matmul"], 0.0,
-        lambda: qcuda.quant_matmul_cuda(x_q, q.w1_q, lut, **kw1),
-        device_ms(lambda: quant_matmul_ref(x_q, q.w1_q, lut, **kw1)),
-        lib_ms, m * k + k * n + 4 * (n + lut.numel() + m * n),
-        2 * m * k * n, PEAK_INT8_OPS_S))
-    rows += codec_rows(probes, ex, frames, launches)
-    return rows, probes
+    gen = torch.Generator(device=xw.device).manual_seed(1)
+    cases = {}
+    for m, k, n in ((1024, 1024, 1024), (1000, 1000, 24)):
+        a, b = (torch.randint(-127, 128, shape, dtype=torch.int8,
+                              device=xw.device, generator=gen)
+                for shape in ((m, k), (k, n)))
+        bias = torch.randn((n,), device=xw.device, generator=gen)
+        for kw in (dict(scale=1.0, apply_lut=False),
+                   dict(scale=2e-6, bias=bias, lut_lo=lo, lut_hi=hi)):
+            if not _bits_equal(qcuda.quant_matmul_cuda(a, b, lut, **kw),
+                               quant_matmul_ref(a, b, lut, **kw)):
+                raise AssertionError(f"quant_matmul {m}x{k}x{n} differs from "
+                                     "plain")
+        cases[(m, k, n)] = (a, b, dict(scale=1.0, apply_lut=False))
+    print(f"quant_matmul: kernel == plain bit for bit at {tuple(x_q.shape)} x "
+          f"{tuple(q.w1_q.shape)}, {tuple(h_q.shape)} x {tuple(q.w2_q.shape)}"
+          ", 1024^3, 1000x1000x24", flush=True)
+    rows = []
+    for a, b, kw in ((x_q, q.w1_q, kw1), cases[(1024, 1024, 1024)]):
+        m, k = a.shape
+        n = b.shape[1]
+
+        def library(a=a, b=b):
+            return torch._int_mm(a, b)
+
+        try:
+            lib_ms = device_ms(library)
+        except RuntimeError as e:             # shape rules of _int_mm
+            print(f"torch._int_mm not timed: {e}", flush=True)
+            lib_ms, library = None, None
+        epi_bytes = 4 * (n + lut.numel()) if "bias" in kw else 0
+        rows.append(kernel_row(
+            probes, "quant_matmul", qcuda, launches.get("quant_matmul", 0),
+            0.0, lambda a=a, b=b, kw=kw: qcuda.quant_matmul_cuda(a, b, lut,
+                                                                 **kw),
+            device_ms(lambda: quant_matmul_ref(a, b, lut, **kw)), lib_ms,
+            m * k + k * n + 4 * m * n + epi_bytes, 2 * m * k * n,
+            PEAK_INT8_OPS_S, shape=f"{m}x{k}x{n}", library_fn=library))
+    return rows
 
 
 def _bits_equal(a, b) -> bool:
@@ -464,7 +587,7 @@ def main_phase(ex, frames, ref):
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     print(f"main path launches: {counts}", flush=True)
-    for name in ("integral_image", "haar_stage", "quant_matmul"):
+    for name in ("integral_image", "haar_stage", "quant_nn"):
         if counts.get(name, 0) < 1:
             raise AssertionError(f"main path never launched {name}")
 
@@ -653,7 +776,7 @@ def offload_phase(ex, frames, res, flips):
     print(f"offload path (controller executes cut={sol.cut_after}, 8-bit): "
           f"{payload.nbytes() / B:.3f} B/frame, launches {counts}",
           flush=True)
-    for name in ("integral_image", "haar_stage", "quant_matmul",
+    for name in ("integral_image", "haar_stage", "quant_nn",
                  "wire_encode", "wire_decode"):
         if counts.get(name, 0) < 1:
             raise AssertionError(f"offload path never launched {name}")
@@ -1104,17 +1227,17 @@ def vr_kernel_rows(probes, ex, views, counts):
               * weight[None, None, :])[None, None]
 
     def library():
-        return F.conv3d(F.pad(both, (1, 1, 1, 1, 1, 1), mode="replicate"),
-                        weight)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False   # float32, as the kernel
+        try:
+            return F.conv3d(F.pad(both, (1, 1, 1, 1, 1, 1),
+                                  mode="replicate"), weight)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
 
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False   # float32, as the kernel
-    try:
-        lib_ms = device_ms(library)
-        lib_err = max_abs_err(library().reshape(2, *val.shape),
-                              torch.stack(bcuda.bilateral_blur_cuda(val, wt)))
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    lib_ms = device_ms(library)
+    lib_err = max_abs_err(library().reshape(2, *val.shape),
+                          torch.stack(bcuda.bilateral_blur_cuda(val, wt)))
     print(f"bilateral_blur {tuple(val.shape)}: kernel == plain bit for bit "
           f"over all {ex.n_iters} steps; conv3d (cuDNN, TF32 off) max |diff|"
           f" {lib_err:g}", flush=True)
@@ -1123,7 +1246,8 @@ def vr_kernel_rows(probes, ex, views, counts):
         probes, "bilateral_blur", bcuda, counts["bilateral_blur"], 0.0,
         lambda: bcuda.bilateral_blur_cuda(val, wt),
         device_ms(lambda: blur_ref(val, wt)), lib_ms, 2 * 2 * 4 * n,
-        2 * 15 * n, PEAK_F32_OPS_S, shape="x".join(map(str, val.shape))))
+        2 * 15 * n, PEAK_F32_OPS_S, shape="x".join(map(str, val.shape)),
+        library_fn=library))
 
     # integral_image at the cost volume's shape: one chunk of 8 hypotheses
     # of every pair, edge-padded |left - shifted right|
@@ -1148,7 +1272,8 @@ def vr_kernel_rows(probes, ex, views, counts):
         device_ms(lambda: integral_image_ref(x), reps=1, warm=1),
         device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1), reps=3),
         4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
-        reps=3, shape="x".join(map(str, x.shape)))
+        reps=3, shape="x".join(map(str, x.shape)),
+        library_fn=lambda: torch.cumsum(torch.cumsum(x, -2), -1))
     rows.append(row)
     print(f"integral_image per rig frame: {counts['integral_image']} "
           f"launches, bound {counts['integral_image'] * row['bound_ms']:.3f}"
@@ -1178,6 +1303,11 @@ FLASH_F32_TOL = 2e-5
 WKV_REL = 2e-4        # tests/test_kernels.py:372, of max |plain|
 WKV_BONUS_STD = 0.3   # a nonzero u, as tests/test_kernels.py:368 draws it
 RECORD_REL = 1e-4     # floor of the JAX-record bound, below
+# readings of the float32 parity and of the JAX records with the float32
+# flash kernel's earlier 4 x 4 tiles, printed beside this run's: another
+# float32 summation order should keep them near
+EARLIER_PARITY = {"yi-9b": 2.21e-4, "rwkv6-7b": 2.14e-4}
+EARLIER_RECORD = {"yi-9b": 7.33e-5, "rwkv6-7b": 1.44e-4}
 
 
 def lm_record_check(model, rec):
@@ -1361,7 +1491,8 @@ def lm_parity_phase(arch, device):
           f"S={PARITY_S} + {PARITY_EXTRA}: prefill/decode vs forward "
           f"max |diff| {max(errs):.4g} of max |logit| {top:.4g} (rel "
           f"{rel:.3g}, per step {[f'{e / top:.3g}' for e in errs]}); "
-          f"bound {PARITY_REL:g}; one-ulp sensitivity E {sens:.3g}",
+          f"bound {PARITY_REL:g}; one-ulp sensitivity E {sens:.3g}; "
+          f"earlier reading {EARLIER_PARITY[arch]:.3g}",
           flush=True)
     if not torch.isfinite(full).all() or rel >= PARITY_REL:
         raise AssertionError(f"{arch}: prefill/decode diverge from the "
@@ -1394,7 +1525,8 @@ def lm_record_phase(device):
               f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens): "
               f"logits within {worst:.3g} of JAX (bound {tol:.3g}, E "
               f"{rec.sensitivity:.3g}); {compared} of {rec.greedy.size} "
-              f"greedy tokens compared, all equal; launches {counts}",
+              f"greedy tokens compared, all equal; launches {counts}; "
+              f"earlier reading {EARLIER_RECORD[rec.cfg.name]:.3g}",
               flush=True)
 
 
@@ -1413,7 +1545,8 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
               label="", f32=False):
     """``flash_attention`` against its plain streaming form on (q, k, v)
     in the model's layout (bf16, within atol + rtol |plain|), timed beside
-    ``scaled_dot_product_attention`` (no window only).  With ``f32`` the
+    ``scaled_dot_product_attention`` (with a window, through a dense
+    boolean mask on the efficient backend).  With ``f32`` the
     same inputs in float32 too (within FLASH_F32_TOL), a row of their own.
     Each row names the kernel that ran."""
     import torch
@@ -1455,21 +1588,29 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
         del got
         plain_ms = device_ms(plain, reps=2, warm=1)
         lib_ms = None
-        if window is None:       # SDPA has no sliding window but a dense mask
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            mask, backend_used = None, backend
+        else:                    # SDPA's window: a dense boolean mask
+            i = torch.arange(s, device=q.device)
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+            backend_used = SDPBackend.EFFICIENT_ATTENTION
 
-            def library():
-                with sdpa_kernel(backend):
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+        def library():
+            with sdpa_kernel(backend_used):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=KV != H)
 
-            try:
-                lib_err = max_abs_err(library().transpose(1, 2), want)
-                lib_ms = device_ms(library)
-                print(f"flash_attention {label} {dtype}: SDPA ({backend.name}"
-                      f" backend) max |diff| {lib_err:g}", flush=True)
-            except RuntimeError as e:     # backend rules of SDPA
-                print(f"SDPA not timed: {e}", flush=True)
+        try:
+            lib_err = max_abs_err(library().transpose(1, 2), want)
+            lib_ms = device_ms(library)
+            print(f"flash_attention {label} {dtype}: SDPA ({backend_used.name}"
+                  f" backend{'' if mask is None else ', boolean window mask'})"
+                  f" max |diff| {lib_err:g}", flush=True)
+        except RuntimeError as e:     # backend rules of SDPA
+            print(f"SDPA not timed: {e}", flush=True)
+            library = None
         del want
         n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         row = kernel_row(
@@ -1477,7 +1618,8 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
             lambda: fcuda.flash_attention_cuda(q, k, v, window=window,
                                                scale=scale),
             plain_ms, lib_ms, n_bytes, n_ops, peak_ops, reps=5,
-            shape=label if dtype == "bfloat16" else f"{label} {dtype}")
+            shape=label if dtype == "bfloat16" else f"{label} {dtype}",
+            library_fn=library)
         row["kernel"] = FLASH_KERNEL[dtype]
         return row
 
@@ -1691,11 +1833,17 @@ def profiles_phase(ex, frames, targets, probes):
     print(f"funnel before the profiler sessions, after the other phases: "
           f"{ms / B:.4f} ms per frame ({ms:.3f} ms per {B}-frame batch, "
           "median of 7)", flush=True)
-    for label, fn in probes:
+    for label, fn, row, library_fn in probes:
         kernel = label.split()[0] + "_kernel"
+        row["device_ms"] = launch_device_ms(fn, kernel)
+        lib = ""
+        if library_fn is not None:
+            row["library_device_ms"] = call_device_ms(library_fn)
+            lib = (f"; library call {row['library_device_ms']:.4f} ms "
+                   "(all its kernels)")
         print(f"kernel {label}: device time per launch "
-              f"{launch_device_ms(fn, kernel):.4f} ms "
-              "(torch.profiler, 20 launches)", flush=True)
+              f"{row['device_ms']:.4f} ms{lib} (torch.profiler, 20 calls)",
+              flush=True)
     for label, fn, wall in targets:
         profile_phase(label, fn, wall)
     ms = host_ms(lambda: ex(frames))

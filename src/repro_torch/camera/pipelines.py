@@ -12,8 +12,8 @@ batch to batch once calibrated:
 3. window gather — up to ``window_capacity`` detected windows per frame,
    nearest-resampled to 20x20 (integer-exact replica of
    ``viola_jones.extract_windows``); overflow is dropped and counted;
-4. int8 NN tail — both layers through the int8 GEMM kernel with static
-   scales and the LUT sigmoid in the kernel.
+4. int8 NN tail — both layers, the quantizers and the LUT sigmoid in one
+   launch of the int8 NN kernel, with static scales.
 
 Every stage takes a leading stream dimension: :meth:`run_streams` runs S
 camera feeds as one batch (the reference's vmap), and ``__call__`` is the
@@ -102,7 +102,7 @@ class FunnelStages:
 
 class FaceAuthExecutor:
     """The §III hot path: motion -> Viola-Jones -> 400-8-1 NN on one
-    device, through the integral-image, Haar-stage and int8 GEMM kernels
+    device, through the integral-image, Haar-stage and int8 NN kernels
     on a card.  Arguments are the reference's, less its JAX-only options
     (``use_pallas``, ``interpret``, ``stream_parallel``, ``telemetry``),
     plus ``device`` (the card when None)."""
@@ -211,7 +211,7 @@ class FaceAuthExecutor:
             return patches, wsel, wvalid, win_dropped_m
 
         def stage_nn(patches, wvalid):
-            """-- 4. int8 NN tail (both layers on the int8 GEMM kernel) --"""
+            """-- 4. int8 NN tail (one launch of the NN kernel) -----------"""
             S, M, Wc = patches.shape[:3]
             x = patches.reshape(S * M * Wc, BASE * BASE)
             s = nn_forward_quantized(qnn, x, lut, meta).reshape(S, M, Wc)

@@ -53,15 +53,26 @@
 //
 // float32 (cuda_core::flash_attention_kernel), on the float32 CUDA cores
 // (67 TFLOP/s), as the TPU kernel computes: tensor cores in float32 would
-// mean TF32.  A block owns a tile of BQ = 64 queries of one (b, h) and
-// walks the key tiles of BK = 64 that its mask does not empty
-// (kernel.py:48-53's skip rule on this tile size), heaviest query tiles
-// first.  Shared memory holds q*scale and K transposed ([d][row]), V
-// row-major and P transposed (112 KB at D = 128, two blocks per SM).
-// Each of the 256 threads owns a 4x4 block of S = q k^T and the same 4
-// rows x D/16 columns of acc in registers, so every shared-memory read is
-// a float4 that feeds 16 or 32 FMAs; row max and row sum are reduced
-// across the 16 threads of a row by warp shuffles.
+// mean TF32.  What bounds it is instruction throughput: an SM reads 32
+// floats a clock from shared memory and runs 128 float32 FMAs, and one
+// warp on a scheduler cannot keep the FMA pipe busy.  A block of 256 threads (8 warps, one
+// block per SM) owns BQ = 128 queries of one (b, h) and walks the key
+// tiles of BK = 64 that its mask does not empty (kernel.py:48-53's skip
+// rule on this tile size), heaviest query tiles first; every tile is
+// masked (masking only the tiles that an edge cuts ran slower).  Each
+// thread owns 8 rows x 4 keys of S (keys tx + 16j) and the same 8 rows x
+// D/16 columns of acc: in S = q k^T 8 q float4 (broadcast to the 16
+// threads of a row group) and 4 k float4 feed 128 FMAs, in P V 2 p float4
+// and D/64 v float4 feed 32 D/64.  A 64 x 128 block with 8 x 8 of S a
+// thread reads 4 floats per FMA but fits only 4 warps on a SM, and ran
+// slower (benchmarks/torch_kernel_variants.py, flash_f32).  Q (scaled
+// once in place) and V sit row-major; K rows are XOR-swizzled by 16-byte
+// chunk (chunk c of key r at c ^ (r & 7): conflict-free float4 reads of
+// keys at stride 16); P is stored transposed in rows of BQ + 4 floats.
+// K and V of tile t come by 16-byte cp.async into slot t & 1 of a 2-slot
+// ring, started a whole tile ahead, so the copy runs under the previous
+// tile's products; two barriers a tile (225 KB at D = 128).  Row max and
+// row sum are reduced across the 16 threads of a row by warp shuffles.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,9 +82,11 @@
 
 namespace cuda_core {  // the float32 kernel
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int kThreads = 256;
+constexpr int BQ = 128;             // queries of a block
+constexpr int BK = 64;              // keys of a K / V tile
+constexpr int kThreads = 2 * BQ;    // BQ / 8 row groups x 16 key groups
+constexpr int KJ = BK / 16;         // keys of S a thread holds
+constexpr int LDP = BQ + 4;         // floats per row of P^T in shared memory
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -103,17 +116,53 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int Tk, int H, int KV, float scale, int window) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [r0, r0 + n) of one head of a (positions, heads, D) tensor into
+// shared-memory rows of D floats, 16-byte chunk c of row r at chunk
+// c ^ (r & 7) when SWIZZLE; rows at or past `end` are zeros.  No commit.
+template <int D, bool SWIZZLE>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t row_stride, int r0, int n,
+                                           int end, int tid) {
+  constexpr int C = D / 4;                    // 16-byte chunks of a row
+  for (int i = tid; i < n * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const bool ok = r0 + r < end;
+    cp_async16(dst + r * D + (SWIZZLE ? c ^ (r & 7) : c) * 4,
+               ok ? src + static_cast<size_t>(r0 + r) * row_stride + c * 4
+                  : src,
+               ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int S, int Tk, int H, int KV, float scale,
+                           int window) {
   constexpr int NC = D / 64;                  // float4 column groups of acc
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ]  q * scale
-  float* Kt = Qt + D * BQ;                      // [D][BK]
-  float* Vs = Kt + D * BK;                      // [BK][D]
-  float* Pt = Vs + BK * D;                      // [BK][BQ]
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][D]  q * scale
+  float* Ks = Qs + BQ * D;                      // 2 x [BK][D], swizzled
+  float* Vs = Ks + 2 * BK * D;                  // 2 x [BK][D]
+  float* Pt = Vs + 2 * BK * D;                  // [BK][LDP]  P transposed
 
   const int n_qt = (S + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
@@ -123,83 +172,85 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kvh = h / (H / KV);
   const size_t q_row = static_cast<size_t>(H) * D;
   const size_t kv_row = static_cast<size_t>(KV) * D;
-  const T* qb = q + (static_cast<size_t>(b) * S * H + h) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
-  const T* vb = v + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
-  T* ob = o + (static_cast<size_t>(b) * S * H + h) * D;
+  const float* qb = q + (static_cast<size_t>(b) * S * H + h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
+  float* ob = o + (static_cast<size_t>(b) * S * H + h) * D;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;                    // rows ty*4 .. ty*4+3
-  const int tx = tid & 15;                    // S cols tx*4.., acc cols c*64+tx*4..
-
-  // stage q * scale, transposed; rows past S are zeros
-  for (int i = tid; i < BQ * (D / 4); i += kThreads) {
-    const int r = i % BQ;
-    const int d4 = (i / BQ) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) x = load4(qb + (q0 + r) * q_row + d4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      Qt[(d4 + e) * BQ + r] = __fmul_rn(comp(x, e), scale);
-  }
-
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-  }
+  const int ty = tid >> 4;     // rows ty*8 .. ty*8+7 of S, P and acc
+  const int tx = tid & 15;     // keys tx + 16j of S; acc cols c*64 + tx*4..
+  const int sw = tx & 7;       // the swizzle of this thread's K rows
 
   // key tiles the mask does not empty: none past the last row of the
   // tile; with a window none wholly at or before q0 - window
   const int k_stop = min(Tk, q0 + BQ);
   const int k_first = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
-  for (int k0 = k_first; k0 < k_stop; k0 += BK) {
-    __syncthreads();                          // previous tile fully consumed
-    for (int i = tid; i < BK * (D / 4); i += kThreads) {
-      const int j = i % BK;
-      const int d4 = (i / BK) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < Tk) x = load4(kb + (k0 + j) * kv_row + d4);
+  // the ring: tile t's K and V go to slot t & 1 as one commit group,
+  // started a whole tile ahead
+  stage_rows<D, false>(Qs, qb, q_row, q0, BQ, S, tid);
+  stage_rows<D, true>(Ks, kb, kv_row, k_first, BK, Tk, tid);
+  stage_rows<D, false>(Vs, vb, kv_row, k_first, BK, Tk, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < BQ * D; i += kThreads) Qs[i] = __fmul_rn(Qs[i], scale);
+
+  float m[8], l[8], acc[8][4 * NC];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) Kt[(d4 + e) * BK + j] = comp(x, e);
-    }
-    for (int i = tid; i < BK * (D / 4); i += kThreads) {
-      const int j = i / (D / 4);
-      const int d4 = (i % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < Tk) x = load4(vb + (k0 + j) * kv_row + d4);
-      store4(Vs + j * D + d4, x);
-    }
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = k_first, slot = 0; k0 < k_stop; k0 += BK, slot ^= 1) {
+    // this tile's K and V landed and are visible, and every thread is done
+    // with the last tile's P V: the other slot takes the next tile
+    cp_async_wait<0>();
     __syncthreads();
-
-    float s[4][4];
+    if (k0 + BK < k_stop) {
+      stage_rows<D, true>(Ks + (slot ^ 1) * BK * D, kb, kv_row, k0 + BK, BK,
+                          Tk, tid);
+      stage_rows<D, false>(Vs + (slot ^ 1) * BK * D, vb, kv_row, k0 + BK, BK,
+                           Tk, tid);
+      cp_async_commit();
+    }
+    const float* Kt = Ks + slot * BK * D;
+    const float* Vt = Vs + slot * BK * D;
+    // S = (q * scale) k^T: per 4 columns of d, 8 q float4 and KJ k float4
+    // feed 32 KJ FMAs; each s sums d in order
+    float s[8][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      const float4 a = load4(Qt + kk * BQ + ty * 4);
-      const float4 bb = load4(Kt + kk * BK + tx * 4);
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d4 = 0; d4 < D; d4 += 4) {
+      float4 a[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * D + d4);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = __fmaf_rn(comp(a, i), comp(bb, j), s[i][j]);
+      for (int j = 0; j < KJ; ++j) {
+        const float4 kk =
+            load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = __fmaf_rn(comp(a[i], e), comp(kk, e), s[i][j]);
+      }
     }
 
-    float p[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + ty * 8 + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
+      for (int j = 0; j < KJ; ++j) {
+        const int col = k0 + tx + 16 * j;
         bool valid = col < Tk && col <= row;
         if (window > 0) valid = valid && col > row - window;
         if (!valid) s[i][j] = kNegInf;
@@ -209,40 +260,47 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float alpha = expf(__fsub_rn(m[i], m_new));
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = expf(__fsub_rn(s[i][j], m_new));
-        sum = __fadd_rn(sum, p[i][j]);
+      for (int j = 0; j < KJ; ++j) {
+        s[i][j] = expf(__fsub_rn(s[i][j], m_new));
+        sum = __fadd_rn(sum, s[i][j]);
       }
       l[i] = __fadd_rn(__fmul_rn(l[i], alpha), row_sum(sum));
 #pragma unroll
       for (int c = 0; c < 4 * NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
       m[i] = m_new;
     }
+    // P^T in rows of BQ + 4 floats: the 8 threads of a store phase (one
+    // row group, 8 keys) write 8 distinct bank quads
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store4(Pt + (tx * 4 + j) * BQ + ty * 4,
-             make_float4(p[0][j], p[1][j], p[2][j], p[3][j]));
-    __syncthreads();
+    for (int j = 0; j < KJ; ++j) {
+      float* dst = Pt + (tx + 16 * j) * LDP + ty * 8;
+      store4(dst, make_float4(s[0][j], s[1][j], s[2][j], s[3][j]));
+      store4(dst + 4, make_float4(s[4][j], s[5][j], s[6][j], s[7][j]));
+    }
+    __syncthreads();                          // P visible
 
-#pragma unroll 4
+    // acc += P V: per key 2 p float4 and NC v float4 feed 32 NC FMAs
+#pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 pv = load4(Pt + kk * BQ + ty * 4);
+      const float4 p0 = load4(Pt + kk * LDP + ty * 8);
+      const float4 p1 = load4(Pt + kk * LDP + ty * 8 + 4);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float4 vv = load4(Vs + kk * D + c * 64 + tx * 4);
+        const float4 vv = load4(Vt + kk * D + c * 64 + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const float pi = i < 4 ? comp(p0, i) : comp(p1, i - 4);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] =
-                __fmaf_rn(comp(pv, i), comp(vv, e), acc[i][c * 4 + e]);
+            acc[i][c * 4 + e] = __fmaf_rn(pi, comp(vv, e), acc[i][c * 4 + e]);
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + ty * 8 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-37f);
 #pragma unroll
@@ -255,21 +313,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Tk, int H, int KV, float scale, int window,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (D * BQ + D * BK + BK * D + BK * BQ);
-  auto kernel = flash_attention_kernel<T, D>;
+  const size_t smem = sizeof(float) * (BQ * D + 4 * BK * D + BK * LDP);
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, KV, scale,
-      window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, KV,
+      scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -751,10 +813,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 128)
-    return cuda_core::launch<float, 128>(q, k, v, o, B, S, Tk, H, KV, scale,
+    return cuda_core::launch<128>(q, k, v, o, B, S, Tk, H, KV, scale,
                                          window, stream);
   if (dtype == 0 && D == 64)
-    return cuda_core::launch<float, 64>(q, k, v, o, B, S, Tk, H, KV, scale,
+    return cuda_core::launch<64>(q, k, v, o, B, S, Tk, H, KV, scale,
                                         window, stream);
   if (dtype == 1 && D == 128)
     return tensor_core::launch<128>(q, k, v, o, B, S, Tk, H, KV, scale,

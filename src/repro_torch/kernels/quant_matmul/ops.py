@@ -3,9 +3,11 @@
 
 * :func:`quant_matmul` quantizes float operands per call (data-dependent
   scales), so the rescale and the LUT run after the kernel;
-* :func:`quant_matmul_static` / :func:`nn_forward_quantized` are the ASIC
-  path: pre-quantized operands with calibrated scales, bias and the LUT
-  sigmoid inside the kernel.
+* :func:`quant_matmul_static` is the ASIC path: pre-quantized operands
+  with calibrated scales, bias and the LUT sigmoid inside the kernel;
+* :func:`nn_forward_quantized` is the whole 400-8-1 NN, quantizers
+  included: one launch of the NN kernel on the card, two GEMMs with the
+  quantizers between them on the CPU.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 version.  LUT indexing is driven by the ``(lo, hi, entries)`` meta of
@@ -21,8 +23,17 @@ import torch
 
 from repro_torch.core.reduction import div_const
 from repro_torch.device import as_tensor, resolve_device, to_numpy
-from repro_torch.kernels.quant_matmul.cuda import quant_matmul_cuda
-from repro_torch.kernels.quant_matmul.ref import lut_index, quant_matmul_ref
+from repro_torch.kernels.quant_matmul.cuda import (
+    NNArgs,
+    quant_matmul_cuda,
+    quant_nn_cuda,
+)
+from repro_torch.kernels.quant_matmul.ref import (
+    lut_index,
+    nn_forward_ref,
+    quant_matmul_ref,
+    quantize_static,
+)
 
 
 def _meta_or_default(lut, meta):
@@ -101,10 +112,30 @@ class QuantizedNN:
     scale_h: float        # hidden (sigmoid output in [0, 1]) step
     scale_w2: float
     bits: int = 8
+    # the NN kernel's converted arguments for the last LUT (kernel_args)
+    _kernel_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def qmax(self) -> int:
         return 2 ** (self.bits - 1) - 1
+
+    def scales(self) -> dict:
+        return dict(scale_x=self.scale_x, scale_w1=self.scale_w1,
+                    scale_h=self.scale_h, scale_w2=self.scale_w2,
+                    qmax=self.qmax)
+
+    def kernel_args(self, lut: torch.Tensor, lo: float, hi: float) -> NNArgs:
+        """The NN kernel's arguments for this LUT, converted at the first
+        call with it and kept: later calls pay no conversions."""
+        args = self._kernel_cache.get("args")
+        if (args is None or args.lut is not lut
+                or (args.lo, args.hi) != (lo, hi)):
+            args = self._kernel_cache["args"] = NNArgs(
+                self.w1_q.contiguous(), self.b1.contiguous(),
+                self.w2_q.contiguous(), self.b2.contiguous(), lut,
+                lo=lo, hi=hi, **self.scales())
+        return args
 
 
 def quantize_nn(nn, *, bits: int = 8, x_max: float = 1.0,
@@ -138,29 +169,18 @@ def quantize_nn(nn, *, bits: int = 8, x_max: float = 1.0,
         scale_w2=sw2, bits=bits)
 
 
-def quantize_static(x: torch.Tensor, scale: float, qmax: int) -> torch.Tensor:
-    """round(x / scale) clipped to +-qmax, as int8 (``div_const``: the
-    reference's jitted division by a constant)."""
-    return torch.round(div_const(x, scale)).clamp(-qmax, qmax).to(torch.int8)
-
-
 def nn_forward_quantized(qnn: QuantizedNN, x, lut, meta=None):
-    """Both NN layers through the int8 kernel: (..., n_in) f32 -> (...,) f32,
-    on the device of ``qnn``'s weights."""
-    lo, hi, entries = _meta_or_default(lut, meta)
+    """The NN, quantizers included: (..., n_in) f32 -> (...,) f32, on the
+    device of ``qnn``'s weights (one NN-kernel launch on the card)."""
+    lo, hi, _entries = _meta_or_default(lut, meta)
     dev = qnn.w1_q.device
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-
-    def layer(h_q, w_q, bias, scale_in, scale_w):
-        return quant_matmul_static(
-            h_q, w_q, lut, scale_x=scale_in, scale_w=scale_w, bias=bias,
-            meta=(lo, hi, entries), apply_lut=True)
-
+    lut = torch.as_tensor(lut, dtype=torch.float32, device=dev).contiguous()
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    x_q = quantize_static(x2, qnn.scale_x, qnn.qmax)
-    h = layer(x_q, qnn.w1_q, qnn.b1, qnn.scale_x, qnn.scale_w1)
-    h_q = quantize_static(h, qnn.scale_h, qnn.qmax)
-    y = layer(h_q, qnn.w2_q, qnn.b2, qnn.scale_h, qnn.scale_w2)
-    return y[:, 0].reshape(lead)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if dev.type == "cuda":
+        y = quant_nn_cuda(x2, qnn.kernel_args(lut, lo, hi))
+    else:
+        y = nn_forward_ref(x2, qnn.w1_q, qnn.b1, qnn.w2_q, qnn.b2, lut,
+                           lut_lo=lo, lut_hi=hi, **qnn.scales())
+    return y.reshape(lead)

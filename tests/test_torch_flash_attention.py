@@ -314,3 +314,105 @@ def test_one_bf16_p_breaks_the_model_bound_at_full_width_scale():
     assert worst(tensor_core_emulation(q, k, v, 128 ** -0.5,
                                        one_bf16_p=True), want,
                  MODEL_BOUND) > 1
+
+
+# -- the float32 CUDA kernel's tile order, emulated with torch ops ---------
+#
+# The float32 kernel (csrc/flash_attention.cu, cuda_core) runs blocks of
+# 128 queries over the key tiles of 64 that its mask does not empty (none
+# past the tile's last row; with a window none wholly at or before
+# q0 - window), scales q once in float32, masks logits to -1e30 from
+# absolute positions, and reduces each row over its 16 threads: every
+# thread holds keys tx + 16 j (j = 0..3), sums its 4 p in order, and the
+# 16 partial sums meet in a butterfly (xor 8, 4, 2, 1).  Then acc * alpha
+# + P V, and one division by max(l, 1e-37).  ``cuda_core_emulation`` does
+# the same in float32 torch ops and is held within the float32 bound
+# (2e-5) of the plain version and of JAX's Pallas kernel in interpret mode.
+
+CC_BQ, CC_BK, CC_THREADS = 128, 64, 16
+
+
+def cuda_core_emulation(q, k, v, scale, window=None):
+    """q: (b, s, H, d), k/v: (b, t, KV, d) float32 -> (b, s, H, d)."""
+    b, s, H, d = q.shape
+    t = k.shape[1]
+    pad = -(-t // CC_BK) * CC_BK + CC_BK - t
+    kf = torch.nn.functional.pad(expand_kv(k, H), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(expand_kv(v, H), (0, 0, 0, 0, 0, pad))
+    qs = q * torch.tensor(scale, dtype=torch.float32)
+    lane = torch.arange(CC_THREADS)
+    out = torch.empty_like(q)
+    for q0 in range(0, s, CC_BQ):
+        rows = torch.arange(q0, min(s, q0 + CC_BQ))
+        k_stop = min(t, q0 + CC_BQ)
+        k_first = max(0, q0 - window + 1) // CC_BK * CC_BK if window else 0
+        m = torch.full((b, H, len(rows)), -1e30)
+        l = torch.zeros((b, H, len(rows)))
+        acc = torch.zeros((b, H, len(rows), d))
+        for k0 in range(k_first, k_stop, CC_BK):
+            keys = torch.arange(k0, k0 + CC_BK)
+            logits = torch.einsum("bshd,bchd->bhsc", qs[:, rows],
+                                  kf[:, k0:k0 + CC_BK])
+            valid = (keys[None] < t) & (keys[None] <= rows[:, None])
+            if window:
+                valid &= keys[None] > rows[:, None] - window
+            logits = torch.where(valid, logits, torch.tensor(-1e30))
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            # key k0 + tx + 16 j -> [..., j, tx]
+            part = p.reshape(*p.shape[:-1], CC_BK // CC_THREADS, CC_THREADS)
+            local = part[..., 0, :]
+            for j in range(1, part.shape[-2]):
+                local = local + part[..., j, :]
+            for off in (8, 4, 2, 1):
+                local = local + local[..., lane ^ off]
+            l = l * alpha + local[..., 0]
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhsc,bchd->bhsd", p, vf[:, k0:k0 + CC_BK])
+            m = m_new
+        out[:, rows] = (acc / l.clamp_min(1e-37)[..., None]).transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("b,s,H,KV,d,window", [
+    (2, 320, 4, 2, 64, None),         # GQA, ragged against the query tiles
+    (1, 320, 2, 1, 128, 100),         # a window: skipped leading tiles
+    (1, 384, 2, 2, 128, 130),
+    (1, 448, 2, 1, 64, 64),           # the window's edge on a tile edge
+])
+def test_cuda_core_emulation_against_pallas_interpret(b, s, H, KV, d,
+                                                       window):
+    (q, k, v), (tq, tk, tv) = qkv([(b, s, H, d), (b, s, KV, d),
+                                   (b, s, KV, d)], 12)
+    got = cuda_core_emulation(tq, tk, tv, d ** -0.5, window)
+    close(np.asarray(plain_f32(tq, tk, tv, window)), got)
+    kf, vf = jnp.repeat(k, H // KV, axis=2), jnp.repeat(v, H // KV, axis=2)
+    want = flash_attention_bhsd(
+        *(jnp.moveaxis(a, 2, 1).reshape(b * H, s, d) for a in (q, kf, vf)),
+        causal=True, window=window, block_q=64, block_k=64, interpret=True)
+    close(want, heads_first(got))
+
+
+def plain_f32(q, k, v, window=None):
+    H, s, t, d = q.shape[2], q.shape[1], k.shape[1], q.shape[3]
+    return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), torch.arange(s),
+                         torch.arange(t), d ** -0.5, window=window)
+
+
+@pytest.mark.parametrize("b,s,H,KV,d,window", [
+    (2, 200, 4, 1, 128, None),        # ragged against both tile sizes
+    (1, 333, 6, 3, 64, 50),
+    (2, 130, 4, 4, 64, 7),
+    (1, 600, 2, 1, 128, 257),
+])
+def test_cuda_core_emulation_ragged(b, s, H, KV, d, window):
+    (q, k, v), (tq, tk, tv) = qkv([(b, s, H, d), (b, s, KV, d),
+                                   (b, s, KV, d)], 13)
+    got = cuda_core_emulation(tq, tk, tv, d ** -0.5, window)
+    close(np.asarray(plain_f32(tq, tk, tv, window)), got)
+    kf, vf = jnp.repeat(k, H // KV, axis=2), jnp.repeat(v, H // KV, axis=2)
+    want = jax_attention_ref(
+        *(jnp.moveaxis(a, 2, 1).reshape(b * H, s, d) for a in (q, kf, vf)),
+        causal=True, window=window)
+    close(want, heads_first(got))
