@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of design variants of two hand-written CUDA kernels, on one card.
+"""A/B of design variants of the hand-written CUDA kernels, on one card.
 
     python3 benchmarks/torch_kernel_variants.py [--only SECTION ...] [--json OUT]
 
@@ -10,7 +10,13 @@ strip ``RS`` and the blocks per SM of its ``__launch_bounds__``; section
 FlashAttention's P, instead of the committed hi + lo pair; ``flash``) and
 of its float32 kernel (masks on every tile or on cut tiles only, blocks
 of 64 or 128 queries, the order of the q k^T fragment loads and the
-unrolling of P V; ``flash_f32``) by text substitution of
+unrolling of P V; ``flash_f32``), of ``src/repro_torch/csrc/rwkv_scan.cu``
+(the chunk length, the V split, and the products on the tensor cores as
+3xTF32 against CUDA-core FMAs; ``wkv``) and of
+``src/repro_torch/csrc/haar_stage.cu`` (windows a thread scores together,
+slot blocks a frame, the table path for the small stages or the global
+path for every stage, and 16-bit tap positions with two blocks an SM;
+``haar``) by text substitution of
 the committed sources, each with ``nvcc`` into a library
 of its own under ``build/variants/``.  Each variant is checked against
 the plain PyTorch version on the same inputs, then all are timed with CUDA
@@ -339,6 +345,183 @@ def flash_f32_variants(nvcc, flags):
     return result
 
 
+def _substitute(text, edits, what):
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{what} no longer has {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def wkv_variants(nvcc, flags):
+    """The chunked WKV kernel at the rwkv6-7b prefill (8 x 4096 x 64 heads
+    of 64): each variant's outputs and final state within 2e-4 of the
+    plain recurrence's largest entry, on drawn inputs with w = 0 in some
+    channels and on a ragged T; timed in turns."""
+    import torch
+
+    from repro_torch.kernels.rwkv_scan.ref import wkv_ref
+
+    text = open(os.path.join(ROOT, "src/repro_torch/csrc/rwkv_scan.cu")
+                ).read()
+    cuda_cores = ("constexpr bool kTensorCores = true;",
+                  "constexpr bool kTensorCores = false;")
+    variants = {
+        "committed": [],
+        "cuda_cores": [cuda_cores],
+        "chunk32_cuda_cores": [cuda_cores, ("kChunk = 16;", "kChunk = 32;"),
+                               ("kMinBlocks = 4;", "kMinBlocks = 2;")],
+        "chunk8_cuda_cores": [cuda_cores, ("kChunk = 16;", "kChunk = 8;"),
+                              ("kThreads = 128;", "kThreads = 64;")],
+        "vsplit2_cuda_cores": [cuda_cores, ("kCols = 64;", "kCols = 32;")],
+    }
+    fns = {}
+    for name, edits in variants.items():
+        src = _substitute(text, edits, "rwkv_scan.cu")
+        fn = build(f"wkv_{name}", src, nvcc, flags).repro_rwkv_wkv
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def call(name, r, k, v, w, u):
+        B, T, H, K = r.shape
+        out = torch.empty_like(v)
+        state = torch.empty((B, H, K, K), device=r.device)
+        rc = fns[name](r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                       u.data_ptr(), out.data_ptr(), state.data_ptr(), B, T,
+                       H, K, K, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"wkv {name}: CUDA error {rc}")
+        return out, state
+
+    def plain(r, k, v, w, u):
+        B, T, H, K = r.shape
+        heads = [t.transpose(1, 2).reshape(B * H, T, K) for t in (r, k, v, w)]
+        out, state = wkv_ref(*heads, u.expand(B, H, K).reshape(B * H, K))
+        return (out.reshape(B, H, T, K).transpose(1, 2),
+                state.reshape(B, H, K, K))
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def draw(shape, std):
+        return std * torch.randn(shape, device="cuda", generator=gen)
+
+    result = {}
+    for B, T, H in ((8, 4096, 64), (2, 650, 4)):
+        r, k, v = (draw((B, T, H, 64), 0.5) for _ in range(3))
+        w = torch.sigmoid(draw((B, T, H, 64), 2.0))
+        w[:, ::7, :, ::5] = 0.0                  # exp(-exp(x)) underflows
+        u = draw((H, 64), 0.3)
+        want_out, want_state = plain(r, k, v, w, u)
+        label = f"{B}x{T}x{H}x64"
+        entry = {}
+        for name in fns:
+            out, state = call(name, r, k, v, w, u)
+            errs = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in ((out, want_out), (state, want_state))]
+            if max(errs) >= 2e-4:
+                raise AssertionError(f"wkv {name} {label}: relative errors "
+                                     f"{errs}")
+            entry[name] = {"rel_err_out": errs[0], "rel_err_state": errs[1]}
+        del want_out, want_state
+        times = in_turns({name: (lambda n=name: call(n, r, k, v, w, u))
+                          for name in fns}, 10 if T == 4096 else 50)
+        for name in fns:
+            entry[name]["ms"] = times[name]
+        print(f"rwkv_wkv {label}: " + ", ".join(
+            f"{n} ms {' / '.join(f'{t:.4f}' for t in e['ms'])} (errors "
+            f"{e['rel_err_out']:.3g}, {e['rel_err_state']:.3g})"
+            for n, e in entry.items()), flush=True)
+        result[label] = entry
+        del r, k, v, w
+        torch.cuda.empty_cache()
+    return result
+
+
+def haar_variants(nvcc, flags):
+    """The Haar stage at the funnel's shapes (the full-width executor of
+    ``assets/fa_reference.npz``: stage 0 at S = 1 and S = 64, stage 1 at
+    S = 1), each variant bit-equal to the plain version, timed in turns;
+    the ``global_path`` variant is the one-thread-a-slot kernel of every
+    stage before the table path."""
+    import torch
+
+    from repro_torch.bridge import load_fa_reference
+    from repro_torch.camera.pipelines import FaceAuthExecutor
+    from repro_torch.camera.synthetic import security_video
+    from repro_torch.kernels.haar_frontend.ref import haar_stage_ref
+
+    text = open(os.path.join(ROOT, "src/repro_torch/csrc/haar_stage.cu")
+                ).read()
+    variants = {
+        "committed": [],
+        "windows2": [("kWindows = 4;", "kWindows = 2;")],
+        "windows1": [("kWindows = 4;", "kWindows = 1;")],
+        "pos16_2blocks": [("using Pos = int;", "using Pos = short;"),
+                          ("kTableThreads = 1024;", "kTableThreads = 512;"),
+                          ("kTableBlocksPerSM = 1;", "kTableBlocksPerSM = 2;")],
+        "one_block_a_frame": [("int split = sms * per_sm / rows;",
+                               "int split = 1;")],
+        "table_small_caps": [("kTableMinCap = 2048;", "kTableMinCap = 1;")],
+        "global_path": [("kTableMinCap = 2048;", "kTableMinCap = 1 << 30;")],
+    }
+    fns = {}
+    for name, edits in variants.items():
+        src = _substitute(text, edits, "haar_stage.cu")
+        fn = build(f"haar_{name}", src, nvcc, flags).repro_haar_stage
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, i, i, p, i, p, p, p, p, i, p, p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def call(name, ii, items, offsets, weights, thresholds, polarity,
+             alphas):
+        rows, L = ii.shape
+        n_scales, sz, _ = offsets.shape
+        out = torch.empty(items.shape[:2], device=ii.device)
+        rc = fns[name](ii.data_ptr(), L, items.data_ptr(), rows,
+                       items.shape[1], offsets.data_ptr(), n_scales,
+                       weights.data_ptr(), thresholds.data_ptr(),
+                       polarity.data_ptr(), alphas.data_ptr(), sz,
+                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"haar {name}: CUDA error {rc}")
+        return out
+
+    ref = load_fa_reference(device="cuda")
+    frames_np, _truth = security_video(**ref.video)
+    frames = torch.as_tensor(frames_np, device="cuda")
+    ex = FaceAuthExecutor(ref.cascade, ref.nn, frames.shape[1],
+                          frames.shape[2], device="cuda", **ref.scan)
+    ex.calibrate(frames)
+    det = ex.det
+    result = {}
+    for streams, stage in ((1, 0), (64, 0), (1, 1)):
+        feeds = torch.stack([torch.roll(frames, 5 * s, dims=0)
+                             for s in range(streams)])
+        mframes = ex.stages.motion(feeds)[0]
+        ii, ii2 = det.integrals(mframes.reshape(-1, *mframes.shape[-2:]))
+        items = det.items(ii, ii2)[:, :det.capacities[stage]].contiguous()
+        tables = det.stage_tables[stage]
+        want = haar_stage_ref(ii, items, *tables).view(torch.int32)
+        label = f"S={streams} stage {stage} {tuple(items.shape[:2])}"
+        for name in fns:
+            got = call(name, ii, items, *tables).view(torch.int32)
+            if not torch.equal(got, want):
+                raise AssertionError(f"haar {name} {label} differs from "
+                                     "plain")
+        times = in_turns({name: (lambda n=name: call(n, ii, items, *tables))
+                          for name in fns}, 5 if streams > 1 else 50)
+        print(f"haar_stage {label}, bit-equal to plain: ms " + ", ".join(
+            f"{n} {' / '.join(f'{t:.4f}' for t in v)}"
+            for n, v in times.items()), flush=True)
+        result[label] = times
+        del ii, ii2, items, want
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="write the readings here")
@@ -370,7 +553,8 @@ def main() -> int:
 
 
 SECTIONS = {"integral": integral_variants, "flash": flash_variants,
-            "flash_f32": flash_f32_variants}
+            "flash_f32": flash_f32_variants, "wkv": wkv_variants,
+            "haar": haar_variants}
 
 if __name__ == "__main__":
     sys.exit(main())

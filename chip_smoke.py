@@ -37,6 +37,9 @@ that the float32 one holds no tensor-core instruction, then:
    and its plain PyTorch version on the card on the same inputs and holds
    them together (``quant_nn``, ``quant_matmul``, ``haar_stage``,
    ``wire_encode``, ``wire_decode`` and ``integral_image`` bit-exact;
+   ``haar_stage`` at every stage at S = 1, at stage 0 of S = 64 streams
+   (1,792 frames) and on frames with NaN pixels, with a row at S = 64 whose
+   bound also counts the taps as shared-memory loads;
    ``integral_image`` also on a 4K eye frame and two shapes ragged against
    its strips and tiles; ``quant_nn``, the whole NN in one launch, also on
    the S = 64 windows and at 1, 17 and 5,377 rows; ``quant_matmul``, the
@@ -76,10 +79,13 @@ that the float32 one holds no tensor-core instruction, then:
    Each kernel is held to its plain version on the inputs it got in that
    prefill (flash atol = rtol = 2e-2 in bf16; WKV outputs and final state
    within 2e-4 of the plain version's largest entry, with the path's zero
-   u and again with a seeded nonzero u).  Then each model at full width,
-   4 layers deep, in float32: the full forward against prefill + 4 decode
-   steps (B 2, S 1000), within 7e-4 of the largest |logit| (E, the
-   model's own one-ulp sensitivity, printed beside it); the JAX record
+   u and again with a seeded nonzero u, and on drawn inputs at a T ragged
+   against the kernel's chunk with w = 0 in some channels; beside each,
+   the error of the kernel's chunked arithmetic in plain PyTorch).  Then
+   each model at full width, 4 layers deep, in float32: the full forward
+   against prefill + 4 decode steps (B 2, S 1000), within 7e-4 of the
+   largest |logit| (E, the model's own one-ulp sensitivity, printed beside
+   it); the JAX record
    (``assets/lm_reference.npz``) on the card; and ``flash_attention`` on
    random inputs at ``KERNEL_SHAPES``' prefill_32k (8 x 32768 x 128,
    causal, and with a window of 4096; bf16 within 4e-3 + 2^-7 |x|, and
@@ -285,30 +291,41 @@ def call_device_ms(fn, reps: int = 20) -> float:
 
 def kernel_row(probes, name, module, launches, err, fn, plain_ms,
                library_ms, n_bytes, n_ops, peak_ops, reps=20, shape=None,
-               library_fn=None):
+               library_fn=None, shared_ms=None, kernel=None):
     """One line of the kernels JSON; ``fn`` launches the kernel once and
     goes into ``probes`` for the profile phase, with ``library_fn`` (the
     library call timed as ``library_ms``), which fills the row's
-    ``device_ms`` and ``library_device_ms`` there."""
+    ``device_ms`` and ``library_device_ms`` there.  ``shared_ms``, where
+    given, is a third bound term: the kernel's shared-memory loads at 32
+    a clock on every SM (operations of the load pipe).  ``kernel``: the
+    name the profiler knows the launched kernel by (``<name>_kernel``)."""
     ms = device_ms(fn, reps=reps)
     t_bytes, t_ops, b_by = bound(n_bytes, n_ops, peak_ops)
+    terms = {"bytes": t_bytes, "operations": t_ops}
+    if shared_ms is not None:
+        terms["shared_loads"] = shared_ms
+        if shared_ms > t_bytes:
+            b_by = "operations"
     replaces = module.REPLACES
     if isinstance(replaces, dict):          # one source, several kernels
         replaces = replaces[name]
     row = {"name": name, "route": "cuda", "source": module.SOURCE,
            "replaces": replaces, "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops), "bound_by": b_by,
+           "bound_ms": max(terms.values()), "bound_by": b_by,
            "library_ms": library_ms}
+    if shared_ms is not None:
+        row["bound_terms_ms"] = terms
     if shape is not None:
         row["shape"] = shape
     probes.append((name if shape is None else f"{name} {shape}", fn, row,
-                   library_fn))
+                   library_fn, kernel or f"{name}_kernel"))
     lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
     print(f"kernel {probes[-1][0]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib} bound_ms={max(t_bytes, t_ops):.4f} "
-          f"(bytes {t_bytes:.4f}, operations {t_ops:.4f}) "
-          f"launches_per_batch={launches} max_abs_err={err:g}", flush=True)
+          f"library_ms={lib} bound_ms={row['bound_ms']:.4f} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+          + f") launches_per_batch={launches} max_abs_err={err:g}",
+          flush=True)
     return row
 
 
@@ -318,8 +335,6 @@ def kernel_phase(ex, frames, launches):
     (name, launch-once function) pairs for the profile phase."""
     import torch
 
-    from repro_torch.kernels.haar_frontend import cuda as hcuda
-    from repro_torch.kernels.haar_frontend.ref import haar_stage_ref
     from repro_torch.kernels.integral_image import cuda as icuda
     from repro_torch.kernels.integral_image.ref import integral_image_ref
 
@@ -356,31 +371,7 @@ def kernel_phase(ex, frames, launches):
           "2x65x4097: kernel == plain bit for bit", flush=True)
     del img
 
-    # -- haar_stage: stage 0 over every window of every motion frame
-    det = ex.det
-    ii, ii2 = det.integrals(mf)
-    items = det.items(ii, ii2).contiguous()
-    for si, tables in enumerate(det.stage_tables):
-        cap = det.capacities[si]
-        it = items[:, :cap].contiguous()
-        got = hcuda.haar_stage_cuda(ii, it, *tables)
-        want = haar_stage_ref(ii, it, *tables)
-        if not torch.equal(got, want):
-            raise AssertionError(f"haar_stage {si}: max |err| "
-                                 f"{max_abs_err(got, want)}")
-    tables = det.stage_tables[0]
-    offsets = tables[0]
-    n_scales, sz, _k = offsets.shape
-    rows_, cap = items.shape[:2]
-    n_bytes = 4 * (ii.numel() + items.numel() + rows_ * cap
-                   + offsets.numel() + sz * 8 + 3 * sz)
-    n_ops = rows_ * cap * sz * 21      # 8 mul + 8 add, scale, sub, sign, 2 mul, add
-    rows.append(kernel_row(
-        probes, "haar_stage", hcuda, launches["haar_stage"], 0.0,
-        lambda: hcuda.haar_stage_cuda(ii, items, *tables),
-        device_ms(lambda: haar_stage_ref(ii, items, *tables), reps=3,
-                  warm=1),
-        None, n_bytes, n_ops, PEAK_F32_OPS_S))
+    rows += haar_rows(probes, ex, frames, mf, launches)
 
     # -- the NN kernel: the whole 400-8-1 NN on the main path's windows
     dmask, n_win_m, _cd = st.detect(mframes, fvalid)
@@ -390,6 +381,100 @@ def kernel_phase(ex, frames, launches):
     rows += gemm_rows(probes, ex, xw, launches)
     rows += codec_rows(probes, ex, frames, launches)
     return rows, probes
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def haar_rows(probes, ex, frames, mf, launches):
+    """``haar_stage`` bit for bit against its plain version: every stage
+    at S = 1 (the table path for stage 0, the global path for the small
+    stages), stage 0 at S = 64 streams (1,792 frames x 25,853 windows),
+    and stage 0 on the S = 1 frames with three NaN pixels (NaN scores in
+    the same windows, with the same bits).  Rows for stage 0 at S = 1 and
+    at S = 64, each with three bound terms: bytes, float32 operations and
+    the taps as shared-memory loads (32 a clock on every SM at the card's
+    largest SM clock); launches per S = 64 batch from a counted
+    ``run_streams`` call."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.haar_frontend import cuda as hcuda
+    from repro_torch.kernels.haar_frontend.ref import haar_stage_ref
+
+    det = ex.det
+    ii, ii2 = det.integrals(mf)
+    items = det.items(ii, ii2).contiguous()
+    for si, tables in enumerate(det.stage_tables):
+        it = items[:, :det.capacities[si]].contiguous()
+        got = hcuda.haar_stage_cuda(ii, it, *tables)
+        want = haar_stage_ref(ii, it, *tables)
+        if not _bits_equal(got, want):
+            raise AssertionError(f"haar_stage {si} {tuple(it.shape)}: max "
+                                 f"|err| {max_abs_err(got, want)}")
+    tables = det.stage_tables[0]
+    bad = mf.clone()
+    for f, y, x in ((3, 50, 60), (7, 0, 0), (9, 143, 175)):
+        bad[f, y, x] = float("nan")
+    nan_ii, nan_ii2 = det.integrals(bad)
+    nan_items = det.items(nan_ii, nan_ii2).contiguous()
+    got = hcuda.haar_stage_cuda(nan_ii, nan_items, *tables)
+    n_nan = int(torch.isnan(got).sum())
+    if not _bits_equal(got, haar_stage_ref(nan_ii, nan_items, *tables)) \
+            or n_nan == 0:
+        raise AssertionError(f"haar_stage with NaN pixels differs from "
+                             f"plain ({n_nan} NaN scores)")
+    del bad, nan_ii, nan_ii2, nan_items
+
+    streams = torch.stack([torch.roll(frames, 5 * s, dims=0)
+                           for s in range(STREAMS)])
+    _build.reset_launches()
+    ex.run_streams(streams)
+    torch.cuda.synchronize()
+    launches64 = _build.launches["haar_stage"]
+    m64 = ex.stages.motion(streams)[0]
+    ii64, ii64_2 = det.integrals(m64.reshape(-1, *m64.shape[-2:]))
+    items64 = det.items(ii64, ii64_2).contiguous()
+    del streams, m64, ii64_2
+    got = hcuda.haar_stage_cuda(ii64, items64, *tables)
+    if not _bits_equal(got, haar_stage_ref(ii64, items64, *tables)):
+        raise AssertionError(f"haar_stage at S={STREAMS} "
+                             f"{tuple(items64.shape)} differs from plain")
+    del got
+    print(f"haar_stage: stages 0-2 at S=1 {tuple(items.shape[:2])}, stage 0 "
+          f"at S={STREAMS} {tuple(items64.shape[:2])} and with 3 NaN pixels "
+          f"({n_nan} NaN scores): kernel == plain bit for bit", flush=True)
+
+    offsets = tables[0]
+    n_scales, sz, k_slots = offsets.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    rows = []
+    for table, it, n, shape in (
+            (ii, items, launches["haar_stage"], None),
+            (ii64, items64, launches64, f"S={STREAMS} stage 0")):
+        n_rows, cap = it.shape[:2]
+        taps = n_rows * cap * sz * k_slots
+        n_bytes = 4 * (table.numel() + it.numel() + n_rows * cap
+                       + offsets.numel() + sz * k_slots + 3 * sz)
+        n_ops = n_rows * cap * sz * 21   # 8 mul + 8 add, scale, sub, sign, 2 mul, add
+        reps = 3 if shape is None else 1
+        rows.append(kernel_row(
+            probes, "haar_stage", hcuda, n, 0.0,
+            lambda t=table, i=it: hcuda.haar_stage_cuda(t, i, *tables),
+            device_ms(lambda t=table, i=it: haar_stage_ref(t, i, *tables),
+                      reps=reps, warm=1),
+            None, n_bytes, n_ops, PEAK_F32_OPS_S, shape=shape,
+            shared_ms=1e3 * taps / (sms * 32 * clock),
+            kernel="haar_stage_table_kernel",
+            reps=20 if shape is None else 5))
+    return rows
 
 
 def nn_rows(probes, ex, frames, xw, launches):
@@ -1636,40 +1721,54 @@ def wkv_row(probes, args, launches):
     """``rwkv_wkv`` against the plain sequential recurrence: outputs and
     final state within WKV_REL of the plain version's largest entry.  On
     the path's own inputs; again with a seeded nonzero u (the path's bonus
-    is zero, as the model initialises it); and on inputs drawn as
+    is zero, as the model initialises it); on inputs drawn as
     tests/test_kernels.py:363-368 draws them, where the bonus must move
     the plain outputs by at least 10 WKV_REL, so that a kernel that drops
-    or misplaces it cannot pass."""
+    or misplaces it cannot pass; and on drawn inputs at a T ragged against
+    the kernel's chunk (650, the JAX record's prompts) with w = 0 (where
+    the model's exp(-exp(x)) underflows) in some channels.  Each check
+    prints beside the kernel's errors those of ``wkv_chunked_ref``, the
+    kernel's chunked arithmetic in plain PyTorch on the same inputs."""
     import torch
 
     from repro_torch.kernels.rwkv_scan import cuda as wcuda
-    from repro_torch.kernels.rwkv_scan.ref import wkv_ref
+    from repro_torch.kernels.rwkv_scan.ref import (
+        CHUNK,
+        wkv_chunked_ref,
+        wkv_ref,
+    )
 
     r, k, v, w, u = args
     B, T, H, K = r.shape
     V = v.shape[-1]
 
-    def plain(r, k, v, w, u):
-        heads = [t.transpose(1, 2).reshape(B * H, T, t.shape[-1])
-                 for t in (r, k, v, w)]
-        out, state = wkv_ref(*heads, u.expand(B, H, K).reshape(B * H, K))
-        return (out.reshape(B, H, T, V).transpose(1, 2),
-                state.reshape(B, H, K, V))
+    def plain(r, k, v, w, u, fn=wkv_ref):
+        b, t = r.shape[:2]
+        heads = [x.transpose(1, 2).reshape(b * H, t, x.shape[-1])
+                 for x in (r, k, v, w)]
+        out, state = fn(*heads, u.expand(b, H, K).reshape(b * H, K))
+        return (out.reshape(b, H, t, V).transpose(1, 2),
+                state.reshape(b, H, K, V))
+
+    def rel(got, want):
+        return max_abs_err(got, want) / float(want.abs().max())
 
     def check(rkvw, u, label):
         out, state = wcuda.rwkv_wkv_cuda(*rkvw, u)
         want_out, want_state = plain(*rkvw, u)
-        err = max_abs_err(out, want_out)
-        rel_out = err / float(want_out.abs().max())
-        rel_state = max_abs_err(state, want_state) / float(
-            want_state.abs().max())
-        print(f"rwkv_wkv {tuple(r.shape)}, {label}: relative error "
+        emu_out, emu_state = plain(*rkvw, u, fn=wkv_chunked_ref)
+        rel_out, rel_state = rel(out, want_out), rel(state, want_state)
+        print(f"rwkv_wkv {tuple(rkvw[0].shape)}, {label}: relative error "
               f"{rel_out:.3g} (outputs), {rel_state:.3g} (final state), "
-              f"bound {WKV_REL}", flush=True)
+              f"bound {WKV_REL}; the chunked emulation's "
+              f"{rel(emu_out, want_out):.3g}, {rel(emu_state, want_state):.3g}"
+              , flush=True)
         if not (rel_out < WKV_REL and rel_state < WKV_REL):
             raise AssertionError(f"rwkv_wkv ({label}) differs from the "
                                  "plain recurrence")
-        return err, state, want_out
+        if not (torch.isfinite(out).all() and torch.isfinite(state).all()):
+            raise AssertionError(f"rwkv_wkv ({label}): non-finite values")
+        return max_abs_err(out, want_out), state, want_out
 
     def bonus_moves(want_out, rkvw):
         zero_u, _ = plain(*rkvw, torch.zeros_like(u))
@@ -1700,12 +1799,23 @@ def wkv_row(probes, args, launches):
     if moved < 10 * WKV_REL:
         raise AssertionError("the bonus check cannot see a dropped bonus")
     del want, drawn
+    ragged = (LM_REQUESTS, 650, H, K)
+    if ragged[1] % CHUNK == 0:
+        raise AssertionError("the ragged check needs T ragged against the "
+                             "chunk")
+    drawn = [draw(ragged, 0.5), draw(ragged, 0.5), draw(ragged, 0.5),
+             torch.sigmoid(draw(ragged, 10.0))]
+    drawn[3][:, ::3, :, ::2] = 0.0
+    check(tuple(drawn), bonus, f"drawn, T = {ragged[1]} (ragged against the "
+          f"chunk of {CHUNK}), dscale 10, w = 0 in every third step's even "
+          "channels")
+    del drawn
     plain_ms = device_ms(lambda: plain(r, k, v, w, u), reps=1, warm=0)
     # bytes: r, k, v, w and out once, u and the state; operations: the
-    # chunked form (chunk L = 32) per (b, h) and chunk: the inter-chunk and
-    # state products 4 L K V, the strictly lower intra-chunk scores and
+    # kernel's chunked form (chunk L) per (b, h) and chunk: the inter-chunk
+    # and state products 4 L K V, the strictly lower intra-chunk scores and
     # product 2 * L(L-1)/2 * (K + V), the diagonal 3 L K + 2 L V
-    L = 32
+    L = CHUNK
     per_chunk = 4 * L * K * V + L * (L - 1) * (K + V) + 3 * L * K + 2 * L * V
     n_ops = B * H * (-(-T // L)) * per_chunk
     n_bytes = 4 * (r.numel() * 3 + v.numel() * 2 + u.numel() + state.numel())
@@ -1833,8 +1943,7 @@ def profiles_phase(ex, frames, targets, probes):
     print(f"funnel before the profiler sessions, after the other phases: "
           f"{ms / B:.4f} ms per frame ({ms:.3f} ms per {B}-frame batch, "
           "median of 7)", flush=True)
-    for label, fn, row, library_fn in probes:
-        kernel = label.split()[0] + "_kernel"
+    for label, fn, row, library_fn, kernel in probes:
         row["device_ms"] = launch_device_ms(fn, kernel)
         lib = ""
         if library_fn is not None:

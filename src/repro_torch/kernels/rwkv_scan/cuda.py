@@ -26,8 +26,9 @@ def _kernel():
 
 
 def rwkv_wkv_cuda(r, k, v, w, u):
-    """The WKV recurrence from the zero state, one launch.  r/k/w:
-    (B, T, H, 64), v: (B, T, H, 64), u: (H, 64), float32 CUDA ->
+    """The WKV recurrence from the zero state, one launch of the chunked
+    kernel.  r/k/w: (B, T, H, 64), v: (B, T, H, 64), u: (H, 64), float32
+    CUDA, contiguous and 16-byte aligned ->
     (out (B, T, H, 64), final state (B, H, 64, 64))."""
     dev = r.device
     if dev.type != "cuda":
@@ -43,6 +44,9 @@ def rwkv_wkv_cuda(r, k, v, w, u):
     if v.shape != (B, T, H, HEAD) or u.shape != (H, HEAD):
         raise ValueError(f"v {tuple(v.shape)} / u {tuple(u.shape)} do not "
                          f"match r {tuple(r.shape)}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("r/k/v/w must start 16-byte aligned (the kernel "
+                         "copies 16-byte pieces)")
     out = torch.empty_like(v)
     state = torch.empty((B, H, HEAD, HEAD), device=dev)
     if B * H == 0:

@@ -171,6 +171,110 @@ class TestHaarStage:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+    def test_nan_pixel_poisons_exactly_its_windows(self):
+        """A NaN pixel makes its frame's integral image NaN below and right
+        of it; a window's score is NaN exactly when one of its taps reads
+        such an entry, a zero-weight tap included (ii * 0 is NaN), in the
+        port's plain version and in the JAX reference alike."""
+        h, w = 40, 50
+        L = (h + 1) * (w + 1)
+        rng = np.random.default_rng(11)
+        img = rng.random((h, w), dtype=np.float32)
+        img[23, 31] = np.nan
+        ii = np.zeros((h + 1, w + 1), np.float32)
+        ii[1:, 1:] = np.cumsum(np.cumsum(img, 0, dtype=np.float32), 1,
+                               dtype=np.float32)
+        ii = ii.reshape(1, L)
+        s = _random_stage(12, 1, 300, 3, 6, L=L)
+        s["ii"] = ii
+        s["base"] = rng.integers(0, L - (12 * (w + 1) + 12), (1, 300)) \
+            .astype(np.int32)
+        # slots 6 and 7 weigh 0 and reach farther than the others
+        reach = np.array([0] * 6 + [7] * 2)
+        s["offsets"] = ((rng.integers(0, 6, (3, 6, 8)) + reach) * (w + 1)
+                        + rng.integers(0, 6, (3, 6, 8)) + reach
+                        ).astype(np.int32)
+        s["weights"][:, 6:] = 0.0
+        idx = s["base"][0][:, None, None] + s["offsets"][s["sid"][0]]
+        nan_tap = np.isnan(ii[0][idx])                       # (cap, sz, 8)
+        want = nan_tap.any(axis=(1, 2))
+        only_zero_weight = nan_tap[..., 6:].any((1, 2)) \
+            & ~nan_tap[..., :6].any((1, 2))
+        assert want.any() and (~want).any() and only_zero_weight.any()
+        got = haar_stage_ref(_t(ii), _t(_items(s)), _t(s["offsets"]),
+                             _t(s["weights"]), _t(s["thresholds"]),
+                             _t(s["polarity"]), _t(s["alphas"])).numpy()
+        np.testing.assert_array_equal(np.isnan(got[0]), want)
+        jax_scores = _jax_stage(s, 0, pallas=False)
+        np.testing.assert_array_equal(np.isnan(jax_scores), want)
+
+    def test_table_path_fits_shared_memory(self):
+        """The table path's shared memory, from the constants and layout of
+        csrc/haar_stage.cu at the funnel's shape (145 x 177 tables, 9
+        scales, 33 stumps): within a block's 227 KB, and kTableBlocksPerSM
+        blocks of it (with the 1 KB each reserves) within an SM's 228 KB,
+        at kTableThreads threads each within its 2,048 threads."""
+        k = _cu_constants("haar_stage.cu")
+        pos_bytes = {"int": 4, "short": 2}[k["Pos"]]
+        L, n_scales, sz = 145 * 177, 9, 33
+        half = ((L + 1) // 2 + 15) // 32 * 32 + 16
+        taps = 0
+        weights = taps + 8 * pos_bytes * 2 * n_scales * sz
+        params = weights + 2 * 16 * sz
+        rng_ = params + 16 * sz
+        table = (rng_ + 8 * n_scales + 15) // 16 * 16
+        total = table + 4 * 2 * half
+        assert total == 123_456 and half % 32 == 16 and 2 * half >= L + 1
+        assert total <= 227 * 1024
+        assert k["kTableBlocksPerSM"] * (total + 1024) <= 228 * 1024
+        assert k["kTableThreads"] * k["kTableBlocksPerSM"] <= 2048
+        assert k["kTableMinCap"] <= 25_853          # stage 0 takes the table
+
+    def test_deinterleaved_positions(self):
+        """The table path's tap positions: for an even and an odd window
+        base, (base >> 1) + the staged position of offset o is where the
+        de-interleaved table holds entry base + o; 32 windows 2 floats
+        apart (the scan's step) read 32 distinct banks (16 in row order),
+        and 32 windows 1 apart at most 2 a bank."""
+        L = 145 * 177
+        half = ((L + 1) // 2 + 15) // 32 * 32 + 16
+
+        def where(idx):
+            return (idx & 1) * half + (idx >> 1)
+
+        rng = np.random.default_rng(13)
+        base = rng.integers(0, L, 4000)
+        off = rng.integers(-L + 1, L, 4000)
+        inside = (base + off >= 0) & (base + off < L)
+        base, off = base[inside], off[inside]
+        staged = np.where(base & 1 == 0, (off & 1) * half + (off >> 1),
+                          ((off + 1) & 1) * half + ((off + 1) >> 1))
+        np.testing.assert_array_equal((base >> 1) + staged, where(base + off))
+        for b0 in (0, 1, 1234, 25_001):
+            idx = b0 + 2 * np.arange(32)
+            assert len(set((where(idx) % 32).tolist())) == 32, b0
+            assert len(set((idx % 32).tolist())) == 16       # row order
+            per_bank = np.bincount(where(b0 + np.arange(32)) % 32)
+            assert per_bank.max() <= 2, b0
+
+
+def _cu_constants(name):
+    """The ``constexpr int`` / ``bool`` constants and ``using`` aliases of
+    a source in src/repro_torch/csrc."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / name).read_text()
+    out = {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    out.update({m[1]: m[2] == "true" for m in re.finditer(
+        r"constexpr bool (k\w+) = (true|false);", text)})
+    out.update({m[1]: m[2] for m in re.finditer(
+        r"using (\w+) = (\w+);", text)})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # int8 GEMM and the quantized NN
 # ---------------------------------------------------------------------------

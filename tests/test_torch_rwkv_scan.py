@@ -2,7 +2,8 @@
 package: the chunked Pallas kernel in interpret mode (``rwkv_wkv``), its
 sequential oracle ``wkv_ref`` and the model's ``_wkv_step`` scanned from
 the zero state, whose final state the port's recurrence also returns (the
-prefill hands it to decode).
+prefill hands it to decode).  ``wkv_chunked_ref``, the CUDA kernel's
+chunked arithmetic in plain PyTorch, is held to the same references.
 
 Tolerance: the reference's own, relative error below 2e-4 of the largest
 |output| (tests/test_kernels.py:372) against the chunked kernel; against
@@ -23,7 +24,12 @@ from repro.models.ssm import _wkv_step as jax_wkv_step
 
 from repro_torch.kernels.rwkv_scan import cuda as wcuda
 from repro_torch.kernels.rwkv_scan.ops import rwkv_wkv
-from repro_torch.kernels.rwkv_scan.ref import wkv_ref, wkv_step
+from repro_torch.kernels.rwkv_scan.ref import (
+    CHUNK,
+    wkv_chunked_ref,
+    wkv_ref,
+    wkv_step,
+)
 
 # the test files run in parallel worker processes: one intra-op thread
 # per process keeps PyTorch's CPU kernels from oversubscribing the cores
@@ -121,3 +127,69 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     t = torch.zeros((1, 4, 1, 64))
     with pytest.raises(ValueError, match="CUDA"):
         wcuda.rwkv_wkv_cuda(t, t, t, t, torch.zeros((1, 64)))
+
+
+@pytest.mark.parametrize("T,dscale,w_fill", [
+    (100, 2.0, None),          # ragged against the chunk of 16
+    (650, 10.0, None),         # the JAX record's prompt length, dscale 10
+    (100, 3.0, 0.0),           # exp(-exp(x)) underflows to w = 0
+    (64, 1.0, 1e-30),
+    (650, 2.0, 0.0),
+])
+def test_chunked_emulation_against_jax_and_oracle(T, dscale, w_fill):
+    """The kernel's chunked form (linear-domain decays, chunk CHUNK, a
+    ragged last chunk padded with w = 1) against the JAX chunked Pallas
+    kernel in interpret mode (outputs; it keeps no state), the model's scan
+    (final state) and the port's sequential ``wkv_ref`` (both): within the
+    reference's 2e-4 of the largest entry, finite at w = 0 and 1e-30 in
+    every third step's even channels."""
+    r, k, v, w, u = inputs(4, T, 64, dscale, T + 1)
+    if w_fill is not None:
+        w[:, ::3, ::2] = w_fill
+    args = [torch.tensor(a) for a in (r, k, v, w, u)]
+    out, state = wkv_chunked_ref(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    seq_out, seq_state = wkv_ref(*args)
+    assert rel(out.numpy(), seq_out.numpy()) < 2e-4
+    assert rel(state.numpy(), seq_state.numpy()) < 2e-4
+    pallas = jax_rwkv_wkv(*(jnp.asarray(a) for a in (r, k, v, w, u)),
+                          chunk=32, interpret=True)
+    assert rel(out.numpy(), pallas) < 2e-4
+    _scan_out, scan_state = jax_scan_state(r, k, v, w, u)
+    assert rel(state.numpy(), scan_state) < 2e-4
+
+
+@pytest.mark.parametrize("w_value", [0.0, 1e-30])
+def test_chunked_emulation_every_decay_extreme(w_value):
+    """Every w at 0 or 1e-30: each step forgets the state (|log w| = inf
+    or 69, where a log-space difference is NaN or a factored form
+    overflows); the linear-domain products stay exact zeros or underflow."""
+    r, k, v, _, u = inputs(2, 40, 64, 1.0, 10)
+    w = np.full_like(r, w_value)
+    args = [torch.tensor(a) for a in (r, k, v, w, u)]
+    out, state = wkv_chunked_ref(*args)
+    seq_out, seq_state = wkv_ref(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    assert rel(out.numpy(), seq_out.numpy()) < 2e-4
+    assert rel(state.numpy(), seq_state.numpy()) < 2e-4
+
+
+def test_kernel_constants():
+    """csrc/rwkv_scan.cu's chunk is the emulation's, and its shared memory
+    (two stages of padded r, w, k, v rows, the state, the score tile, A_L
+    and u) fits kMinBlocks blocks an SM: 228 KB less 1 KB a block."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / "rwkv_scan.cu").read_text()
+    c = {m[1]: int(m[2])
+         for m in re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
+    assert c["kChunk"] == CHUNK and c["kHead"] == 64
+    L, cols = c["kChunk"], c["kCols"]
+    stage = L * (2 * (64 + 4) + (64 + 8) + (cols + 8))
+    floats = 2 * stage + 64 * (cols + 8) + L * (L + 4) + 2 * 64
+    assert c["kMinBlocks"] * (4 * floats + 1024) <= 228 * 1024
+    assert c["kMinBlocks"] * c["kThreads"] <= 2048
+    # B * H * V-split blocks of the rwkv6-7b prefill fill one wave
+    assert 8 * 64 * (64 // cols) <= 132 * c["kMinBlocks"]
