@@ -11,15 +11,15 @@ FlashAttention's P, instead of the committed hi + lo pair; ``flash``) and
 of its float32 kernel (masks on every tile or on cut tiles only, blocks
 of 64 or 128 queries, the order of the q k^T fragment loads and the
 unrolling of P V; ``flash_f32``), of ``src/repro_torch/csrc/rwkv_scan.cu``
-(the chunk length, the V split, and the products on the tensor cores as
-3xTF32 against CUDA-core FMAs; ``wkv``) and of
-``src/repro_torch/csrc/haar_stage.cu`` (windows a thread scores together,
-slot blocks a frame, the table path for the small stages or the global
-path for every stage, and 16-bit tap positions with two blocks an SM;
-``haar``) by text substitution of
+(the products as one TF32 term instead of 3xTF32, and three blocks an SM
+instead of four; ``wkv``) and of ``src/repro_torch/csrc/haar_stage.cu``
+(windows a thread scores together, slot blocks a frame, the table path
+for the small stages or the global path for every stage; ``haar``) by
+text substitution of
 the committed sources, each with ``nvcc`` into a library
 of its own under ``build/variants/``.  Each variant is checked against
-the plain PyTorch version on the same inputs, then all are timed with CUDA
+the plain PyTorch version on the same inputs (a WKV variant's error is
+reported, the committed kernel's held to the bound), then all are timed with CUDA
 events in turns (A, B, ..., B, A) on one card.  Prints one line per
 shape and, with ``--json``, writes the readings.  Needs a CUDA card and
 the CUDA toolkit.
@@ -355,25 +355,24 @@ def _substitute(text, edits, what):
 
 def wkv_variants(nvcc, flags):
     """The chunked WKV kernel at the rwkv6-7b prefill (8 x 4096 x 64 heads
-    of 64): each variant's outputs and final state within 2e-4 of the
-    plain recurrence's largest entry, on drawn inputs with w = 0 in some
-    channels and on a ragged T; timed in turns."""
+    of 64) and at a ragged T: each variant's relative error on outputs and
+    final state against the plain recurrence's largest entry, on drawn
+    inputs with w = 0 in some channels (the committed kernel must stay
+    within 2e-4; a variant's error is reported beside its time); timed in
+    turns.  (Chunks of 8 and 32, a V split over two blocks and the
+    products on CUDA cores lost to this design: PERF.md has their times,
+    the history of rwkv_scan.cu their code.)"""
     import torch
 
     from repro_torch.kernels.rwkv_scan.ref import wkv_ref
 
     text = open(os.path.join(ROOT, "src/repro_torch/csrc/rwkv_scan.cu")
                 ).read()
-    cuda_cores = ("constexpr bool kTensorCores = true;",
-                  "constexpr bool kTensorCores = false;")
     variants = {
         "committed": [],
-        "cuda_cores": [cuda_cores],
-        "chunk32_cuda_cores": [cuda_cores, ("kChunk = 16;", "kChunk = 32;"),
-                               ("kMinBlocks = 4;", "kMinBlocks = 2;")],
-        "chunk8_cuda_cores": [cuda_cores, ("kChunk = 16;", "kChunk = 8;"),
-                              ("kThreads = 128;", "kThreads = 64;")],
-        "vsplit2_cuda_cores": [cuda_cores, ("kCols = 64;", "kCols = 32;")],
+        "tf32_one": [("  mma_tf32(c, al, bh0, bh1);\n"
+                      "  mma_tf32(c, ah, bl0, bl1);\n", "")],
+        "min_blocks3": [("kMinBlocks = 4;", "kMinBlocks = 3;")],
     }
     fns = {}
     for name, edits in variants.items():
@@ -420,7 +419,7 @@ def wkv_variants(nvcc, flags):
             out, state = call(name, r, k, v, w, u)
             errs = [float((a - b).abs().max() / b.abs().max())
                     for a, b in ((out, want_out), (state, want_state))]
-            if max(errs) >= 2e-4:
+            if name == "committed" and max(errs) >= 2e-4:
                 raise AssertionError(f"wkv {name} {label}: relative errors "
                                      f"{errs}")
             entry[name] = {"rel_err_out": errs[0], "rel_err_state": errs[1]}
@@ -458,11 +457,7 @@ def haar_variants(nvcc, flags):
         "committed": [],
         "windows2": [("kWindows = 4;", "kWindows = 2;")],
         "windows1": [("kWindows = 4;", "kWindows = 1;")],
-        "pos16_2blocks": [("using Pos = int;", "using Pos = short;"),
-                          ("kTableThreads = 1024;", "kTableThreads = 512;"),
-                          ("kTableBlocksPerSM = 1;", "kTableBlocksPerSM = 2;")],
-        "one_block_a_frame": [("int split = sms * per_sm / rows;",
-                               "int split = 1;")],
+        "one_block_a_frame": [("int split = sms / rows;", "int split = 1;")],
         "table_small_caps": [("kTableMinCap = 2048;", "kTableMinCap = 1;")],
         "global_path": [("kTableMinCap = 2048;", "kTableMinCap = 1 << 30;")],
     }

@@ -297,15 +297,17 @@ def kernel_row(probes, name, module, launches, err, fn, plain_ms,
     library call timed as ``library_ms``), which fills the row's
     ``device_ms`` and ``library_device_ms`` there.  ``shared_ms``, where
     given, is a third bound term: the kernel's shared-memory loads at 32
-    a clock on every SM (operations of the load pipe).  ``kernel``: the
-    name the profiler knows the launched kernel by (``<name>_kernel``)."""
+    a clock on every SM.  The row's ``bound_term`` names the largest term;
+    ``bound_by`` counts shared loads as operations (of the load pipe), so
+    it stays "bytes" or "operations".  ``kernel``: the name the profiler
+    knows the launched kernel by (``<name>_kernel``)."""
     ms = device_ms(fn, reps=reps)
-    t_bytes, t_ops, b_by = bound(n_bytes, n_ops, peak_ops)
+    t_bytes, t_ops, _ = bound(n_bytes, n_ops, peak_ops)
     terms = {"bytes": t_bytes, "operations": t_ops}
     if shared_ms is not None:
         terms["shared_loads"] = shared_ms
-        if shared_ms > t_bytes:
-            b_by = "operations"
+    b_term = max(terms, key=terms.get)
+    b_by = "bytes" if b_term == "bytes" else "operations"
     replaces = module.REPLACES
     if isinstance(replaces, dict):          # one source, several kernels
         replaces = replaces[name]
@@ -316,6 +318,7 @@ def kernel_row(probes, name, module, launches, err, fn, plain_ms,
            "library_ms": library_ms}
     if shared_ms is not None:
         row["bound_terms_ms"] = terms
+        row["bound_term"] = b_term
     if shape is not None:
         row["shape"] = shape
     probes.append((name if shape is None else f"{name} {shape}", fn, row,

@@ -26,9 +26,9 @@
 //   windows by 2 pixels, so in row order a warp's 32 windows would read
 //   each of 16 banks twice a tap; the table is staged de-interleaved (even
 //   entries, then odd ones, the second half starting 16 banks on), which
-//   puts those 32 reads in 32 banks.  Tap positions relative to base >> 1 are staged
-//   for an even and an odd window base, so a tap costs what it would in row
-//   order.  The copy reads the row in 16-byte segments (a frame's row of ii
+//   puts those 32 reads in 32 banks.  Tap positions relative to base >> 1
+//   are staged for an even and an odd window base, so a tap costs what it
+//   would in row order.  The copy reads the row in 16-byte segments (a frame's row of ii
 //   starts 16-byte aligned only for every fourth row; the first and last
 //   segment's other floats are dropped).  A frame's slots are cut over
 //   several blocks, each with its own copy of the table, when the frames
@@ -52,14 +52,12 @@ namespace {
 
 constexpr int kSlots = 8;             // corner taps per weak classifier
 constexpr int kThreads = 256;         // global path
-constexpr int kTableThreads = 1024;   // table path
-constexpr int kTableBlocksPerSM = 1;
+constexpr int kTableThreads = 1024;   // table path, one block a SM
 constexpr int kTableMinCap = 2048;    // slots a frame below which: global path
 constexpr int kWindows = 4;           // windows a thread scores together
-using Pos = int;                      // a staged tap position
 
-struct alignas(sizeof(Pos) * kSlots) Taps {
-  Pos p[kSlots];
+struct alignas(sizeof(int) * kSlots) Taps {  // a stump's staged tap positions
+  int p[kSlots];
 };
 
 // The frame's table is staged de-interleaved: entry idx of the row at
@@ -216,7 +214,7 @@ __device__ __forceinline__ void table_scores(const float* tab,
   }
 }
 
-__global__ void __launch_bounds__(kTableThreads, kTableBlocksPerSM)
+__global__ void __launch_bounds__(kTableThreads, 1)
     haar_stage_table_kernel(const float* __restrict__ ii, int L,
                             const float* __restrict__ items, int cap,
                             const int* __restrict__ offsets, int n_scales,
@@ -273,12 +271,12 @@ __global__ void __launch_bounds__(kTableThreads, kTableBlocksPerSM)
   __syncthreads();              // s_lo / s_hi set before the atomics
   // tap positions relative to (base >> 1), for an even and an odd base:
   // base + o = 2 (base >> 1) + (parity + o)
-  Pos* s_pos = reinterpret_cast<Pos*>(s_taps);
+  int* s_pos = reinterpret_cast<int*>(s_taps);
   const int n_off = n_scales * sz * kSlots;
   for (int q = tid; q < n_off; q += kTableThreads) {
     const int o = min(max(offsets[q], -L), L);
-    s_pos[q] = static_cast<Pos>((o & 1) * half + (o >> 1));
-    s_pos[n_off + q] = static_cast<Pos>(((o + 1) & 1) * half + ((o + 1) >> 1));
+    s_pos[q] = (o & 1) * half + (o >> 1);
+    s_pos[n_off + q] = ((o + 1) & 1) * half + ((o + 1) >> 1);
     atomicMin(s_lo + q / (sz * kSlots), o);
     atomicMax(s_hi + q / (sz * kSlots), o);
   }
@@ -339,20 +337,6 @@ __global__ void __launch_bounds__(kTableThreads, kTableBlocksPerSM)
   }
 }
 
-int table_blocks_per_sm(int smem) {
-  static int cached_smem = -1, cached_blocks = 0;
-  if (smem != cached_smem) {
-    int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, haar_stage_table_kernel, kTableThreads, smem) !=
-        cudaSuccess)
-      blocks = 0;
-    cached_smem = smem;
-    cached_blocks = blocks;
-  }
-  return cached_blocks;
-}
-
 }  // namespace
 
 extern "C" int repro_haar_stage(const float* ii, int L, const float* items,
@@ -385,14 +369,10 @@ extern "C" int repro_haar_stage(const float* ii, int L, const float* items,
     }
   }
   const int table_smem = table_layout(L, n_scales, sz).bytes;
-  // a short Pos holds positions below 2^15
-  const bool pos_fits = sizeof(Pos) >= 4 || 2 * table_half(L) < 32768;
-  if (cap >= kTableMinCap && table_smem <= max_smem && pos_fits) {
-    const int per_sm = table_blocks_per_sm(table_smem);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    // blocks a frame: enough to fill every SM's block slots, never fewer
-    // than kTableThreads slots a block
-    int split = sms * per_sm / rows;
+  if (cap >= kTableMinCap && table_smem <= max_smem) {
+    // blocks a frame: enough to fill every SM, never fewer than
+    // kTableThreads slots a block
+    int split = sms / rows;
     split = max(1, min(split, (cap + kTableThreads - 1) / kTableThreads));
     const int per_block = (cap + split - 1) / split;
     dim3 grid((cap + per_block - 1) / per_block, rows);

@@ -21,8 +21,8 @@
 // float32 rate.
 //
 // Design: T is cut into chunks of L steps (kChunk), walked in order by one
-// block per (b, h, V slice), which keeps its K x kCols slice of the state
-// in registers.  Per chunk, with local steps t, i in [0, L):
+// block per (b, h), which keeps the head's K x V state in registers.  Per
+// chunk, with local steps t, i in [0, L):
 //   A_t  = prod_{j<t} w_j          (exclusive prefix product)
 //   Bs_i = prod_{j>i} w_j          (exclusive suffix product)
 //   D_ti = prod_{i<j<t} w_j        (pairwise, built as D *= w_t)
@@ -42,9 +42,9 @@
 // carry, K x L by L x V) run on the tensor cores as 3xTF32 mma.sync
 // m16n8k8 (each float32 operand split into a TF32 high part and the
 // remainder, the remainder-by-remainder product dropped: about float32's
-// accuracy), or, with kTensorCores false, as register-tiled float32 FMAs.  The next chunk's r, k, w and v arrive by 16-byte
-// cp.async into a second buffer while the block computes on the current
-// one; shared rows are padded so that the fragment loads hit 32 banks.  A
+// accuracy).  The next chunk's r, k, w and v arrive by 16-byte cp.async
+// into a second buffer while the block computes on the current one;
+// shared rows are padded so that the fragment loads hit 32 banks.  A
 // ragged last chunk is padded in shared memory with r = k = v = 0 and
 // w = 1, as the JAX ops.py pads.
 
@@ -54,41 +54,30 @@ namespace {
 
 constexpr int kHead = 64;           // K = V
 constexpr int kChunk = 16;          // L: time steps per chunk
-constexpr int kCols = 64;           // value columns per block (64 / V split)
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;       // blocks per SM the registers allow
-constexpr bool kTensorCores = true; // 3xTF32 mma.sync for the products
-constexpr int kSplit = kHead / kCols;
 // padded shared rows (floats): r and w 4 mod 32, k, v and S 8 mod 32
 constexpr int kRRow = kHead + 4;
 constexpr int kKRow = kHead + 8;
-constexpr int kVRow = kCols + 8;
-constexpr int kSRow = kCols + 8;
+constexpr int kVRow = kHead + 8;
+constexpr int kSRow = kHead + 8;
 constexpr int kPRow = kChunk + 4;
 // scores: kKQ lanes share a pair of rows, kCH channels each
 constexpr int kKQ = kThreads / (kChunk / 2);
 constexpr int kCH = kHead / kKQ;
-// CUDA-core tiles: output kTT rows x 4 columns, state kTK channels x 4
-constexpr int kVG = kCols / 4;
-constexpr int kTT = kChunk * kVG / kThreads;
-constexpr int kTK = kHead * kVG / kThreads;
-constexpr int kStateRegs = kTensorCores ? 32 : 4 * kTK;
+// a thread's state: 8 C fragments of 4 (state_tensor_core)
+constexpr int kStateRegs = kHead * kHead / kThreads;
 constexpr int kStage = kChunk * (2 * kRRow + kKRow + kVRow);   // floats
 constexpr int kSmemFloats = 2 * kStage + kHead * kSRow + kChunk * kPRow
                             + 2 * kHead;
 
-static_assert(kHead % kCols == 0 && kCols % 4 == 0, "V split");
 static_assert(kThreads % (kChunk / 2) == 0 && kKQ <= 32 &&
                   (kKQ & (kKQ - 1)) == 0,
               "score lanes must be a power of two within a warp");
 static_assert(kCH % 4 == 0 && kChunk % 4 == 0, "float4 tiles");
-static_assert(kTT * kThreads == kChunk * kVG && kTT >= 1, "output tile");
-static_assert(kTK * kThreads == kHead * kVG && kTK % 4 == 0, "state tile");
-static_assert(kThreads == kHead || kThreads >= 2 * kHead,
-              "one or two threads per channel for the decays");
-static_assert(!kTensorCores ||
-                  (kChunk == 16 && kCols == 64 && kThreads == 128),
-              "the mma tiles: 16 steps, 64 columns, 4 warps");
+static_assert(kChunk == 16 && kHead == 64 && kThreads == 128,
+              "the mma tiles: 16 steps, 64 columns, 4 warps; two threads "
+              "a channel for the decays");
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -163,7 +152,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
 __device__ __forceinline__ void load_chunk(
     float* st, const float* __restrict__ r, const float* __restrict__ k,
     const float* __restrict__ w, const float* __restrict__ v, size_t head0,
-    size_t row, int v0, int n) {
+    size_t row, int n) {
   float* rs = st;
   float* ws = rs + kChunk * kRRow;
   float* ks = ws + kChunk * kRRow;
@@ -184,94 +173,15 @@ __device__ __forceinline__ void load_chunk(
       *reinterpret_cast<float4*>(dw) = make_float4(1.f, 1.f, 1.f, 1.f);
     }
   }
-  for (int q = threadIdx.x; q < kChunk * kVG; q += kThreads) {
-    const int t = q / kVG, c = 4 * (q % kVG);
+  for (int q = threadIdx.x; q < kChunk * (kHead / 4); q += kThreads) {
+    const int t = q / (kHead / 4), c = 4 * (q % (kHead / 4));
     if (t < n)
-      cp_async16(vs + t * kVRow + c, v + head0 + t * row + v0 + c);
+      cp_async16(vs + t * kVRow + c, v + head0 + t * row + c);
     else
       *reinterpret_cast<float4*>(vs + t * kVRow + c) =
           make_float4(0.f, 0.f, 0.f, 0.f);
   }
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// -- the two products on CUDA cores -------------------------------------------
-
-__device__ __forceinline__ void out_cuda_core(const float* rs,
-                                              const float* P_s,
-                                              const float* S_s,
-                                              const float* vs, float* out,
-                                              size_t row, int n) {
-  const int vg = threadIdx.x % kVG, tg = threadIdx.x / kVG;
-  float o[kTT][4];
-#pragma unroll
-  for (int x = 0; x < kTT; ++x)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[x][e] = 0.f;
-  // (r * A) S over the channels, then P v over the chunk's steps
-#pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    const float* a = part == 0 ? rs : P_s;
-    const int a_row = part == 0 ? kRRow : kPRow;
-    const float* b = part == 0 ? S_s : vs;
-    const int b_row = part == 0 ? kSRow : kVRow;
-    const int depth = part == 0 ? kHead : kChunk;
-#pragma unroll 4
-    for (int kk = 0; kk < depth; kk += 4) {
-      float4 av[kTT];
-#pragma unroll
-      for (int x = 0; x < kTT; ++x) av[x] = ld4(a + (tg * kTT + x) * a_row + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 s = ld4(b + (kk + e) * b_row + 4 * vg);
-#pragma unroll
-        for (int x = 0; x < kTT; ++x) {
-          const float ax = comp(av[x], e);
-          o[x][0] = __fmaf_rn(ax, s.x, o[x][0]);
-          o[x][1] = __fmaf_rn(ax, s.y, o[x][1]);
-          o[x][2] = __fmaf_rn(ax, s.z, o[x][2]);
-          o[x][3] = __fmaf_rn(ax, s.w, o[x][3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < kTT; ++x) {
-    const int t = tg * kTT + x;
-    if (t < n)
-      *reinterpret_cast<float4*>(out + t * row + 4 * vg) =
-          make_float4(o[x][0], o[x][1], o[x][2], o[x][3]);
-  }
-}
-
-// the thread's state: channels kg * kTK + c, columns 4 vg + e at S[4 c + e]
-__device__ __forceinline__ void state_cuda_core(float (&S)[kStateRegs],
-                                                const float* ks,
-                                                const float* vs,
-                                                const float* al_s) {
-  const int vg = threadIdx.x % kVG, kg = threadIdx.x / kVG;
-#pragma unroll
-  for (int c = 0; c < kTK; ++c) {
-    const float a = al_s[kg * kTK + c];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) S[4 * c + e] *= a;
-  }
-#pragma unroll 4
-  for (int i = 0; i < kChunk; ++i) {
-    const float4 vv = ld4(vs + i * kVRow + 4 * vg);
-#pragma unroll
-    for (int c = 0; c < kTK; c += 4) {
-      const float4 kk = ld4(ks + i * kKRow + kg * kTK + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float kc = comp(kk, e);
-        S[4 * (c + e) + 0] = __fmaf_rn(kc, vv.x, S[4 * (c + e) + 0]);
-        S[4 * (c + e) + 1] = __fmaf_rn(kc, vv.y, S[4 * (c + e) + 1]);
-        S[4 * (c + e) + 2] = __fmaf_rn(kc, vv.z, S[4 * (c + e) + 2]);
-        S[4 * (c + e) + 3] = __fmaf_rn(kc, vv.w, S[4 * (c + e) + 3]);
-      }
-    }
-  }
 }
 
 // -- the two products on the tensor cores ---------------------------------------
@@ -342,15 +252,10 @@ __device__ __forceinline__ void state_tensor_core(float (&S)[kStateRegs],
 
 // (channel, column) of the thread's state register x
 __device__ __forceinline__ void state_at(int x, int& ch, int& col) {
-  if constexpr (kTensorCores) {
-    const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3, nt = x / 4, e = x % 4;
-    ch = 16 * wi + g + (e >= 2 ? 8 : 0);
-    col = 8 * nt + 2 * q + (e & 1);
-  } else {
-    ch = (threadIdx.x / kVG) * kTK + x / 4;
-    col = 4 * (threadIdx.x % kVG) + x % 4;
-  }
+  const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, nt = x / 4, e = x % 4;
+  ch = 16 * wi + g + (e >= 2 ? 8 : 0);
+  col = 8 * nt + 2 * q + (e & 1);
 }
 
 // -- the chunk's scores ----------------------------------------------------------
@@ -459,55 +364,34 @@ __device__ __forceinline__ void chunk_scores(const float* rs, const float* ws,
 // -- the chunk's decays -------------------------------------------------------
 
 // Per channel ch: A_t = prod_{j<t} w_j scales r in place and A_L goes to
-// al_s; Bs_t = prod_{j>t} w_j scales k in place.  With two threads a
-// channel, one takes A and the other Bs; with one, it takes both.
+// al_s; Bs_t = prod_{j>t} w_j scales k in place.  Two threads a channel:
+// the first kHead take A, the next kHead Bs.
 __device__ __forceinline__ void apply_decays(float* rs, const float* ws,
                                              float* ks, float* al_s) {
   const int tid = threadIdx.x, ch = tid % kHead;
-  if constexpr (kThreads >= 2 * kHead) {
-    const bool pre = tid < kHead;
-    float dec[kChunk];
-    if (pre) {
-      float a = 1.f;
-#pragma unroll
-      for (int t = 0; t < kChunk; ++t) {
-        dec[t] = a;
-        a = __fmul_rn(a, ws[t * kRRow + ch]);
-      }
-      al_s[ch] = a;
-    } else if (tid < 2 * kHead) {
-      float b = 1.f;
-#pragma unroll
-      for (int t = kChunk - 1; t >= 0; --t) {
-        dec[t] = b;
-        b = __fmul_rn(b, ws[t * kRRow + ch]);
-      }
-    }
-    __syncthreads();            // every read of the raw r and k is done
-    if (tid < 2 * kHead) {
-      float* dst = pre ? rs + ch : ks + ch;
-      const int stride = pre ? kRRow : kKRow;
-#pragma unroll
-      for (int t = 0; t < kChunk; ++t) dst[t * stride] *= dec[t];
-    }
-  } else {
-    float pre[kChunk], suf[kChunk];
-    float a = 1.f, b = 1.f;
+  const bool pre = tid < kHead;
+  float dec[kChunk];
+  if (pre) {
+    float a = 1.f;
 #pragma unroll
     for (int t = 0; t < kChunk; ++t) {
-      pre[t] = a;
+      dec[t] = a;
       a = __fmul_rn(a, ws[t * kRRow + ch]);
-      suf[kChunk - 1 - t] = b;
-      b = __fmul_rn(b, ws[(kChunk - 1 - t) * kRRow + ch]);
     }
     al_s[ch] = a;
-    __syncthreads();            // every read of the raw r and k is done
+  } else {
+    float b = 1.f;
 #pragma unroll
-    for (int t = 0; t < kChunk; ++t) {
-      rs[t * kRRow + ch] *= pre[t];
-      ks[t * kKRow + ch] *= suf[t];
+    for (int t = kChunk - 1; t >= 0; --t) {
+      dec[t] = b;
+      b = __fmul_rn(b, ws[t * kRRow + ch]);
     }
   }
+  __syncthreads();              // every read of the raw r and k is done
+  float* dst = pre ? rs + ch : ks + ch;
+  const int stride = pre ? kRRow : kKRow;
+#pragma unroll
+  for (int t = 0; t < kChunk; ++t) dst[t * stride] *= dec[t];
   __syncthreads();
 }
 
@@ -526,11 +410,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* u_s = al_s + kHead;
 
   const int tid = threadIdx.x;
-  const int slice = blockIdx.x % kSplit;
-  const int bh = blockIdx.x / kSplit;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int v0 = slice * kCols;
   const size_t row = static_cast<size_t>(H) * kHead;     // one time step
   const size_t base = static_cast<size_t>(b) * T * row + h * kHead;
   const int n_chunks = (T + kChunk - 1) / kChunk;
@@ -539,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int q = tid; q < kChunk * kPRow; q += kThreads) P_s[q] = 0.f;
   if (tid < kHead) u_s[tid] = u[h * kHead + tid];
   if (n_chunks > 0)
-    load_chunk(smem, r, k, w, v, base, row, v0, min(kChunk, T));
+    load_chunk(smem, r, k, w, v, base, row, min(kChunk, T));
 
   float S[kStateRegs];
 #pragma unroll
@@ -556,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
     if (ci + 1 < n_chunks)
       load_chunk(smem + ((ci + 1) & 1) * kStage, r, k, w, v,
-                 base + static_cast<size_t>(t0 + kChunk) * row, row, v0,
+                 base + static_cast<size_t>(t0 + kChunk) * row, row,
                  min(kChunk, T - t0 - kChunk));
 
     // -- scores P (lower triangle and diagonal) from the raw r, k, w -----
@@ -566,14 +448,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     apply_decays(rs, ws, ks, al_s);
 
     // -- out = (r * A) S + P v; S = diag(A_L) S + (k * Bs)^T v -------------
-    float* out_c = out + base + static_cast<size_t>(t0) * row + v0;
-    if constexpr (kTensorCores) {
-      out_tensor_core(rs, P_s, S_s, vs, out_c, row, n);
-      state_tensor_core(S, ks, vs, al_s);
-    } else {
-      out_cuda_core(rs, P_s, S_s, vs, out_c, row, n);
-      state_cuda_core(S, ks, vs, al_s);
-    }
+    out_tensor_core(rs, P_s, S_s, vs,
+                    out + base + static_cast<size_t>(t0) * row, row, n);
+    state_tensor_core(S, ks, vs, al_s);
     __syncthreads();            // every read of this chunk's S_s is done
 #pragma unroll
     for (int x = 0; x < kStateRegs; x += 2) {
@@ -584,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
 
-  float* sb = state + static_cast<size_t>(bh) * kHead * kHead + v0;
+  float* sb = state + static_cast<size_t>(bh) * kHead * kHead;
 #pragma unroll
   for (int x = 0; x < kStateRegs; x += 2) {
     int c, col;
@@ -621,7 +498,7 @@ extern "C" int repro_rwkv_wkv(const float* r, const float* k, const float* v,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  rwkv_wkv_kernel<<<B * H * kSplit, kThreads, smem, stream>>>(
+  rwkv_wkv_kernel<<<B * H, kThreads, smem, stream>>>(
       r, k, v, w, u, out, state, T, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -208,70 +208,80 @@ class TestHaarStage:
         jax_scores = _jax_stage(s, 0, pallas=False)
         np.testing.assert_array_equal(np.isnan(jax_scores), want)
 
-    def test_table_path_fits_shared_memory(self):
-        """The table path's shared memory, from the constants and layout of
-        csrc/haar_stage.cu at the funnel's shape (145 x 177 tables, 9
-        scales, 33 stumps): within a block's 227 KB, and kTableBlocksPerSM
-        blocks of it (with the 1 KB each reserves) within an SM's 228 KB,
-        at kTableThreads threads each within its 2,048 threads."""
+    @pytest.mark.parametrize("h,w,table_path", [
+        (144, 176, True),      # the paper's scan: stage 0 takes the table
+        (240, 320, False),     # a QVGA frame's table: the global path
+    ])
+    def test_table_path_fits_shared_memory(self, h, w, table_path):
+        """The table path's shared memory, by the arithmetic of
+        csrc/haar_stage.cu's ``table_half`` and ``table_layout`` at 9
+        scales and 33 stumps: the de-interleaved halves hold the frame's
+        table and start 16 banks apart, every region is 16-byte aligned,
+        and the whole fits a block's 227 KB, with the 1 KB each block
+        reserves, as many times a SM as ``__launch_bounds__`` claims,
+        exactly where the table path is meant to run."""
         k = _cu_constants("haar_stage.cu")
-        pos_bytes = {"int": 4, "short": 2}[k["Pos"]]
-        L, n_scales, sz = 145 * 177, 9, 33
-        half = ((L + 1) // 2 + 15) // 32 * 32 + 16
-        taps = 0
-        weights = taps + 8 * pos_bytes * 2 * n_scales * sz
-        params = weights + 2 * 16 * sz
-        rng_ = params + 16 * sz
-        table = (rng_ + 8 * n_scales + 15) // 16 * 16
-        total = table + 4 * 2 * half
-        assert total == 123_456 and half % 32 == 16 and 2 * half >= L + 1
-        assert total <= 227 * 1024
-        assert k["kTableBlocksPerSM"] * (total + 1024) <= 228 * 1024
-        assert k["kTableThreads"] * k["kTableBlocksPerSM"] <= 2048
-        assert k["kTableMinCap"] <= 25_853          # stage 0 takes the table
+        L = (h + 1) * (w + 1)
+        half, lay = _cu_table_layout(L, 9, 33)
+        assert half % 32 == 16 and 2 * half >= L + 1
+        assert all(v % 16 == 0 for v in lay.values())
+        fits = lay["bytes"] <= 227 * 1024
+        assert fits == table_path
+        if table_path:
+            blocks = k["table_blocks_per_sm"]
+            assert blocks * (lay["bytes"] + 1024) <= 228 * 1024
+            assert (blocks + 1) * (lay["bytes"] + 1024) > 228 * 1024
+            assert blocks * k["kTableThreads"] <= 2048
+            assert k["kTableMinCap"] <= 25_853    # stage 0's 25,853 slots
 
-    def test_deinterleaved_positions(self):
-        """The table path's tap positions: for an even and an odd window
-        base, (base >> 1) + the staged position of offset o is where the
-        de-interleaved table holds entry base + o; 32 windows 2 floats
-        apart (the scan's step) read 32 distinct banks (16 in row order),
-        and 32 windows 1 apart at most 2 a bank."""
-        L = 145 * 177
-        half = ((L + 1) // 2 + 15) // 32 * 32 + 16
 
-        def where(idx):
-            return (idx & 1) * half + (idx >> 1)
+def _cu_source(name):
+    import pathlib
 
-        rng = np.random.default_rng(13)
-        base = rng.integers(0, L, 4000)
-        off = rng.integers(-L + 1, L, 4000)
-        inside = (base + off >= 0) & (base + off < L)
-        base, off = base[inside], off[inside]
-        staged = np.where(base & 1 == 0, (off & 1) * half + (off >> 1),
-                          ((off + 1) & 1) * half + ((off + 1) >> 1))
-        np.testing.assert_array_equal((base >> 1) + staged, where(base + off))
-        for b0 in (0, 1, 1234, 25_001):
-            idx = b0 + 2 * np.arange(32)
-            assert len(set((where(idx) % 32).tolist())) == 32, b0
-            assert len(set((idx % 32).tolist())) == 16       # row order
-            per_bank = np.bincount(where(b0 + np.arange(32)) % 32)
-            assert per_bank.max() <= 2, b0
+    return (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / name).read_text()
+
+
+def _cu_table_layout(L, n_scales, sz):
+    """``table_half(L)`` and the byte offsets of ``table_layout`` in
+    csrc/haar_stage.cu, evaluated from the source's own expressions (C's
+    int division of non-negative ints is Python's ``//``)."""
+    import re
+
+    text = _cu_source("haar_stage.cu")
+    k = _cu_constants("haar_stage.cu")
+
+    def ev(expr, env):
+        expr = expr.replace("static_cast<int>(sizeof(Taps))",
+                            str(4 * k["kSlots"]))
+        expr = expr.replace("table_half(L)", "half").replace("l.", "")
+        return eval(expr.replace("/", "//"), {}, env)
+
+    half_expr = re.search(r"int table_half\(int L\) \{\s*return (.+?);",
+                          text, re.S)[1]
+    env = {"L": L, "n_scales": n_scales, "sz": sz}
+    env["half"] = ev(half_expr, env)
+    body = re.search(r"Layout table_layout\(int L, int n_scales, int sz\) "
+                     r"\{(.+?)return l;", text, re.S)[1]
+    lay = {}
+    for name, expr in re.findall(r"l\.(\w+) = (.+?);", body, re.S):
+        lay[name] = env[name] = ev(" ".join(expr.split()), env)
+    assert set(lay) == {"taps", "weights", "params", "range", "table",
+                        "bytes"}
+    return env["half"], lay
 
 
 def _cu_constants(name):
-    """The ``constexpr int`` / ``bool`` constants and ``using`` aliases of
-    a source in src/repro_torch/csrc."""
-    import pathlib
+    """The ``constexpr int`` constants of a source in src/repro_torch/csrc,
+    and the blocks a SM of the table path's ``__launch_bounds__``."""
     import re
 
-    text = (pathlib.Path(__file__).resolve().parents[1] / "src"
-            / "repro_torch" / "csrc" / name).read_text()
+    text = _cu_source(name)
     out = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", text)}
-    out.update({m[1]: m[2] == "true" for m in re.finditer(
-        r"constexpr bool (k\w+) = (true|false);", text)})
-    out.update({m[1]: m[2] for m in re.finditer(
-        r"using (\w+) = (\w+);", text)})
+    bounds = re.search(r"__launch_bounds__\(kTableThreads, (\d+)\)", text)
+    if bounds:
+        out["table_blocks_per_sm"] = int(bounds[1])
     return out
 
 

@@ -186,10 +186,10 @@ def test_kernel_constants():
     c = {m[1]: int(m[2])
          for m in re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
     assert c["kChunk"] == CHUNK and c["kHead"] == 64
-    L, cols = c["kChunk"], c["kCols"]
-    stage = L * (2 * (64 + 4) + (64 + 8) + (cols + 8))
-    floats = 2 * stage + 64 * (cols + 8) + L * (L + 4) + 2 * 64
+    L = c["kChunk"]
+    stage = L * (2 * (64 + 4) + (64 + 8) + (64 + 8))
+    floats = 2 * stage + 64 * (64 + 8) + L * (L + 4) + 2 * 64
     assert c["kMinBlocks"] * (4 * floats + 1024) <= 228 * 1024
     assert c["kMinBlocks"] * c["kThreads"] <= 2048
-    # B * H * V-split blocks of the rwkv6-7b prefill fill one wave
-    assert 8 * 64 * (64 // cols) <= 132 * c["kMinBlocks"]
+    # the B * H blocks of the rwkv6-7b prefill fill one wave
+    assert 8 * 64 <= 132 * c["kMinBlocks"]
