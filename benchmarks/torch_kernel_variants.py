@@ -2,6 +2,7 @@
 """A/B of design variants of the hand-written CUDA kernels, on one card.
 
     python3 benchmarks/torch_kernel_variants.py [--only SECTION ...] [--json OUT]
+        [--parent DIR]
 
 Builds variants of ``src/repro_torch/csrc/integral_image.cu`` (rows per
 strip ``RS`` and the blocks per SM of its ``__launch_bounds__``; section
@@ -14,13 +15,18 @@ unrolling of P V; ``flash_f32``), of ``src/repro_torch/csrc/rwkv_scan.cu``
 (the products as one TF32 term instead of 3xTF32, and three blocks an SM
 instead of four; ``wkv``) and of ``src/repro_torch/csrc/haar_stage.cu``
 (windows a thread scores together, slot blocks a frame, the table path
-for the small stages or the global path for every stage; ``haar``) by
-text substitution of
-the committed sources, each with ``nvcc`` into a library
-of its own under ``build/variants/``.  Each variant is checked against
-the plain PyTorch version on the same inputs (a WKV variant's error is
-reported, the committed kernel's held to the bound), then all are timed with CUDA
-events in turns (A, B, ..., B, A) on one card.  Prints one line per
+for the small stages or the global path for every stage; ``haar``) and
+of ``src/repro_torch/csrc/bilateral_blur.cu`` (tile shapes, threads and
+blocks a SM, the unrolling of the line walks, steps a launch; ``blur``)
+by text substitution of the committed sources, each with ``nvcc`` into a
+library of its own under ``build/variants/``.  ``blur`` and ``codec``
+(``wire_encode`` of ``src/repro_torch/csrc/wire_codec.cu``) also build
+the parent commit's kernel from the tree that ``--parent`` names.  Each
+variant is checked against the plain PyTorch version on the same inputs
+(a WKV variant's error is reported, the committed kernel's held to the
+bound), then all are timed with CUDA events in turns (A, B, ..., B, A)
+on one card (``blur`` and ``codec`` add each call's device time by
+``torch.profiler``).  Prints one line per
 shape and, with ``--json``, writes the readings.  Needs a CUDA card and
 the CUDA toolkit.
 """
@@ -517,12 +523,287 @@ def haar_variants(nvcc, flags):
     return result
 
 
+def parent_source(rel):
+    """A source file of the parent tree given by ``--parent`` (``git
+    archive <parent> | tar -x -C DIR``)."""
+    if PARENT is None:
+        raise RuntimeError("this section needs --parent DIR, the parent "
+                           "commit's tree")
+    with open(os.path.join(PARENT, rel)) as f:
+        return f.read()
+
+
+def profiled_ms(fn, reps, tries=3):
+    """Device milliseconds of one call, all its CUDA kernels
+    (torch.profiler over ``reps`` calls).  The profiler now and then drops
+    a kernel's record: a session that does not see ``reps`` times the
+    launches of one call is taken again, and after ``tries`` the reading
+    is NaN."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(n):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        return (sum(e.count for e in events),
+                sum(e.self_device_time_total for e in events))
+
+    per_call, _ = session(1)
+    for _ in range(tries):
+        count, total = session(reps)
+        if count == per_call * reps:
+            return total / 1e3 / reps
+    return float("nan")
+
+
+def report(label, fns, times, dev):
+    print(f"{label}: " + ", ".join(
+        f"{n} ms {' / '.join(f'{t:.4f}' for t in times[n])} (device "
+        f"{dev[n]:.4f})" for n in fns), flush=True)
+    return {n: {"ms": times[n], "device_ms": dev[n]} for n in fns}
+
+
+BLUR = "src/repro_torch/csrc/bilateral_blur.cu"
+BLUR_STEPS = "for (int s = 1; s <= steps; ++s)"
+BLUR_GY = "blur_line<0>(v + ya * rs + pxa * gr + l, ny, rs, top, bottom);"
+BLUR_GX = "blur_line<0>(v + (ya + y) * rs + xa * gr + r, nx, gr, left, right);"
+BLUR_GR = ("blur_line<GR>(v + (ya + y) * rs + (xa + x) * gr, gr, 1, true, "
+           "true);")
+
+
+def blur_variants(nvcc, flags):
+    """The bilateral-grid blur's 8 refinement steps at the rig's grid (8
+    pairs x 136x241x17, random grids from a seed): the parent's one-step
+    kernel launched 8 times, the committed kernel at 8, 4, 2 and 1 steps a
+    launch, a 46 x 22 tile, two blocks of 512 threads a SM on 17 x 32
+    tiles, and the line walks unrolled by 4 instead of 8; each bit-equal
+    to 8 steps of the plain version (and 3 steps on a ragged 37 x 53 x 17
+    grid), timed in turns, with 8 x (``F.pad`` + cuDNN ``conv3d``, TF32
+    off) beside them.  The ``diag_`` variants leave out one phase of the
+    committed kernel (the steps, or one pass of every step): they compute
+    no blur and are timed only, to split the kernel's time.  (Passes from
+    one buffer to another, one thread a value; 17 x 16 tiles at two
+    blocks of 1024 threads a SM; and each value's quarter recomputed for
+    every output instead of carried lost to the committed design: PERF.md
+    has their times, git history their code.)"""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bilateral_blur.cuda import (
+        TILE_X,
+        TILE_Y,
+        tile_shape,
+    )
+    from repro_torch.kernels.bilateral_blur.ref import blur_ref
+
+    text = open(os.path.join(ROOT, BLUR)).read()
+    tile = (TILE_Y, TILE_X)
+    variants = {                      # name: (source edits, largest tile)
+        "committed": ([], tile),
+        "tile_46x22": ([], (46, 22)),
+        "512_threads_2_a_sm": ([("kThreads = 1024;", "kThreads = 512;"),
+                                ("kBlocksPerSm = 1;", "kBlocksPerSm = 2;")],
+                               (17, TILE_X)),
+        "unroll_4": ([("#pragma unroll 8", "#pragma unroll 4")], tile),
+        # timing only, not the blur: the committed kernel without a phase
+        "diag_stage_and_store": (
+            [(BLUR_STEPS, "for (int s = 1; s <= 0; ++s)")], tile),
+        "diag_no_gy_pass": ([(BLUR_GY, "(void)l;")], tile),
+        "diag_no_gx_pass": ([(BLUR_GX, "(void)r;")], tile),
+        "diag_no_gr_pass": ([(BLUR_GR, "(void)x;")], tile),
+    }
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    for name, (edits, max_tile) in variants.items():
+        fn = build(f"blur_{name}", _substitute(text, edits, "blur"), nvcc,
+                   flags).repro_bilateral_blur
+        fn.argtypes = [p] * 4 + [i] * 9 + [p]
+        fn.restype = ctypes.c_int
+        libs[name] = (fn, max_tile)
+    parent = build("blur_parent", parent_source(BLUR), nvcc,
+                   flags).repro_bilateral_blur
+    parent.argtypes = [p] * 4 + [i] * 4 + [p]
+    parent.restype = ctypes.c_int
+
+    def launch(fn, val, wt, *args):
+        vo, wo = torch.empty_like(val), torch.empty_like(wt)
+        rc = fn(val.data_ptr(), wt.data_ptr(), vo.data_ptr(), wo.data_ptr(),
+                *val.shape, *args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"blur: CUDA error {rc}")
+        return vo, wo
+
+    def steps_of(name, per_launch, n):
+        fn, max_tile = libs[name]
+
+        def run(val, wt):
+            for k in range(0, n, per_launch):
+                steps = min(per_launch, n - k)
+                val, wt = launch(fn, val, wt, steps,
+                                 *tile_shape(*val.shape[1:], steps, *max_tile))
+            return val, wt
+        return run
+
+    def parent_run(n):
+        def run(val, wt):
+            for _ in range(n):
+                val, wt = launch(parent, val, wt)
+            return val, wt
+        return run
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for shape, n in (((8, 136, 241, 17), 8), ((3, 37, 53, 17), 3)):
+        val = torch.randn(shape, device="cuda", generator=gen)
+        wt = torch.rand(shape, device="cuda", generator=gen)
+        calls = {"parent_x8": parent_run(n)}
+        for per in (8, 4, 2, 1):
+            if per <= n or per == 8:
+                calls[f"committed_{min(per, n)}_a_launch"] = steps_of(
+                    "committed", per, n)
+        for name in libs:
+            if name != "committed":
+                calls[name] = steps_of(name, 8, n)
+        want = (val, wt)
+        for _ in range(n):
+            want = blur_ref(*want)
+        for name, run in calls.items():
+            if name.startswith("diag_"):
+                continue
+            got = run(val, wt)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"blur {name} {shape} differs from "
+                                     f"{n} plain steps")
+        label = f"bilateral_blur {n} steps at {'x'.join(map(str, shape))}"
+        fns = {k: (lambda r=r: r(val, wt)) for k, r in calls.items()}
+        both = torch.stack([val, wt]).reshape(-1, 1, *shape[1:])
+        weight = torch.tensor([0.25, 0.5, 0.25], device="cuda")
+        weight = (weight[:, None, None] * weight[None, :, None]
+                  * weight[None, None, :])[None, None]
+
+        def library(x=both, n=n):
+            torch.backends.cudnn.allow_tf32 = False
+            for _ in range(n):
+                x = F.conv3d(F.pad(x, (1, 1, 1, 1, 1, 1), mode="replicate"),
+                             weight)
+            return x
+        fns[f"library_x{n}"] = library
+        times = in_turns(fns, 20)
+        dev = {k: profiled_ms(f, 20) for k, f in fns.items()}
+        result[label] = report(label + ", each variant but diag_ bit-equal "
+                               "to plain", fns,
+                               times, dev)
+        del val, wt, want, both
+        torch.cuda.empty_cache()
+    return result
+
+
+CODEC = "src/repro_torch/csrc/wire_codec.cu"
+
+
+def codec_variants(nvcc, flags):
+    """``wire_encode`` at the sensor cut (6,138 x 256) and one VR capture
+    field (259,200 x 256), random payloads from a seed: the parent's
+    kernel (one CUDA block per payload block) and the committed one (a
+    warp per payload block); each bit-equal to the plain version at 4, 8
+    and 16 bits, timed at 8 bits in turns, with the decode beside them.
+    (Two payload blocks in flight a warp lost to one: PERF.md has its
+    times, git history its code.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.wire_codec.ref import (
+        qmax_of,
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    text = open(os.path.join(ROOT, CODEC)).read()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sources = {"parent": parent_source(CODEC), "committed": text}
+    enc, dec = {}, None
+    for name, src in sources.items():
+        lib = build(f"codec_{name}", src, nvcc, flags)
+        enc[name] = lib.repro_wire_encode
+        enc[name].argtypes = [p, p, p, i, i, i, f, f, p]
+        enc[name].restype = ctypes.c_int
+        if name == "committed":
+            dec = lib.repro_wire_decode
+            dec.argtypes = [p, p, p, i, i, i, p]
+            dec.restype = ctypes.c_int
+
+    def encode(name, blocks, bits):
+        nb, block = blocks.shape
+        packed = torch.empty((nb, block * bits // 8), dtype=torch.int8,
+                             device="cuda")
+        scales = torch.empty((nb, 1), device="cuda")
+        qmax = qmax_of(bits)
+        rc = enc[name](blocks.data_ptr(), packed.data_ptr(),
+                       scales.data_ptr(), nb, block, bits, float(qmax),
+                       float(np.float32(1) / np.float32(qmax)),
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"wire_encode {name}: CUDA error {rc}")
+        return packed, scales
+
+    def decode(packed, scales, bits):
+        nb = packed.shape[0]
+        out = torch.empty((nb, packed.shape[1] * 8 // bits), device="cuda")
+        rc = dec(packed.data_ptr(), scales.data_ptr(), out.data_ptr(), nb,
+                 out.shape[1], bits, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"wire_decode: CUDA error {rc}")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for nb in (6138, 259200):
+        blocks = 11.0 * torch.randn((nb, 256), device="cuda", generator=gen)
+        blocks[::7] = 0.0                      # scale-1 blocks
+        for bits in (4, 8, 16):
+            want_p, want_s = wire_encode_ref(blocks, bits=bits)
+            for name in enc:
+                got_p, got_s = encode(name, blocks, bits)
+                if not (torch.equal(got_p, want_p) and torch.equal(
+                        got_s.view(torch.int32), want_s.view(torch.int32))):
+                    raise AssertionError(f"wire_encode {name} {nb} x 256 "
+                                         f"{bits}-bit differs from plain")
+            got = decode(want_p, want_s, bits)
+            if not torch.equal(got.view(torch.int32), wire_decode_ref(
+                    want_p, want_s, bits=bits).view(torch.int32)):
+                raise AssertionError(f"wire_decode {nb} x 256 {bits}-bit "
+                                     "differs from plain")
+        packed, scales = encode("committed", blocks, 8)
+        fns = {name: (lambda n=name: encode(n, blocks, 8)) for name in enc}
+        fns["decode"] = lambda: decode(packed, scales, 8)
+        reps = 200 if nb < 10000 else 20
+        times = in_turns(fns, reps)
+        dev = {k: profiled_ms(fn, reps) for k, fn in fns.items()}
+        label = f"wire_encode {nb}x256 8-bit"
+        result[label] = report(label + " (4/8/16 bit-equal to plain)", fns,
+                               times, dev)
+        del blocks, packed, scales
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", help="write the readings here")
     parser.add_argument("--only", nargs="+", default=list(SECTIONS),
                         choices=list(SECTIONS), help="sections to run")
+    parser.add_argument("--parent", help="the parent commit's tree, for "
+                        "the blur and codec sections' parent kernels")
     args = parser.parse_args()
+    global PARENT
+    PARENT = args.parent
     import torch
 
     if not torch.cuda.is_available():
@@ -547,9 +828,11 @@ def main() -> int:
     return 0
 
 
+PARENT = None
 SECTIONS = {"integral": integral_variants, "flash": flash_variants,
             "flash_f32": flash_f32_variants, "wkv": wkv_variants,
-            "haar": haar_variants}
+            "haar": haar_variants, "blur": blur_variants,
+            "codec": codec_variants}
 
 if __name__ == "__main__":
     sys.exit(main())

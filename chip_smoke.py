@@ -51,7 +51,8 @@ that the float32 one holds no tensor-core instruction, then:
 5. VR phase — the §IV rig at full width (8 pairs ``stereo_pair(2160,
    3840, seed=s)``, sigma 16, max_disp 32, 8 refinement steps,
    ``assets/vr_reference.npz``): one rig frame with the launch counters
-   set to 0 (5 ``integral_image`` and 8 ``bilateral_blur`` launches),
+   set to 0 (5 ``integral_image`` launches and 1 ``bilateral_blur``, its
+   8 refinement steps in one launch),
    its depth, panorama and frame times (host clock, median of 5) and
    peak memory; pair 0 on the card against the port on the CPU (rough
    disparity equal, splatted grids bit-equal, depth and panoramas within
@@ -66,9 +67,13 @@ that the float32 one holds no tensor-core instruction, then:
    JAX's at 16/8/4 bits, the left panorama within the code's half step,
    the 8-bit knee, codec launched) and a ``CutController`` in the
    throughput regime that must pick the measured optimum; then the
-   ``bilateral_blur`` row (8 x 136x241x17, bit-exact over all 8 steps,
-   cuDNN ``conv3d`` as the library call) and an ``integral_image`` row at
-   the cost volume's shape (64 x 2164x3844, bit-exact);
+   ``bilateral_blur`` row (the fused 8 steps at 8 x 136x241x17 bit-equal
+   to 8 plain steps, one step bit-equal to one, 3 steps on ragged 37 x
+   53 x 17 and x 9 grids; its bound also counts the design's
+   shared-memory loads; 8 x cuDNN ``conv3d`` as the library call), an
+   ``integral_image`` row at the cost volume's shape (64 x 2164x3844,
+   bit-exact) and the codec's rows at one capture field (259,200 x 256
+   blocks, 4/8/16 bits bit-exact, timed at 8);
 6. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
    weights drawn on the card (seed 0): a ``generate`` call (the function
    ``repro_torch.launch.serve`` calls) on 8 prompts of 4096 tokens (numpy
@@ -608,19 +613,77 @@ def _bits_equal(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
-def codec_rows(probes, ex, frames, launches):
-    """``wire_encode`` / ``wire_decode`` against their plain versions at
-    the sensor cut (8 and 16 bits) and the vj cut (4 bits), timed at the
-    sensor cut's 8-bit shape; ``launches`` are the offload path's counts
-    (one of each per batch and cut)."""
-    import torch
-
+def codec_check(label, blocks, bits_list=(4, 8, 16)):
+    """``wire_encode`` and ``wire_decode`` against their plain versions on
+    ``blocks`` at each width, bit for bit."""
     from repro_torch.kernels.wire_codec import cuda as wcuda
-    from repro_torch.kernels.wire_codec.ops import BLOCK, SCALE_BYTES
     from repro_torch.kernels.wire_codec.ref import (
         wire_decode_ref,
         wire_encode_ref,
     )
+
+    for bits in bits_list:
+        packed, scales = wcuda.wire_encode_cuda(blocks, bits)
+        want_p, want_s = wire_encode_ref(blocks, bits=bits)
+        if not (_bits_equal(packed, want_p) and _bits_equal(scales, want_s)):
+            raise AssertionError(f"wire_encode {label} {bits}-bit differs "
+                                 "from plain")
+        del want_p, want_s
+        got = wcuda.wire_decode_cuda(packed, scales, bits)
+        if not _bits_equal(got, wire_decode_ref(packed, scales, bits=bits)):
+            raise AssertionError(f"wire_decode {label} {bits}-bit differs "
+                                 "from plain")
+    print(f"wire codec {label} {tuple(blocks.shape)} "
+          f"{'/'.join(map(str, bits_list))}-bit: kernels == plain bit for "
+          "bit", flush=True)
+
+
+# the profiler's names of the two encode kernels: aligned 256-value blocks
+# (every block on the paths) take the vector kernel, any other the scalar
+ENCODE_VEC, ENCODE_SCALAR = "wire_encode_vec_kernel", "wire_encode_kernel"
+
+
+def codec_kernel_rows(probes, blocks, launches, shape=None, plain_reps=20):
+    """The ``wire_encode`` and ``wire_decode`` rows at 8 bits on
+    ``blocks``: bytes in and out at the card's memory rate, or the float
+    operations per value (abs, max, div, round, clamp to encode)."""
+    from repro_torch.kernels.wire_codec import cuda as wcuda
+    from repro_torch.kernels.wire_codec.ops import SCALE_BYTES
+    from repro_torch.kernels.wire_codec.ref import (
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    n, nb = blocks.numel(), blocks.shape[0]
+    packed, scales = wcuda.wire_encode_cuda(blocks, 8)
+    wire = n + SCALE_BYTES * nb                # 8-bit bytes + scales
+    return [
+        kernel_row(
+            probes, "wire_encode", wcuda, launches["wire_encode"], 0.0,
+            lambda: wcuda.wire_encode_cuda(blocks, 8),
+            device_ms(lambda: wire_encode_ref(blocks, bits=8),
+                      reps=plain_reps), None,
+            4 * n + wire, 5 * n, PEAK_F32_OPS_S, shape=shape,
+            kernel=ENCODE_VEC),
+        kernel_row(
+            probes, "wire_decode", wcuda, launches["wire_decode"], 0.0,
+            lambda: wcuda.wire_decode_cuda(packed, scales, 8),
+            device_ms(lambda: wire_decode_ref(packed, scales, bits=8),
+                      reps=plain_reps), None,
+            wire + 4 * n, n, PEAK_F32_OPS_S, shape=shape),
+    ]
+
+
+def codec_rows(probes, ex, frames, launches):
+    """``wire_encode`` / ``wire_decode`` against their plain versions at
+    the sensor cut (4, 8 and 16 bits) and the vj cut (4 bits), and on
+    inputs that take the scalar encode kernel; timed at the sensor cut's
+    8-bit shape; ``launches`` are the offload path's counts (one of each
+    per batch and cut)."""
+    import torch
+
+    from repro_torch.kernels.wire_codec import cuda as wcuda
+    from repro_torch.kernels.wire_codec.ops import BLOCK
 
     def blocks_of(x):
         return x.reshape(-1, BLOCK).contiguous()
@@ -631,35 +694,23 @@ def codec_rows(probes, ex, frames, launches):
     patches, _wsel, wvalid, _wd = st.gather(mframes, dmask, n_win_m)
     sensor = blocks_of(frames)
     vj = blocks_of(torch.where(wvalid[0, :, :, None, None], patches[0], 0.0))
-    for label, blocks, bits in (("sensor", sensor, 8), ("vj", vj, 4),
-                                ("sensor", sensor, 16)):
-        packed, scales = wcuda.wire_encode_cuda(blocks, bits)
-        want_p, want_s = wire_encode_ref(blocks, bits=bits)
-        if not (_bits_equal(packed, want_p) and _bits_equal(scales, want_s)):
-            raise AssertionError(f"wire_encode {label} {bits}-bit differs "
-                                 "from plain")
-        got = wcuda.wire_decode_cuda(packed, scales, bits)
-        if not _bits_equal(got, wire_decode_ref(packed, scales, bits=bits)):
-            raise AssertionError(f"wire_decode {label} {bits}-bit differs "
-                                 "from plain")
-        print(f"wire codec {label} cut {tuple(blocks.shape)} {bits}-bit: "
-              "kernels == plain bit for bit", flush=True)
-
-    n, nb = sensor.numel(), sensor.shape[0]
-    packed, scales = wcuda.wire_encode_cuda(sensor, 8)
-    wire = n + SCALE_BYTES * nb                # 8-bit bytes + scales
-    return [
-        kernel_row(
-            probes, "wire_encode", wcuda, launches["wire_encode"], 0.0,
-            lambda: wcuda.wire_encode_cuda(sensor, 8),
-            device_ms(lambda: wire_encode_ref(sensor, bits=8)), None,
-            4 * n + wire, 5 * n, PEAK_F32_OPS_S),   # abs, max, div, round, clamp
-        kernel_row(
-            probes, "wire_decode", wcuda, launches["wire_decode"], 0.0,
-            lambda: wcuda.wire_decode_cuda(packed, scales, 8),
-            device_ms(lambda: wire_decode_ref(packed, scales, bits=8)), None,
-            wire + 4 * n, n, PEAK_F32_OPS_S),
-    ]
+    codec_check("sensor cut", sensor)
+    codec_check("vj cut", vj, (4,))
+    # the scalar encode kernel: blocks of 128 and 512, and the sensor's
+    # blocks one float off 16-byte alignment; the profile phase checks
+    # that each took that kernel
+    flat = torch.empty(sensor.numel() + 1, device=sensor.device)
+    shifted = flat[1:].view(sensor.shape)
+    shifted.copy_(sensor)
+    scalar = {"sensor cut as 128-value blocks": sensor.reshape(-1, 128),
+              "sensor cut as 512-value blocks": sensor.reshape(-1, 512),
+              "sensor cut one float off alignment": shifted}
+    for label, blocks in scalar.items():
+        codec_check(label, blocks)
+        probes.append((f"wire_encode {label}",
+                       lambda b=blocks: wcuda.wire_encode_cuda(b, 8), None,
+                       None, ENCODE_SCALAR))
+    return codec_kernel_rows(probes, sensor, launches)
 
 
 def main_phase(ex, frames, ref):
@@ -1005,6 +1056,7 @@ def vr_phase(vr):
     from repro_torch.camera import bssa
     from repro_torch.camera.pipelines import VR_FPS_TARGET, VRRigExecutor
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bilateral_blur.cuda import MAX_STEPS
     from repro_torch.kernels.bilateral_blur.ops import refine_grid
 
     p = vr.params
@@ -1033,11 +1085,12 @@ def vr_phase(vr):
     counts = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_chunks = -(-(md + 1) // 8)
+    n_blur = -(-p["n_iters"] // MAX_STEPS)        # 1: 8 steps a launch
     print(f"VR path launches: {counts} (expected integral_image "
-          f"{n_chunks}, bilateral_blur {p['n_iters']}); peak "
+          f"{n_chunks}, bilateral_blur {n_blur}); peak "
           f"{peak:.2f} GiB", flush=True)
     if (counts.get("integral_image", 0) != n_chunks
-            or counts.get("bilateral_blur", 0) != p["n_iters"]):
+            or counts.get("bilateral_blur", 0) != n_blur):
         raise AssertionError(f"VR path launches {counts}")
     if tuple(lp.shape) != vr.full_pano_shape or depths.shape != lefts.shape:
         raise AssertionError(f"VR shapes {tuple(lp.shape)} "
@@ -1167,8 +1220,8 @@ def codec_fields_check(label, split, pay, sources):
 def vr_offload_phase(vr, ex, views, fused):
     """Every cut x bits of ``VROffloadExecutor`` at full width against the
     fused rig frame, the JAX record and the plain codec, then the cut
-    controller in the throughput regime.  Returns the codec launch counts
-    of a coded run."""
+    controller in the throughput regime.  Returns the launch counts of
+    the 8-bit capture run."""
     import torch
 
     from repro_torch.camera.offload import (
@@ -1223,7 +1276,8 @@ def vr_offload_phase(vr, ex, views, fused):
                   or counts.get("wire_decode", 0) < 1):
                 raise AssertionError(f"VR {cut} {bits}: codec not launched")
             else:
-                codec_counts = counts
+                if (cut, bits) == ("capture", 8):
+                    codec_counts = counts
                 codec_fields_check(f"VR {cut} {bits}-bit", split, pay,
                                    fields)
                 # the left panorama depends on no coded field but the
@@ -1284,9 +1338,33 @@ def vr_offload_phase(vr, ex, views, fused):
     return codec_counts
 
 
-def vr_kernel_rows(probes, ex, views, counts):
-    """``bilateral_blur`` at the rig's grid shape and ``integral_image`` at
-    the cost-volume shape, each against its plain version on the card."""
+def blur_shared_loads(P, gy, gx, gr, n_steps) -> int:
+    """Shared-memory loads of the fused blur launch over both grids: one
+    per value each pass writes, over the regions each step computes in
+    every tile (``csrc/bilateral_blur.cu``)."""
+    from repro_torch.kernels.bilateral_blur.cuda import tile_shape
+
+    ty, tx, _rs, _smem = tile_shape(gy, gx, gr, n_steps)
+    total = 0
+    for y0 in range(0, gy, ty):
+        for x0 in range(0, gx, tx):
+            y1, x1 = min(gy, y0 + ty), min(gx, x0 + tx)
+            sy0, sy1 = max(0, y0 - n_steps), min(gy, y1 + n_steps)
+            sx0, sx1 = max(0, x0 - n_steps), min(gx, x1 + n_steps)
+            for s in range(1, n_steps + 1):
+                ny = (sy1 - sy0) - s * ((sy0 > 0) + (sy1 < gy))
+                nx = (sx1 - sx0) - s * ((sx0 > 0) + (sx1 < gx))
+                pnx = nx + (sx0 > 0) + (sx1 < gx)
+                total += gr * ny * (pnx + 2 * nx)
+    return 2 * P * total
+
+
+def vr_kernel_rows(probes, ex, views, counts, codec_counts):
+    """``bilateral_blur`` at the rig's grid shape, ``integral_image`` at
+    the cost-volume shape and the codec at one capture field (8 x
+    2160x3840 as 256-value blocks), each against its plain version on the
+    card; ``counts`` are a rig frame's launches, ``codec_counts`` an 8-bit
+    capture run's."""
     import torch
     import torch.nn.functional as F
 
@@ -1300,15 +1378,31 @@ def vr_kernel_rows(probes, ex, views, counts):
     rows = []
     rough = bssa.rough_disparity(lefts, rights, ex.max_disp)
     val, wt = bssa.splat(lefts, rough, ex.spec)
-    v, w = val, wt
-    for step in range(ex.n_iters):           # every step of the refinement
-        got = bcuda.bilateral_blur_cuda(v, w)
-        want = blur_ref(v, w)
-        if not (_bits_equal(got[0], want[0]) and _bits_equal(got[1],
-                                                             want[1])):
-            raise AssertionError(f"bilateral_blur step {step} differs from "
-                                 "plain")
-        v, w = got
+    n_it = ex.n_iters
+
+    def steps_ref(v, w, n):
+        for _ in range(n):
+            v, w = blur_ref(v, w)
+        return v, w
+
+    def same(got, want):
+        return all(_bits_equal(a, b) for a, b in zip(got, want))
+
+    # the fused refinement, one step, and 3 steps on a ragged grid
+    if not same(bcuda.bilateral_blur_cuda(val, wt, n_it),
+                steps_ref(val, wt, n_it)):
+        raise AssertionError(f"bilateral_blur: {n_it} fused steps differ "
+                             f"from {n_it} plain steps")
+    if not same(bcuda.bilateral_blur_cuda(val, wt), blur_ref(val, wt)):
+        raise AssertionError("bilateral_blur: one step differs from plain")
+    gen = torch.Generator(device=val.device).manual_seed(3)
+    for gr in (17, 9):                # 9: the kernel's generic gr
+        rv = torch.randn((3, 37, 53, gr), device=val.device, generator=gen)
+        rw = torch.rand((3, 37, 53, gr), device=val.device, generator=gen)
+        if not same(bcuda.bilateral_blur_cuda(rv, rw, 3),
+                    steps_ref(rv, rw, 3)):
+            raise AssertionError(f"bilateral_blur: 3 steps on 3x37x53x{gr} "
+                                 "differ from plain")
     both = torch.stack([val, wt]).reshape(-1, 1, *val.shape[1:])
     weight = torch.tensor([0.25, 0.5, 0.25], device=val.device)
     weight = (weight[:, None, None] * weight[None, :, None]
@@ -1318,24 +1412,39 @@ def vr_kernel_rows(probes, ex, views, counts):
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False   # float32, as the kernel
         try:
-            return F.conv3d(F.pad(both, (1, 1, 1, 1, 1, 1),
-                                  mode="replicate"), weight)
+            x = both
+            for _ in range(n_it):
+                x = F.conv3d(F.pad(x, (1, 1, 1, 1, 1, 1), mode="replicate"),
+                             weight)
+            return x
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
 
-    lib_ms = device_ms(library)
-    lib_err = max_abs_err(library().reshape(2, *val.shape),
-                          torch.stack(bcuda.bilateral_blur_cuda(val, wt)))
-    print(f"bilateral_blur {tuple(val.shape)}: kernel == plain bit for bit "
-          f"over all {ex.n_iters} steps; conv3d (cuDNN, TF32 off) max |diff|"
-          f" {lib_err:g}", flush=True)
+    lib_ms = device_ms(library, reps=5)
+    lib_err = max_abs_err(
+        library().reshape(2, *val.shape),
+        torch.stack(bcuda.bilateral_blur_cuda(val, wt, n_it)))
+    print(f"bilateral_blur {tuple(val.shape)}: {n_it} steps in one launch "
+          f"== {n_it} plain steps bit for bit, one step == one plain step, 3 "
+          f"steps at 3x37x53x17 and 3x37x53x9 == plain; {n_it} x conv3d "
+          "(cuDNN, TF32 off) "
+          f"max |diff| {lib_err:g}", flush=True)
     n = val.numel()
     rows.append(kernel_row(
         probes, "bilateral_blur", bcuda, counts["bilateral_blur"], 0.0,
-        lambda: bcuda.bilateral_blur_cuda(val, wt),
-        device_ms(lambda: blur_ref(val, wt)), lib_ms, 2 * 2 * 4 * n,
-        2 * 15 * n, PEAK_F32_OPS_S, shape="x".join(map(str, val.shape)),
-        library_fn=library))
+        lambda: bcuda.bilateral_blur_cuda(val, wt, n_it),
+        device_ms(lambda: steps_ref(val, wt, n_it), reps=5), lib_ms,
+        2 * 2 * 4 * n, n_it * 2 * 15 * n, PEAK_F32_OPS_S,
+        shape="x".join(map(str, val.shape)), library_fn=library))
+    # a diagnostic of the design, not a bound: the function needs no
+    # shared-memory loads
+    loads = blur_shared_loads(*val.shape, n_it)
+    loads_ms = 1e3 * loads / (
+        32 * torch.cuda.get_device_properties(0).multi_processor_count
+        * sm_clock_hz())
+    print(f"bilateral_blur design: {loads} shared-memory loads for {n_it} "
+          f"steps ({loads / (2 * n_it * n):.3f} per value and step), "
+          f"{loads_ms:.4f} ms at 32 a clock on every SM", flush=True)
 
     # integral_image at the cost volume's shape: one chunk of 8 hypotheses
     # of every pair, edge-padded |left - shifted right|
@@ -1367,7 +1476,19 @@ def vr_kernel_rows(probes, ex, views, counts):
           f"launches, bound {counts['integral_image'] * row['bound_ms']:.3f}"
           f" ms, kernel {counts['integral_image'] * row['ms']:.3f} ms",
           flush=True)
-    return rows
+
+    # the codec at one capture field: the left views as 256-value blocks
+    from repro_torch.kernels.wire_codec.ops import BLOCK
+    field = lefts.reshape(-1, BLOCK).contiguous()
+    codec_check("VR capture field", field)
+    codec = codec_kernel_rows(probes, field, codec_counts,
+                              shape="x".join(map(str, field.shape)),
+                              plain_reps=3)
+    for row in codec:
+        print(f"{row['name']} per 8-bit capture run: {row['launches']} "
+              f"launches, bound {row['launches'] * row['bound_ms']:.4f} ms, "
+              f"kernel {row['launches'] * row['ms']:.4f} ms", flush=True)
+    return rows + codec
 
 
 # -- LM serving ---------------------------------------------------------------
@@ -1947,7 +2068,12 @@ def profiles_phase(ex, frames, targets, probes):
           f"{ms / B:.4f} ms per frame ({ms:.3f} ms per {B}-frame batch, "
           "median of 7)", flush=True)
     for label, fn, row, library_fn, kernel in probes:
-        row["device_ms"] = launch_device_ms(fn, kernel)
+        ms = launch_device_ms(fn, kernel)
+        if row is None:                 # a route check: which kernel ran
+            print(f"{label}: every launch was {kernel}, {ms:.4f} ms "
+                  "(torch.profiler, 20 calls)", flush=True)
+            continue
+        row["device_ms"] = ms
         lib = ""
         if library_fn is not None:
             row["library_device_ms"] = call_device_ms(library_fn)
@@ -2008,9 +2134,9 @@ def main() -> int:
 
     vr = load_vr_reference()
     vr_ex, views, fused, vr_counts, vr_ms = vr_phase(vr)
-    vr_offload_phase(vr, vr_ex, views, fused)
+    vr_codec_counts = vr_offload_phase(vr, vr_ex, views, fused)
     del fused
-    rows += vr_kernel_rows(probes, vr_ex, views, vr_counts)
+    rows += vr_kernel_rows(probes, vr_ex, views, vr_counts, vr_codec_counts)
     targets.append(("VR rig frame", lambda: vr_ex(*views), vr_ms))
     lm_rows, lm_targets = lm_phase(probes)
     rows += lm_rows

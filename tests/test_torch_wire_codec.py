@@ -211,3 +211,94 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 def test_bad_widths_raise():
     with pytest.raises(ValueError):
         tops.wire_encode(torch.zeros(10), bits=6)
+
+
+# -- the encode kernel's lane mapping and packing ----------------------------
+#
+# csrc/wire_codec.cu encodes a block of 256 values with one warp: lane l
+# holds values 128 c + 4 l .. + 3 of chunk c = 0, 1 (one float4 each),
+# takes the absmax of its values, then 5 butterfly shuffles with a
+# NaN-keeping max; it quantizes from registers and stores word 32 c + l of
+# the packed row: 4 bytes at 8 bits, 2 at 4 bits, 8 at 16 bits,
+# little-endian.  The emulation below does the same in plain PyTorch.
+
+
+def _nan_max(a, b):
+    return torch.where(torch.isnan(a) | (a > b), a, b)
+
+
+def encode_lane_emulation(blocks, bits):
+    nb, block = blocks.shape
+    assert block == 256
+    C = 2
+    qmax = 2 ** (bits - 1) - 1
+    v = blocks.reshape(nb, C, 32, 4)                  # chunk, lane, value
+    m = torch.zeros((nb, 32))
+    for c in range(C):
+        for j in range(4):
+            m = _nan_max(m, v[:, c, :, j].abs())
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        m = _nan_max(m, m[:, lane ^ off])
+    assert torch.equal(m.isnan(), m[:, :1].isnan().expand(-1, 32))
+    scale = m[:, :1] * float(np.float32(1.0) / np.float32(qmax))
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    r = torch.round(v / scale[:, :, None, None])
+    r = torch.where(r < -qmax, -float(qmax), torch.where(r > qmax,
+                                                         float(qmax), r))
+    q = torch.where(r.isnan(), 0.0, r).to(torch.int64)   # NaN -> 0, as cvt
+    if bits == 8:
+        word = sum((q[..., j] & 0xFF) << (8 * j) for j in range(4))
+        word = torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+        row = word.to(torch.int32).contiguous().view(torch.int8)
+    elif bits == 4:
+        word = sum((q[..., j] & 0xF) << (4 * j) for j in range(4))
+        word = torch.where(word >= 2 ** 15, word - 2 ** 16, word)
+        row = word.to(torch.int16).contiguous().view(torch.int8)
+    else:
+        lo, hi = q & 0xFFFF, (q & 0xFFFF) << 16
+        pair = torch.stack([lo[..., 0] | hi[..., 1], lo[..., 2] | hi[..., 3]],
+                           -1)
+        pair = torch.where(pair >= 2 ** 31, pair - 2 ** 32, pair)
+        row = pair.to(torch.int32).contiguous().view(torch.int8)
+    return row.reshape(nb, block * bits // 8), scale
+
+
+def _special_blocks(bits, block):
+    """Zero blocks, NaN blocks, half-step ties, values at ±qmax and 3 qmax
+    (clamped), random blocks."""
+    rng = np.random.default_rng(bits + block)
+    zero = np.zeros((2, block), np.float32)
+    nan = (rng.standard_normal((3, block)) * 5).astype(np.float32)
+    nan[0, 7] = np.nan
+    nan[1, :] = np.nan
+    nan[2, block - 1] = np.nan
+    ties = _tie_blocks(bits, rng, n_blocks=16)
+    qmax = 2 ** (bits - 1) - 1
+    ends = np.zeros((2, block), np.float32)
+    ends[0, ::2], ends[0, 1::2] = qmax, -qmax           # exactly ±qmax
+    ends[1] = np.float32(3.0) * ends[0]
+    rand = (rng.standard_normal((4, block)) * 11).astype(np.float32)
+    return np.concatenate([zero, nan, ties, ends, rand])
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_encode_lane_emulation_special_blocks(bits):
+    x = torch.from_numpy(_special_blocks(bits, 256))
+    got_p, got_s = encode_lane_emulation(x, bits)
+    want_p, want_s = tops.wire_encode(x, bits=bits)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_encode_lane_emulation_reciprocal_sweep(bits):
+    """The 4,096 blocks whose scale a division would round the other
+    way."""
+    blocks, _a = _reciprocal_sweep(bits)
+    x = torch.from_numpy(blocks)
+    got_p, got_s = encode_lane_emulation(x, bits)
+    want_p, want_s = tops.wire_encode(x, bits=bits)
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
