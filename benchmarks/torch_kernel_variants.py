@@ -19,9 +19,10 @@ for the small stages or the global path for every stage; ``haar``) and
 of ``src/repro_torch/csrc/bilateral_blur.cu`` (tile shapes, threads and
 blocks a SM, the unrolling of the line walks, steps a launch; ``blur``)
 by text substitution of the committed sources, each with ``nvcc`` into a
-library of its own under ``build/variants/``.  ``blur`` and ``codec``
-(``wire_encode`` of ``src/repro_torch/csrc/wire_codec.cu``) also build
-the parent commit's kernel from the tree that ``--parent`` names.  Each
+library of its own under ``build/variants/``, and of the decode of
+``src/repro_torch/csrc/wire_codec.cu`` (plain or streaming stores;
+``codec``).  ``blur`` and ``codec`` also build the parent commit's kernel
+from the tree that ``--parent`` names.  Each
 variant is checked against the plain PyTorch version on the same inputs
 (a WKV variant's error is reported, the committed kernel's held to the
 bound), then all are timed with CUDA events in turns (A, B, ..., B, A)
@@ -706,60 +707,102 @@ def blur_variants(nvcc, flags):
 
 
 CODEC = "src/repro_torch/csrc/wire_codec.cu"
+CODEC_STORE = "  *p = v;\n"
+CODEC_STCS = "  __stcs(p, v);\n"
+CODEC_CHUNKS = "constexpr int kDecodeChunks = "
+CODEC_LOOP = ("  for (int b = warp; b < n_blocks; b += n_warps) {\n"
+              "    const uint8_t* row = packed")
+CODEC_LOOP_END = "\n  }\n}\n\nint units_per_row_of"
+# two payload blocks a warp in flight: both blocks' loads issued first
+CODEC_TWO_BLOCKS = """  for (int b0 = 2 * warp; b0 < n_blocks; b0 += 2 * n_warps) {
+    uint4 w[2][kDecodeChunks];
+    float scale[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = b0 + i < n_blocks ? b0 + i : b0;
+      const uint8_t* row = packed + static_cast<size_t>(b) * kRowBytes;
+#pragma unroll
+      for (int c = 0; c < kDecodeChunks; ++c) {
+        w[i][c] = load_run<kRunBytes>(row + (c * kChunkValues + kRun * lane) *
+                                                BITS / 8);
+      }
+      scale[i] = lane == 0 ? scales[b] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (b0 + i >= n_blocks) break;
+      const float s = __shfl_sync(0xffffffffu, scale[i], 0);
+      float4* dst = out + static_cast<size_t>(b0 + i) * (kVecBlock / 4);
+#pragma unroll
+      for (int c = 0; c < kDecodeChunks; ++c) {
+#pragma unroll
+        for (int k = 0; k < kRun / 4; ++k) {
+          store_out(dst + (c * kChunkValues + kRun * lane) / 4 + k,
+                    make_float4(unpack<BITS>(w[i][c], 4 * k, s),
+                                unpack<BITS>(w[i][c], 4 * k + 1, s),
+                                unpack<BITS>(w[i][c], 4 * k + 2, s),
+                                unpack<BITS>(w[i][c], 4 * k + 3, s)));
+        }
+      }
+    }"""
 
 
 def codec_variants(nvcc, flags):
-    """``wire_encode`` at the sensor cut (6,138 x 256) and one VR capture
-    field (259,200 x 256), random payloads from a seed: the parent's
-    kernel (one CUDA block per payload block) and the committed one (a
-    warp per payload block); each bit-equal to the plain version at 4, 8
-    and 16 bits, timed at 8 bits in turns, with the decode beside them.
-    (Two payload blocks in flight a warp lost to one: PERF.md has its
-    times, git history its code.)"""
-    import numpy as np
+    """``wire_decode`` at the sensor cut (6,138 x 256) and one VR capture
+    field (259,200 x 256), payloads encoded from random blocks of a seed:
+    the parent's kernel (a thread per packed byte) and the warp-per-block
+    kernel with each lane on 8 consecutive values (``lanes8``: one load,
+    two adjacent float4 stores) or on 4 values in each half of the block
+    (``chunks2``: two loads, each float4 store 512 contiguous bytes a
+    warp), each with plain and with streaming stores (``_stcs``, the
+    committed: the output is written once and a capture field's 265 MB
+    never fits in L2; the committed kernel is ``chunks2_stcs``), and
+    ``chunks2_stcs`` with two payload blocks a warp in flight
+    (``_two_blocks``: both blocks' loads issued before either's stores);
+    each
+    bit-equal to the plain version at 4, 8 and 16 bits, timed at each
+    width in turns."""
     import torch
 
     from repro_torch.kernels.wire_codec.ref import (
-        qmax_of,
         wire_decode_ref,
         wire_encode_ref,
     )
 
     text = open(os.path.join(ROOT, CODEC)).read()
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sources = {"parent": parent_source(CODEC), "committed": text}
-    enc, dec = {}, None
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith(CODEC_CHUNKS))    # the committed mapping
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sources = {"parent": parent_source(CODEC)}
+    for name, chunks in (("lanes8", 1), ("chunks2", 2)):
+        src = _substitute(text, [(line, f"{CODEC_CHUNKS}{chunks};")],
+                          "wire_codec.cu")
+        sources[name + "_stcs"] = src
+        sources[name] = _substitute(src, [(CODEC_STCS, CODEC_STORE)],
+                                    "wire_codec.cu")
+    a = text.index(CODEC_LOOP)
+    b = text.index(CODEC_LOOP_END, a)
+    sources["chunks2_stcs_two_blocks"] = _substitute(
+        text, [(line, f"{CODEC_CHUNKS}2;"), (text[a:b], CODEC_TWO_BLOCKS)],
+        "wire_codec.cu")
+    dec = {}
     for name, src in sources.items():
-        lib = build(f"codec_{name}", src, nvcc, flags)
-        enc[name] = lib.repro_wire_encode
-        enc[name].argtypes = [p, p, p, i, i, i, f, f, p]
-        enc[name].restype = ctypes.c_int
-        if name == "committed":
-            dec = lib.repro_wire_decode
-            dec.argtypes = [p, p, p, i, i, i, p]
-            dec.restype = ctypes.c_int
+        fn = build(f"codec_{name}", src, nvcc, flags).repro_wire_decode
+        # the parent's entry point has no route argument
+        fn.argtypes = [p, p, p, i, i, i, p] if name == "parent" else \
+            [p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        dec[name] = fn
 
-    def encode(name, blocks, bits):
-        nb, block = blocks.shape
-        packed = torch.empty((nb, block * bits // 8), dtype=torch.int8,
-                             device="cuda")
-        scales = torch.empty((nb, 1), device="cuda")
-        qmax = qmax_of(bits)
-        rc = enc[name](blocks.data_ptr(), packed.data_ptr(),
-                       scales.data_ptr(), nb, block, bits, float(qmax),
-                       float(np.float32(1) / np.float32(qmax)),
-                       torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"wire_encode {name}: CUDA error {rc}")
-        return packed, scales
-
-    def decode(packed, scales, bits):
+    def decode(name, packed, scales, bits):
         nb = packed.shape[0]
         out = torch.empty((nb, packed.shape[1] * 8 // bits), device="cuda")
-        rc = dec(packed.data_ptr(), scales.data_ptr(), out.data_ptr(), nb,
-                 out.shape[1], bits, torch.cuda.current_stream().cuda_stream)
+        route = () if name == "parent" else (1,)
+        rc = dec[name](packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                       nb, out.shape[1], bits, *route,
+                       torch.cuda.current_stream().cuda_stream)
         if rc:
-            raise RuntimeError(f"wire_decode: CUDA error {rc}")
+            raise RuntimeError(f"wire_decode {name}: CUDA error {rc}")
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -768,28 +811,25 @@ def codec_variants(nvcc, flags):
         blocks = 11.0 * torch.randn((nb, 256), device="cuda", generator=gen)
         blocks[::7] = 0.0                      # scale-1 blocks
         for bits in (4, 8, 16):
-            want_p, want_s = wire_encode_ref(blocks, bits=bits)
-            for name in enc:
-                got_p, got_s = encode(name, blocks, bits)
-                if not (torch.equal(got_p, want_p) and torch.equal(
-                        got_s.view(torch.int32), want_s.view(torch.int32))):
-                    raise AssertionError(f"wire_encode {name} {nb} x 256 "
+            packed, scales = wire_encode_ref(blocks, bits=bits)
+            want = wire_decode_ref(packed, scales, bits=bits)
+            for name in dec:
+                got = decode(name, packed, scales, bits)
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"wire_decode {name} {nb} x 256 "
                                          f"{bits}-bit differs from plain")
-            got = decode(want_p, want_s, bits)
-            if not torch.equal(got.view(torch.int32), wire_decode_ref(
-                    want_p, want_s, bits=bits).view(torch.int32)):
-                raise AssertionError(f"wire_decode {nb} x 256 {bits}-bit "
-                                     "differs from plain")
-        packed, scales = encode("committed", blocks, 8)
-        fns = {name: (lambda n=name: encode(n, blocks, 8)) for name in enc}
-        fns["decode"] = lambda: decode(packed, scales, 8)
-        reps = 200 if nb < 10000 else 20
-        times = in_turns(fns, reps)
-        dev = {k: profiled_ms(fn, reps) for k, fn in fns.items()}
-        label = f"wire_encode {nb}x256 8-bit"
-        result[label] = report(label + " (4/8/16 bit-equal to plain)", fns,
-                               times, dev)
-        del blocks, packed, scales
+            del want, got
+            fns = {name: (lambda n=name: decode(n, packed, scales, bits))
+                   for name in dec}
+            reps = 200 if nb < 10000 else 20
+            times = in_turns(fns, reps)
+            dev = {k: profiled_ms(fn, reps) for k, fn in fns.items()}
+            label = f"wire_decode {nb}x256 {bits}-bit"
+            result[label] = report(label + " (bit-equal to plain)", fns,
+                                   times, dev)
+            del packed, scales
+        del blocks
         torch.cuda.empty_cache()
     return result
 

@@ -73,8 +73,29 @@ that the float32 one holds no tensor-core instruction, then:
    shared-memory loads; 8 x cuDNN ``conv3d`` as the library call), an
    ``integral_image`` row at the cost volume's shape (64 x 2164x3844,
    bit-exact) and the codec's rows at one capture field (259,200 x 256
-   blocks, 4/8/16 bits bit-exact, timed at 8);
-6. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
+   blocks, 4/8/16 bits bit-exact, timed at each width); the codec's
+   decode also on packed bytes one byte off 16-byte alignment and on
+   blocks of 128 and 512, which take its scalar kernel;
+6. resilience phase — the offload resilience layer on the card at full
+   width against the JAX record ``assets/resilience_reference.npz``: (a)
+   ``OffloadSession`` with no faults at every cut x None/16/8/4 equal to
+   the split executor field for field, payload CRCs equal to JAX's at the
+   sensor and motion cuts; (b) two laddered cells over the motion cut
+   (16 -> 8 -> 4 bits -> on-node, burst loss 0.2 at outage duty 0 and
+   0.2, 40 sends) whose delivery records equal JAX's tuple for tuple; (c)
+   the 12 loss x duty cells of ``benchmarks/offload_resilience.py`` over
+   the nn cut and its determinism cell, each send's outcome equal to
+   JAX's where there is no outage, the delivery fraction within 1/40 of
+   JAX's where there is (the port's nn payload carries one window fewer);
+   (d) the brownout run (10 sends, commit points in a temporary
+   directory): every result equal to the 8-bit split executor's, no
+   upstream stage completed twice for a send; (e) the congestion fleet,
+   its p99 above the clean one's; (f) VR sessions at 16 x 4K at every cut
+   x 16/8/4 equal to the split executor, and one brownout send at the
+   stitch cut resumed from its commits (bytes written and seconds
+   printed); (g) every delivered coded send launched ``wire_decode`` and
+   no other send did;
+7. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
    weights drawn on the card (seed 0): a ``generate`` call (the function
    ``repro_torch.launch.serve`` calls) on 8 prompts of 4096 tokens (numpy
    seed 1) for 32 greedy tokens, with the launch counters set to 0, must
@@ -99,7 +120,7 @@ that the float32 one holds no tensor-core instruction, then:
    SDPA (the window as a dense boolean mask).  bf16 runs the ``wgmma``
    kernel and float32 the CUDA-core one; each flash row names the kernel
    that ran;
-7. profile phase — every torch.profiler session of the run: each kernel's
+8. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, the executed offload cut and one serve call
    of each LM, with the funnel's host time just before and just after the
@@ -154,6 +175,9 @@ STREAMS = 64
 CUTS = ("sensor", "motion", "vj", "nn")
 # the node duties of examples/camera_offload.py (vj at leakage only)
 DUTIES = {"sensor": 1.0, "motion": 1.0, "vj": 0.0, "nn": 1.0}
+FA_FIELDS = ("motion", "n_windows", "n_auth", "scores", "window_id",
+             "window_valid", "auth", "windows_dropped", "motion_dropped",
+             "cascade_dropped")
 
 
 def gpu_name_and_power() -> str:
@@ -638,13 +662,15 @@ def codec_check(label, blocks, bits_list=(4, 8, 16)):
           "bit", flush=True)
 
 
-# the profiler's names of the two encode kernels: aligned 256-value blocks
-# (every block on the paths) take the vector kernel, any other the scalar
+# the profiler's names of the codec's kernels: aligned 256-value blocks
+# (every block on the paths) take the vector kernels, any other the scalar
 ENCODE_VEC, ENCODE_SCALAR = "wire_encode_vec_kernel", "wire_encode_kernel"
+DECODE_VEC, DECODE_SCALAR = "wire_decode_vec_kernel", "wire_decode_kernel"
 
 
-def codec_kernel_rows(probes, blocks, launches, shape=None, plain_reps=20):
-    """The ``wire_encode`` and ``wire_decode`` rows at 8 bits on
+def codec_kernel_rows(probes, blocks, launches, shape=None, plain_reps=20,
+                      bits=8, label=""):
+    """The ``wire_encode`` and ``wire_decode`` rows at ``bits`` on
     ``blocks``: bytes in and out at the card's memory rate, or the float
     operations per value (abs, max, div, round, clamp to encode)."""
     from repro_torch.kernels.wire_codec import cuda as wcuda
@@ -655,31 +681,64 @@ def codec_kernel_rows(probes, blocks, launches, shape=None, plain_reps=20):
     )
 
     n, nb = blocks.numel(), blocks.shape[0]
-    packed, scales = wcuda.wire_encode_cuda(blocks, 8)
-    wire = n + SCALE_BYTES * nb                # 8-bit bytes + scales
+    packed, scales = wcuda.wire_encode_cuda(blocks, bits)
+    wire = n * bits // 8 + SCALE_BYTES * nb       # packed bytes + scales
+    shape = shape and f"{shape}{label}"
     return [
         kernel_row(
             probes, "wire_encode", wcuda, launches["wire_encode"], 0.0,
-            lambda: wcuda.wire_encode_cuda(blocks, 8),
-            device_ms(lambda: wire_encode_ref(blocks, bits=8),
+            lambda: wcuda.wire_encode_cuda(blocks, bits),
+            device_ms(lambda: wire_encode_ref(blocks, bits=bits),
                       reps=plain_reps), None,
             4 * n + wire, 5 * n, PEAK_F32_OPS_S, shape=shape,
             kernel=ENCODE_VEC),
         kernel_row(
             probes, "wire_decode", wcuda, launches["wire_decode"], 0.0,
-            lambda: wcuda.wire_decode_cuda(packed, scales, 8),
-            device_ms(lambda: wire_decode_ref(packed, scales, bits=8),
+            lambda: wcuda.wire_decode_cuda(packed, scales, bits),
+            device_ms(lambda: wire_decode_ref(packed, scales, bits=bits),
                       reps=plain_reps), None,
-            wire + 4 * n, n, PEAK_F32_OPS_S, shape=shape),
+            wire + 4 * n, n, PEAK_F32_OPS_S, shape=shape,
+            kernel=DECODE_VEC),
     ]
+
+
+def decode_offset_check(label, blocks, probes):
+    """``wire_decode`` on packed bytes one byte off 16-byte alignment,
+    which take the scalar kernel, against the plain decode at each width;
+    the profile phase checks which kernel ran."""
+    import torch
+
+    from repro_torch.kernels.wire_codec import cuda as wcuda
+    from repro_torch.kernels.wire_codec.ref import (
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    for bits in (4, 8, 16):
+        packed, scales = wire_encode_ref(blocks, bits=bits)
+        flat = torch.empty(packed.numel() + 1, dtype=torch.int8,
+                           device=packed.device)
+        shifted = flat[1:].view(packed.shape)
+        shifted.copy_(packed)
+        if not _bits_equal(wcuda.wire_decode_cuda(shifted, scales, bits),
+                           wire_decode_ref(packed, scales, bits=bits)):
+            raise AssertionError(f"wire_decode {label} {bits}-bit one byte "
+                                 "off alignment differs from plain")
+        if bits == 8:
+            probes.append((f"wire_decode {label} one byte off alignment",
+                           lambda p=shifted, s=scales:
+                           wcuda.wire_decode_cuda(p, s, 8), None, None,
+                           DECODE_SCALAR))
+    print(f"wire codec {label} packed one byte off alignment, 4/8/16-bit: "
+          "decode == plain bit for bit", flush=True)
 
 
 def codec_rows(probes, ex, frames, launches):
     """``wire_encode`` / ``wire_decode`` against their plain versions at
     the sensor cut (4, 8 and 16 bits) and the vj cut (4 bits), and on
-    inputs that take the scalar encode kernel; timed at the sensor cut's
-    8-bit shape; ``launches`` are the offload path's counts (one of each
-    per batch and cut)."""
+    inputs that take the scalar kernels; timed at the sensor cut's 8-bit
+    shape; ``launches`` are the offload path's counts (one of each per
+    batch and cut)."""
     import torch
 
     from repro_torch.kernels.wire_codec import cuda as wcuda
@@ -696,9 +755,10 @@ def codec_rows(probes, ex, frames, launches):
     vj = blocks_of(torch.where(wvalid[0, :, :, None, None], patches[0], 0.0))
     codec_check("sensor cut", sensor)
     codec_check("vj cut", vj, (4,))
-    # the scalar encode kernel: blocks of 128 and 512, and the sensor's
-    # blocks one float off 16-byte alignment; the profile phase checks
-    # that each took that kernel
+    # the scalar kernels: blocks of 128 and 512 (both kernels), the
+    # sensor's blocks one float off 16-byte alignment (encode) and their
+    # packed bytes one byte off (decode); the profile phase checks that
+    # each took its scalar kernel
     flat = torch.empty(sensor.numel() + 1, device=sensor.device)
     shifted = flat[1:].view(sensor.shape)
     shifted.copy_(sensor)
@@ -710,6 +770,13 @@ def codec_rows(probes, ex, frames, launches):
         probes.append((f"wire_encode {label}",
                        lambda b=blocks: wcuda.wire_encode_cuda(b, 8), None,
                        None, ENCODE_SCALAR))
+        if blocks.shape[1] != BLOCK:
+            packed, scales = wcuda.wire_encode_cuda(blocks, 8)
+            probes.append((f"wire_decode {label}",
+                           lambda p=packed, s=scales:
+                           wcuda.wire_decode_cuda(p, s, 8), None, None,
+                           DECODE_SCALAR))
+    decode_offset_check("sensor cut", sensor, probes)
     return codec_kernel_rows(probes, sensor, launches)
 
 
@@ -803,9 +870,7 @@ def offload_phase(ex, frames, res, flips):
     from repro_torch.kernels import _build
     from repro_torch.kernels.wire_codec.ops import wire_bytes
 
-    fields = ("motion", "n_windows", "n_auth", "scores", "window_id",
-              "window_valid", "auth", "windows_dropped", "motion_dropped",
-              "cascade_dropped")
+    fields = FA_FIELDS
     codec_field = {"sensor": "frames", "motion": "mframes"}
     off = load_offload_reference()
     offs, nbytes, results = {}, {}, {}
@@ -1221,7 +1286,7 @@ def vr_offload_phase(vr, ex, views, fused):
     """Every cut x bits of ``VROffloadExecutor`` at full width against the
     fused rig frame, the JAX record and the plain codec, then the cut
     controller in the throughput regime.  Returns the launch counts of
-    the 8-bit capture run."""
+    the capture runs by codec width."""
     import torch
 
     from repro_torch.camera.offload import (
@@ -1276,8 +1341,8 @@ def vr_offload_phase(vr, ex, views, fused):
                   or counts.get("wire_decode", 0) < 1):
                 raise AssertionError(f"VR {cut} {bits}: codec not launched")
             else:
-                if (cut, bits) == ("capture", 8):
-                    codec_counts = counts
+                if cut == "capture":
+                    codec_counts[bits] = counts
                 codec_fields_check(f"VR {cut} {bits}-bit", split, pay,
                                    fields)
                 # the left panorama depends on no coded field but the
@@ -1338,6 +1403,346 @@ def vr_offload_phase(vr, ex, views, fused):
     return codec_counts
 
 
+# -- offload resilience -------------------------------------------------------
+
+def _same_result(a, b) -> bool:
+    import torch
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FA_FIELDS)
+
+
+def _decodes():
+    from repro_torch.kernels import _build
+    return _build.launches["wire_decode"]
+
+
+def counted_sends(sess, inputs, n):
+    """``n`` sends of ``inputs`` through ``sess``; returns the results and
+    the ``wire_decode`` launches of each send, and checks that every send
+    whose payload was delivered (not the on-node fallback) launched the
+    decode kernel and that no other send did."""
+    import torch
+
+    results, launches = [], []
+    for _ in range(n):
+        before = _decodes()
+        got, rec = sess.send(*inputs)
+        torch.cuda.synchronize()
+        moved = _decodes() - before
+        if (moved > 0) != (rec.delivered and not rec.fallback
+                           and rec.bits is not None):
+            raise AssertionError(f"send {rec.seq} ({rec.cut}, {rec.bits}, "
+                                 f"delivered {rec.delivered}, fallback "
+                                 f"{rec.fallback}): {moved} decode launches")
+        results.append(got)
+        launches.append(moved)
+    return results, launches
+
+
+def _injector(cell):
+    from repro_torch.camera.offload import FaultInjector, GilbertElliott
+
+    return FaultInjector(
+        loss=GilbertElliott(p_gb=cell["p_gb"], p_bg=cell["p_bg"]),
+        outage_period_s=cell["outage_period_s"],
+        outage_duty=cell["outage_duty"],
+        corrupt_fraction=cell["corrupt_fraction"], seed=cell["seed"])
+
+
+def ladder_cell(ex, frames, make, cell, injector):
+    """One laddered session (cut at 16, 8, 4 bits, then on-node) of
+    ``cell["sends"]`` sends; returns the session, each send's auth
+    decisions (None when undelivered) and its decode launches."""
+    from repro_torch.camera.offload import (
+        ON_NODE,
+        DegradationLadder,
+        OffloadSession,
+    )
+
+    rungs = [(cell["cut"], b) for b in (16, 8, 4)] + [ON_NODE]
+    sess = OffloadSession(make_executor=make, cut=cell["cut"], bits=16,
+                          injector=injector,
+                          ladder=DegradationLadder(rungs),
+                          on_node_fn=lambda f: ex(f))
+    results, launches = counted_sends(sess, (frames,), cell["sends"])
+    auths = [None if r is None else r.auth for r in results]
+    return sess, auths, launches
+
+
+def cell_metrics(sess, auths, base_sess, base_auths) -> dict:
+    """benchmarks/offload_resilience.py's numbers of one ladder cell."""
+    flips = [float((a != b).float().mean())
+             for a, b in zip(auths, base_auths) if a is not None]
+    retx = sum(r.attempts - 1 for r in sess.records)
+    att = sum(r.attempts for r in sess.records)
+    return dict(flip=float(np.mean(flips)) if flips else 1.0,
+                retx_overhead=retx / max(att - retx, 1),
+                energy_ratio=sess.energy_j / base_sess.energy_j,
+                delivered=float(np.mean([a is not None for a in auths])),
+                final_rung=tuple(sess.ladder.rung))
+
+
+class _CountingSaves:
+    """Counts the bytes the session's commit points write (wraps the
+    resilience module's ``save_checkpoint`` while in use)."""
+
+    def __enter__(self):
+        from repro_torch.camera.offload import resilience
+
+        self.module, self.saved = resilience, resilience.save_checkpoint
+        self.bytes = self.saves = 0
+
+        def save(ckpt_dir, step, tree, **kw):
+            path = self.saved(ckpt_dir, step, tree, **kw)
+            self.saves += 1
+            self.bytes += sum(os.path.getsize(os.path.join(path, f))
+                              for f in os.listdir(path))
+            return path
+
+        resilience.save_checkpoint = save
+        return self
+
+    def __exit__(self, *exc):
+        self.module.save_checkpoint = self.saved
+
+
+def resilience_phase(ex, frames, vr_ex, views):
+    """The offload resilience layer on the card at full width, against the
+    JAX record ``assets/resilience_reference.npz``: (a) zero-fault
+    sessions at every cut x bits, (b) the motion-ladder cells, (c) the 12
+    nn-ladder cells and the determinism cell, (d) the brownout run, (e)
+    congestion, (f) VR sessions at 16 x 4K, (g) decode launches per
+    send."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.bridge import load_resilience_reference
+    from repro_torch.camera.offload import (
+        BACKSCATTER,
+        BrownoutModel,
+        FaceAuthOffloadExecutor,
+        FaultInjector,
+        GilbertElliott,
+        OffloadSession,
+        VROffloadExecutor,
+        fleet_link_report,
+        payload_checksum,
+    )
+    from repro_torch.kernels import _build
+
+    ref = load_resilience_reference()
+    offs = {}
+
+    def make(cut, bits):
+        if (cut, bits) not in offs:
+            offs[(cut, bits)] = FaceAuthOffloadExecutor(ex, cut, bits=bits)
+        return offs[(cut, bits)]
+
+    # (a) zero-fault pin, with (g) the decode launches of each send
+    per_send = {}
+    for cut in CUTS:
+        for bits in (None, 16, 8, 4):
+            want, payload = make(cut, bits)(frames)
+            crc = payload_checksum(payload)
+            sess = OffloadSession(make(cut, bits))
+            (got,), (moved,) = counted_sends(sess, (frames,), 1)
+            rec = sess.records[0]
+            ref_crc = ref.crc[(cut, bits)]
+            per_send[(cut, bits)] = moved
+            print(f"resilience zero-fault {cut:6s} bits={bits}: crc "
+                  f"{crc:#010x} (JAX {ref_crc:#010x}), {rec.payload_bytes} B,"
+                  f" {moved} decode launches", flush=True)
+            if not (_same_result(got, want) and rec.delivered
+                    and rec.attempts == 1):
+                raise AssertionError(f"zero-fault session {cut} {bits} "
+                                     "differs from the split executor")
+            if int(sess.received[0]["crc"]) != crc:
+                raise AssertionError(f"{cut} {bits}: receiver's crc differs")
+            if cut in ("sensor", "motion") and crc != ref_crc:
+                raise AssertionError(f"{cut} {bits}: payload crc differs "
+                                     "from JAX's")
+            if moved != (0 if bits is None else 1):
+                raise AssertionError(f"{cut} {bits}: {moved} decode launches "
+                                     "in one send")
+    print("resilience (a): zero-fault sessions == split executor bit for bit"
+          " at 4 cuts x None/16/8/4; sensor and motion payload crcs == "
+          "JAX's", flush=True)
+
+    # (b) motion-ladder cells: the record's, tuple for tuple
+    base = {}
+    for cut in ("motion", "nn"):
+        sess, auths, _l = ladder_cell(ex, frames, make,
+                                      dict(cut=cut, sends=40), None)
+        base[cut] = (sess, auths)
+    launches_by_bits: dict = {}
+    for name, cell in ref.cells.items():
+        if not name.startswith("motion_"):
+            continue
+        sess, auths, launches = ladder_cell(ex, frames, make, cell,
+                                            _injector(cell))
+        got = [dataclasses.astuple(r) for r in sess.records]
+        m = cell_metrics(sess, auths, *base["motion"])
+        print(f"resilience {name}: {m} (JAX {ref.metrics[name]})",
+              flush=True)
+        if got != ref.records[name]:
+            bad = next(i for i, (a, b) in enumerate(
+                zip(got, ref.records[name])) if a != b)
+            raise AssertionError(f"{name}: send {bad} {got[bad]} != JAX "
+                                 f"{ref.records[name][bad]}")
+        for rec, n in zip(sess.records, launches):
+            launches_by_bits.setdefault(rec.bits, set()).add(n)
+    print("resilience (b): the motion-ladder cells' delivery records == "
+          "JAX's, tuple for tuple", flush=True)
+
+    # (c) the 12 nn-ladder cells
+    for name, cell in ref.cells.items():
+        if name.startswith("motion_"):
+            continue
+        sess, auths, launches = ladder_cell(ex, frames, make, cell,
+                                            _injector(cell))
+        m = cell_metrics(sess, auths, *base["nn"])
+        want = ref.metrics[name]
+        print(f"resilience {name}: delivered {m['delivered']:.4f} (JAX "
+              f"{want['delivered']:.4f}), retx {m['retx_overhead']:.4f} "
+              f"({want['retx_overhead']:.4f}), energy ratio "
+              f"{m['energy_ratio']:.4f} ({want['energy_ratio']:.4f}), flip "
+              f"{m['flip']:.4f} ({want['flip']:.4f}), final rung "
+              f"{m['final_rung']} ({want['final_rung']})", flush=True)
+        if cell["outage_duty"] == 0.0:
+            keys = (5, 6, 7, 3, 4, 1, 2)   # attempts, lost, corrupt,
+            #                                delivered, fallback, cut, bits
+            got = [tuple(dataclasses.astuple(r)[k] for k in keys)
+                   for r in sess.records]
+            want_r = [tuple(r[k] for k in keys) for r in ref.records[name]]
+            if got != want_r:
+                raise AssertionError(f"{name}: outcomes differ from JAX's")
+        elif abs(m["delivered"] - want["delivered"]) > 1.0 / cell["sends"]:
+            raise AssertionError(f"{name}: delivery fraction "
+                                 f"{m['delivered']} vs JAX "
+                                 f"{want['delivered']}")
+        for rec, n in zip(sess.records, launches):
+            launches_by_bits.setdefault(rec.bits, set()).add(n)
+    print("resilience (c): outcomes == JAX's send for send in the duty-0 "
+          "cells and the determinism cell; delivery within 1/40 of JAX's in "
+          "the duty > 0 cells", flush=True)
+
+    # (d) the brownout run
+    bp = ref.brownout["params"]
+    off8 = make("nn", 8)
+    want, _ = off8(frames)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        bsess = OffloadSession(
+            off8, injector=FaultInjector(brownout=BrownoutModel(
+                harvest_w=bp["harvest_w"], storage_j=bp["storage_j"],
+                load_w=bp["load_w"], jitter=bp["jitter"]), seed=bp["seed"]),
+            ckpt_dir=ckpt, stage_cost_s=bp["stage_cost_s"])
+        results, _l = counted_sends(bsess, (frames,), bp["sends"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if not all(_same_result(r, want) for r in results):
+        raise AssertionError("brownout resume differs from the fused 8-bit "
+                             "split executor")
+    if any(bsess.stage_completed.get(s, 0) > bp["sends"]
+           for s in ("motion", "detect", "gather")):
+        raise AssertionError(f"an upstream stage re-ran: "
+                             f"{bsess.stage_completed}")
+    jrec = ref.records["brownout"]
+    recs = bsess.records
+    print(f"resilience (d) brownout: {sum(r.brownouts for r in recs)} "
+          f"brownouts, {sum(r.restores for r in recs)} restores, mean "
+          f"recovery {np.mean([r.recovery_s for r in recs]):.4f} s (JAX "
+          f"{sum(r[13] for r in jrec)}, {sum(r[14] for r in jrec)}, "
+          f"{np.mean([r[15] for r in jrec]):.4f}); stages started "
+          f"{bsess.stage_started} completed {bsess.stage_completed} (JAX "
+          f"{ref.brownout['stage_started']}, "
+          f"{ref.brownout['stage_completed']}); every result == the split "
+          "executor's", flush=True)
+
+    # (e) congestion
+    cg = ref.congestion
+
+    def fleet(faulty):
+        sessions = []
+        for s in range(3):
+            inj = (FaultInjector(loss=GilbertElliott(p_gb=0.5, p_bg=0.3),
+                                 seed=cg["seed"] + s)
+                   if faulty and s == 0 else None)
+            fs = OffloadSession(off8, injector=inj)
+            counted_sends(fs, (frames,), cg["sends"])
+            sessions.append(fs)
+        return fleet_link_report(sessions, BACKSCATTER, frame_period_s=1.0,
+                                 stagger=False)
+
+    clean, cong = fleet(False), fleet(True)
+    print(f"resilience (e) congestion: p99 clean {clean.p99_latency_s:.4f} s"
+          f" (JAX {cg['p99_clean_s']:.4f}), congested "
+          f"{cong.p99_latency_s:.4f} s (JAX {cg['p99_congested_s']:.4f}), "
+          f"bytes x{cong.bytes_total / clean.bytes_total:.4f} (JAX "
+          f"x{cg['bytes_overhead']:.4f})", flush=True)
+    if not cong.p99_latency_s > clean.p99_latency_s:
+        raise AssertionError("congested p99 not above the clean one")
+
+    # (f) VR sessions at 16 x 4K
+    lefts, rights = views
+    for cut in VR_CUTS:
+        for bits in (16, 8, 4):
+            split = VROffloadExecutor(vr_ex, cut, bits=bits)
+            (lp0, rp0), _pay = split(lefts, rights)
+            sess = OffloadSession(split)
+            ((lp, rp),), (moved,) = counted_sends(sess, views, 1)
+            per_send[(cut, bits)] = moved
+            if not (torch.equal(lp, lp0) and torch.equal(rp, rp0)):
+                raise AssertionError(f"VR session {cut} {bits} differs from "
+                                     "the split executor")
+            del lp0, rp0, lp, rp, _pay
+    split = VROffloadExecutor(vr_ex, "stitch", bits=8)
+    (lp0, rp0), _pay = split(lefts, rights)
+    del _pay
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_vr_ckpt_")
+    try:
+        sess = OffloadSession(
+            split, injector=FaultInjector(brownout=BrownoutModel(
+                harvest_w=15e-6, storage_j=9e-6, load_w=200e-6, jitter=0.0),
+                seed=6),
+            ckpt_dir=ckpt, stage_cost_s=0.02, keep_ckpts=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _CountingSaves() as saves:
+            ((lp, rp),), _l = counted_sends(sess, views, 1)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec = sess.records[0]
+    print(f"resilience (f) VR: zero-fault sessions == split executor at "
+          f"capture/depth/stitch x 16/8/4; stitch brownout send: "
+          f"{rec.brownouts} brownouts, {rec.restores} restores, "
+          f"{saves.saves} commits, {saves.bytes / 1e9:.3f} GB of "
+          f"checkpoints written, {secs:.1f} s; stages "
+          f"{sess.stage_completed}", flush=True)
+    if not (rec.brownouts >= 1 and rec.restores >= 1
+            and sess.stage_completed["depth"] == 1
+            and torch.equal(lp, lp0) and torch.equal(rp, rp0)):
+        raise AssertionError("VR brownout send differs from the split "
+                             "executor or did not resume from a commit")
+    del lp, rp, lp0, rp0
+
+    # (g) decode launches per send
+    print("resilience (g) wire_decode launches per delivered send: " +
+          ", ".join(f"{c}@{b}: {n}" for (c, b), n in per_send.items())
+          + "; in the ladder cells by width: " +
+          ", ".join(f"{b}: {sorted(v)}" for b, v in sorted(
+              launches_by_bits.items(), key=lambda kv: kv[0] or 0)),
+          flush=True)
+    for bits in (16, 8, 4):
+        if per_send[("capture", bits)] != 2 or per_send[("depth", bits)] != 3:
+            raise AssertionError("VR decode launches per send")
+    if _build.launches["wire_decode"] < 1:
+        raise AssertionError("the resilience phase never launched "
+                             "wire_decode")
+
+
 def blur_shared_loads(P, gy, gx, gr, n_steps) -> int:
     """Shared-memory loads of the fused blur launch over both grids: one
     per value each pass writes, over the regions each step computes in
@@ -1363,8 +1768,8 @@ def vr_kernel_rows(probes, ex, views, counts, codec_counts):
     """``bilateral_blur`` at the rig's grid shape, ``integral_image`` at
     the cost-volume shape and the codec at one capture field (8 x
     2160x3840 as 256-value blocks), each against its plain version on the
-    card; ``counts`` are a rig frame's launches, ``codec_counts`` an 8-bit
-    capture run's."""
+    card; ``counts`` are a rig frame's launches, ``codec_counts`` the
+    capture runs' by codec width."""
     import torch
     import torch.nn.functional as F
 
@@ -1481,13 +1886,18 @@ def vr_kernel_rows(probes, ex, views, counts, codec_counts):
     from repro_torch.kernels.wire_codec.ops import BLOCK
     field = lefts.reshape(-1, BLOCK).contiguous()
     codec_check("VR capture field", field)
-    codec = codec_kernel_rows(probes, field, codec_counts,
-                              shape="x".join(map(str, field.shape)),
-                              plain_reps=3)
-    for row in codec:
-        print(f"{row['name']} per 8-bit capture run: {row['launches']} "
-              f"launches, bound {row['launches'] * row['bound_ms']:.4f} ms, "
-              f"kernel {row['launches'] * row['ms']:.4f} ms", flush=True)
+    codec = []
+    for bits in (8, 4, 16):            # rows 4b/5b, 4c/5c, 4d/5d
+        more = codec_kernel_rows(probes, field, codec_counts[bits],
+                                 shape="x".join(map(str, field.shape)),
+                                 plain_reps=3, bits=bits,
+                                 label="" if bits == 8 else f" {bits}-bit")
+        for row in more:
+            print(f"{row['name']} per {bits}-bit capture run: "
+                  f"{row['launches']} launches, bound "
+                  f"{row['launches'] * row['bound_ms']:.4f} ms, kernel "
+                  f"{row['launches'] * row['ms']:.4f} ms", flush=True)
+        codec += more
     return rows + codec
 
 
@@ -2136,6 +2546,7 @@ def main() -> int:
     vr_ex, views, fused, vr_counts, vr_ms = vr_phase(vr)
     vr_codec_counts = vr_offload_phase(vr, vr_ex, views, fused)
     del fused
+    resilience_phase(ex, frames, vr_ex, views)
     rows += vr_kernel_rows(probes, vr_ex, views, vr_counts, vr_codec_counts)
     targets.append(("VR rig frame", lambda: vr_ex(*views), vr_ms))
     lm_rows, lm_targets = lm_phase(probes)

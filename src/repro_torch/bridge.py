@@ -22,6 +22,12 @@ executor wire bytes on the §IV rig at the working size (8 pairs of
 270x480) and at full width (8 pairs of 2160x3840), with the parameters it
 ran (written by ``benchmarks/torch_export_vr_reference.py``).
 
+:func:`load_resilience_reference` reads
+``assets/resilience_reference.npz``: the JAX offload session's payload
+CRCs, delivery records, ladder metrics, brownout and congestion numbers on
+the full-width §III workload, with every cell's injector parameters
+(written by ``benchmarks/torch_export_resilience_reference.py``).
+
 The LM stack has no trained weights: :func:`numpy_lm_params` draws a
 parameter tree in the JAX ``Model.init`` layout from numpy's generator, so
 the same weights can go to the JAX model and, through
@@ -51,6 +57,7 @@ ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
 OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
 VR_ASSET = ASSET.parent / "vr_reference.npz"
 LM_ASSET = ASSET.parent / "lm_reference.npz"
+RESILIENCE_ASSET = ASSET.parent / "resilience_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -228,6 +235,48 @@ def load_vr_reference(path=None) -> VRReference:
         full_depth0=z["full_depth0"], full_lpano=z["full_lpano"],
         full_pano_shape=tuple(int(v) for v in z["full_pano_shape"]),
         full_wire_b=grid(z["full_wire_b"]), capture_sha256=sha)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceReference:
+    """The JAX offload sessions on the full-width §III workload.  Records
+    are ``dataclasses.astuple`` of ``DeliveryRecord``, per send; cells
+    carry their injector's arguments, ladder cut and number of sends."""
+
+    crc: dict                     # (cut, bits) -> zero-fault payload CRC
+    cells: dict                   # name -> injector args, cut, sends
+    records: dict                 # name -> [DeliveryRecord tuple, ...]
+    metrics: dict                 # name -> flip, retx_overhead, ...
+    brownout: dict                # stage counters and the run's params
+    congestion: dict              # p99_clean_s, p99_congested_s, ...
+
+
+def load_resilience_reference(path=None) -> ResilienceReference:
+    import json
+
+    with np.load(RESILIENCE_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    cuts = [str(c) for c in z["record_cuts"]]
+
+    def record(row):
+        ints = [int(v) for v in row]
+        return (ints[0], cuts[ints[1]], ints[2] or None, bool(ints[3]),
+                bool(ints[4]), ints[5], ints[6], ints[7], float(row[8]),
+                float(row[9]), float(row[10]), float(row[11]),
+                float(row[12]), ints[13], ints[14], float(row[15]))
+
+    crc = {(str(c), None if int(b) == 0 else int(b)): int(z["crc"][i, j])
+           for i, c in enumerate(z["crc_cuts"])
+           for j, b in enumerate(z["crc_bits"])}
+    metrics = json.loads(str(z["metrics"]))
+    for m in metrics.values():
+        m["final_rung"] = tuple(m["final_rung"])
+    return ResilienceReference(
+        crc=crc, cells=json.loads(str(z["cells"])),
+        records={k[len("records_"):]: [record(r) for r in v]
+                 for k, v in z.items() if k.startswith("records_")},
+        metrics=metrics, brownout=json.loads(str(z["brownout"])),
+        congestion=json.loads(str(z["congestion"])))
 
 
 def numpy_lm_params(cfg, seed: int) -> dict:

@@ -18,9 +18,9 @@ of the JAX package's ``camera/offload/controller.py``.
 
 The fitted pipeline marks every block CORE: the split executors always
 run the full funnel prefix on the node side, so the controller optimizes
-*where to cut*, the axis the runtime actually has.  The windowed re-solve,
-the degradation ladder and the telemetry hook come with the resilience and
-serving slices.  The reference's ``byte_scale`` / ``time_scale`` scale
+*where to cut*, the axis the runtime actually has.  The windowed re-solve
+(with its telemetry hook) and the degradation ladder serve the resilience
+layer (``camera/offload/resilience.py``).  The reference's ``byte_scale`` / ``time_scale`` scale
 a toy-resolution §IV rig up to 16 x 4K; the port measures the rig at 16 x
 4K itself, so it has no use for them.
 """
@@ -126,6 +126,17 @@ class CutController:
         self.target_fps = float(target_fps)
         self.executors: dict = {}
         self.measurements: list = []
+        # sliding-window live telemetry (serving runtime): cut -> deque of
+        # (units, wire_bytes, node_s, cloud_s) samples; resolves counts
+        # windowed re-solves actually fired (the DESIGN.md §13 cadence pin)
+        self.window = 32
+        self._window_obs: dict = {}
+        self.resolves = 0
+        # optional §15 telemetry sink (set attribute-style by the owner:
+        # ``controller.telemetry = ...``, any object with ``enabled``,
+        # ``counters.bump`` and ``emit``); observed after each windowed
+        # re-solve, never consulted by the solver
+        self.telemetry = None
 
     # -- 1. calibrate --------------------------------------------------------
 
@@ -246,6 +257,148 @@ class CutController:
         ex = self.executors[sol.cut_after]
         payload = ex.encode(*inputs)
         return ex.decode_run(payload), payload, sol
+
+    # -- 3b. windowed re-solve (serving runtime, DESIGN.md §13) ---------------
+
+    def observe(self, cut: str, *, units: int, wire_bytes: float,
+                node_s: float | None = None, cloud_s: float | None = None):
+        """Push one live sample into the sliding window for ``cut``.
+
+        The serving runtime measures real per-micro-batch wire bytes (and,
+        when it has them, split wall clocks); anything not measured falls
+        back to the calibration table in :meth:`window_measurements`.
+        """
+        import collections
+
+        if cut not in self.cuts:
+            raise ValueError(f"cut {cut!r} not in {self.cuts}")
+        dq = self._window_obs.get(cut)
+        if dq is None or dq.maxlen != self.window:
+            dq = collections.deque(dq or (), maxlen=self.window)
+            self._window_obs[cut] = dq
+        dq.append((int(units), float(wire_bytes),
+                   None if node_s is None else float(node_s),
+                   None if cloud_s is None else float(cloud_s)))
+
+    def window_measurements(self,
+                            predicted_bytes: Mapping[str, float] | None = None
+                            ) -> list:
+        """Calibration table with sliding-window live telemetry folded in.
+
+        Windowed samples override the calibrated per-unit wire bytes (and
+        node/cloud seconds where the runtime measured them); cuts with no
+        live samples keep their calibration row.  ``predicted_bytes`` maps
+        cut -> predicted per-unit wire bytes and takes precedence over both
+        — the runtime uses it to ask "what would cut c cost for *this*
+        stream's measured funnel stats" without executing cut c.
+        """
+        out = []
+        for m in self._validated_measurements():
+            dq = self._window_obs.get(m.cut)
+            if dq:
+                units = max(sum(s[0] for s in dq), 1)
+                wire = sum(s[1] for s in dq)
+
+                def _win_s(col, fallback_per_unit):
+                    timed = [(s[col], s[0]) for s in dq if s[col] is not None]
+                    if not timed:
+                        return fallback_per_unit * units
+                    return (sum(t for t, _ in timed)
+                            / max(sum(u for _, u in timed), 1) * units)
+
+                m = dataclasses.replace(
+                    m, units=units, wire_bytes=wire,
+                    node_s=_win_s(2, m.node_s_per_unit),
+                    cloud_s=_win_s(3, m.cloud_s / max(m.units, 1)))
+            if predicted_bytes and m.cut in predicted_bytes:
+                m = dataclasses.replace(
+                    m, wire_bytes=float(predicted_bytes[m.cut]) * m.units)
+            self._check_finite(m)
+            out.append(m)
+        return out
+
+    def resolve_window(self, *, deadline_s: float | None = None,
+                       cut_latency_s: Mapping[str, float] | None = None,
+                       predicted_bytes: Mapping[str, float] | None = None
+                       ) -> CutSolution:
+        """One sliding-window re-solve: :meth:`choose` on the windowed
+        table, then a congestion deadline filter.
+
+        ``solve_cut`` has no constraint axis, so the deadline lives here:
+        ``cut_latency_s`` maps cut -> predicted shared-link p99 completion
+        latency (the runtime anchors it at ``simulate_shared_link``'s
+        ``LinkReport.p99_latency_s`` and first-order-adjusts for each
+        candidate cut's bytes).  Cuts over ``deadline_s`` are infeasible;
+        if the unconstrained optimum is infeasible the cheapest *feasible*
+        cut (by the regime objective) wins, and when nothing is feasible
+        the minimum-latency cut is the graceful floor — congestion must
+        never pick a cut that makes congestion worse.
+        """
+        saved = self.measurements
+        self.measurements = self.window_measurements(predicted_bytes)
+        try:
+            sol = self.choose()
+            self.resolves += 1
+            if deadline_s is not None and cut_latency_s:
+                lat = {c: float(cut_latency_s.get(c, 0.0)) for c in self.cuts}
+                feasible = [c for c in self.cuts if lat[c] <= deadline_s]
+                if sol.cut_after not in feasible:
+                    pipe = self.measured_pipeline()
+                    if feasible:
+                        best = min(feasible,
+                                   key=lambda c: self._objective(pipe, c))
+                    else:
+                        best = min(self.cuts, key=lambda c: lat[c])
+                    sol = dataclasses.replace(
+                        sol, cut_after=best,
+                        report=self._report_for(pipe, best),
+                        objective=self._objective(pipe, best))
+            tel = self.telemetry
+            if tel is not None and getattr(tel, "enabled", False):
+                tel.counters.bump("controller.resolves")
+                tel.emit("dispatch", "resolve_window", cut=sol.cut_after,
+                         objective=float(sol.objective),
+                         resolves=self.resolves)
+            return sol
+        finally:
+            self.measurements = saved
+
+    def degradation_rungs(self, cut: str | None = None,
+                          *, bits_ladder=(16, 8, 4)) -> list:
+        """Ordered ``(cut, bits)`` rung list for one granted placement.
+
+        Rung 0 is ``cut`` (the solver's choice when None) at the widest
+        codec; faults walk it down through narrower codecs, then retreat
+        to the measured-cheapest-bytes cut (the calibration table's own
+        answer to "which cut survives a starved link"), and finally to
+        the all-on-node terminal rung.  The serving runtime calls this
+        per stream with the placement *admission granted* (DESIGN.md
+        §14), which may differ from the fleet-global solver choice —
+        the ladder degrades the stream it protects, not a hypothetical
+        one.
+        """
+        from repro_torch.camera.offload.resilience import ON_NODE
+
+        self._validated_measurements()
+        if cut is None:
+            cut = self.choose().cut_after
+        elif cut not in self.cuts:
+            raise ValueError(f"cut {cut!r} not in {tuple(self.cuts)}")
+        rungs = [(cut, b) for b in bits_ladder]
+        cheapest = min(self.measurements,
+                       key=lambda m: m.bytes_per_unit).cut
+        if cheapest != cut:
+            rungs.append((cheapest, bits_ladder[-1]))
+        rungs.append(ON_NODE)
+        return rungs
+
+    def degradation_ladder(self, *, bits_ladder=(16, 8, 4), **ladder_kw):
+        """Build the resilience ladder from this controller's calibration
+        (:meth:`degradation_rungs` at the solver-chosen cut)."""
+        from repro_torch.camera.offload.resilience import DegradationLadder
+
+        return DegradationLadder(
+            self.degradation_rungs(bits_ladder=bits_ladder), **ladder_kw)
 
     # -- 4. audit ------------------------------------------------------------
 

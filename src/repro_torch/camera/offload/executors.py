@@ -56,6 +56,16 @@ _I32_B = 4.0          # index / count sideband bytes per valid entry
 _BOOL_B = 1.0 / 8.0   # booleans ship bit-packed
 
 
+def _run_node(ex, state: dict) -> WirePayload:
+    """A split executor's node half: its stages in order over ``state``,
+    then its encode."""
+    for _name, fn in ex.node_stages():
+        state.update(fn(state))
+    arrays, wire_b, meta = ex.encode_state(state)
+    return WirePayload(cut=ex.cut, bits=ex.bits, arrays=arrays, meta=meta,
+                       wire_b=wire_b)
+
+
 class _Codec:
     """Static codec configuration of one split executor."""
 
@@ -132,23 +142,60 @@ class FaceAuthOffloadExecutor:
 
     # -- node side -----------------------------------------------------------
 
-    def _node_fn(self, frames: torch.Tensor):
-        """(B, h, w) f32 -> (arrays, wire_b), every tensor without the
-        stream axis."""
-        st, cdc = self._st, self.codec
-        cut = self.cut
+    def node_inputs(self, frames) -> dict:
+        """The node half's state at capture: ``{"frames": (B, h, w)}``."""
+        return {"frames": self.base._frames(frames)}
+
+    def node_stages(self) -> tuple:
+        """``(name, fn)`` of each funnel stage the node half runs at this
+        cut, in order; ``fn(state)`` returns the entries it adds to the
+        state, every tensor without the stream axis."""
+        st, cut = self._st, self.cut
+
+        def motion(s):
+            mframes, fidx, fvalid, motion, mdrop = st.motion(
+                s["frames"][None])
+            return dict(mframes=mframes[0], fidx=fidx[0], fvalid=fvalid[0],
+                        motion=motion[0], motion_dropped=mdrop[0])
+
+        def detect(s):
+            dmask, n_win, casc_drop = st.detect(s["mframes"][None],
+                                                s["fvalid"][None])
+            return dict(dmask=dmask[0], n_win=n_win[0],
+                        casc_drop=casc_drop[0])
+
+        def gather(s):
+            patches, wsel, wvalid, wdrop = st.gather(
+                s["mframes"][None], s["dmask"][None], s["n_win"][None])
+            return dict(patches=patches[0], wsel=wsel[0], wvalid=wvalid[0],
+                        win_dropped=wdrop[0])
+
+        def nn(s):
+            scores, auth, n_auth = st.nn(s["patches"][None],
+                                         s["wvalid"][None])
+            return dict(scores=scores[0], auth=auth[0], n_auth=n_auth[0])
+
+        stages = (("motion", motion), ("detect", detect),
+                  ("gather", gather), ("nn", nn))
+        return stages[:{"sensor": 0, "motion": 1, "vj": 3, "nn": 4}[cut]]
+
+    def encode_state(self, s: dict):
+        """The node state after :meth:`node_stages` -> (arrays, wire_b,
+        meta): the cut's wire payload, its measured bytes and its decode
+        contract."""
+        cdc, cut = self.codec, self.cut
+        frames = s["frames"]
         B = frames.shape[0]
         h, w = self._h, self._w
+        meta = {"frames_shape": tuple(frames.shape)}
         arrays: dict = {}
         if cut == "sensor":
             cdc.enc(arrays, "frames", frames)
             wire_b = torch.tensor(cdc.static_bytes(B * h * w),
                                   dtype=torch.float32, device=frames.device)
-            return arrays, wire_b
+            return arrays, wire_b, meta
 
-        mframes, fidx, fvalid, motion, motion_dropped = st.motion(
-            frames[None])
-        n_valid_f = fvalid.sum().to(torch.float32)
+        n_valid_f = s["fvalid"].sum().to(torch.float32)
         side = _I32_B * n_valid_f + _BOOL_B * B + _I32_B  # fidx+motion+drop
         if cut == "motion":
             # zero the capacity-padding frames (fidx padding points at real
@@ -156,40 +203,38 @@ class FaceAuthOffloadExecutor:
             # padding cannot perturb the codec's block scales; the cloud
             # half masks everything by fvalid, so results are unchanged
             cdc.enc(arrays, "mframes",
-                    torch.where(fvalid[0, :, None, None], mframes[0], 0.0))
-            arrays.update(fidx=fidx[0].to(torch.int32), motion=motion[0],
-                          motion_dropped=motion_dropped[0])
+                    torch.where(s["fvalid"][:, None, None], s["mframes"],
+                                0.0))
+            arrays.update(fidx=s["fidx"].to(torch.int32), motion=s["motion"],
+                          motion_dropped=s["motion_dropped"])
             wire_b = cdc.dyn_bytes(n_valid_f * (h * w)) + side
-            return arrays, wire_b
+            return arrays, wire_b, meta
 
-        dmask, n_win_m, casc_drop_m = st.detect(mframes, fvalid)
-        patches, wsel, wvalid, win_dropped_m = st.gather(
-            mframes, dmask, n_win_m)
+        wvalid, patches = s["wvalid"], s["patches"]
         n_valid_w = wvalid.sum().to(torch.float32)
         # per processed valid frame: n_win + win_dropped + casc_drop counts
         side = side + _I32_B * 3 * n_valid_f
-        common = dict(wsel=wsel[0].to(torch.int32), n_win=n_win_m[0],
-                      win_dropped=win_dropped_m[0], casc_drop=casc_drop_m[0],
-                      fidx=fidx[0].to(torch.int32), motion=motion[0],
-                      motion_dropped=motion_dropped[0])
+        common = dict(wsel=s["wsel"].to(torch.int32), n_win=s["n_win"],
+                      win_dropped=s["win_dropped"],
+                      casc_drop=s["casc_drop"],
+                      fidx=s["fidx"].to(torch.int32), motion=s["motion"],
+                      motion_dropped=s["motion_dropped"])
         if cut == "vj":
             # zero padding windows (wsel defaults to position 0) — the same
             # scale isolation as the motion cut above
             cdc.enc(arrays, "patches",
-                    torch.where(wvalid[0, :, :, None, None], patches[0],
-                                0.0))
+                    torch.where(wvalid[:, :, None, None], patches, 0.0))
             arrays.update(common)
             wire_b = (cdc.dyn_bytes(n_valid_w * patches.shape[-1]
                                     * patches.shape[-2])
                       + _I32_B * n_valid_w + side)
-            return arrays, wire_b
+            return arrays, wire_b, meta
 
-        s, auth, _n_auth_m = st.nn(patches, wvalid)
-        cdc.enc(arrays, "scores", s[0])
-        arrays.update(common, auth=auth[0])
+        cdc.enc(arrays, "scores", s["scores"])
+        arrays.update(common, auth=s["auth"])
         wire_b = (cdc.dyn_bytes(n_valid_w) + _BOOL_B * n_valid_w
                   + _I32_B * n_valid_w + side)
-        return arrays, wire_b
+        return arrays, wire_b, meta
 
     # -- cloud side ----------------------------------------------------------
 
@@ -243,11 +288,7 @@ class FaceAuthOffloadExecutor:
 
     def encode(self, frames) -> WirePayload:
         """Node half: (B, h, w) frames -> wire payload."""
-        frames = self.base._frames(frames)
-        arrays, wire_b = self._node_fn(frames)
-        return WirePayload(cut=self.cut, bits=self.bits, arrays=arrays,
-                           meta={"frames_shape": tuple(frames.shape)},
-                           wire_b=wire_b)
+        return _run_node(self, self.node_inputs(frames))
 
     def decode_run(self, payload: WirePayload):
         """Cloud half: wire payload -> FAExecResult."""
@@ -297,42 +338,55 @@ class VROffloadExecutor:
         self._depth = base.pair_depth
         self._pano = base.pano_fn
 
-    def _node_fn(self, lefts: torch.Tensor, rights: torch.Tensor):
-        """(P, h, w) x2 -> (arrays, wire_b, pano shapes or None)."""
+    def node_inputs(self, lefts, rights) -> dict:
+        """The rig half's state at capture: ``{"lefts", "rights"}``, (P,
+        h, w) each."""
+        return {"lefts": self.base._views(lefts),
+                "rights": self.base._views(rights)}
+
+    def node_stages(self) -> tuple:
+        """``(name, fn)`` of each stage the rig half runs at this cut."""
+        def depth(s):
+            return dict(depths=self._depth(s["lefts"], s["rights"]))
+
+        def pano(s):
+            lp, rp = self._pano(s["lefts"], s["rights"], s["depths"])
+            return dict(left_pano=lp, right_pano=rp)
+
+        stages = (("depth", depth), ("pano", pano))
+        return stages[:self.CUTS.index(self.cut)]
+
+    def encode_state(self, s: dict):
+        """The rig state after :meth:`node_stages` -> (arrays, wire_b,
+        meta)."""
         cdc = self.codec
+        lefts = s["lefts"]
         n = lefts.numel()
         arrays: dict = {}
         pano_shapes = None
         if self.cut == "capture":
             cdc.enc(arrays, "lefts", lefts)
-            cdc.enc(arrays, "rights", rights)
+            cdc.enc(arrays, "rights", s["rights"])
             wire_b = 2 * cdc.static_bytes(n)
         elif self.cut == "depth":
-            depths = self._depth(lefts, rights)
-            cdc.enc(arrays, "depths", depths)
+            cdc.enc(arrays, "depths", s["depths"])
             cdc.enc(arrays, "lefts", lefts)
-            cdc.enc(arrays, "rights", rights)
+            cdc.enc(arrays, "rights", s["rights"])
             wire_b = 3 * cdc.static_bytes(n)
         else:                                      # stitch: full on-node
-            depths = self._depth(lefts, rights)
-            lp, rp = self._pano(lefts, rights, depths)
+            lp, rp = s["left_pano"], s["right_pano"]
             cdc.enc(arrays, "left_pano", lp)
             cdc.enc(arrays, "right_pano", rp)
             wire_b = (cdc.static_bytes(lp.numel())
                       + cdc.static_bytes(rp.numel()))
             pano_shapes = (tuple(lp.shape), tuple(rp.shape))
+        meta = {"view_shape": tuple(lefts.shape), "pano_shapes": pano_shapes}
         return arrays, torch.tensor(wire_b, dtype=torch.float32,
-                                    device=lefts.device), pano_shapes
+                                    device=lefts.device), meta
 
     def encode(self, lefts, rights) -> WirePayload:
         """Rig half: (P, h, w) views x2 -> wire payload."""
-        lefts, rights = self.base._views(lefts), self.base._views(rights)
-        arrays, wire_b, pano_shapes = self._node_fn(lefts, rights)
-        return WirePayload(
-            cut=self.cut, bits=self.bits, arrays=arrays,
-            meta={"view_shape": tuple(lefts.shape),
-                  "pano_shapes": pano_shapes},
-            wire_b=wire_b)
+        return _run_node(self, self.node_inputs(lefts, rights))
 
     def decode_run(self, payload: WirePayload):
         """Cloud half: wire payload -> (left_pano, right_pano)."""

@@ -1,7 +1,6 @@
 """Trace-driven offload-link simulator (paper §II-A's communication cost,
 made executable) — the port's copy of the JAX package's numpy
-``camera/offload/link.py``, less the fault models, which come with the
-resilience runtime.
+``camera/offload/link.py``, fault models included.
 
 The cost model charges a cut-point payload ``bytes x joules_per_byte`` or
 ``bytes / bandwidth`` — a closed form with no queueing.  This simulator
@@ -51,7 +50,7 @@ class LinkProfile:
                 f"LinkProfile.scaled: factor must be a finite positive "
                 f"number, got {factor!r} — a zero/negative bandwidth scale "
                 "would make every transmit time undefined (to model an "
-                "outage, model it as a fault, not as a dead link profile)")
+                "outage, use FaultInjector, not a dead link profile)")
         return dataclasses.replace(
             self, bytes_per_s=self.bytes_per_s * factor,
             name=name or f"{self.name}x{factor:g}")
@@ -173,3 +172,239 @@ def link_energy_w(bytes_per_unit: float, unit_rate_hz: float,
     """Average transmit watts — the cost model's ``comm_w`` term, from
     measured bytes (the closed-form cross-check of the simulator)."""
     return bytes_per_unit * unit_rate_hz * link.joules_per_byte
+
+
+# ---------------------------------------------------------------------------
+# Fault models (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+#
+# The simulator above is lossless and always powered — every number it
+# gives is a best case.  The models below make the two real failure
+# modes of the paper's regimes injectable and *deterministic under a
+# seed*:
+#
+# * Gilbert–Elliott burst loss + timed outages on any LinkProfile — the
+#   backscatter uplink drops bursts, the shared 25 GbE port browns out
+#   under incast.
+# * Harvested-energy brownout traces for BACKSCATTER-class nodes — a
+#   WISP camera runs off a capacitor charged by RF harvest; when the
+#   charge runs out mid-funnel the node dies and must recover.
+#
+# The models only *decide* fault outcomes; charging the retries' bytes,
+# energy and queueing back into simulate_shared_link is the job of
+# resilience.OffloadSession.
+
+
+@dataclasses.dataclass(frozen=True)
+class GilbertElliott:
+    """Two-state Markov burst-loss channel (good <-> bad).
+
+    Per transmit attempt, the chain sits in ``good`` (loss prob
+    ``loss_good``) or ``bad`` (``loss_bad``) and transitions with
+    ``p_gb`` / ``p_bg``.  The classic burst model: mean burst length is
+    ``1 / p_bg`` attempts, and the stationary loss rate has the closed
+    form checked by the hypothesis property suite.
+    """
+
+    p_gb: float = 0.05            # P(good -> bad) per attempt
+    p_bg: float = 0.5             # P(bad -> good) per attempt
+    loss_good: float = 0.0
+    loss_bad: float = 1.0
+
+    def __post_init__(self):
+        for f in ("p_gb", "p_bg", "loss_good", "loss_bad"):
+            v = getattr(self, f)
+            if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+                raise ValueError(
+                    f"GilbertElliott.{f} must be a probability in [0, 1], "
+                    f"got {v!r}")
+
+    @property
+    def stationary_bad(self) -> float:
+        """Stationary probability of the bad state."""
+        denom = self.p_gb + self.p_bg
+        return self.p_gb / denom if denom > 0 else 0.0
+
+    @property
+    def stationary_loss(self) -> float:
+        """Analytic long-run loss rate (the property-test anchor)."""
+        pi_b = self.stationary_bad
+        return pi_b * self.loss_bad + (1.0 - pi_b) * self.loss_good
+
+    @property
+    def mean_burst_len(self) -> float:
+        """Mean consecutive attempts spent in the bad state."""
+        return 1.0 / self.p_bg if self.p_bg > 0 else float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class BrownoutModel:
+    """Harvested-energy power supply of a WISP-class node.
+
+    The node draws ``load_w`` while computing/transmitting and harvests
+    ``harvest_w`` continuously; ``storage_j`` is the usable capacitor
+    energy between full charge and the brownout cutoff.  Active windows
+    therefore last ``storage_j / (load_w - harvest_w)`` seconds and
+    recharging from cutoff takes ``storage_j / harvest_w`` seconds —
+    jittered per cycle by the injector's seeded RNG so fleets do not
+    brown out in lockstep.
+    """
+
+    harvest_w: float = 15e-6      # WISP-scale RF harvest
+    storage_j: float = 3e-3       # usable capacitor energy
+    load_w: float = 200e-6        # active draw while the funnel runs
+    jitter: float = 0.2           # +-fraction applied per cycle
+
+    def __post_init__(self):
+        for f in ("harvest_w", "storage_j", "load_w"):
+            v = getattr(self, f)
+            if not (np.isfinite(v) and v > 0):
+                raise ValueError(
+                    f"BrownoutModel.{f} must be finite and positive, "
+                    f"got {v!r}")
+        if self.load_w <= self.harvest_w:
+            raise ValueError(
+                f"BrownoutModel: load_w ({self.load_w}) must exceed "
+                f"harvest_w ({self.harvest_w}) or the node never browns "
+                "out — drop the model instead of degenerating it")
+        if not 0.0 <= self.jitter < 1.0:
+            raise ValueError(f"jitter must be in [0, 1), got {self.jitter}")
+
+    @property
+    def on_s(self) -> float:
+        return self.storage_j / (self.load_w - self.harvest_w)
+
+    @property
+    def recharge_s(self) -> float:
+        return self.storage_j / self.harvest_w
+
+
+class FaultInjector:
+    """Seeded, deterministic fault process for one offload session.
+
+    Consulted by ``resilience.OffloadSession`` at two points:
+
+    * :meth:`attempt` — per transmit attempt at simulated time ``t``:
+      returns ``"ok"`` / ``"lost"`` / ``"corrupt"``.  Loss comes from
+      the Gilbert–Elliott chain (advanced once per attempt) OR from a
+      timed outage window; a lost-by-channel attempt is reported as
+      ``corrupt`` with probability ``corrupt_fraction`` (the payload
+      arrives but fails the integrity checksum — detected at the
+      receiver rather than by sender timeout).
+    * :meth:`power_window` — the node-power schedule from the brownout
+      model: on/off windows over simulated time, jittered per cycle.
+
+    Identical seeds + identical query sequences produce identical fault
+    sequences (BENCH_resilience.json must reproduce bit-for-bit), and a
+    fully-disabled injector is indistinguishable from no injector.
+    """
+
+    def __init__(self, *, loss: GilbertElliott | None = None,
+                 outage_period_s: float | None = None,
+                 outage_duty: float = 0.0,
+                 brownout: BrownoutModel | None = None,
+                 corrupt_fraction: float = 0.0, seed: int = 0):
+        if outage_period_s is not None and outage_period_s <= 0:
+            raise ValueError(
+                f"outage_period_s must be positive, got {outage_period_s}")
+        if not 0.0 <= outage_duty < 1.0:
+            raise ValueError(
+                f"outage_duty must be in [0, 1), got {outage_duty}")
+        if not 0.0 <= corrupt_fraction <= 1.0:
+            raise ValueError(
+                f"corrupt_fraction must be in [0, 1], got {corrupt_fraction}")
+        self.loss = loss
+        self.outage_period_s = outage_period_s
+        self.outage_duty = float(outage_duty)
+        self.brownout = brownout
+        self.corrupt_fraction = float(corrupt_fraction)
+        self.seed = int(seed)
+        self.reset()
+
+    def reset(self):
+        """Rewind to the seeded initial state (sweep determinism)."""
+        self._rng = np.random.default_rng(self.seed)
+        self._power_rng = np.random.default_rng(self.seed + 0x9E3779B9)
+        self._bad = False                  # GE chain starts in good
+        self._power_edges: list = []       # [on_end_0, off_end_0, on_end_1, ...]
+        self.attempts = 0
+        self.losses = 0
+
+    # -- link faults ---------------------------------------------------------
+
+    def outage_at(self, t: float) -> bool:
+        """Is the link inside a scheduled outage window at time ``t``?
+
+        Outages occupy the last ``outage_duty`` fraction of each period
+        (deterministic in *time*, not in the attempt count — retries that
+        back off past the window's end escape it, which is the behavior
+        the exponential-backoff policy is for).
+        """
+        if not self.outage_period_s or self.outage_duty <= 0.0:
+            return False
+        phase = (t / self.outage_period_s) % 1.0
+        return phase >= 1.0 - self.outage_duty
+
+    def next_outage_end(self, t: float) -> float:
+        """End time of the outage containing ``t`` (t if no outage)."""
+        if not self.outage_at(t):
+            return t
+        period = self.outage_period_s
+        return (np.floor(t / period) + 1.0) * period
+
+    def attempt(self, t: float) -> str:
+        """Outcome of one transmit attempt starting at time ``t``."""
+        self.attempts += 1
+        lost = self.outage_at(t)
+        if self.loss is not None:
+            # advance the chain exactly once per attempt, even during an
+            # outage, so the fault sequence depends only on the attempt
+            # index (determinism under congestion-shifted timings)
+            p = self.loss.loss_bad if self._bad else self.loss.loss_good
+            flip = self.loss.p_bg if self._bad else self.loss.p_gb
+            chain_lost = self._rng.random() < p
+            if self._rng.random() < flip:
+                self._bad = not self._bad
+            lost = lost or chain_lost
+        if not lost:
+            return "ok"
+        self.losses += 1
+        if self.corrupt_fraction and self._rng.random() < self.corrupt_fraction:
+            return "corrupt"
+        return "lost"
+
+    @property
+    def empirical_loss(self) -> float:
+        """Observed loss fraction over every attempt so far."""
+        return self.losses / self.attempts if self.attempts else 0.0
+
+    # -- node power ----------------------------------------------------------
+
+    def _extend_power_edges(self, until: float):
+        bo = self.brownout
+        t = self._power_edges[-1] if self._power_edges else 0.0
+        while t <= until:
+            j = bo.jitter
+            on = bo.on_s * (1.0 + j * (2.0 * self._power_rng.random() - 1.0))
+            off = bo.recharge_s * (1.0 + j * (2.0 * self._power_rng.random()
+                                              - 1.0))
+            self._power_edges.extend([t + on, t + on + off])
+            t = t + on + off
+
+    def power_window(self, t: float) -> tuple:
+        """``(powered, boundary)`` for simulated time ``t``.
+
+        ``powered`` is whether the node has energy at ``t``; ``boundary``
+        is when that changes (the brownout instant if powered, the
+        recovery instant if not).  Without a brownout model the node is
+        always powered (boundary = +inf).
+        """
+        if self.brownout is None:
+            return True, float("inf")
+        self._extend_power_edges(t)
+        i = int(np.searchsorted(np.asarray(self._power_edges), t,
+                                side="right"))
+        while i >= len(self._power_edges):
+            self._extend_power_edges(self._power_edges[-1] + 1.0)
+        # even index -> inside an on-window (next edge is the brownout)
+        return i % 2 == 0, float(self._power_edges[i])

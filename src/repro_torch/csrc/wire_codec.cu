@@ -35,10 +35,24 @@
 // block a warp at a time: two, with all their loads issued first, took
 // more registers and lost).  Any other block size or alignment takes the
 // scalar kernel (wire_encode_kernel): one CUDA block of 256 threads per
-// payload block, the absmax through shared memory.  Decode runs one
-// thread per packed byte (per byte pair at 16 bits).  The library is
-// built without --use_fast_math and with -fmad=false; division and
-// multiply are the explicit IEEE intrinsics.
+// payload block, the absmax through shared memory.
+//
+// Design of decode, the mirror: one warp per 256-value payload block
+// (wire_decode_vec_kernel) over the same grid-stride grid, no division.
+// Lane l decodes values 128 c + 4 l .. + 3 of chunk c = 0, 1, each from
+// one aligned load of its packed bytes (2 at 4 bits, 4 at 8, 8 at 16: a
+// warp reads 64 / 128 / 256 contiguous bytes a chunk), and writes each
+// chunk's 4 values as one float4 streaming store (__stcs), so that each
+// store is 512 contiguous bytes a warp.  Lane 0 loads the block's scale and
+// a shuffle hands it to the warp.  (8 consecutive values a lane, one load
+// and two adjacent float4 stores, left every store instruction writing
+// half of each 32-byte sector and lost by 11-20% at a capture field;
+// plain stores lost to streaming ones by 1-3% there.)  The wrapper
+// (kernels/wire_codec/cuda.py, decode_route) sends any other block size,
+// or a packed or output pointer off 16-byte alignment, to the scalar
+// kernel (wire_decode_kernel): one thread per packed byte (per byte pair
+// at 16 bits).  The library is built without --use_fast_math and with
+// -fmad=false; division and multiply are the explicit IEEE intrinsics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,13 +212,97 @@ __global__ void wire_decode_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+// the decode's output store: streaming (evict first), for an output that
+// is written once and at a capture field never fits in L2
+__device__ __forceinline__ void store_out(float4* p, float4 v) {
+  __stcs(p, v);
+}
+
+// the decode's lane mapping: a lane decodes 8 / kDecodeChunks consecutive
+// values in each of kDecodeChunks chunks of its block (see the design note)
+constexpr int kDecodeChunks = 2;
+static_assert(kDecodeChunks == 1 || kDecodeChunks == 2,
+              "a lane decodes 8 or 2 x 4 values");
+
+// value j of a lane's run, sign-extended from its packed field
+template <int BITS>
+__device__ __forceinline__ float unpack(uint4 w, int j, float scale) {
+  int q;
+  if (BITS == 4) {
+    q = static_cast<int>(w.x << (28 - 4 * j)) >> 28;   // nibble j, low first
+  } else if (BITS == 8) {
+    const unsigned word = j < 4 ? w.x : w.y;
+    q = static_cast<int>(word << (24 - 8 * (j & 3))) >> 24;
+  } else {  // 16: little-endian int16
+    const unsigned word = j < 2 ? w.x : (j < 4 ? w.y : (j < 6 ? w.z : w.w));
+    q = static_cast<int>(word << (16 - 16 * (j & 1))) >> 16;
+  }
+  return __fmul_rn(static_cast<float>(q), scale);
+}
+
+// the packed bytes of one lane's run: BYTES of them from an aligned load
+template <int BYTES>
+__device__ __forceinline__ uint4 load_run(const uint8_t* p) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (BYTES == 2) {
+    w.x = *reinterpret_cast<const unsigned short*>(p);
+  } else if (BYTES == 4) {
+    w.x = *reinterpret_cast<const unsigned*>(p);
+  } else if (BYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w.x = v.x;
+    w.y = v.y;
+  } else {
+    w = *reinterpret_cast<const uint4*>(p);
+  }
+  return w;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(kThreads)
+    wire_decode_vec_kernel(const uint8_t* __restrict__ packed,
+                           const float* __restrict__ scales,
+                           float4* __restrict__ out, int n_blocks) {
+  constexpr int kRowBytes = kVecBlock * BITS / 8;
+  constexpr int kRun = 8 / kDecodeChunks;            // values a lane a chunk
+  constexpr int kRunBytes = kRun * BITS / 8;
+  constexpr int kChunkValues = kVecBlock / kDecodeChunks;
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  for (int b = warp; b < n_blocks; b += n_warps) {
+    const uint8_t* row = packed + static_cast<size_t>(b) * kRowBytes;
+    uint4 w[kDecodeChunks];
+#pragma unroll
+    for (int c = 0; c < kDecodeChunks; ++c) {
+      w[c] = load_run<kRunBytes>(row + (c * kChunkValues + kRun * lane) *
+                                           BITS / 8);
+    }
+    float scale = 0.f;
+    if (lane == 0) scale = scales[b];
+    scale = __shfl_sync(0xffffffffu, scale, 0);
+    float4* dst = out + static_cast<size_t>(b) * (kVecBlock / 4);
+#pragma unroll
+    for (int c = 0; c < kDecodeChunks; ++c) {
+#pragma unroll
+      for (int k = 0; k < kRun / 4; ++k) {
+        store_out(dst + (c * kChunkValues + kRun * lane) / 4 + k,
+                  make_float4(unpack<BITS>(w[c], 4 * k, scale),
+                              unpack<BITS>(w[c], 4 * k + 1, scale),
+                              unpack<BITS>(w[c], 4 * k + 2, scale),
+                              unpack<BITS>(w[c], 4 * k + 3, scale)));
+      }
+    }
+  }
+}
+
 int units_per_row_of(int block, int bits) {
   return bits == 4 ? block / 2 : block;
 }
 
-cudaError_t launch_encode_vec(const float* x, uint8_t* packed, float* scales,
-                              int n_blocks, int bits, float qmax,
-                              float inv_qmax, cudaStream_t stream) {
+// the grid-stride grid of the vector kernels: a warp per payload block, at
+// most kVecBlocksPerSm blocks of kThreads a SM
+cudaError_t vec_grid(int n_blocks, unsigned* grid) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -213,14 +311,40 @@ cudaError_t launch_encode_vec(const float* x, uint8_t* packed, float* scales,
   if (err != cudaSuccess) return err;
   const long long need =
       (static_cast<long long>(n_blocks) * 32 + kThreads - 1) / kThreads;
-  const long long grid =
-      need < static_cast<long long>(sms) * kVecBlocksPerSm
-          ? need
-          : static_cast<long long>(sms) * kVecBlocksPerSm;
-  wire_encode_vec_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                           stream>>>(reinterpret_cast<const float4*>(x),
-                                     packed, scales, n_blocks, bits, qmax,
-                                     inv_qmax);
+  const long long most = static_cast<long long>(sms) * kVecBlocksPerSm;
+  *grid = static_cast<unsigned>(need < most ? need : most);
+  return cudaSuccess;
+}
+
+cudaError_t launch_encode_vec(const float* x, uint8_t* packed, float* scales,
+                              int n_blocks, int bits, float qmax,
+                              float inv_qmax, cudaStream_t stream) {
+  unsigned grid = 0;
+  const cudaError_t err = vec_grid(n_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  wire_encode_vec_kernel<<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), packed, scales, n_blocks, bits,
+      qmax, inv_qmax);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_decode_vec(const uint8_t* packed, const float* scales,
+                              float* out, int n_blocks, int bits,
+                              cudaStream_t stream) {
+  unsigned grid = 0;
+  const cudaError_t err = vec_grid(n_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  float4* dst = reinterpret_cast<float4*>(out);
+  if (bits == 4) {
+    wire_decode_vec_kernel<4><<<grid, kThreads, 0, stream>>>(
+        packed, scales, dst, n_blocks);
+  } else if (bits == 8) {
+    wire_decode_vec_kernel<8><<<grid, kThreads, 0, stream>>>(
+        packed, scales, dst, n_blocks);
+  } else {
+    wire_decode_vec_kernel<16><<<grid, kThreads, 0, stream>>>(
+        packed, scales, dst, n_blocks);
+  }
   return cudaGetLastError();
 }
 
@@ -243,10 +367,22 @@ extern "C" int repro_wire_encode(const float* x, int8_t* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
+// vec: the wrapper's route (decode_route), 1 for the vector kernel, which
+// takes only 256-value blocks on 16-byte-aligned packed and out pointers
 extern "C" int repro_wire_decode(const int8_t* packed, const float* scales,
                                  float* out, int n_blocks, int block,
-                                 int bits, cudaStream_t stream) {
+                                 int bits, int vec, cudaStream_t stream) {
   if (n_blocks <= 0) return 0;
+  if (vec) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(packed) % 16 == 0) &&
+                         (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+    if (block != kVecBlock || !aligned) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(launch_decode_vec(
+        reinterpret_cast<const uint8_t*>(packed), scales, out, n_blocks,
+        bits, stream));
+  }
   const int per_row = units_per_row_of(block, bits);
   const long long units = static_cast<long long>(n_blocks) * per_row;
   const long long grid = (units + kThreads - 1) / kThreads;

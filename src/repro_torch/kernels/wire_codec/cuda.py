@@ -14,6 +14,9 @@ SOURCE = "src/repro_torch/csrc/wire_codec.cu"
 REPLACES = {"wire_encode": "src/repro/kernels/wire_codec/kernel.py:52",
             "wire_decode": "src/repro/kernels/wire_codec/kernel.py:75"}
 
+VEC_BLOCK = 256                  # the payload block of the vector kernels
+_ALIGN = 16                      # their 16-byte loads and stores
+
 _fns: dict = {}
 
 
@@ -21,7 +24,7 @@ def _kernel(name):
     if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         argtypes = {"repro_wire_encode": [p, p, p, i, i, i, f, f, p],
-                    "repro_wire_decode": [p, p, p, i, i, i, p]}[name]
+                    "repro_wire_decode": [p, p, p, i, i, i, i, p]}[name]
         _fns[name] = _build.bind(name, argtypes)
     return _fns[name]
 
@@ -56,10 +59,19 @@ def wire_encode_cuda(blocks: torch.Tensor, bits: int):
     return packed, scales
 
 
+def decode_route(block: int, packed_ptr: int, out_ptr: int) -> str:
+    """Which decode kernel a launch takes: ``"vector"`` (a warp per
+    payload block, ``wire_decode_vec_kernel``) for 256-value blocks whose
+    packed bytes and output both start on 16 bytes, else ``"scalar"``
+    (``wire_decode_kernel``, a thread per packed byte)."""
+    aligned = packed_ptr % _ALIGN == 0 and out_ptr % _ALIGN == 0
+    return "vector" if block == VEC_BLOCK and aligned else "scalar"
+
+
 def wire_decode_cuda(packed: torch.Tensor, scales: torch.Tensor,
                      bits: int) -> torch.Tensor:
     """(packed int8, scales f32 (n_blocks, 1)) CUDA -> (n_blocks, block)
-    f32, one launch."""
+    f32, one launch of the kernel ``decode_route`` picks."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError("wire_decode_cuda needs CUDA tensors")
@@ -75,9 +87,10 @@ def wire_decode_cuda(packed: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((nb, block), dtype=torch.float32, device=dev)
     if nb == 0:
         return out
+    vec = decode_route(block, packed.data_ptr(), out.data_ptr()) == "vector"
     rc = _kernel("repro_wire_decode")(
         _build.ptr(packed), _build.ptr(scales), _build.ptr(out), nb, block,
-        bits, _build.stream_of(packed))
+        bits, int(vec), _build.stream_of(packed))
     _build.check(rc, "wire_decode")
     _build.launches["wire_decode"] += 1
     return out

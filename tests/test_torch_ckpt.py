@@ -1,0 +1,206 @@
+"""The port's checkpoints against the JAX package's ``ckpt/checkpoint.py``.
+
+Both packages write the same layout (``step_<N>/`` with one ``.npy`` per
+leaf and a JSON manifest, leaves named by their dict keys and sequence
+indices), so a checkpoint written by either restores in the other; and
+the port keeps the reference's contracts: atomic rename, torn-save
+immunity, keep-N pruning, restore onto the ``like_tree`` leaf's dtype and
+device, the errors for shape drift and missing leaves.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.ckpt import checkpoint as jck
+from repro.obs import Telemetry
+
+from repro_torch.ckpt.checkpoint import (
+    latest_step,
+    prune_old,
+    read_extra,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+torch.set_num_threads(1)
+
+
+def _tree(seed=0):
+    """A funnel stage state of mixed dtypes, nested, as numpy."""
+    rng = np.random.default_rng(seed)
+    return {
+        "frames": rng.normal(size=(4, 8, 8)).astype(np.float32),
+        "fidx": np.arange(4, dtype=np.int32),
+        "valid": np.array([True, False, True, True]),
+        "packed": rng.integers(-128, 128, (3, 16)).astype(np.int8),
+        "nested": {"w": rng.normal(size=(3, 2)).astype(np.float32),
+                   "pair": [np.arange(2, dtype=np.int32),
+                            np.float32(rng.normal())]},
+        "skip": None,
+    }
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_torch_tree(v) for v in tree]
+    if tree is None:
+        return None
+    return torch.from_numpy(np.asarray(tree))
+
+
+def _flat(tree, path=""):
+    """{name: numpy leaf} of a tree of tensors, jax or numpy arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{path}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{path}{i}/"))
+        return out
+    if tree is None:
+        return {}
+    if isinstance(tree, torch.Tensor):
+        return {path[:-1]: tree.numpy()}
+    return {path[:-1]: np.asarray(tree)}
+
+
+def _assert_trees_equal(got, want):
+    g, w = _flat(got), _flat(want)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        assert g[k].dtype == w[k].dtype and g[k].shape == w[k].shape, k
+        assert g[k].tobytes() == w[k].tobytes(), k
+
+
+def test_same_files_as_jax(tmp_path):
+    """Leaf names, file names, shapes and dtypes, and each leaf's bytes,
+    as JAX's save writes them."""
+    tree = _tree(1)
+    a = save_checkpoint(str(tmp_path / "t"), 3, _torch_tree(tree),
+                        extra={"stage": "gather", "seq": 7})
+    b = jck.save_checkpoint(str(tmp_path / "j"), 3, tree,
+                            extra={"stage": "gather", "seq": 7})
+    assert os.path.basename(a) == os.path.basename(b) == "step_00000003"
+    ma = json.load(open(os.path.join(a, "manifest.json")))
+    mb = json.load(open(os.path.join(b, "manifest.json")))
+    assert ma["leaves"] == mb["leaves"]
+    assert (ma["step"], ma["extra"]) == (mb["step"], mb["extra"])
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for leaf in ma["leaves"]:
+        assert np.load(os.path.join(a, leaf["file"])).tobytes() == \
+            np.load(os.path.join(b, leaf["file"])).tobytes()
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_cross_restore(tmp_path, writer):
+    """A checkpoint either package wrote restores in the other, leaf for
+    leaf, with the manifest's extra."""
+    tree = _tree(2)
+    extra = {"stage": "nn", "seq": 3}
+    if writer == "torch":
+        save_checkpoint(str(tmp_path), 5, _torch_tree(tree), extra=extra)
+    else:
+        jck.save_checkpoint(str(tmp_path), 5, tree, extra=extra)
+    got, got_extra = restore_checkpoint(str(tmp_path), 5, _torch_tree(tree))
+    assert got_extra == extra and got["skip"] is None
+    assert isinstance(got["nested"]["pair"], list)
+    _assert_trees_equal(got, tree)
+    jgot, jextra = jck.restore_checkpoint(str(tmp_path), 5, tree)
+    assert jextra == extra
+    _assert_trees_equal(jgot, tree)
+    assert read_extra(str(tmp_path), 5) == jck.read_extra(str(tmp_path), 5)
+
+
+def test_restore_onto_the_like_trees_dtype_and_device(tmp_path):
+    save_checkpoint(str(tmp_path), 0, {"x": torch.arange(6.0),
+                                       "n": np.arange(3, dtype=np.int32)})
+    like = {"x": torch.zeros(6, dtype=torch.float64),
+            "n": np.zeros(3, np.int64)}
+    got, _ = restore_checkpoint(str(tmp_path), 0, like)
+    assert got["x"].dtype == torch.float64 and got["x"].device == \
+        like["x"].device
+    assert torch.equal(got["x"], torch.arange(6.0, dtype=torch.float64))
+    assert got["n"].dtype == np.int64 and list(got["n"]) == [0, 1, 2]
+    jgot, _ = jck.restore_checkpoint(str(tmp_path), 0,
+                                     {"x": jnp.zeros(6), "n": np.zeros(3)})
+    assert np.array_equal(np.asarray(jgot["x"]), np.arange(6.0))
+
+
+def test_errors_equal_jax(tmp_path):
+    save_checkpoint(str(tmp_path), 0, {"x": torch.zeros(4)})
+    with pytest.raises(ValueError, match="shape drift") as te:
+        restore_checkpoint(str(tmp_path), 0, {"x": torch.zeros(5)})
+    with pytest.raises(ValueError) as je:
+        jck.restore_checkpoint(str(tmp_path), 0, {"x": np.zeros((5,))})
+    assert str(te.value) == str(je.value)
+    like = {"x": torch.zeros(4), "y": torch.zeros(2)}
+    with pytest.raises(KeyError, match="missing leaf y"):
+        restore_checkpoint(str(tmp_path), 0, like)
+
+
+def test_latest_step_and_torn_saves(tmp_path):
+    d = str(tmp_path)
+    assert latest_step(d) is None
+    assert latest_step(str(tmp_path / "nope")) is None
+    for s in (1, 4, 2):
+        save_checkpoint(d, s, _torch_tree(_tree(s)))
+    os.makedirs(os.path.join(d, "step_00000009.tmp"))   # crash mid-save
+    os.makedirs(os.path.join(d, "step_00000007"))       # no manifest
+    assert latest_step(d) == jck.latest_step(d) == 4
+
+
+@pytest.mark.parametrize("keep", [1, 2, 4])
+def test_prune_equal_jax(tmp_path, keep):
+    for pkg in ("t", "j"):
+        d = str(tmp_path / pkg)
+        for s in range(6):
+            save_checkpoint(d, s, {"x": torch.full((2,), float(s))})
+        os.makedirs(os.path.join(d, "step_00000007.tmp"))
+        (prune_old if pkg == "t" else jck.prune_old)(d, keep=keep)
+    assert sorted(os.listdir(tmp_path / "t")) == \
+        sorted(os.listdir(tmp_path / "j"))
+    got, _ = restore_checkpoint(str(tmp_path / "t"), 5,
+                                {"x": torch.zeros(2)})
+    assert torch.equal(got["x"], torch.full((2,), 5.0))
+    prune_old(str(tmp_path / "never"), keep=3)
+
+
+def test_resave_replaces_atomically(tmp_path):
+    save_checkpoint(str(tmp_path), 0, {"x": torch.zeros(2)})
+    save_checkpoint(str(tmp_path), 0, {"x": torch.ones(2)})
+    got, _ = restore_checkpoint(str(tmp_path), 0, {"x": torch.zeros(2)})
+    assert torch.equal(got["x"], torch.ones(2))
+    assert os.listdir(tmp_path) == ["step_00000000"]
+
+
+def test_telemetry_counts_as_jax(tmp_path):
+    """One JAX ``Telemetry`` handed to each package's save and restore
+    counts the same saves, bytes and restores, and the same events."""
+    tels = {}
+    for pkg, mod, tree in (("t", None, _torch_tree(_tree(4))),
+                           ("j", jck, _tree(4))):
+        tel = Telemetry(enabled=True)
+        d = str(tmp_path / pkg)
+        save = save_checkpoint if mod is None else mod.save_checkpoint
+        restore = restore_checkpoint if mod is None else \
+            mod.restore_checkpoint
+        save(d, 1, tree, telemetry=tel)
+        restore(d, 1, tree, telemetry=tel)
+        tels[pkg] = tel
+    assert tels["t"].counters.totals() == tels["j"].counters.totals()
+    assert [(r.kind, r.name, r.args) for r in tels["t"].trace.records()] == \
+        [(r.kind, r.name, r.args) for r in tels["j"].trace.records()]
+    off = Telemetry(enabled=False)
+    save_checkpoint(str(tmp_path / "off"), 0, {"x": torch.zeros(1)},
+                    telemetry=off)
+    assert off.counters.totals() == {}

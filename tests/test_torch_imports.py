@@ -66,3 +66,51 @@ def test_lm_stack_runs_without_jax():
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "[serve]" in out.stdout
+
+
+RESILIENCE_MODULES = ["camera.offload", "camera.offload.resilience",
+                      "camera.offload.link", "camera.offload.controller",
+                      "ckpt.checkpoint", "obs", "obs.ledger",
+                      "obs.telemetry"]
+
+
+def test_resilience_layer_runs_without_jax(tmp_path):
+    """The resilience layer imports, and a session under burst loss with
+    a brownout checkpoints, restores and delivers on the CPU, in a process
+    where neither JAX nor the reference package can be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {RESILIENCE_MODULES!r}:\n"
+        "    importlib.import_module('repro_torch.' + m)\n"
+        "import numpy as np\n"
+        "from repro_torch.camera.bssa import GridSpec\n"
+        "from repro_torch.camera.offload import (BrownoutModel,\n"
+        "    FaultInjector, GilbertElliott, OffloadSession,\n"
+        "    VROffloadExecutor)\n"
+        "from repro_torch.camera.pipelines import VRRigExecutor\n"
+        "rng = np.random.default_rng(0)\n"
+        "v = rng.random((2, 2, 24, 32)).astype(np.float32)\n"
+        "rig = VRRigExecutor(GridSpec(8), max_disp=4, n_iters=2,\n"
+        "                    device='cpu')\n"
+        "off = VROffloadExecutor(rig, 'stitch', bits=8)\n"
+        "want, _ = off(v[0], v[1])\n"
+        "inj = FaultInjector(loss=GilbertElliott(0.3, 0.5), seed=1,\n"
+        "    brownout=BrownoutModel(storage_j=9e-6, jitter=0.0))\n"
+        f"s = OffloadSession(off, injector=inj, ckpt_dir={str(tmp_path)!r})\n"
+        "got, rec = s.send(v[0], v[1])\n"
+        "assert rec.delivered and rec.restores >= 1, rec\n"
+        "assert all((a == b).all() for a, b in zip(got, want))\n"
+        "assert not any(k.split('.')[0] in ('jax', 'repro') for k in "
+        "sys.modules)\n"
+        "print('[resilience] ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[resilience] ok" in out.stdout

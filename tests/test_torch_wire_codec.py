@@ -20,6 +20,7 @@ from repro.core.reduction import quantize_int8 as jax_quantize_int8
 from repro.kernels.wire_codec import ops as jops
 
 from repro_torch.core.reduction import dequantize_int8, quantize_int8
+from repro_torch.kernels.wire_codec import cuda as wcuda
 from repro_torch.kernels.wire_codec import ops as tops
 from repro_torch.kernels.wire_codec.cuda import (
     wire_decode_cuda,
@@ -302,3 +303,146 @@ def test_encode_lane_emulation_reciprocal_sweep(bits):
     assert torch.equal(got_p, want_p)
     assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
 
+
+
+# -- the decode kernel's lane mapping ----------------------------------------
+#
+# csrc/wire_codec.cu decodes a block of 256 values with one warp: lane l
+# decodes values 128 c + 4 l .. + 3 of chunk c = 0, 1 from one aligned load
+# of their packed bytes (2 at 4 bits, 4 at 8, 8 at 16, read as 32-bit
+# little-endian words), sign-extends each field by a left shift to bit 31
+# and an arithmetic right shift, and multiplies by the block's scale, which
+# lane 0 loads and a shuffle broadcasts.  The emulation below does the same
+# in numpy.
+
+DECODE_CHUNKS = 2
+
+
+def decode_lane_emulation(packed, scales, bits):
+    packed = np.ascontiguousarray(np.asarray(packed, np.int8)).view(np.uint8)
+    scales = np.asarray(scales, np.float32)
+    nb, width = packed.shape
+    assert width * 8 // bits == 256
+    run = 8 // DECODE_CHUNKS                           # values a lane a chunk
+    run_bytes = run * bits // 8
+    out = np.zeros((nb, 256), np.float32)
+    lane_scale = np.broadcast_to(scales[:, :1], (nb, 32))   # lane 0's, shared
+    for c in range(DECODE_CHUNKS):
+        for lane in range(32):
+            v0 = c * 256 // DECODE_CHUNKS + run * lane
+            b0 = v0 * bits // 8
+            raw = np.zeros((nb, 16), np.uint8)
+            raw[:, :run_bytes] = packed[:, b0:b0 + run_bytes]
+            words = raw.view("<u4")                        # w.x, w.y, w.z, w.w
+            for j in range(run):
+                if bits == 4:
+                    word, shift, top = words[:, 0], 4 * j, 28
+                elif bits == 8:
+                    word, shift, top = words[:, j // 4], 8 * (j & 3), 24
+                else:
+                    word, shift, top = words[:, j // 2], 16 * (j & 1), 16
+                up = (word << np.uint32(top - shift)).astype(np.uint32)
+                q = up.view(np.int32) >> np.int32(top)
+                with np.errstate(invalid="ignore"):    # 0 x inf
+                    out[:, v0 + j] = (q.astype(np.float32)
+                                      * lane_scale[:, lane])
+    return out
+
+
+# NaN, +-inf, the smallest and a larger subnormal, and ordinary scales
+SPECIAL_SCALES = np.array([1.0, np.nan, np.inf, -np.inf, 1e-45, 3e-39, 0.7,
+                           -2.5], np.float32)
+
+
+def _code_payloads(bits):
+    """Packed rows holding every code of the width under every special
+    scale: all 256 byte values (8 bits), all 256 nibble pairs, so every
+    nibble low and high (4 bits), every int16 from -32768 to 32767 (16
+    bits)."""
+    if bits == 16:
+        codes = np.arange(-32768, 32768, dtype=np.int16).view(np.int8)
+    else:
+        codes = np.tile(np.arange(256, dtype=np.uint8).view(np.int8),
+                        2 if bits == 8 else 1)
+    rows = codes.reshape(-1, 256 * bits // 8)
+    packed = np.concatenate([rows] * len(SPECIAL_SCALES))
+    scales = np.repeat(SPECIAL_SCALES, len(rows))[:, None]
+    return packed, scales
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_decode_lane_emulation_every_code(bits):
+    """Every code of the width under NaN, inf, subnormal and ordinary
+    scales: the kernel's lane mapping bit-equal to the port's plain
+    decode and, at 4 and 8 bits, to the Pallas decode kernel in interpret
+    mode.  XLA on the CPU flushes subnormal operands to zero, so under a
+    subnormal scale JAX decodes every value to zero where the port (and
+    the CUDA kernel, built without flush-to-zero) gives the IEEE product
+    q * scale; every other value is bit-equal."""
+    packed, scales = _code_payloads(bits)
+    got = decode_lane_emulation(packed, scales, bits)
+    want = tops.wire_decode(torch.from_numpy(packed),
+                            torch.from_numpy(scales), packed.shape[:1] +
+                            (256,), bits=bits)
+    assert _same_bits(got, want.numpy())
+    assert np.isnan(got[scales[:, 0] != scales[:, 0]]).all()
+    sub = (scales[:, 0] != 0) & (np.abs(scales[:, 0])
+                                 < np.finfo(np.float32).tiny)
+    assert sub.sum() == 2 * len(packed) // len(SPECIAL_SCALES)
+    assert (got[sub] != 0).any()                 # IEEE subnormal products
+    if bits != 16:                    # the Pallas kernel has 4 and 8 bits
+        jax_want = np.asarray(_jax_decode(packed, scales, got.shape, bits,
+                                          "pallas"))
+        assert _same_bits(got[~sub], jax_want[~sub])
+        assert (jax_want[sub] == 0).all()        # flushed to zero
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_decode_lane_emulation_encoded_payloads(bits):
+    """The codec's own payloads (the special and reciprocal-sweep blocks):
+    the lane mapping equals the plain decode."""
+    blocks = np.concatenate([_special_blocks(bits, 256),
+                             _reciprocal_sweep(bits, n_blocks=256)[0]])
+    packed, scales = tops.wire_encode(torch.from_numpy(blocks), bits=bits)
+    got = decode_lane_emulation(packed.numpy(), scales.numpy(), bits)
+    want = tops.wire_decode(packed, scales, blocks.shape, bits=bits)
+    assert _same_bits(got, want.numpy())
+
+
+def test_decode_lane_emulation_reads_the_kernels_mapping():
+    """The emulation's chunk count is the kernel's ``kDecodeChunks``."""
+    from pathlib import Path
+
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "csrc" / "wire_codec.cu").read_text()
+    assert f"constexpr int kDecodeChunks = {DECODE_CHUNKS};\n" in src
+
+
+@pytest.mark.parametrize("block,off_packed,off_out,route", [
+    (256, 0, 0, "vector"), (256, 16, 32, "vector"), (128, 0, 0, "scalar"),
+    (512, 0, 0, "scalar"), (256, 1, 0, "scalar"), (256, 0, 1, "scalar"),
+    (256, 8, 0, "scalar")])
+def test_decode_route(block, off_packed, off_out, route):
+    """256-value blocks on 16-byte-aligned packed and output pointers take
+    the vector kernel; any other block size or alignment the scalar one."""
+    base = 1 << 20
+    assert wcuda.decode_route(block, base + off_packed,
+                              base + off_out) == route
+
+
+def test_decode_route_of_views():
+    """A packed view one byte into its storage takes the scalar kernel."""
+    flat = torch.zeros(1 + 4 * 256, dtype=torch.int8)
+    assert flat.data_ptr() % 16 == 0
+    out = torch.empty((4, 256))
+    assert wcuda.decode_route(256, flat.data_ptr(), out.data_ptr()) == \
+        "vector"
+    view = flat[1:].view(4, 256)
+    assert wcuda.decode_route(256, view.data_ptr(), out.data_ptr()) == \
+        "scalar"
