@@ -95,7 +95,39 @@ that the float32 one holds no tensor-core instruction, then:
    stitch cut resumed from its commits (bytes written and seconds
    printed); (g) every delivered coded send launched ``wire_decode`` and
    no other send did;
-7. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
+7. serving phase — ``StreamingServer`` on the card at full width: (a)
+   one 62-frame stream served as one chunk equals ``FaceAuthExecutor``
+   (local, every cut raw) and the split executor (every cut at 16/8/4
+   bits), bit for bit, with its wire bytes; (b) the JAX record
+   ``assets/serving_reference.npz`` (8 streams, two each at local,
+   sensor-8, motion-8 and vj-8, ``chunk=4, capacity=4``, 8 ticks, clean
+   and under Gilbert-Elliott loss): every scheduling field of every tick
+   report equal (failed deliveries and ladder moves included), each
+   completion's results bit-equal or, where the port's integral image
+   moves a window across a stage decision, held by outcome (at most 2
+   window flips, matched scores bit-equal off the vj cut and within two
+   8-bit codec errors on it, auths within the flips, each tick's bytes
+   off by exactly the vj streams'), and ``seq_audit`` equal; the 8-bit
+   codec's score error on the record's videos no more than the reading
+   the bound is made of; (c) an inert ``ChaosSpec`` bit-identical to no
+   chaos; checkpoints at tick 4 of both runs, the clean one continuing
+   equal to the uninterrupted server; (d) telemetry off equal to none in
+   reports and launches, on with counters equal to the outputs; (e) the
+   fleet of ``benchmarks/serving.py`` (904 quiet streams, every 32nd
+   local and the rest vj-8, for 24 ticks; then 120 hot streams at 2 fps
+   for 24 more; ``capacity=96``, the backscatter link provisioned from
+   the measured vj-8 bytes, a ``CutController`` over the four cuts),
+   with the launch counters set to 0 before the 48 ticks and read after:
+   streams sustained, p99 tick wall against the 2.5 s SLO, simulated
+   throughput, re-solves, cut changes, requeues, link p99 per phase; every
+   group dispatch of the 48 ticks counted with its own launches (one
+   dispatch a placement group a tick, the same launches at every dispatch
+   of a rung, and their sum the counters' totals); then one local and one
+   vj-8 dispatch of 96 slots x 4 hot frames, launching what the fleet's
+   dispatches of the rung launched, each kernel call in it held to its
+   plain version on its own inputs bit for bit, and the dispatch with the
+   plain versions in the kernels' place equal to it bit for bit;
+8. LM phase — serving at full width, yi-9b and then rwkv6-7b in bf16,
    weights drawn on the card (seed 0): a ``generate`` call (the function
    ``repro_torch.launch.serve`` calls) on 8 prompts of 4096 tokens (numpy
    seed 1) for 32 greedy tokens, with the launch counters set to 0, must
@@ -120,11 +152,13 @@ that the float32 one holds no tensor-core instruction, then:
    SDPA (the window as a dense boolean mask).  bf16 runs the ``wgmma``
    kernel and float32 the CUDA-core one; each flash row names the kernel
    that ran;
-8. profile phase — every torch.profiler session of the run: each kernel's
+9. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
-   S = 64, the VR rig frame, the executed offload cut and one serve call
-   of each LM, with the funnel's host time just before and just after the
-   sessions.
+   S = 64, the VR rig frame, a steady-state serving tick (its device-busy
+   share), the executed offload cut and one serve call of each LM, the
+   serving dispatches' kernel launches by the profiler's names (held to
+   the wrappers' counts), with the funnel's host time just before and
+   just after the sessions.
 
 One-ulp sensitivity E: how far a model's logits move, relative to the
 largest |logit|, when every weight moves by one ulp up or down at random.
@@ -151,6 +185,7 @@ the repository beside it, the script exits with a non-zero code.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1901,6 +1936,745 @@ def vr_kernel_rows(probes, ex, views, counts, codec_counts):
     return rows + codec
 
 
+# -- §III serving fleet -------------------------------------------------------
+
+SERVE_RUNGS = [(None, None)] + [(c, b) for c in CUTS
+                                for b in (None, 16, 8, 4)]
+SERVE_KERNELS = ("integral_image", "haar_stage", "quant_nn", "wire_encode",
+                 "wire_decode")
+# benchmarks/serving.py's full-run fleet (rows() with smoke=False)
+FLEET_A, FLEET_B, TICKS_A, TICKS_B, HOT_FPS = 904, 120, 24, 24, 2
+FLEET_CONFIG = dict(chunk=4, capacity=96, slo_s=2.5, tick_s=1.0,
+                    max_queue_s=8.0, resolve_every=32, link_window=4,
+                    admit_util=0.9, stats_window=8)
+# every TickReport field but the wall clock (batch_s) and the completions,
+# and every Completion field but its result arrays (FA_FIELDS)
+REPORT_FIELDS = ("t", "n_ready", "n_served", "n_quiet", "n_requeued",
+                 "bytes_sent", "resolves_fired", "cut_changes", "shed",
+                 "n_failed_tx", "ladder_moves", "device_events")
+COMPLETION_FIELDS = ("sid", "t", "n_frames", "kind", "wire_bytes", "seqs")
+# The 8-bit codec's score error: the largest |score(vj-8) - score(vj raw)|
+# on the windows both find, over every 4-frame chunk of the serving
+# record's videos (0.04629, the port on the CPU; chip_smoke reads it again
+# on the card and tests/test_torch_asset.py on the CPU).  Two 8-bit
+# packings of the same window, each within it of the raw score, differ by
+# at most twice it.
+VJ8_CODEC_ERR = 0.0463
+
+
+def reports_differ(a_reports, b_reports) -> list:
+    """Every difference between two runs' tick reports, the wall clock
+    aside: (tick, field) or (tick, sid, field); completions compared field
+    for field and their result arrays with ``np.array_equal``."""
+    if len(a_reports) != len(b_reports):
+        return [("n_reports", len(a_reports), len(b_reports))]
+    bad = []
+    for i, (a, b) in enumerate(zip(a_reports, b_reports)):
+        bad += [(i, f) for f in REPORT_FIELDS
+                if getattr(a, f) != getattr(b, f)]
+        if len(a.completions) != len(b.completions):
+            bad.append((i, "n_completions"))
+            continue
+        for ca, cb in zip(a.completions, b.completions):
+            bad += [(i, ca.sid, f) for f in COMPLETION_FIELDS
+                    if getattr(ca, f) != getattr(cb, f)]
+            bad += [(i, ca.sid, k) for k in FA_FIELDS
+                    if not np.array_equal(np.asarray(ca.result[k]),
+                                          np.asarray(cb.result[k]))]
+    return bad
+
+
+def _record_form(field, value):
+    """A TickReport field as the serving record stores it (JSON lists)."""
+    if field == "shed":
+        return [[s.sid, list(s.seqs), list(s.arrivals)] for s in value]
+    if isinstance(value, tuple):
+        return [list(x) for x in value]
+    return value
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serving_videos(ref):
+    """The record's videos, made again by the port's generator and held
+    to the record's sha256."""
+    from repro_torch.camera.synthetic import security_video
+
+    videos = [security_video(**p)[0] for p in ref.videos]
+    for v, want in zip(videos, ref.video_sha256):
+        if hashlib.sha256(v.tobytes()).hexdigest() != want:
+            raise AssertionError("a serving video differs from the record's")
+    return videos
+
+
+def serving_server(ex, ref, run, chaos=None, telemetry=None):
+    """The record's fleet registered on a port server over ``ex``; the
+    chaos run's spec unless ``chaos`` is given."""
+    from repro_torch.camera.offload.link import ETH_25G_LINK, GilbertElliott
+    from repro_torch.camera.serve import ChaosSpec, ServeConfig, StreamingServer
+
+    if chaos is None and run == "chaos":
+        chaos = ChaosSpec(loss=GilbertElliott(**ref.chaos["loss"]),
+                          max_retries=ref.chaos["max_retries"],
+                          seed=ref.chaos["seed"])
+    srv = StreamingServer(ex, link=ETH_25G_LINK, chaos=chaos,
+                          config=ServeConfig(**ref.config),
+                          telemetry=telemetry)
+    for sid, cut, bits, _v in ref.streams:
+        dec = srv.register(sid, fps=float(ref.frames_per_tick), cut=cut,
+                           bits=bits)
+        if not (dec.admitted and dec.cut == cut):
+            raise AssertionError(f"{run}: {sid} not admitted at {cut}")
+    return srv
+
+
+def serving_feed(srv, ref, videos, tick):
+    for tk, k, v, i, t in ref.script:
+        if tk == tick:
+            srv.enqueue(ref.streams[k][0], videos[v][i], t=t)
+
+
+def serving_replay(ex, ref, run, videos, ticks=None, **kw):
+    """The record's drive of ``run`` through the port's server, ``ticks``
+    deep (the record's depth when None); returns (server, reports)."""
+    srv = serving_server(ex, ref, run, **kw)
+    reports = []
+    for tick in range(ref.ticks if ticks is None else ticks):
+        serving_feed(srv, ref, videos, tick)
+        reports.append(srv.tick(float(tick + 1)))
+    return srv, reports
+
+
+def window_flips(a: dict, b: dict):
+    """(windows one result finds and the other does not, score pairs of
+    the windows both find), frame by frame."""
+    flips, pairs = 0, []
+    for i in range(len(a["motion"])):
+        x = dict(zip(a["window_id"][i][a["window_valid"][i]],
+                     a["scores"][i][a["window_valid"][i]]))
+        y = dict(zip(b["window_id"][i][b["window_valid"][i]],
+                     b["scores"][i][b["window_valid"][i]]))
+        flips += len(set(x) ^ set(y))
+        pairs += [(x[k], y[k]) for k in set(x) & set(y)]
+    return flips, np.array(pairs, np.float32).reshape(-1, 2)
+
+
+def serving_record_check(label, ref, run, reports):
+    """Hold a port run to the JAX record of ``run``, tick for tick: every
+    scheduling field equal; every completion's stream, kind, frames and
+    seqs equal; its results bit-equal, or, where the port's integral
+    image moves a window across a stage decision (ROADMAP queue 3), held
+    by outcome: the same motion frames and drops, at most
+    MAX_WINDOW_FLIPS windows found by one side only, auths within the
+    flips, and bit-equal scores on the windows both find — except on vj
+    streams, whose coded patches are packed window after window, so that
+    a flipped window moves every later window's block scale: there the
+    scores of the windows both find are held within 2 x VJ8_CODEC_ERR.
+    Wire bytes equal except on vj streams with flipped windows, and each
+    tick's bytes differ from the record's by exactly those streams'
+    differences.  Returns (completions exact, by outcome, window flips,
+    the largest vj score difference on windows both find)."""
+    cuts = {sid: cut for sid, cut, _b, _v in ref.streams}
+    want_reports, res = ref.reports[run], ref.results[run]
+    o = ci = exact = outcome = flips = 0
+    vj_diff = 0.0
+    for i, (rep, want) in enumerate(zip(reports, want_reports)):
+        where = f"{label} tick {i}"
+        for k in REPORT_FIELDS:
+            if k != "bytes_sent" and (_record_form(k, getattr(rep, k))
+                                      != want[k]):
+                raise AssertionError(f"{where}: {k} {getattr(rep, k)} != "
+                                     f"record {want[k]}")
+        if len(rep.completions) != len(want["completions"]):
+            raise AssertionError(f"{where}: completion count differs")
+        d_wire = 0.0
+        for c, wc in zip(rep.completions, want["completions"]):
+            if ((c.sid, c.t, c.n_frames, c.kind, list(c.seqs))
+                    != (wc["sid"], wc["t"], wc["n_frames"], wc["kind"],
+                        wc["seqs"])):
+                raise AssertionError(f"{where}: completion {c.sid} differs")
+            n = c.n_frames
+            w_res = {f: res[f][ci] if f == "motion_dropped"
+                     else res[f][o:o + n] for f in FA_FIELDS}
+            o, ci = o + n, ci + 1
+            if all(np.array_equal(c.result[f], w_res[f]) for f in FA_FIELDS):
+                exact += 1
+                if c.wire_bytes != wc["wire_bytes"]:
+                    raise AssertionError(f"{where}: {c.sid} wire bytes")
+                continue
+            outcome += 1
+            f_n, pairs = window_flips(c.result, w_res)
+            flips += f_n
+            same = all(np.array_equal(c.result[f], w_res[f]) for f in (
+                "motion", "motion_dropped", "windows_dropped",
+                "cascade_dropped"))
+            if cuts[c.sid] != "vj":
+                same = same and np.array_equal(pairs[:, 0].view(np.int32),
+                                               pairs[:, 1].view(np.int32))
+            elif len(pairs):
+                d = float(np.abs(pairs[:, 0] - pairs[:, 1]).max())
+                vj_diff = max(vj_diff, d)
+                same = same and d <= 2 * VJ8_CODEC_ERR
+            if not (same and 0 < f_n <= MAX_WINDOW_FLIPS
+                    and abs(int(c.result["n_auth"].sum())
+                            - int(w_res["n_auth"].sum())) <= f_n):
+                raise AssertionError(f"{where}: {c.sid} differs beyond "
+                                     f"{f_n} window flips")
+            if cuts[c.sid] == "vj":
+                d_wire += c.wire_bytes - wc["wire_bytes"]
+            elif c.wire_bytes != wc["wire_bytes"]:
+                raise AssertionError(f"{where}: {c.sid} wire bytes")
+        if rep.bytes_sent != want["bytes_sent"] + d_wire:
+            raise AssertionError(f"{where}: bytes {rep.bytes_sent} != "
+                                 f"record {want['bytes_sent']} + {d_wire}")
+    return exact, outcome, flips, vj_diff
+
+
+def vj8_codec_error(ex, videos, chunk=4):
+    """The 8-bit codec's score error (VJ8_CODEC_ERR): the largest
+    |score(vj-8) - score(vj raw)| on the windows both find, over every
+    ``chunk``-frame chunk of ``videos``, through the port's split
+    executors on ``ex``."""
+    import torch
+
+    from repro_torch.camera.offload import FaceAuthOffloadExecutor
+
+    raw, q8 = (FaceAuthOffloadExecutor(ex, "vj", bits=b) for b in (None, 8))
+    worst = 0.0
+    for v in videos:
+        v = torch.as_tensor(v, device=ex.device)
+        for s in range(0, len(v) - chunk + 1, chunk):
+            a, b = raw(v[s:s + chunk])[0], q8(v[s:s + chunk])[0]
+            _f, pairs = window_flips(
+                *({f: getattr(r, f).cpu().numpy() for f in FA_FIELDS}
+                  for r in (a, b)))
+            if len(pairs):
+                worst = max(worst, float(np.abs(pairs[:, 0]
+                                                - pairs[:, 1]).max()))
+    return worst
+
+
+def serve_one_stream(ex, frames, cut, bits):
+    """One stream served as one chunk; returns its completion."""
+    from repro_torch.camera.offload.link import ETH_25G_LINK
+    from repro_torch.camera.serve import ServeConfig, StreamingServer
+
+    cfg = ServeConfig(chunk=len(frames), capacity=1, tick_s=1.0,
+                      max_queue_s=1e9)
+    srv = StreamingServer(ex, link=ETH_25G_LINK, config=cfg)
+    dec = srv.register("s", fps=1.0, cut=cut, bits=bits)
+    if not (dec.admitted and dec.cut == cut):
+        raise AssertionError(f"one stream at {cut} not admitted: {dec}")
+    for i, f in enumerate(frames.cpu().numpy()):
+        srv.enqueue("s", f, t=i / len(frames))
+    (comp,) = srv.tick(1.0).completions
+    return comp
+
+
+def serving_fleet_drive(srv, specs, ticks, t0):
+    """benchmarks/serving.py's ``_drive``: tick the server, each stream
+    fed ``frames_per_tick`` frames of its video a tick, phase-shifted."""
+    changes, t, p99_max = [], t0, 0.0
+    for _ in range(ticks):
+        live = srv.streams
+        for sid, (video, off, n) in specs.items():
+            st = live.get(sid)
+            if st is None:
+                continue
+            for j in range(n):
+                idx = (off + st.frames_done + len(st.queue)) % len(video)
+                srv.enqueue(sid, video[idx], t=t + j / n)
+        t += srv.cfg.tick_s
+        rep = srv.tick(t)
+        changes.extend((rep.t,) + c for c in rep.cut_changes)
+        if srv.last_link_report is not None:
+            p99_max = max(p99_max, srv.last_link_report.p99_latency_s)
+    return changes, t, p99_max
+
+
+def count_dispatches(srv):
+    """Record every group dispatch of ``srv``'s ticks as (tick, rung, the
+    launches it made of each kernel), in a list returned now and filled as
+    the server ticks.  The server's group-step lookup is wrapped on the
+    instance; ``del srv._group_step`` takes the wrapper away."""
+    from repro_torch.kernels import _build
+
+    log, lookup = [], srv._group_step
+
+    def group_step(rung):
+        step = lookup(rung)
+
+        def counted(chunks):
+            before = dict(_build.launches)
+            out = step(chunks)
+            log.append((srv.tick_count, rung, {
+                k: n - before.get(k, 0) for k, n in _build.launches.items()
+                if n != before.get(k, 0)}))
+            return out
+        return counted
+
+    srv._group_step = group_step
+    return log
+
+
+def serve_kernel_plains(qnn):
+    """The serving path's five kernel wrappers, each with its plain
+    version taking the same arguments: (name, ops module, the name it
+    calls the wrapper by, plain).  ``qnn`` is the NN the ``quant_nn``
+    launches serve (its scales; the weights come with the call)."""
+    from repro_torch.kernels.haar_frontend import ops as hops
+    from repro_torch.kernels.haar_frontend.ref import haar_stage_ref
+    from repro_torch.kernels.integral_image import ops as iops
+    from repro_torch.kernels.integral_image.ref import integral_image_ref
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul.ref import nn_forward_ref
+    from repro_torch.kernels.wire_codec import ops as wops
+    from repro_torch.kernels.wire_codec.ref import (
+        wire_decode_ref,
+        wire_encode_ref,
+    )
+
+    def nn_plain(x, args):
+        w1t, b1, w2_q, b2 = args.tensors          # w1 k-major, padded
+        return nn_forward_ref(x, w1t[:, :args.k].t().contiguous(), b1, w2_q,
+                              b2, args.lut, lut_lo=args.lo, lut_hi=args.hi,
+                              **qnn.scales())
+
+    return [
+        ("integral_image", iops, "integral_image_cuda", integral_image_ref),
+        ("haar_stage", hops, "haar_stage_cuda", haar_stage_ref),
+        ("quant_nn", qops, "quant_nn_cuda", nn_plain),
+        ("wire_encode", wops, "wire_encode_cuda",
+         lambda blocks, bits: wire_encode_ref(blocks, bits=bits)),
+        ("wire_decode", wops, "wire_decode_cuda",
+         lambda packed, scales, bits: wire_decode_ref(packed, scales,
+                                                      bits=bits))]
+
+
+@contextlib.contextmanager
+def serve_kernels_as(qnn, mode):
+    """Within the block, the serving kernels' call sites reach, with
+    ``mode`` "held", each kernel and then its plain version on the same
+    inputs, held bit for bit (a difference raises), and yield
+    {kernel: [input shape of each call]}; with ``mode`` "plain", the plain
+    versions alone, in the kernels' place."""
+    seen, saved = {}, []
+
+    def held(name, kernel, plain):
+        def call(*args):
+            got, want = kernel(*args), plain(*args)
+            pairs = (zip(got, want) if isinstance(got, tuple)
+                     else [(got, want)])
+            if not all(_bits_equal(a, b) for a, b in pairs):
+                raise AssertionError(
+                    f"{name} at {tuple(args[0].shape)} differs from its "
+                    "plain version on the same inputs")
+            seen.setdefault(name, []).append(tuple(args[0].shape))
+            return got
+        return call
+
+    for name, mod, attr, plain in serve_kernel_plains(qnn):
+        kernel = getattr(mod, attr)
+        saved.append((mod, attr, kernel))
+        setattr(mod, attr, plain if mode == "plain"
+                else held(name, kernel, plain))
+    try:
+        yield seen
+    finally:
+        for mod, attr, kernel in saved:
+            setattr(mod, attr, kernel)
+
+
+def _tree_bits_equal(a, b) -> bool:
+    """Two nests of dicts / tuples of tensors equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_bits_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_tree_bits_equal, a, b))
+    return _bits_equal(a, b)
+
+
+def rung_label(rung) -> str:
+    cut, bits = rung
+    return "local" if cut is None else f"{cut}-{bits or 'raw'}"
+
+
+def fleet_dispatch_check(log, counts):
+    """Hold the fleet's launch totals to its group dispatches (the log of
+    ``count_dispatches``): one dispatch a placement group a tick, the same
+    launches at every dispatch of a rung, and those launches times the
+    rung's dispatches summing to ``counts``, so that no launch happened
+    outside a dispatch.  Returns {rung: (dispatches, launches a
+    dispatch)}."""
+    import collections
+
+    per, total = {}, collections.Counter()
+    if max(collections.Counter((t, r) for t, r, _ in log).values()) > 1:
+        raise AssertionError("a placement group dispatched twice in a tick")
+    for _tick, rung, got in log:
+        n, first = per.get(rung, (0, got))
+        if got != first:
+            raise AssertionError(f"{rung_label(rung)} dispatches launched "
+                                 f"{first} and {got}")
+        per[rung] = (n + 1, first)
+        total.update(got)
+    if dict(total) != counts:
+        raise AssertionError(f"the dispatches launched {dict(total)}, the "
+                             f"counters read {counts}")
+    return per
+
+
+def serving_fleet(ex, frames, card):
+    """The §III fleet of benchmarks/serving.py at full width: phase A, 904
+    quiet streams (every 32nd local, the rest vj at 8 bits) for 24 ticks;
+    phase B, 120 hot streams at 2 fps join for 24 more.  Returns the
+    launch counts of the drive and the dispatch probes."""
+    import statistics as stats_mod
+
+    import torch
+
+    from repro_torch.camera.offload import (
+        BACKSCATTER,
+        CutController,
+        FaceAuthOffloadExecutor,
+    )
+    from repro_torch.camera.pipelines import (
+        FAWorkloadStats,
+        calibrate_fa,
+        fa_pipeline,
+        fa_profiles,
+    )
+    from repro_torch.camera.serve import FA_CUTS, ServeConfig, StreamingServer
+    from repro_torch.camera.synthetic import security_video
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import cascade_serve
+
+    dev = ex.device
+    h, w = frames.shape[1:]
+    quiet = [security_video(n_frames=32, h=h, w=w, motion_frames=1,
+                            seed=11 + k)[0] for k in range(4)]
+    hot = [security_video(n_frames=24, h=h, w=w, motion_frames=20,
+                          seed=31 + k)[0] for k in range(2)]
+    cfg = ServeConfig(**FLEET_CONFIG)
+    B = frames.shape[0]
+    base = ex(frames)
+    stats = FAWorkloadStats(
+        n_frames=B, motion_frames=max(int(base.motion.sum()), 1),
+        windows_to_nn=max(int(base.n_windows.sum()), 1))
+    cal = calibrate_fa(stats)
+    profiles = fa_profiles()
+    profiles["nn"] = cal.nn_profile()
+    offs = {c: FaceAuthOffloadExecutor(ex, c, bits=8) for c in FA_CUTS}
+    ctl = CutController(
+        lambda cut: offs[cut], cuts=FA_CUTS, template=fa_pipeline(stats),
+        profiles=profiles, link=dataclasses.replace(
+            BACKSCATTER, joules_per_byte=cal.rf_joules_per_byte),
+        regime="energy", unit_rate_hz=1.0, duties=DUTIES)
+    ctl.calibrate(frames)
+    # the shared uplink provisioned for the quiet fleet with ~55% headroom
+    # from the measured mean vj-8 chunk bytes, as benchmarks/serving.py
+    vals = []
+    for v in quiet[:2]:
+        for s in range(0, len(v) - cfg.chunk + 1, cfg.chunk):
+            _, wb = offs["vj"].encode_slots(
+                torch.as_tensor(v[s:s + cfg.chunk], device=dev)[None])
+            vals.append(float(wb[0]))
+    q_chunk_b = float(np.mean(vals))
+    n_a, n_b = FLEET_A, FLEET_B
+    n_local = sum(1 for k in range(n_a) if k % 32 == 31)
+    fleet_bps = (n_a - n_local) * q_chunk_b / cfg.chunk
+    link = BACKSCATTER.scaled(max(fleet_bps / 0.45, 1.0)
+                              / BACKSCATTER.bytes_per_s)
+    srv = StreamingServer(ex, link=link, controller=ctl, config=cfg)
+    peak_ready = (n_a - n_local) // cfg.chunk + n_b + cfg.capacity
+    t0 = time.perf_counter()
+    srv.prewarm(([(None, None)] if n_local else [])
+                + [(c, 8) for c in FA_CUTS], max_ready=peak_ready)
+    _sync(dev)
+    print(f"serving fleet: prewarm {time.perf_counter() - t0:.2f} s "
+          f"(buckets up to {srv._bucket(peak_ready)} chunks); link "
+          f"{link.bytes_per_s:.1f} B/s from {q_chunk_b:.2f} B per quiet "
+          "vj-8 chunk", flush=True)
+
+    specs = {}
+    admitted = rejected = replaced = 0
+    for k in range(n_a):
+        sid = f"q{k}"
+        cut = None if k % 32 == 31 else "vj"
+        dec = srv.register(sid, fps=1.0, cut=cut, bits=8 if cut else None,
+                           motion_frac=0.1)
+        if not dec.admitted:
+            rejected += 1
+            continue
+        admitted += 1
+        replaced += dec.cut != cut
+        vid = quiet[k % len(quiet)]
+        specs[sid] = (vid, (k * 7) % len(vid), 1)
+        for j in range(k % cfg.chunk):
+            srv.enqueue(sid, vid[(k * 7 + j) % len(vid)], t=0.0)
+    srv.batch_lat_s.clear()
+    log = count_dispatches(srv)
+    _sync(dev)
+    _build.reset_launches()
+    wall0 = time.perf_counter()
+    changes_a, t, p99_link_a = serving_fleet_drive(srv, specs, TICKS_A, 0.0)
+    lat_a = list(srv.batch_lat_s)
+    for k in range(n_b):
+        sid = f"h{k}"
+        dec = srv.register(sid, fps=float(HOT_FPS), cut="vj", bits=8, t=t,
+                           motion_frac=0.15)
+        if not dec.admitted:
+            rejected += 1
+            continue
+        admitted += 1
+        replaced += dec.cut != "vj"
+        vid = hot[k % len(hot)]
+        specs[sid] = (vid, (k * 5) % len(vid), HOT_FPS)
+        for j in range(k % cfg.chunk):
+            srv.enqueue(sid, vid[(k * 5 + j) % len(vid)], t=t)
+    changes_b, t, p99_link_b = serving_fleet_drive(srv, specs, TICKS_B, t)
+    _sync(dev)
+    wall = time.perf_counter() - wall0
+    counts = dict(_build.launches)
+    p99 = srv.p99_batch_s()
+    lat_b = srv.batch_lat_s[len(lat_a):]
+    requeues = sum(s.requeues for s in srv.streams.values())
+    changes = changes_a + changes_b
+    print(f"serving fleet ({card}): streams_sustained={len(srv.streams)} "
+          f"(phase A {n_a}, phase B {n_b}; admitted {admitted}, rejected "
+          f"{rejected}, re-placed {replaced}); p99_batch_s={p99:.4f} "
+          f"against the {cfg.slo_s} s SLO (slo_ok="
+          f"{int(p99 <= cfg.slo_s)}); throughput_fps="
+          f"{srv.frames_served() / max(t, 1e-9):.1f} ({srv.frames_served()}"
+          f" frames over {t:.0f} s simulated); resolves_fired="
+          f"{srv.total_resolves()}; cut_changes={len(changes)} (streams "
+          f"{len({c[1] for c in changes})}, phase A {len(changes_a)}, "
+          f"phase B {len(changes_b)}); requeued_chunks={requeues}; link "
+          f"p99 A={p99_link_a:.4f} s B={p99_link_b:.4f} s", flush=True)
+    print(f"serving fleet ({card}): {TICKS_A + TICKS_B} ticks in "
+          f"{wall:.2f} s wall; tick wall median A "
+          f"{1e3 * stats_mod.median(lat_a):.2f} ms, B "
+          f"{1e3 * stats_mod.median(lat_b):.2f} ms, max "
+          f"{1e3 * max(srv.batch_lat_s):.2f} ms; launches {counts}",
+          flush=True)
+    for name in SERVE_KERNELS:
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"the serving fleet never launched {name}")
+    if srv.total_resolves() < 1:
+        raise AssertionError("no windowed re-solve fired")
+    del srv._group_step
+    per_rung = fleet_dispatch_check(log, counts)
+    print(f"serving fleet: {len(log)} group dispatches, each rung's "
+          "launches a dispatch the same at every one of its dispatches and "
+          "summing to the totals: " + "; ".join(
+              f"{rung_label(r)} x{n}: {got}"
+              for r, (n, got) in per_rung.items()), flush=True)
+
+    # one dispatch of a local and of a vj-8 group on a full capacity of
+    # hot chunks: its launches by the wrappers' counts
+    hot_chunks = np.stack([np.roll(hot[k % 2], -k, axis=0)[:cfg.chunk]
+                           for k in range(cfg.capacity)])
+    stack = torch.as_tensor(hot_chunks, device=dev)
+    dispatches = []
+    for rung in ((None, None), ("vj", 8)):
+        step = srv._group_step(rung)
+
+        def dispatch(step=step):
+            out = cascade_serve(srv._scores, step, stack,
+                                threshold=srv._score_threshold,
+                                capacity=cfg.capacity)
+            _sync(dev)
+            return out
+
+        dispatch()
+        _build.reset_launches()
+        out = dispatch()
+        got = dict(_build.launches)
+        label = f"{rung_label(rung)} dispatch"
+        if got != per_rung[rung][1]:
+            raise AssertionError(f"{label}: launches {got}, the fleet's "
+                                 f"dispatches {per_rung[rung][1]}")
+        ms = host_ms(dispatch) if dev.type == "cuda" else 0.0
+        with serve_kernels_as(ex.qnn, "held") as seen:
+            held = dispatch()
+        if {k: len(v) for k, v in seen.items()} != got:
+            raise AssertionError(f"{label}: held {seen}, launched {got}")
+        with serve_kernels_as(ex.qnn, "plain"):
+            plain = dispatch()
+        if not (_tree_bits_equal(out, held) and _tree_bits_equal(out, plain)):
+            raise AssertionError(f"{label}: the dispatch with plain kernels "
+                                 "differs from the kernels'")
+        print(f"serving {label} ({cfg.capacity} slots x {cfg.chunk} "
+              f"frames, {int(out[1].sum())} served): launches {got}, as "
+              f"the fleet's; {ms:.3f} ms wall (median of 7); every kernel "
+              "call == its plain version on its own inputs, bit for bit ("
+              + ", ".join(f"{k} {' '.join('x'.join(map(str, s)) for s in v)}"
+                          for k, v in seen.items())
+              + "); the dispatch with plain versions == the kernels', bit "
+              "for bit", flush=True)
+        dispatches.append((label, dispatch, got))
+    # one steady-state tick for the profile phase
+    lat = 1e3 * stats_mod.median(lat_b[-8:])
+
+    def one_tick():
+        serving_fleet_drive(srv, specs, 1, srv.tick_count * cfg.tick_s)
+        _sync(dev)
+
+    return counts, ("serving tick (steady state)", one_tick, lat), dispatches
+
+
+def serving_phase(ex, frames, card):
+    """The §III serving fleet on the card: (1) one stream through the
+    server == the executor at every rung, (2) the JAX record of an
+    8-stream fleet at full width, clean and under chaos, (3) the fleet of
+    benchmarks/serving.py, (4) chaos: an inert spec, the loss cell,
+    checkpoint/restore, (5) telemetry off and on.  Returns the fleet's
+    launch counts, its profile target and the dispatch probes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import load_fa_reference, load_serving_reference
+    from repro_torch.camera.offload import FaceAuthOffloadExecutor
+    from repro_torch.camera.pipelines import FaceAuthExecutor
+    from repro_torch.camera.serve import ChaosSpec, StreamingServer
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Telemetry
+
+    t_phase = time.perf_counter()
+    dev = ex.device
+    # (1) single-stream bit-identity on the card
+    base = ex(frames)
+    for cut, bits in SERVE_RUNGS:
+        comp = serve_one_stream(ex, frames, cut, bits)
+        if cut is None:
+            want, wire = base, 0.0
+        else:
+            want, pay = FaceAuthOffloadExecutor(ex, cut, bits=bits)(frames)
+            wire = float(pay.wire_b)
+        bad = [f for f in FA_FIELDS if not np.array_equal(
+            comp.result[f], getattr(want, f).cpu().numpy())]
+        if bits is None:
+            bad += [f + " (fused)" for f in FA_FIELDS if not np.array_equal(
+                comp.result[f], getattr(base, f).cpu().numpy())]
+        if bad or comp.wire_bytes != wire or comp.kind != "served":
+            raise AssertionError(f"one stream at {cut} {bits}: {bad}, "
+                                 f"{comp.wire_bytes} B != {wire}")
+    print(f"serving: one {len(frames)}-frame stream through StreamingServer"
+          f" == FaceAuthExecutor (local, every cut raw) and == the split "
+          f"executor (every cut at 16/8/4 bits), bit for bit, with its wire "
+          f"bytes: {len(SERVE_RUNGS)} rungs", flush=True)
+
+    # (2) the JAX record at full width
+    ref = load_serving_reference()
+    videos = serving_videos(ref)
+    runs = {}
+    for run in ("clean", "chaos"):
+        srv, reports = serving_replay(ex, ref, run, videos)
+        exact, outcome, flips, vj_diff = serving_record_check(
+            f"serving record {run}", ref, run, reports)
+        if srv.seq_audit() != ref.audits[run]:
+            raise AssertionError(f"{run}: seq_audit differs from JAX's")
+        runs[run] = reports
+        print(f"serving record {run}: {len(reports)} ticks == JAX (every "
+              f"scheduling field, {sum(r.n_failed_tx for r in reports)} "
+              f"failed tx, {sum(len(r.ladder_moves) for r in reports)} "
+              f"ladder moves, seq_audit); {exact} completions bit-equal, "
+              f"{outcome} held by outcome ({flips} window flips; vj scores "
+              f"on the windows both find within {vj_diff:.6g} of JAX's, "
+              f"bound {2 * VJ8_CODEC_ERR:.4g})", flush=True)
+    err = vj8_codec_error(ex, videos, ref.config["chunk"])
+    if err > VJ8_CODEC_ERR:
+        raise AssertionError(f"the 8-bit codec moves vj scores by {err}, "
+                             f"more than the reading {VJ8_CODEC_ERR}")
+    print(f"serving record: the 8-bit codec's vj score error on the "
+          f"record's videos {err:.6g} (the bound's reading "
+          f"{VJ8_CODEC_ERR})", flush=True)
+
+    # (4) chaos: an inert spec == no chaos; checkpoint/restore
+    _srv, inert = serving_replay(ex, ref, "clean", videos, chaos=ChaosSpec())
+    if reports_differ(runs["clean"], inert):
+        raise AssertionError("an inert ChaosSpec changed a tick report")
+    half = ref.ticks // 2
+    tmp = tempfile.mkdtemp(prefix="serving_ckpt_")
+    try:
+        for run in ("clean", "chaos"):
+            srv, _reports = serving_replay(ex, ref, run, videos, ticks=half)
+            srv.checkpoint(os.path.join(tmp, run))
+            rest = StreamingServer.restore(os.path.join(tmp, run), ex,
+                                           config=srv.cfg, link=srv.link,
+                                           chaos=srv._chaos)
+            if rest.seq_audit() != srv.seq_audit():
+                raise AssertionError(f"{run}: restored seq_audit differs")
+            if [(s.ladder.level if s.ladder else None)
+                    for s in rest.streams.values()] != [
+                        (s.ladder.level if s.ladder else None)
+                        for s in srv.streams.values()]:
+                raise AssertionError(f"{run}: restored ladders differ")
+            for tick in range(half, ref.ticks):
+                serving_feed(srv, ref, videos, tick)
+                serving_feed(rest, ref, videos, tick)
+                a, b = srv.tick(float(tick + 1)), rest.tick(float(tick + 1))
+                # a restored fleet faults afresh from its seeds: only the
+                # clean run continues tick for tick
+                if run == "clean" and reports_differ([a], [b]):
+                    raise AssertionError(f"restored server differs at "
+                                         f"tick {tick}")
+            if not rest.seq_audit()["ok"]:
+                raise AssertionError(f"{run}: seq_audit after restore")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serving chaos: inert ChaosSpec == no chaos over {ref.ticks} "
+          f"ticks, bit for bit; the loss cell == JAX above; checkpoints at "
+          f"tick {half}: the clean fleet restored continues == the "
+          "uninterrupted server, the chaos fleet restores its ladders; "
+          "seq_audit ok", flush=True)
+
+    # (5) telemetry off and on: outputs and launches
+    fa = load_fa_reference(device=dev)
+    tels = {}
+    for name, tel in (("none", None), ("off", Telemetry(enabled=False)),
+                      ("on", Telemetry(enabled=True))):
+        tx = FaceAuthExecutor(fa.cascade, fa.nn, frames.shape[1],
+                              frames.shape[2], device=dev, telemetry=tel,
+                              **fa.scan)
+        tx.calibrate(frames)
+        _sync(dev)
+        _build.reset_launches()
+        _srv, reports = serving_replay(tx, ref, "clean", videos, ticks=4,
+                                       telemetry=tel)
+        _sync(dev)
+        tels[name] = (reports, dict(_build.launches), tel)
+    for name in ("off", "on"):
+        if reports_differ(tels["none"][0], tels[name][0]):
+            raise AssertionError(f"telemetry {name} changed a tick report")
+    if tels["off"][1] != tels["none"][1]:
+        raise AssertionError(f"telemetry off launched {tels['off'][1]} != "
+                             f"{tels['none'][1]}")
+    tot = tels["on"][2].counters.totals()
+    local = [c for r in tels["on"][0] for c in r.completions
+             if c.sid.startswith("local") and c.kind == "served"]
+    want = {"exec.windows": sum(int(c.result["n_windows"].sum())
+                                for c in local),
+            "exec.auth": sum(int(c.result["n_auth"].sum()) for c in local),
+            "serve.frames_delivered": sum(c.n_frames for r in tels["on"][0]
+                                          for c in r.completions)}
+    if any(tot.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"telemetry counters {tot} != outputs {want}")
+    print(f"serving telemetry: off == none (reports and launches "
+          f"{tels['off'][1]}); on: {len(tels['on'][2].trace)} trace "
+          f"records, counters == outputs ({want})", flush=True)
+
+    # (3) the fleet
+    counts, target, dispatches = serving_fleet(ex, frames, card)
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, target, dispatches
+
+
 # -- LM serving ---------------------------------------------------------------
 
 LM_KERNEL = {"yi-9b": "flash_attention", "rwkv6-7b": "rwkv_wkv"}
@@ -2466,12 +3240,38 @@ def timing_phase(ex, frames, res):
             (f"S={STREAMS}", lambda: ex.run_streams(streams), msS)]
 
 
-def profiles_phase(ex, frames, targets, probes):
+def dispatch_profile(label, fn, want):
+    """One call of a serving group dispatch under torch.profiler: its
+    launches of each serving kernel by the profiler's kernel names, held
+    to the wrappers' counts ``want`` of the same call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    got = {name: sum(e.count for e in events if name in e.key)
+           for name in SERVE_KERNELS}
+    got = {k: v for k, v in got.items() if v}
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile serving {label}: kernel launches {got} (wrappers "
+          f"counted {want}), {sum(e.count for e in events)} launches in "
+          f"all, device busy {busy:.4f} ms", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: the profiler saw {got}, the "
+                             f"wrappers counted {want}")
+
+
+def profiles_phase(ex, frames, targets, probes, dispatches=()):
     """Every torch.profiler session of the run, after every host-clock and
     CUDA-event time: each kernel's device time per launch, then each
-    target's device time by kernel.  The funnel's host time is taken again
-    just before and just after the sessions, to tell what the sessions
-    leave behind from what the earlier phases do."""
+    target's device time by kernel, then the serving dispatches' kernel
+    launches.  The funnel's host time is taken again just before and just
+    after the sessions, to tell what the sessions leave behind from what
+    the earlier phases do."""
     B = frames.shape[0]
     ms = host_ms(lambda: ex(frames))
     print(f"funnel before the profiler sessions, after the other phases: "
@@ -2494,6 +3294,8 @@ def profiles_phase(ex, frames, targets, probes):
               flush=True)
     for label, fn, wall in targets:
         profile_phase(label, fn, wall)
+    for label, fn, want in dispatches:
+        dispatch_profile(label, fn, want)
     ms = host_ms(lambda: ex(frames))
     print(f"funnel after the profiler sessions: {ms / B:.4f} ms per frame "
           f"({ms:.3f} ms per {B}-frame batch, median of 7)", flush=True)
@@ -2549,10 +3351,13 @@ def main() -> int:
     resilience_phase(ex, frames, vr_ex, views)
     rows += vr_kernel_rows(probes, vr_ex, views, vr_counts, vr_codec_counts)
     targets.append(("VR rig frame", lambda: vr_ex(*views), vr_ms))
+    _serve_counts, serve_target, dispatches = serving_phase(ex, frames, card)
+    targets.append(serve_target)
     lm_rows, lm_targets = lm_phase(probes)
     rows += lm_rows
     targets += lm_targets
-    profiles_phase(ex, frames, targets + [offload_target], probes)
+    profiles_phase(ex, frames, targets + [offload_target], probes,
+                   dispatches)
 
     print(json.dumps({"kernels": rows}))
     print(gpu_name_and_power())

@@ -28,6 +28,13 @@ CRCs, delivery records, ladder metrics, brownout and congestion numbers on
 the full-width §III workload, with every cell's injector parameters
 (written by ``benchmarks/torch_export_resilience_reference.py``).
 
+:func:`load_serving_reference` reads ``assets/serving_reference.npz``: the
+JAX ``StreamingServer`` on the full-width §III workload over an 8-stream
+fleet (local, sensor-8, motion-8, vj-8), clean and under a Gilbert-Elliott
+chaos spec: every tick report and completion, with the fleet, its videos,
+the enqueue script and the config it ran (written by
+``benchmarks/torch_export_serving_reference.py``).
+
 The LM stack has no trained weights: :func:`numpy_lm_params` draws a
 parameter tree in the JAX ``Model.init`` layout from numpy's generator, so
 the same weights can go to the JAX model and, through
@@ -58,6 +65,7 @@ OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
 VR_ASSET = ASSET.parent / "vr_reference.npz"
 LM_ASSET = ASSET.parent / "lm_reference.npz"
 RESILIENCE_ASSET = ASSET.parent / "resilience_reference.npz"
+SERVING_ASSET = ASSET.parent / "serving_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -277,6 +285,50 @@ def load_resilience_reference(path=None) -> ResilienceReference:
                  for k, v in z.items() if k.startswith("records_")},
         metrics=metrics, brownout=json.loads(str(z["brownout"])),
         congestion=json.loads(str(z["congestion"])))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingReference:
+    """The JAX streaming server on the full-width §III workload.  A run's
+    ``reports`` are its tick reports as dicts (the wall clock aside), each
+    with its completions' fields; ``results[run][field]`` concatenates the
+    completions' result arrays along the frame axis (``motion_dropped``:
+    one entry per completion)."""
+
+    config: dict                  # ServeConfig keyword arguments
+    ticks: int
+    frames_per_tick: int          # each stream's feed, also its fps
+    streams: list                 # [(sid, cut, bits, video index)]
+    videos: list                  # security_video() arguments per video
+    video_sha256: list
+    script: list                  # [(tick, stream, video, frame, t)]
+    chaos: dict                   # GilbertElliott args, max_retries, seed
+    reports: dict                 # run -> [tick report dict]
+    results: dict                 # run -> field -> array
+    audits: dict                  # run -> seq_audit() at the end
+
+
+def load_serving_reference(path=None) -> ServingReference:
+    import json
+
+    with np.load(SERVING_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    meta = json.loads(str(z["meta"]))
+    runs = [k[:-len("_reports")] for k in z if k.endswith("_reports")]
+    script = [(int(a), int(b), int(c), int(d), float(t))
+              for (a, b, c, d), t in zip(z["script"], z["script_t"])]
+    return ServingReference(
+        config=meta["config"], ticks=int(meta["ticks"]),
+        frames_per_tick=int(meta["frames_per_tick"]),
+        streams=[(s, c, b, int(v)) for s, c, b, v in meta["streams"]],
+        videos=meta["videos"], video_sha256=meta["video_sha256"],
+        script=script, chaos=meta["chaos"],
+        reports={r: json.loads(str(z[f"{r}_reports"])) for r in runs},
+        results={r: {k[len(r) + 1:]: v for k, v in z.items()
+                     if k.startswith(r + "_")
+                     and k not in (f"{r}_reports", f"{r}_audit")}
+                 for r in runs},
+        audits={r: json.loads(str(z[f"{r}_audit"])) for r in runs})
 
 
 def numpy_lm_params(cfg, seed: int) -> dict:

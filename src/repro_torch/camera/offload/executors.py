@@ -7,8 +7,13 @@ block boundaries.  Both halves compose the same stage functions the fused
 :class:`~repro_torch.camera.pipelines.FaceAuthExecutor` runs
 (``FunnelStages``), so the split can never drift from the on-node math.
 The port's stages close over their constants and take a leading stream
-axis; the split executor runs one stream (S = 1) and its payload tensors
-carry no stream axis, as the reference's do.
+axis.  Both halves run on a leading slot axis (:meth:`encode_slots`,
+:meth:`decode_slots`: the serving runtime's micro-batch, where the
+reference vmaps ``_node_fn`` / ``_cloud_fn``); every codec field is
+encoded slot by slot, each slot's values padded to whole blocks of its
+own, so a slot's packed bytes, scales and wire bytes are those of the
+same frames sent alone.  ``encode`` / ``decode_run`` are the one-stream
+case, whose payload tensors carry no slot axis, as the reference's do.
 
 The wire payload between the halves is typed (``payloads.WirePayload``)
 and optionally compressed by the wire codec (``kernels/wire_codec``: the
@@ -36,6 +41,8 @@ Cut payload contracts (DESIGN.md §10):
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -66,6 +73,16 @@ def _run_node(ex, state: dict) -> WirePayload:
                        wire_b=wire_b)
 
 
+def _strip(d: dict) -> dict:
+    """A one-slot dict without its slot axis."""
+    return {k: v[0] for k, v in d.items()}
+
+
+def _one_slot(d: dict) -> dict:
+    """A dict of one stream's tensors with a slot axis of 1."""
+    return {k: v[None] for k, v in d.items()}
+
+
 class _Codec:
     """Static codec configuration of one split executor."""
 
@@ -76,20 +93,45 @@ class _Codec:
         self.block = int(block)
 
     def enc(self, arrays: dict, name: str, x: torch.Tensor):
-        """Pack field ``x`` into ``arrays``."""
+        """Pack one stream's field ``x`` into ``arrays``."""
+        slots: dict = {}
+        self.enc_slots(slots, name, x[None])
+        arrays.update(_strip(slots))
+
+    def dec(self, arrays: dict, name: str, shape) -> torch.Tensor:
+        """Unpack one stream's field ``name`` back to f32 of ``shape``."""
+        keys = [k for k in (name, name + "_scales") if k in arrays]
+        return self.dec_slots(_one_slot({k: arrays[k] for k in keys}),
+                              name, shape)[0]
+
+    def enc_slots(self, arrays: dict, name: str, x: torch.Tensor):
+        """Pack field ``x`` (S, ...) into ``arrays``, slot by slot: each
+        slot's values are zero-padded to whole blocks of its own, so no
+        block holds two slots' values (packed (S, n_blocks, bytes),
+        scales (S, n_blocks, 1))."""
         if self.bits is None:
             arrays[name] = x.to(torch.float32)
             return
-        packed, scales = wire_encode(x, bits=self.bits, block=self.block)
-        arrays[name] = packed
-        arrays[name + "_scales"] = scales
+        S = x.shape[0]
+        flat = x.reshape(S, -1).to(torch.float32)
+        pad = (-flat.shape[1]) % self.block
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        packed, scales = wire_encode(flat.reshape(-1, self.block),
+                                     bits=self.bits, block=self.block)
+        arrays[name] = packed.reshape(S, -1, packed.shape[-1])
+        arrays[name + "_scales"] = scales.reshape(S, -1, 1)
 
-    def dec(self, arrays: dict, name: str, shape) -> torch.Tensor:
-        """Unpack field ``name`` back to f32 of ``shape``."""
+    def dec_slots(self, arrays: dict, name: str, shape) -> torch.Tensor:
+        """Unpack field ``name`` back to f32 of (S,) + ``shape``."""
         if self.bits is None:
-            return arrays[name].reshape(shape)
-        return wire_decode(arrays[name], arrays[name + "_scales"],
-                           tuple(shape), bits=self.bits, block=self.block)
+            return arrays[name].reshape((-1,) + tuple(shape))
+        packed, scales = arrays[name], arrays[name + "_scales"]
+        S, nb = packed.shape[:2]
+        x = wire_decode(packed.reshape(S * nb, -1),
+                        scales.reshape(S * nb, 1), (S, nb * self.block),
+                        bits=self.bits, block=self.block)
+        return x[:, :math.prod(shape)].reshape((S,) + tuple(shape))
 
     def dyn_bytes(self, n_values: torch.Tensor) -> torch.Tensor:
         return wire_bytes_dynamic(n_values, self.bits, block=self.block)
@@ -146,72 +188,83 @@ class FaceAuthOffloadExecutor:
         """The node half's state at capture: ``{"frames": (B, h, w)}``."""
         return {"frames": self.base._frames(frames)}
 
-    def node_stages(self) -> tuple:
+    def slot_stages(self) -> tuple:
         """``(name, fn)`` of each funnel stage the node half runs at this
         cut, in order; ``fn(state)`` returns the entries it adds to the
-        state, every tensor without the stream axis."""
+        state, every tensor with a leading slot axis."""
         st, cut = self._st, self.cut
 
         def motion(s):
-            mframes, fidx, fvalid, motion, mdrop = st.motion(
-                s["frames"][None])
-            return dict(mframes=mframes[0], fidx=fidx[0], fvalid=fvalid[0],
-                        motion=motion[0], motion_dropped=mdrop[0])
+            mframes, fidx, fvalid, motion, mdrop = st.motion(s["frames"])
+            return dict(mframes=mframes, fidx=fidx, fvalid=fvalid,
+                        motion=motion, motion_dropped=mdrop)
 
         def detect(s):
-            dmask, n_win, casc_drop = st.detect(s["mframes"][None],
-                                                s["fvalid"][None])
-            return dict(dmask=dmask[0], n_win=n_win[0],
-                        casc_drop=casc_drop[0])
+            dmask, n_win, casc_drop = st.detect(s["mframes"], s["fvalid"])
+            return dict(dmask=dmask, n_win=n_win, casc_drop=casc_drop)
 
         def gather(s):
             patches, wsel, wvalid, wdrop = st.gather(
-                s["mframes"][None], s["dmask"][None], s["n_win"][None])
-            return dict(patches=patches[0], wsel=wsel[0], wvalid=wvalid[0],
-                        win_dropped=wdrop[0])
+                s["mframes"], s["dmask"], s["n_win"])
+            return dict(patches=patches, wsel=wsel, wvalid=wvalid,
+                        win_dropped=wdrop)
 
         def nn(s):
-            scores, auth, n_auth = st.nn(s["patches"][None],
-                                         s["wvalid"][None])
-            return dict(scores=scores[0], auth=auth[0], n_auth=n_auth[0])
+            scores, auth, n_auth = st.nn(s["patches"], s["wvalid"])
+            return dict(scores=scores, auth=auth, n_auth=n_auth)
 
         stages = (("motion", motion), ("detect", detect),
                   ("gather", gather), ("nn", nn))
         return stages[:{"sensor": 0, "motion": 1, "vj": 3, "nn": 4}[cut]]
 
+    def node_stages(self) -> tuple:
+        """:meth:`slot_stages` for one stream: every tensor of the state
+        without the slot axis."""
+        def one(fn):
+            return lambda s: _strip(fn(_one_slot(s)))
+
+        return tuple((name, one(fn)) for name, fn in self.slot_stages())
+
     def encode_state(self, s: dict):
-        """The node state after :meth:`node_stages` -> (arrays, wire_b,
-        meta): the cut's wire payload, its measured bytes and its decode
-        contract."""
+        """One stream's node state after :meth:`node_stages` -> (arrays,
+        wire_b, meta): the cut's wire payload, its measured bytes and its
+        decode contract."""
+        arrays, wire_b = self.encode_slot_state(_one_slot(s))
+        return (_strip(arrays), wire_b[0],
+                {"frames_shape": tuple(s["frames"].shape)})
+
+    def encode_slot_state(self, s: dict):
+        """The node state after :meth:`slot_stages` -> (arrays, wire_b):
+        the cut's wire payload with a leading slot axis and each slot's
+        measured bytes, (S,) float32."""
         cdc, cut = self.codec, self.cut
         frames = s["frames"]
-        B = frames.shape[0]
+        S, B = frames.shape[:2]
         h, w = self._h, self._w
-        meta = {"frames_shape": tuple(frames.shape)}
         arrays: dict = {}
         if cut == "sensor":
-            cdc.enc(arrays, "frames", frames)
-            wire_b = torch.tensor(cdc.static_bytes(B * h * w),
-                                  dtype=torch.float32, device=frames.device)
-            return arrays, wire_b, meta
+            cdc.enc_slots(arrays, "frames", frames)
+            wire_b = torch.full((S,), cdc.static_bytes(B * h * w),
+                                dtype=torch.float32, device=frames.device)
+            return arrays, wire_b
 
-        n_valid_f = s["fvalid"].sum().to(torch.float32)
+        n_valid_f = s["fvalid"].sum(dim=1).to(torch.float32)
         side = _I32_B * n_valid_f + _BOOL_B * B + _I32_B  # fidx+motion+drop
         if cut == "motion":
             # zero the capacity-padding frames (fidx padding points at real
             # non-motion frames): a zero quantizes to zero exactly, so
             # padding cannot perturb the codec's block scales; the cloud
             # half masks everything by fvalid, so results are unchanged
-            cdc.enc(arrays, "mframes",
-                    torch.where(s["fvalid"][:, None, None], s["mframes"],
-                                0.0))
+            cdc.enc_slots(arrays, "mframes",
+                          torch.where(s["fvalid"][..., None, None],
+                                      s["mframes"], 0.0))
             arrays.update(fidx=s["fidx"].to(torch.int32), motion=s["motion"],
                           motion_dropped=s["motion_dropped"])
             wire_b = cdc.dyn_bytes(n_valid_f * (h * w)) + side
-            return arrays, wire_b, meta
+            return arrays, wire_b
 
         wvalid, patches = s["wvalid"], s["patches"]
-        n_valid_w = wvalid.sum().to(torch.float32)
+        n_valid_w = wvalid.sum(dim=(1, 2)).to(torch.float32)
         # per processed valid frame: n_win + win_dropped + casc_drop counts
         side = side + _I32_B * 3 * n_valid_f
         common = dict(wsel=s["wsel"].to(torch.int32), n_win=s["n_win"],
@@ -222,67 +275,77 @@ class FaceAuthOffloadExecutor:
         if cut == "vj":
             # zero padding windows (wsel defaults to position 0) — the same
             # scale isolation as the motion cut above
-            cdc.enc(arrays, "patches",
-                    torch.where(wvalid[:, :, None, None], patches, 0.0))
+            cdc.enc_slots(arrays, "patches",
+                          torch.where(wvalid[..., None, None], patches, 0.0))
             arrays.update(common)
             wire_b = (cdc.dyn_bytes(n_valid_w * patches.shape[-1]
                                     * patches.shape[-2])
                       + _I32_B * n_valid_w + side)
-            return arrays, wire_b, meta
+            return arrays, wire_b
 
-        cdc.enc(arrays, "scores", s["scores"])
+        cdc.enc_slots(arrays, "scores", s["scores"])
         arrays.update(common, auth=s["auth"])
         wire_b = (cdc.dyn_bytes(n_valid_w) + _BOOL_B * n_valid_w
                   + _I32_B * n_valid_w + side)
-        return arrays, wire_b, meta
+        return arrays, wire_b
 
     # -- cloud side ----------------------------------------------------------
 
-    def _cloud_fn(self, arrays: dict, frames_shape) -> dict:
+    def decode_slots(self, arrays: dict, frames_shape) -> dict:
+        """Cloud half over a slot axis: payload arrays with a leading slot
+        axis and one slot's ``(B, h, w)`` -> result dict with a leading
+        slot axis."""
         st, cdc = self._st, self.codec
         cut = self.cut
         h, w = self._h, self._w
         W = st.window_capacity
         if cut == "sensor":
-            frames = cdc.dec(arrays, "frames", frames_shape)
-            mframes, fidx, fvalid, motion, motion_dropped = st.motion(
-                frames[None])
+            frames = cdc.dec_slots(arrays, "frames", frames_shape)
+            mframes, fidx, fvalid, motion, motion_dropped = st.motion(frames)
         else:
-            fidx = arrays["fidx"].long()[None]
-            motion = arrays["motion"][None]
-            motion_dropped = arrays["motion_dropped"][None]
-            fvalid = motion[:, fidx[0]]
+            fidx = arrays["fidx"].long()
+            motion = arrays["motion"]
+            motion_dropped = arrays["motion_dropped"]
+            fvalid = torch.gather(motion, 1, fidx)
         B = motion.shape[1]
         M = fidx.shape[1]
 
         if cut in ("sensor", "motion"):
             if cut == "motion":
-                mframes = cdc.dec(arrays, "mframes", (M, h, w))[None]
+                mframes = cdc.dec_slots(arrays, "mframes", (M, h, w))
             dmask, n_win_m, casc_drop_m = st.detect(mframes, fvalid)
             patches, wsel, wvalid, win_dropped_m = st.gather(
                 mframes, dmask, n_win_m)
         else:
-            wsel = arrays["wsel"][None]
-            n_win_m = arrays["n_win"][None]
-            win_dropped_m = arrays["win_dropped"][None]
-            casc_drop_m = arrays["casc_drop"][None]
+            wsel = arrays["wsel"]
+            n_win_m = arrays["n_win"]
+            win_dropped_m = arrays["win_dropped"]
+            casc_drop_m = arrays["casc_drop"]
             wvalid = (torch.arange(W, dtype=torch.int32,
                                    device=wsel.device)[None, None, :]
                       < n_win_m.clamp(max=W)[..., None])
 
         if cut == "nn":
-            s = torch.where(wvalid, cdc.dec(arrays, "scores", (M, W))[None],
+            s = torch.where(wvalid, cdc.dec_slots(arrays, "scores", (M, W)),
                             0.0)
-            auth = arrays["auth"][None]
+            auth = arrays["auth"]
             n_auth_m = auth.sum(dim=-1).to(torch.int32)
         else:
             if cut == "vj":
-                patches = cdc.dec(arrays, "patches", (M, W, 20, 20))[None]
+                patches = cdc.dec_slots(arrays, "patches", (M, W, 20, 20))
             s, auth, n_auth_m = st.nn(patches, wvalid)
 
         return st.scatter(B, fidx, motion, motion_dropped, n_win_m,
                           casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
                           n_auth_m)
+
+    def encode_slots(self, frames: torch.Tensor):
+        """Node half over a slot axis: (S, B, h, w) frames on the base
+        executor's device -> (arrays, wire_b (S,))."""
+        state = {"frames": frames}
+        for _name, fn in self.slot_stages():
+            state.update(fn(state))
+        return self.encode_slot_state(state)
 
     # -- execution -----------------------------------------------------------
 
@@ -292,8 +355,9 @@ class FaceAuthOffloadExecutor:
 
     def decode_run(self, payload: WirePayload):
         """Cloud half: wire payload -> FAExecResult."""
-        out = self._cloud_fn(payload.arrays, payload.meta["frames_shape"])
-        return FAExecResult(**{k: v[0] for k, v in out.items()})
+        out = self.decode_slots(_one_slot(payload.arrays),
+                                payload.meta["frames_shape"])
+        return FAExecResult(**_strip(out))
 
     def __call__(self, frames):
         payload = self.encode(frames)

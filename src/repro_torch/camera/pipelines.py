@@ -17,8 +17,11 @@ batch to batch once calibrated:
 
 Every stage takes a leading stream dimension: :meth:`run_streams` runs S
 camera feeds as one batch (the reference's vmap), and ``__call__`` is the
-S = 1 case.  ``batch_step`` and the telemetry counters of the reference
-come with the serving slice.
+S = 1 case.  :meth:`FaceAuthExecutor.batch_step` is the serving runtime's
+micro-batch step over the same funnel, sharded over a list of devices
+where the reference pmaps.  With ``telemetry=`` enabled the funnel also
+returns the reference's ``tel_`` counters, computed on the device from
+its outputs and folded into the telemetry panel without a host sync.
 
 The module also holds the §III pipeline as a ``core.pipeline.Pipeline``
 of work descriptors with its calibrated cost profiles (``fa_pipeline``,
@@ -31,6 +34,7 @@ panorama).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -58,6 +62,8 @@ from repro_torch.kernels.quant_matmul.ops import (
     nn_forward_quantized,
     quantize_nn,
 )
+from repro_torch.obs.counters import graph_counter, graph_counters
+from repro_torch.obs.telemetry import telemetry_on
 
 
 @dataclasses.dataclass
@@ -104,8 +110,8 @@ class FaceAuthExecutor:
     """The §III hot path: motion -> Viola-Jones -> 400-8-1 NN on one
     device, through the integral-image, Haar-stage and int8 NN kernels
     on a card.  Arguments are the reference's, less its JAX-only options
-    (``use_pallas``, ``interpret``, ``stream_parallel``, ``telemetry``),
-    plus ``device`` (the card when None)."""
+    (``use_pallas``, ``interpret``, ``stream_parallel``), plus ``device``
+    (the card when None)."""
 
     def __init__(self, cascade, nn, h: int, w: int, *, lut=None,
                  lut_meta=None, scale_factor: float = 1.25,
@@ -114,8 +120,12 @@ class FaceAuthExecutor:
                  motion_threshold: float = 0.004, motion_factor: int = 8,
                  frame_capacity: int | None = None,
                  window_capacity: int = 64, bits: int = 8,
-                 auth_threshold: float = 0.5, device=None):
+                 auth_threshold: float = 0.5, device=None, telemetry=None):
         self.device = resolve_device(device)
+        # §15 telemetry: when enabled the funnel returns tel_ int32
+        # counters beside its outputs; disabled runs today's funnel
+        self.telemetry = telemetry
+        self._tel_on = telemetry_on(telemetry)
         if lut is None:
             lut, lut_meta = make_sigmoid_lut(device=self.device)
         elif lut_meta is None:
@@ -250,10 +260,14 @@ class FaceAuthExecutor:
         self.stages = FunnelStages(
             motion=stage_motion, detect=stage_detect, gather=stage_gather,
             nn=stage_nn, scatter=stage_scatter, window_capacity=W)
+        # batch_step closures and device replicas capture the capacities
+        self._batch_steps = {}   # (n_streams, chunk, devices) -> step
+        self._replicas = {}      # str(device) -> executor on that device
 
     def _funnel(self, frames: torch.Tensor) -> dict:
         """(S, B, h, w) f32 on the executor's device -> result dict with a
-        leading S axis."""
+        leading S axis; with telemetry on, also the (S,) ``tel_``
+        counters of each stream (TELEMETRY_AUX["face_auth.funnel"])."""
         st = self.stages
         B = frames.shape[1]
         mframes, fidx, fvalid, motion, motion_dropped = st.motion(frames)
@@ -261,9 +275,16 @@ class FaceAuthExecutor:
         patches, wsel, wvalid, win_dropped_m = st.gather(
             mframes, dmask, n_win_m)
         s, auth, n_auth_m = st.nn(patches, wvalid)
-        return st.scatter(B, fidx, motion, motion_dropped, n_win_m,
-                          casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
-                          n_auth_m)
+        out = st.scatter(B, fidx, motion, motion_dropped, n_win_m,
+                         casc_drop_m, wsel, wvalid, win_dropped_m, s, auth,
+                         n_auth_m)
+        if self._tel_on:
+            out.update(graph_counters(
+                windows=out["n_windows"].sum(dim=1),
+                auth=out["n_auth"].sum(dim=1),
+                motion_dropped=out["motion_dropped"],
+                cascade_dropped=out["cascade_dropped"].sum(dim=1)))
+        return out
 
     def _frames(self, frames) -> torch.Tensor:
         return torch.as_tensor(frames, dtype=torch.float32,
@@ -298,15 +319,121 @@ class FaceAuthExecutor:
 
     # -- execution -----------------------------------------------------------
 
+    def _harvest(self, out: dict) -> dict:
+        """Fold the ``tel_`` counters of a funnel result into the panel
+        as device tensors (no host sync) and return the real outputs."""
+        if self._tel_on:
+            out = self.telemetry.counters.consume(out, prefix="fa.")
+        return out
+
     def __call__(self, frames) -> FAExecResult:
         """One stream: (B, h, w) frames -> :class:`FAExecResult`."""
-        out = self._funnel(self._frames(frames)[None])
+        out = self._harvest(self._funnel(self._frames(frames)[None]))
         return FAExecResult(**{k: v[0] for k, v in out.items()})
 
     def run_streams(self, frames) -> FAExecResult:
         """S independent feeds: (S, B, h, w) -> FAExecResult with a leading
         S axis, all streams in one batch on one device."""
-        return FAExecResult(**self._funnel(self._frames(frames)))
+        return FAExecResult(**self._harvest(
+            self._funnel(self._frames(frames))))
+
+    def _replica(self, device: torch.device) -> "FaceAuthExecutor":
+        """This executor with its constants copied to ``device`` (itself
+        on its own device); cached until the next :meth:`calibrate`."""
+        if device == self.device:
+            return self
+        rep = self._replicas.get(str(device))
+        if rep is None:
+            rep = copy.copy(self)
+            rep.device = device
+            rep.det = copy.copy(self.det)
+            rep.det.device = device
+            rep.det._build()
+            rep._pos = self._pos.to(device)
+            rep.lut = self.lut.to(device)
+            q = self.qnn
+            rep.qnn = dataclasses.replace(
+                q, w1_q=q.w1_q.to(device), b1=q.b1.to(device),
+                w2_q=q.w2_q.to(device), b2=q.b2.to(device))
+            rep._rebuild()
+            self._replicas[str(device)] = rep
+        return rep
+
+    def batch_step(self, n_streams: int, chunk: int, devices=None):
+        """Capacity-padded micro-batch step for the serving runtime
+        (DESIGN.md §13).
+
+        Returns ``step(frames, valid) -> dict`` where ``frames`` is
+        ``(n_streams, chunk, h, w)`` and ``valid`` is ``(n_streams,)``
+        bool; the result dict has the :class:`FAExecResult` fields with a
+        leading ``n_streams`` axis (``motion_dropped`` becomes
+        ``(n_streams,)``), plus the ``tel_`` counters per slot when
+        telemetry is on.  Invalid slots carry the canonical quiet result —
+        ``motion`` False, ``window_id`` -1, everything else zero — what the
+        funnel gives a motionless chunk.
+
+        ``devices`` is a list of torch devices (the executor's own when
+        None).  When more than one is given and their count divides
+        ``n_streams``, the slots are cut into one shard per device, each
+        run on its device with the executor's constants copied there, and
+        the results gathered on the executor's device (the reference's
+        pmap); otherwise the whole batch runs on the executor's device.
+        An empty list raises.  Closures are cached per ``(n_streams,
+        chunk, device set)`` and invalidated by :meth:`calibrate`.
+        """
+        if devices is not None:
+            devices = tuple(torch.device(d) for d in devices)
+            if not devices:
+                raise ValueError("batch_step: devices must be non-empty "
+                                 "when given — a group with zero devices "
+                                 "cannot serve")
+        shard = (devices is not None and len(devices) > 1
+                 and n_streams % len(devices) == 0)
+        if not shard:
+            devices = None      # the single-device batch, whatever list
+        key = (int(n_streams), int(chunk),
+               None if devices is None else tuple(map(str, devices)))
+        cached = self._batch_steps.get(key)
+        if cached is not None:
+            return cached
+        home = self.device
+        runs = ([(self, slice(None))] if devices is None else
+                [(self._replica(d), slice(i * (n_streams // len(devices)),
+                                          (i + 1) * (n_streams
+                                                     // len(devices))))
+                 for i, d in enumerate(devices)])
+
+        def step(frames, valid):
+            self._check_step_args(frames, valid, n_streams, chunk)
+            frames = torch.as_tensor(frames, dtype=torch.float32)
+            valid = torch.as_tensor(valid, dtype=torch.bool, device=home)
+            parts = [ex._funnel(frames[sl].to(ex.device)) for ex, sl in runs]
+            out = (parts[0] if len(parts) == 1 else
+                   {k: torch.cat([p[k].to(home) for p in parts])
+                    for k in parts[0]})
+
+            def quiet(name, a):
+                keep = valid.reshape(valid.shape + (1,) * (a.dim() - 1))
+                fill = torch.full_like(a, -1 if name == "window_id" else 0)
+                return torch.where(keep, a, fill)
+
+            return {k: quiet(k, v) for k, v in out.items()}
+
+        self._batch_steps[key] = step
+        return step
+
+    @staticmethod
+    def _check_step_args(frames, valid, n_streams, chunk):
+        if tuple(frames.shape[:2]) != (n_streams, chunk):
+            raise ValueError(
+                f"batch_step closure is shape-bound: expected frames "
+                f"({n_streams}, {chunk}, h, w), got {tuple(frames.shape)} — "
+                "request a new closure via batch_step() instead of reusing "
+                "one across micro-batch geometries")
+        if tuple(valid.shape) != (n_streams,):
+            raise ValueError(
+                f"valid must be ({n_streams},) bool, got "
+                f"{tuple(valid.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -507,13 +634,17 @@ class VRRigExecutor:
     The pairs are the leading batch axis on one device: one integral-image
     launch per hypothesis chunk and one blur launch per refinement step
     cover the whole rig.  Arguments are the reference's, less its JAX-only
-    options (``use_pallas``, ``interpret``, ``rig_parallel``,
-    ``telemetry``), plus ``device`` (the card when None).
+    options (``use_pallas``, ``interpret``, ``rig_parallel``), plus
+    ``device`` (the card when None).  With ``telemetry=`` enabled, each
+    rig frame adds its pairs and views to the ``vr.pairs`` / ``vr.views``
+    counters as device tensors.
     """
 
     def __init__(self, spec, max_disp: int = 32, n_iters: int = 8,
-                 ipd_px: float = 6.0, device=None):
+                 ipd_px: float = 6.0, device=None, telemetry=None):
         self.device = resolve_device(device)
+        self.telemetry = telemetry
+        self._tel_on = telemetry_on(telemetry)
         self.spec = spec
         self.max_disp = max_disp
         self.n_iters = n_iters
@@ -530,12 +661,20 @@ class VRRigExecutor:
 
     def depth_maps(self, lefts, rights) -> torch.Tensor:
         """(n_pairs, h, w) x2 -> (n_pairs, h, w) refined depth."""
-        return self.pair_depth(self._views(lefts), self._views(rights))
+        depths = self.pair_depth(self._views(lefts), self._views(rights))
+        if self._tel_on:
+            self.telemetry.counters.add("vr.pairs", graph_counter(
+                depths.shape[0], device=depths.device))
+        return depths
 
     def panorama(self, lefts, rights, depths):
         """(left_pano, right_pano) from per-pair views + depth maps."""
-        return self.pano_fn(self._views(lefts), self._views(rights),
-                            self._views(depths))
+        lefts = self._views(lefts)
+        pano = self.pano_fn(lefts, self._views(rights), self._views(depths))
+        if self._tel_on:
+            self.telemetry.counters.add("vr.views", graph_counter(
+                2 * lefts.shape[0], device=lefts.device))
+        return pano
 
     def __call__(self, lefts, rights):
         """Full rig frame: returns (left_pano, right_pano, depths)."""

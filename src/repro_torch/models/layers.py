@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 
 def pin_matmul_precision():
     """Matrix products of the LM path accumulate in float32, as the
@@ -180,8 +182,9 @@ def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
     computes inside its compiled model, where XLA folds the constant in
     float64.  (Its op-by-op ``jnp`` power, like ``torch.pow`` in float32,
     is an ulp off at 17-25 of d = 128's 64 frequencies, which moves a key
-    by ~3e-5 of its size at position 650.)  Computed once per device."""
-    return _rope_freqs(d_head, float(theta), torch.device(device or "cpu"))
+    by ~3e-5 of its size at position 650.)  Computed once per device;
+    ``device`` None is the card, as everywhere in the port."""
+    return _rope_freqs(d_head, float(theta), resolve_device(device))
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

@@ -16,14 +16,25 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cost_volume64, lm_record_check, near_integer_canvas
+from chip_smoke import (
+    VJ8_CODEC_ERR,
+    cost_volume64,
+    lm_record_check,
+    near_integer_canvas,
+    serving_record_check,
+    serving_replay,
+    serving_videos,
+    vj8_codec_error,
+)
 from test_torch_pipeline import matched_scores
 
 from repro_torch.bridge import (
     ASSET,
     OFFLOAD_ASSET,
+    SERVING_ASSET,
     load_fa_reference,
     load_offload_reference,
+    load_serving_reference,
 )
 from repro_torch.camera.offload import FaceAuthOffloadExecutor
 from repro_torch.camera.pipelines import (
@@ -274,3 +285,65 @@ def test_port_matches_lm_asset(lm, name):
                            device="cpu")
     worst, tol, compared = lm_record_check(model, rec)
     assert worst < tol and compared >= 32
+
+
+# -- the serving reference (assets/serving_reference.npz) ---------------------
+
+
+@pytest.fixture(scope="module")
+def serving():
+    return load_serving_reference()
+
+
+def test_serving_asset_is_small_and_holds_the_fleet(serving):
+    assert os.path.getsize(SERVING_ASSET) < 1 << 20
+    assert serving.config == dict(chunk=4, capacity=4, tick_s=1.0,
+                                  max_queue_s=8.0)
+    assert sorted({(c, b) for _s, c, b, _v in serving.streams},
+                  key=str) == sorted({(None, None), ("sensor", 8),
+                                      ("motion", 8), ("vj", 8)}, key=str)
+    assert len(serving.streams) == 8 and serving.ticks == 8
+    assert len(serving.script) == 8 * 8 * serving.frames_per_tick
+    for run in ("clean", "chaos"):
+        reps = serving.reports[run]
+        n = sum(len(r["completions"]) for r in reps)
+        assert len(serving.results[run]["motion_dropped"]) == n
+        assert serving.results[run]["scores"].shape == (4 * n, 192)
+        assert serving.audits[run]["ok"]
+    chaos = serving.reports["chaos"]
+    assert sum(r["n_failed_tx"] for r in chaos) > 0
+    assert sum(len(r["ladder_moves"]) for r in chaos) > 0
+    assert serving_videos(serving)          # regenerated, sha256 held
+
+
+@pytest.mark.parametrize("run,ticks", [("clean", 3), ("chaos", 3)])
+def test_port_replays_the_serving_record(ref, serving, run, ticks):
+    """The record's fleet through the port on the CPU at full width, at a
+    reduced depth: what chip_smoke holds the card to.  A few sensor,
+    motion and vj chunks hold a window that the port's integral image
+    moves across a stage decision against JAX's (ROADMAP queue 3); the
+    check holds those by outcome and counts them."""
+    frames, _ = security_video(**ref.video)
+    ex = FaceAuthExecutor(ref.cascade, ref.nn, 144, 176, device="cpu",
+                          **ref.scan)
+    ex.calibrate(frames)
+    srv, reports = serving_replay(ex, serving, run, serving_videos(serving),
+                                  ticks=ticks)
+    exact, outcome, flips, vj_diff = serving_record_check(run, serving, run,
+                                                          reports)
+    assert exact + outcome == sum(len(r.completions) for r in reports)
+    assert (outcome, flips, vj_diff) == (1, 1, 0.0)    # sensor-h, third tick
+    assert srv.seq_audit()["ok"]
+
+
+def test_vj8_codec_error_is_the_bound_reading(ref, serving):
+    """VJ8_CODEC_ERR, of which serving_record_check makes its bound on
+    the vj scores of windows both sides find, is this reading: the 8-bit
+    codec's largest score error on the record's videos, chunk by chunk."""
+    frames, _ = security_video(**ref.video)
+    ex = FaceAuthExecutor(ref.cascade, ref.nn, 144, 176, device="cpu",
+                          **ref.scan)
+    ex.calibrate(frames)
+    err = vj8_codec_error(ex, serving_videos(serving),
+                          serving.config["chunk"])
+    assert VJ8_CODEC_ERR - 1e-4 < err <= VJ8_CODEC_ERR

@@ -466,3 +466,21 @@ def test_cli_smoke_flag_reaches_full_configs(monkeypatch):
         with pytest.raises(SystemExit):
             serve_cli.main(["--device", "cpu", flag])
     assert seen == [True, False]
+
+
+def test_rope_freqs_resolves_its_device(monkeypatch):
+    """``rope_freqs`` picks its device as every entry point does: the CPU
+    when asked for it, with the float64 fold rounded once; the card when
+    None, which raises where there is none rather than falling back."""
+    from repro_torch.models.layers import rope_freqs
+
+    exact = 1.0 / 10000.0 ** (np.arange(0, 128, 2) / 128)
+    got = rope_freqs(128, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), exact.astype(np.float32))
+    assert rope_freqs(128, device=torch.device("cpu")) is got   # cached
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rope_freqs(128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rope_freqs(64, device=None)
