@@ -48,6 +48,24 @@ that the float32 one holds no tensor-core instruction, then:
    one computes the same function (CUDA events around back-to-back calls;
    the library call's device time, all its kernels, in the profile
    phase);
+   then the training phase — the §III training path at full width on
+   the card (``assets/train_reference.npz``): harvests the hard negatives
+   and trains the 10x33 cascade (``train_cascade``, features on the card,
+   every ``integral_image`` launch held to its plain version bit for
+   bit), which must pick the asset's 99 stumps and polarities with
+   thresholds within THRESHOLD_TOL and alphas and stage thresholds within
+   CASCADE_TOL, and equal the same training on the CPU bit for bit;
+   ``cascade_apply`` of the asset's cascade on the training windows
+   against JAX's; the ``integral_image`` row at the training shape
+   (2 x 2,300 windows of 20x20); the NN fitted from JAX's initial weights
+   and batch schedule within NN_TOL of the asset's with JAX's
+   classification error; the port's own seeded ``train_face_nn`` by
+   tests/test_camera_pipeline.py's outcome rules; the funnel on the
+   port-trained models against the JAX executor's record (capacities and
+   motion equal, at most 2 window flips, auths within them); the golden
+   ``detect_faces`` against ``FusedDetector`` on two frames by the
+   borderline rule; and the wall times of the harvest, the cascade and
+   the NN training;
 5. VR phase — the §IV rig at full width (8 pairs ``stereo_pair(2160,
    3840, seed=s)``, sigma 16, max_disp 32, 8 refinement steps,
    ``assets/vr_reference.npz``): one rig frame with the launch counters
@@ -1036,6 +1054,350 @@ def offload_phase(ex, frames, res, flips):
 
 
 # -- §IV VR rig ---------------------------------------------------------------
+
+# -- the training phase ------------------------------------------------------
+
+THRESHOLD_TOL = 1e-5    # stump thresholds: features of two table orders
+CASCADE_TOL = 1e-9      # alphas and stage thresholds
+NN_TOL = 1e-4           # the fit from JAX's draws against the asset's NN
+TRAIN_STEPS = 1500      # fa_hotpath._workload's train_face_nn(steps=1500)
+BORDERLINE_TOL = 1e-4   # tests/test_detect.py:91's borderline rule
+
+
+def training_set(frames, truth):
+    """The full-width cascade's training windows: ``face_dataset(400,
+    seed=3)`` and the hard negatives harvested from the §III video
+    (``workloads.fa_cascade``).  Returns (X, y, n_faces, harvest ms)."""
+    from repro_torch.camera.synthetic import face_dataset
+    from repro_torch.camera.viola_jones import harvest_hard_negatives
+
+    X, y, _ = face_dataset(n_per_class=400, seed=3)
+    t0 = time.perf_counter()
+    neg = harvest_hard_negatives(frames, truth)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return (np.concatenate([X, neg]),
+            np.concatenate([y, np.zeros(len(neg), np.int32)]), len(X), ms)
+
+
+def cascade_check(label, got, want) -> dict:
+    """A trained cascade against the asset's: the same stumps (features
+    and polarities) and stage sizes, thresholds within THRESHOLD_TOL,
+    alphas and stage thresholds within CASCADE_TOL.  Returns the
+    readings."""
+    def rows(c):
+        return [(f.kind, f.y, f.x, f.h, f.w) for f in c.feats]
+
+    if rows(got) != rows(want) or got.stage_sizes != want.stage_sizes:
+        raise AssertionError(f"{label}: the cascade picked other stumps "
+                             f"({got.stage_sizes} vs {want.stage_sizes})")
+    if not np.array_equal(got.polarity, want.polarity):
+        raise AssertionError(f"{label}: polarities differ")
+    d = {k: float(np.abs(np.asarray(getattr(got, k), np.float64)
+                         - np.asarray(getattr(want, k), np.float64)).max())
+         for k in ("thresholds", "alphas", "stage_thresholds")}
+    print(f"{label}: {len(got.feats)} stumps, stages {got.stage_sizes}, "
+          f"features and polarities == the asset's; thresholds within "
+          f"{d['thresholds']:.3g}, alphas {d['alphas']:.3g}, stage "
+          f"thresholds {d['stage_thresholds']:.3g}", flush=True)
+    if d["thresholds"] > THRESHOLD_TOL or max(
+            d["alphas"], d["stage_thresholds"]) > CASCADE_TOL:
+        raise AssertionError(f"{label}: {d} beyond {THRESHOLD_TOL} / "
+                             f"{CASCADE_TOL}")
+    return d
+
+
+def cascades_bit_equal(a, b) -> bool:
+    return ([(f.kind, f.y, f.x, f.h, f.w) for f in a.feats]
+            == [(f.kind, f.y, f.x, f.h, f.w) for f in b.feats]
+            and a.stage_sizes == b.stage_sizes
+            and all(np.array_equal(np.asarray(getattr(a, k)).view(np.uint8),
+                                   np.asarray(getattr(b, k)).view(np.uint8))
+                    for k in ("thresholds", "polarity", "alphas",
+                              "stage_thresholds")))
+
+
+def nn_readings(nn, want, X, y) -> dict:
+    """A trained NN against the asset's: the largest weight difference,
+    the classification error on the training windows and the int8
+    weights of the funnel's quantization that differ."""
+    import torch
+
+    from repro_torch.camera.face_nn import classification_error, forward_float
+    from repro_torch.kernels.quant_matmul.ops import quantize_nn
+
+    diff = max(float((getattr(nn, k) - getattr(want, k)).abs().max())
+               for k in ("w1", "b1", "w2", "b2"))
+    x = torch.as_tensor(X, device=nn.w1.device)
+    q, qw = quantize_nn(nn), quantize_nn(want)
+    return {"max_abs": diff,
+            "error": classification_error(forward_float(nn, x), y),
+            "int8_differ": int((q.w1_q != qw.w1_q).sum()
+                               + (q.w2_q != qw.w2_q).sum())}
+
+
+def seeded_nn_check(device):
+    """The port's own seeded ``train_face_nn`` on tests/test_camera_
+    pipeline.py's split, held by that test's outcome rules (:58-86): the
+    LUT within 0.01 of float, 8 bits within 0.015 of float, 4 bits no
+    better than 8.  Returns (errors, wall ms)."""
+    import torch
+
+    from repro_torch.camera.face_nn import (
+        classification_error,
+        forward_float,
+        forward_lut,
+        forward_quantized,
+        make_sigmoid_lut,
+        train_face_nn,
+    )
+    from repro_torch.camera.synthetic import face_dataset
+
+    X, y, _ = face_dataset(n_per_class=250, seed=1)
+    ntr = int(0.9 * len(X))
+    t0 = time.perf_counter()
+    nn = train_face_nn(X[:ntr], y[:ntr], steps=TRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    xte, yte = torch.as_tensor(X[ntr:], device=device), y[ntr:]
+    lut, meta = make_sigmoid_lut(device=device)
+    e = {"float": classification_error(forward_float(nn, xte), yte),
+         "lut": classification_error(forward_lut(nn, xte, lut, meta), yte)}
+    for b in (16, 8, 4):
+        e[b] = classification_error(forward_quantized(nn, xte, b, lut, meta),
+                                    yte)
+    print(f"seeded train_face_nn on the card: test errors {e} "
+          f"({TRAIN_STEPS} steps, {ms:.1f} ms)", flush=True)
+    if not (abs(e["float"] - e["lut"]) <= 0.01
+            and e[8] - e["float"] <= 0.015 and e[4] >= e[8]):
+        raise AssertionError(f"the seeded NN breaks the outcome rules: {e}")
+    return e, ms
+
+
+def vj_borderline(cascade, frame, pos, device) -> bool:
+    """tests/test_detect.py:91's rule on the port's golden features: some
+    stump response or stage score of the window within BORDERLINE_TOL of
+    its threshold."""
+    from repro_torch.camera.viola_jones import eval_features_scaled
+
+    y, x, win = pos
+    F = eval_features_scaled(frame[None, y:y + win, x:x + win], win,
+                             cascade.feats, device=device).cpu().numpy()[0]
+    if np.min(np.abs(F - cascade.thresholds)) < BORDERLINE_TOL:
+        return True
+    pred = cascade.polarity * np.sign(F - cascade.thresholds)
+    pred[pred == 0] = 1.0
+    weighted = cascade.alphas * pred
+    off = 0
+    for si, size in enumerate(cascade.stage_sizes):
+        score = weighted[off:off + size].sum()
+        if abs(score - cascade.stage_thresholds[si]) < BORDERLINE_TOL:
+            return True
+        if score < cascade.stage_thresholds[si]:
+            break
+        off += size
+    return False
+
+
+def golden_check(cascade, frames, idx, scan, device) -> int:
+    """``detect_faces``, the golden per-window detector, against
+    ``FusedDetector`` on the frames ``idx`` (tests/test_detect.py:130):
+    every window found by one side only is borderline, at most
+    MAX_WINDOW_FLIPS of them.  Returns the number of flips."""
+    from repro_torch.camera.viola_jones import FusedDetector, detect_faces
+
+    det = FusedDetector(cascade, frames.shape[1], frames.shape[2],
+                        device=device, **scan)
+    dets, stats = det.detect(frames[idx])
+    flips = found = 0
+    for i, fused in zip(idx, dets):
+        ref, n_inv, _ = detect_faces(cascade, frames[i], device=device,
+                                     **scan)
+        if n_inv != stats["n_windows"]:
+            raise AssertionError(f"golden scan {n_inv} windows, fused "
+                                 f"{stats['n_windows']}")
+        diff = set(ref) ^ set(fused)
+        for pos in diff:
+            if not vj_borderline(cascade, frames[i], pos, device):
+                raise AssertionError(f"frame {i}: non-borderline mismatch "
+                                     f"at {pos}")
+        flips += len(diff)
+        found += len(ref)
+    print(f"detect_faces on frames {list(idx)}: {found} windows, {flips} "
+          f"borderline flips against FusedDetector ({stats['n_windows']} "
+          "scanned a frame)", flush=True)
+    if flips > MAX_WINDOW_FLIPS or not found:
+        raise AssertionError(f"{flips} flips, {found} windows")
+    return flips
+
+
+def trained_funnel_check(out, ref, base):
+    """The funnel's result ``out`` on port-trained models against the JAX
+    executor's on the asset's (``ref.outputs``): motion equal, at most
+    MAX_WINDOW_FLIPS windows found by one side only, auths within the
+    flips.  Counts the windows shared with ``base``, the port's run on
+    the asset's models, whose score differs.  Returns (flips, moved)."""
+    keys = ("motion", "n_windows", "n_auth", "window_id", "window_valid",
+            "scores")
+    got = {k: getattr(out, k).cpu().numpy() for k in keys}
+    was = {k: getattr(base, k).cpu().numpy() for k in keys}
+    o = ref.outputs
+    if not np.array_equal(got["motion"], o["motion"]):
+        raise AssertionError("motion frames differ from the asset's")
+    flips = moved = 0
+    for i in range(len(got["motion"])):
+        def scored(r):
+            v = r["window_valid"][i]
+            return dict(zip(r["window_id"][i][v], r["scores"][i][v]))
+        mine, theirs, before = scored(got), scored(o), scored(was)
+        flips += len(set(mine) ^ set(theirs))
+        moved += sum(mine[k].view(np.int32) != before[k].view(np.int32)
+                     for k in set(mine) & set(before))
+    n_win, n_auth = int(got["n_windows"].sum()), int(got["n_auth"].sum())
+    print(f"funnel on the port-trained models: {int(got['motion'].sum())} "
+          f"motion frames, {n_win} windows, {n_auth} auth (JAX "
+          f"{int(o['n_windows'].sum())}, {int(o['n_auth'].sum())}); {flips} "
+          f"window flips; {moved} shared windows score otherwise than on "
+          "the asset's models", flush=True)
+    if (flips > MAX_WINDOW_FLIPS
+            or abs(n_auth - int(o["n_auth"].sum())) > flips):
+        raise AssertionError(f"{flips} flips, {n_auth} auth")
+    return flips, moved
+
+
+def training_phase(ref, frames_np, truth, res, card, probes,
+                   device="cuda"):
+    """Train the §III cascade and NN on the card at full width and hold
+    them to the JAX-trained asset; drive the funnel with them.  ``res``
+    is the main path's result on the asset's models.  Returns the
+    ``integral_image`` row at the training shape."""
+    import torch
+
+    from repro_torch.bridge import load_train_reference
+    from repro_torch.camera.face_nn import fit_face_nn
+    from repro_torch.camera.pipelines import FaceAuthExecutor
+    from repro_torch.camera.viola_jones import (
+        cascade_apply,
+        eval_features,
+        make_feature_pool,
+        train_cascade,
+    )
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.integral_image import cuda as icuda
+    from repro_torch.kernels.integral_image.ref import integral_image_ref
+
+    tr = load_train_reference(device=device)
+    X, y, n_faces, harvest_ms = training_set(frames_np, truth)
+    if (n_faces, len(X) - n_faces) != (2 * tr.n_per_class, tr.n_negatives):
+        raise AssertionError(f"{len(X)} training windows")
+    pool = make_feature_pool(n=250)
+
+    # 1, 3: the cascade on the card, every integral launch held (the
+    # training path launches no other serving kernel)
+    with serve_kernels_as(None, "held") as held:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        casc = train_cascade(X, y, pool, device=device)
+        cascade_ms = 1e3 * (time.perf_counter() - t0)
+        launches = _build.launches["integral_image"]
+    seen = held.get("integral_image", [])
+    print(f"train_cascade on the card: {launches} integral_image launches "
+          f"({seen}), each == plain bit for bit; {cascade_ms:.1f} ms",
+          flush=True)
+    if launches < 1 or len(seen) != launches:
+        raise AssertionError("train_cascade never launched integral_image")
+    cascade_check("train_cascade (card)", casc, ref.cascade)
+
+    # 2: the same training on the CPU
+    F_card = eval_features(X.reshape(-1, 20, 20), pool, device=device).cpu()
+    F_cpu = eval_features(X.reshape(-1, 20, 20), pool, device="cpu")
+    cpu = train_cascade(X, y, pool, device="cpu")
+    if not (_bits_equal(F_card, F_cpu) and cascades_bit_equal(casc, cpu)):
+        raise AssertionError("the card's features or cascade differ from "
+                             "the CPU port's")
+    print(f"features {tuple(F_card.shape)} and cascade: card == CPU port "
+          "bit for bit", flush=True)
+    acc, evals = cascade_apply(ref.cascade, X.reshape(-1, 20, 20),
+                               device=device)
+    acc, evals = acc.cpu().numpy(), evals.cpu().numpy()
+    apply_flips = int((acc != tr.accepted).sum())
+    print(f"cascade_apply of the asset's cascade on the {len(X)} training "
+          f"windows: {int(acc.sum())} accepted, {int(evals.sum())} stage "
+          f"evaluations (JAX {int(tr.accepted.sum())}, "
+          f"{int(tr.stage_evals.sum())}); {apply_flips} windows differ",
+          flush=True)
+    if apply_flips > MAX_WINDOW_FLIPS:
+        raise AssertionError(f"cascade_apply: {apply_flips} flips")
+
+    # the kernel at the training shape (row 1c)
+    w = torch.as_tensor(X.reshape(-1, 20, 20), device=device)
+    x = torch.cat([w, w * w]).contiguous()
+    got = icuda.integral_image_cuda(x)
+    if not torch.equal(got, integral_image_ref(x)):
+        raise AssertionError("integral_image at the training shape differs "
+                             "from plain")
+    row = kernel_row(
+        probes, "integral_image", icuda, launches, 0.0,
+        lambda: icuda.integral_image_cuda(x),
+        device_ms(lambda: integral_image_ref(x), reps=5, warm=1),
+        device_ms(lambda: torch.cumsum(torch.cumsum(x, -2), -1)),
+        4 * (x.numel() + got.numel()), 2 * x.numel(), PEAK_F32_OPS_S,
+        shape="x".join(map(str, x.shape)),
+        library_fn=lambda: torch.cumsum(torch.cumsum(x, -2), -1))
+
+    # 4: the NN from JAX's initial weights and schedule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nn = fit_face_nn(tr.init, X[:n_faces], y[:n_faces], tr.batches)
+    torch.cuda.synchronize()
+    nn_ms = 1e3 * (time.perf_counter() - t0)
+    r = nn_readings(nn, ref.nn, X[:n_faces], y[:n_faces])
+    print(f"fit_face_nn on the card from JAX's draws: weights within "
+          f"{r['max_abs']:.3g} of the asset's, error {r['error']} (JAX "
+          f"{tr.classification_error}), {r['int8_differ']} int8 weights "
+          f"differ; {TRAIN_STEPS} steps {nn_ms:.1f} ms", flush=True)
+    if r["max_abs"] > NN_TOL or r["error"] != tr.classification_error:
+        raise AssertionError(f"the NN: {r}")
+
+    # 5: the port's own seeded training
+    _errors, seeded_ms = seeded_nn_check(device)
+
+    # 6: the funnel on the port-trained models
+    frames = torch.as_tensor(frames_np, device=device)
+    ex = FaceAuthExecutor(casc, nn, frames.shape[1], frames.shape[2],
+                          device=device, **ref.scan)
+    caps = ex.calibrate(frames)
+    if caps != (ref.frame_capacity, ref.window_capacity,
+                ref.cascade_capacities):
+        raise AssertionError(f"capacities {caps}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = ex(frames)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    print(f"funnel on the port-trained models: launches {counts}, "
+          f"capacities {caps}", flush=True)
+    trained_funnel_check(out, ref, res)
+    for name in ("integral_image", "haar_stage", "quant_nn"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"the trained funnel never launched {name}")
+
+    # 7: the golden detector on two frames with detections
+    idx = [int(i) for i in np.where(ref.outputs["n_windows"] > 0)[0][:2]]
+    with serve_kernels_as(None, "held") as held:
+        golden_check(casc, frames_np, idx, ref.scan, device)
+    seen = held.get("integral_image", [])
+    print(f"detect_faces and the fused detector: {len(seen)} integral_image "
+          f"launches at {sorted({s[1:] for s in seen})}, each == plain bit "
+          "for bit", flush=True)
+
+    # 8: the times
+    print(f"training on {card}: harvest_hard_negatives {harvest_ms:.1f} ms, "
+          f"train_cascade {cascade_ms:.1f} ms, train_face_nn({TRAIN_STEPS} "
+          f"steps) {nn_ms:.1f} ms from JAX's draws, {seeded_ms:.1f} ms "
+          "seeded (host clock)", flush=True)
+    return row
+
 
 VR_CUTS = ("capture", "depth", "stitch")
 DEPTH_ATOL = 1e-5     # card vs CPU port: same IEEE operations, 0 expected
@@ -2261,7 +2623,8 @@ def serve_kernels_as(qnn, mode):
     ``mode`` "held", each kernel and then its plain version on the same
     inputs, held bit for bit (a difference raises), and yield
     {kernel: [input shape of each call]}; with ``mode`` "plain", the plain
-    versions alone, in the kernels' place."""
+    versions alone, in the kernels' place.  ``qnn`` may be None where no
+    ``quant_nn`` launch follows."""
     seen, saved = {}, []
 
     def held(name, kernel, plain):
@@ -3328,7 +3691,7 @@ def main() -> int:
     wgmma_check()
 
     ref = load_fa_reference(device="cuda")
-    frames_np, _truth = security_video(**ref.video)
+    frames_np, truth = security_video(**ref.video)
     frames = torch.as_tensor(frames_np, device="cuda")
     ex = FaceAuthExecutor(ref.cascade, ref.nn, frames.shape[1],
                           frames.shape[2], device="cuda", **ref.scan)
@@ -3343,6 +3706,7 @@ def main() -> int:
     offload_counts, offload_target = offload_phase(ex, frames, res, flips)
     rows, probes = kernel_phase(ex, frames, {**counts, **{
         k: offload_counts[k] for k in ("wire_encode", "wire_decode")}})
+    rows.append(training_phase(ref, frames_np, truth, res, card, probes))
 
     vr = load_vr_reference()
     vr_ex, views, fused, vr_counts, vr_ms = vr_phase(vr)

@@ -1,12 +1,14 @@
-"""Carry trained parameters into the port.
+"""Carry trained parameters and JAX records into the port.
 
-The port cannot train yet, so its main path runs on parameters trained by
-the JAX package.  These functions take them duck-typed — objects with the
-reference's field names (``Cascade``: ``feats`` of ``HaarFeature``-like
-objects or (kind, y, x, h, w) rows, ``thresholds``, ``polarity``,
-``alphas``, ``stage_sizes``, ``stage_thresholds``; ``FaceNN``: ``w1``,
-``b1``, ``w2``, ``b2``), with any array type numpy can read — and build the
-port's own ``Cascade`` / ``FaceNN``.
+The port's main path runs on parameters trained by the JAX package (the
+port trains its own with ``camera.viola_jones.train_cascade`` and
+``camera.face_nn.train_face_nn``, held to these).  These functions take
+them duck-typed — objects with the reference's field names (``Cascade``:
+``feats`` of ``HaarFeature``-like objects or (kind, y, x, h, w) rows,
+``thresholds``, ``polarity``, ``alphas``, ``stage_sizes``,
+``stage_thresholds``; ``FaceNN``: ``w1``, ``b1``, ``w2``, ``b2``), with
+any array type numpy can read — and build the port's own ``Cascade`` /
+``FaceNN``.
 
 :func:`load_fa_reference` reads ``assets/fa_reference.npz``: the
 full-width §III workload's trained parameters, scan and calibrated
@@ -34,6 +36,13 @@ fleet (local, sensor-8, motion-8, vj-8), clean and under a Gilbert-Elliott
 chaos spec: every tick report and completion, with the fleet, its videos,
 the enqueue script and the config it ran (written by
 ``benchmarks/torch_export_serving_reference.py``).
+
+:func:`load_train_reference` reads ``assets/train_reference.npz``: the
+initial weights and the batch-index schedule from which JAX trained the
+NN of ``fa_reference.npz``, JAX's classification error of that NN on its
+training windows, and JAX's ``cascade_apply`` of the asset's cascade on
+the cascade's training windows (written by
+``benchmarks/torch_export_train_reference.py``).
 
 The LM stack has no trained weights: :func:`numpy_lm_params` draws a
 parameter tree in the JAX ``Model.init`` layout from numpy's generator, so
@@ -66,6 +75,7 @@ VR_ASSET = ASSET.parent / "vr_reference.npz"
 LM_ASSET = ASSET.parent / "lm_reference.npz"
 RESILIENCE_ASSET = ASSET.parent / "resilience_reference.npz"
 SERVING_ASSET = ASSET.parent / "serving_reference.npz"
+TRAIN_ASSET = ASSET.parent / "train_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -139,6 +149,35 @@ def load_fa_reference(path=None, device=None) -> FAReference:
                                    "window_id", "window_valid", "scores",
                                    "total_dropped")})
 
+
+@dataclasses.dataclass(frozen=True)
+class TrainReference:
+    """What JAX trained the §III NN from, and its training outcomes."""
+
+    init: FaceNN                  # init_face_nn(PRNGKey(0), 400, 8)
+    batches: torch.Tensor         # (1500, 128) int64 batch indices
+    classification_error: float   # the trained NN, float path, 800 windows
+    accepted: np.ndarray          # (2300,) cascade_apply of the asset's
+    stage_evals: np.ndarray       # (2300,) cascade on its training windows
+    n_per_class: int              # face_dataset(n_per_class, seed)
+    data_seed: int
+    n_negatives: int              # hard negatives from security_video()
+
+
+def load_train_reference(path=None, device=None) -> TrainReference:
+    """Load the exported training inputs; the weights and the schedule go
+    to ``device`` (the card when None)."""
+    with np.load(TRAIN_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    n_per_class, seed, n_neg = (int(v) for v in z["dataset"])
+    return TrainReference(
+        init=face_nn_from(SimpleNamespace(**{k: z[k] for k in (
+            "w1", "b1", "w2", "b2")}), device),
+        batches=torch.as_tensor(z["batches"].astype(np.int64),
+                                device=resolve_device(device)),
+        classification_error=float(z["classification_error"]),
+        accepted=z["accepted"], stage_evals=z["stage_evals"],
+        n_per_class=n_per_class, data_seed=seed, n_negatives=n_neg)
 
 @dataclasses.dataclass(frozen=True)
 class OffloadReference:

@@ -1,14 +1,26 @@
-"""Viola-Jones face detection, inference surface (paper §III-B).
+"""Viola-Jones face detection (paper §III-B): Haar features, AdaBoost
+cascade training, scanning.
 
-The port of the JAX package's ``camera/viola_jones.py`` minus training:
-Haar features and their corner-tap decomposition, the scan pyramid, the
-gather tables, and the frame-resident fused detector
-(:class:`FusedDetector`): one integral image of each frame and of its
-square (one launch of the integral-image kernel for the batch), per-window
-variance normalizers, and a compacting cascade whose every stage is one
-launch of the Haar-stage kernel over all frames.  Scaled-feature
-semantics as in the reference: the features are scaled to the window, not
-the window resampled.
+The port of the JAX package's ``camera/viola_jones.py``: Haar features and
+their corner-tap decomposition, the feature evaluation on each window's
+integral image (:func:`eval_features`, :func:`eval_features_scaled`), the
+AdaBoost cascade training (:func:`train_cascade`) with hard-negative
+bootstrapping (:func:`harvest_hard_negatives`), the cascade on canonical
+windows (:func:`cascade_apply`), the golden per-window detector
+(:func:`detect_faces`), the scan pyramid, the gather tables, and the
+frame-resident fused detector (:class:`FusedDetector`): one integral image
+of each frame and of its square (one launch of the integral-image kernel
+for the batch), per-window variance normalizers, and a compacting cascade
+whose every stage is one launch of the Haar-stage kernel over all frames.
+Scaled-feature semantics as in the reference: the features are scaled to
+the window, not the window resampled.
+
+The feature evaluation takes its tables from the integral-image kernel
+(its plain version on the CPU, which the kernel equals bit for bit), so
+the card and the CPU give the same features, and follows the reference's
+arithmetic in its order.  The stump search of :func:`train_cascade` runs
+on the host in numpy float64, as the reference's does, on the feature
+matrix copied there once.
 
 Geometry (``HaarFeature``, ``scale_feature``, ``scan_positions``,
 ``build_scan_grid``, ``build_gather_tables``) is plain Python and numpy,
@@ -23,14 +35,16 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.camera.integral import frame_integral
+from repro_torch.camera.integral import frame_integral, window_sum
 from repro_torch.core.cascade import (
     Stage as CoreStage,
     capacities_from_counts,
     compacting_cascade,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.haar_frontend.ops import haar_stage_scores
+from repro_torch.kernels.haar_frontend.ref import _sign
+from repro_torch.kernels.integral_image.ops import integral_image
 
 BASE = 20    # canonical window resolution (matches the NN input 20x20)
 CORNER_SLOTS = 8     # max corner taps per feature (3-rect decomposition)
@@ -124,6 +138,84 @@ def feature_corners(f: HaarFeature):
             (y + 2 * h3, x + w, -3.0), (y + h, x + w, 1.0)]
 
 
+def _rects(f: HaarFeature):
+    """The rectangles (y, x, h, w) the reference's ``_haar_response``
+    sums: two for a 2-rect feature, three for a 3-rect one."""
+    if f.kind == 0:
+        hw = f.w // 2
+        return [(f.y, f.x, f.h, hw), (f.y, f.x + hw, f.h, hw)]
+    if f.kind == 1:
+        hh = f.h // 2
+        return [(f.y, f.x, hh, f.w), (f.y + hh, f.x, hh, f.w)]
+    if f.kind == 2:
+        w3 = f.w // 3
+        return [(f.y, f.x + k * w3, f.h, w3) for k in range(3)]
+    h3 = f.h // 3
+    return [(f.y + k * h3, f.x, h3, f.w) for k in range(3)]
+
+
+def _haar_response(ii: torch.Tensor, feats: list) -> torch.Tensor:
+    """Raw (unnormalized) responses (n, n_feats) of ``feats`` on the
+    tables ``ii`` (n, s+1, s+1), by rectangle sums in the reference's
+    order: a window sum is ((A - B) - C) + D over its corners (y+h, x+w),
+    (y, x+w), (y+h, x), (y, x); a 2-rect feature is r0 - r1, a 3-rect one
+    (r0 + r2) - 2 r1.  One gather for all features."""
+    stride = ii.shape[-1]
+    idx = np.zeros((len(feats), 3, 4), np.int64)
+    three = np.zeros(len(feats), bool)
+    for k, f in enumerate(feats):
+        rects = _rects(f)
+        three[k] = len(rects) == 3
+        for r, (y, x, h, w) in enumerate(rects):
+            idx[k, r] = ((y + h) * stride + x + w, y * stride + x + w,
+                         (y + h) * stride + x, y * stride + x)
+    dev = ii.device
+    t = ii.reshape(ii.shape[0], -1)[:, torch.as_tensor(idx.reshape(-1),
+                                                       device=dev)]
+    t = t.reshape(ii.shape[0], len(feats), 3, 4)
+    r = ((t[..., 0] - t[..., 1]) - t[..., 2]) + t[..., 3]
+    return torch.where(torch.as_tensor(three, device=dev),
+                       (r[..., 0] + r[..., 2]) - 2 * r[..., 1],
+                       r[..., 0] - r[..., 1])
+
+
+def _features(patches, win: int, feats: list, device) -> torch.Tensor:
+    """Variance-normalized responses of features already at ``win``.
+
+    The tables of the patches and of their squares come from one launch of
+    the integral-image kernel.  The standard deviation is a float64 square
+    root rounded once to float32: the correctly rounded float32 root, as
+    the reference's (PyTorch's float32 ``sqrt`` on the CPU is not
+    correctly rounded; one window in 800 of the face set differs)."""
+    p = as_tensor(patches, device).to(torch.float32).reshape(-1, win, win)
+    n = p.shape[0]
+    tables = integral_image(torch.cat([p, p * p]))
+    ii, sq = tables[:n], tables[n:]
+    # a tensor divisor: CUDA turns division by a host scalar into a
+    # multiply by its reciprocal, which rounds otherwise
+    area = torch.tensor(float(win * win), device=p.device)
+    mu = window_sum(ii, 0, 0, win, win) / area
+    var = window_sum(sq, 0, 0, win, win) / area - mu * mu
+    sd = torch.sqrt(var.clamp(min=1e-6).double()).float()
+    return _haar_response(ii, feats) / (sd * win * win)[:, None]
+
+
+def eval_features(windows, feats: list, *, device=None) -> torch.Tensor:
+    """windows (n, 20, 20) -> (n, n_feats) Haar responses, variance
+    normalized, on the windows' device (a tensor) or ``device`` (the card
+    when None)."""
+    return _features(windows, BASE, feats, device)
+
+
+def eval_features_scaled(patches, win: int, feats: list, *,
+                         device=None) -> torch.Tensor:
+    """Native-resolution windows (n, win, win) -> (n, n_feats) responses
+    with the canonical features scaled to the window.  At ``win == BASE``
+    this is :func:`eval_features`."""
+    return _features(patches, win, [scale_feature(f, win) for f in feats],
+                     device)
+
+
 # ---------------------------------------------------------------------------
 # The trained cascade (10 stages x 33 weak classifiers, Table I)
 # ---------------------------------------------------------------------------
@@ -141,6 +233,122 @@ class Cascade:
     @property
     def n_stages(self):
         return len(self.stage_sizes)
+
+
+def train_cascade(X, y, pool: list, n_stages: int = 10, per_stage: int = 33,
+                  stage_recall: float = 0.995, seed: int = 0, *,
+                  device=None) -> Cascade:
+    """AdaBoost decision stumps per stage; stage thresholds set to hit
+    ``stage_recall`` on training positives (the classic VJ construction).
+    The features are evaluated on ``device`` (the card when None) and
+    copied to the host once; the boosting runs there (:func:`_boost`)."""
+    X = np.asarray(X, np.float32)
+    F = eval_features(X.reshape(-1, BASE, BASE), pool, device=device)
+    return _boost(F.cpu().numpy(), np.asarray(y), pool, n_stages, per_stage,
+                  stage_recall, seed)
+
+
+def _boost(F: np.ndarray, y: np.ndarray, pool: list, n_stages: int = 10,
+           per_stage: int = 33, stage_recall: float = 0.995,
+           seed: int = 0) -> Cascade:
+    """The reference's stump search and stage loop on a float32 feature
+    matrix F (n, n_pool), in numpy float64 with its draws and its sort."""
+    rng = np.random.default_rng(seed)
+    yb = y.astype(np.float64) * 2 - 1
+
+    active = np.ones(len(F), bool)                   # survivors so far
+    feats, thresholds, polarity, alphas = [], [], [], []
+    stage_sizes, stage_thrs = [], []
+
+    for _ in range(n_stages):
+        idx = np.where(active)[0]
+        if len(idx) < 10 or (y[idx] == 1).sum() < 5 or (y[idx] == 0).sum() < 2:
+            break
+        Xi, yi = F[idx], yb[idx]
+        w = np.ones(len(idx)) / len(idx)
+        stage_score = np.zeros(len(idx))
+        stage_feats = []
+        for _k in range(per_stage):
+            # best stump over a random subsample of the pool
+            cand = rng.choice(len(pool), size=min(80, len(pool)), replace=False)
+            best = None
+            for ci in cand:
+                vals = Xi[:, ci]
+                order = np.argsort(vals)
+                sv, sy, sw = vals[order], yi[order], w[order]
+                cum_pos = np.cumsum(sw * (sy > 0))
+                cum_neg = np.cumsum(sw * (sy < 0))
+                tot_pos, tot_neg = cum_pos[-1], cum_neg[-1]
+                # polarity +1: predict + if val > thr
+                err_p = cum_pos + (tot_neg - cum_neg)
+                err_m = cum_neg + (tot_pos - cum_pos)
+                i_p, i_m = np.argmin(err_p), np.argmin(err_m)
+                if err_p[i_p] <= err_m[i_m]:
+                    err, i_thr, pol = err_p[i_p], i_p, 1.0
+                else:
+                    err, i_thr, pol = err_m[i_m], i_m, -1.0
+                thr = sv[min(i_thr, len(sv) - 1)]
+                if best is None or err < best[0]:
+                    best = (err, ci, thr, pol)
+            err, ci, thr, pol = best
+            err = min(max(err, 1e-10), 1 - 1e-10)
+            alpha = 0.5 * np.log((1 - err) / err)
+            pred = pol * np.sign(Xi[:, ci] - thr)
+            pred[pred == 0] = 1
+            w = w * np.exp(-alpha * yi * pred)
+            w /= w.sum()
+            stage_score += alpha * pred
+            feats.append(pool[ci])
+            thresholds.append(thr)
+            polarity.append(pol)
+            alphas.append(alpha)
+            stage_feats.append(ci)
+        # stage threshold for target recall on positives
+        pos_scores = np.sort(stage_score[yi > 0])
+        k = max(0, int((1 - stage_recall) * len(pos_scores)) - 1)
+        thr_stage = pos_scores[k] - 1e-9 if len(pos_scores) else 0.0
+        stage_thrs.append(thr_stage)
+        stage_sizes.append(len(stage_feats))
+        active[idx] = stage_score >= thr_stage
+
+    return Cascade(feats, np.array(thresholds), np.array(polarity),
+                   np.array(alphas), stage_sizes, np.array(stage_thrs))
+
+
+def _run_stages(cascade: Cascade, F: torch.Tensor, strictness: float = 0.0):
+    """Stump votes and the masked stage loop on features F (n, n_weak).
+
+    Returns (accepted (n,) bool, stage_evals (n,) int32: the stages a
+    data-dependent implementation evaluates per window, which the energy
+    model charges), on F's device."""
+    def on(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=F.device)
+
+    pred = on(cascade.polarity) * _sign(F - on(cascade.thresholds))
+    pred = torch.where(pred == 0, torch.ones_like(pred), pred)
+    weighted = on(cascade.alphas) * pred
+
+    alive = torch.ones(F.shape[0], dtype=torch.bool, device=F.device)
+    evals = torch.zeros(F.shape[0], dtype=torch.int32, device=F.device)
+    off = 0
+    for si, size in enumerate(cascade.stage_sizes):
+        evals = evals + alive.to(torch.int32)
+        # a sequential sum, as XLA's for stages of up to 20 stumps and the
+        # Haar-stage kernel's (torch.sum associates otherwise)
+        score = torch.zeros_like(alive, dtype=torch.float32)
+        for k in range(off, off + size):
+            score = score + weighted[:, k]
+        alive = alive & (score >= float(cascade.stage_thresholds[si])
+                         + strictness)
+        off += size
+    return alive, evals
+
+
+def cascade_apply(cascade: Cascade, windows, *, device=None):
+    """Run the cascade on canonical (n, 20, 20) windows (training scale):
+    (accepted, stage_evals) as :func:`_run_stages`."""
+    return _run_stages(cascade, eval_features(windows, cascade.feats,
+                                              device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +382,41 @@ def extract_windows(frame: np.ndarray, positions) -> np.ndarray:
         xx = (np.arange(BASE) * win // BASE).clip(0, win - 1)
         out[i] = patch[np.ix_(yy, xx)]
     return out
+
+
+def detect_faces(cascade: Cascade, frame, scale_factor=1.25, step=0.025,
+                 adaptive=True, strictness: float = 0.0, chunk: int = 1024,
+                 *, device=None):
+    """Full-frame detection, the slow golden oracle: (detections,
+    n_invocations, n_stage_evals).  Every scanning window is cut out at
+    native resolution, gets its own integral image, and is scored by
+    :func:`eval_features_scaled` and :func:`_run_stages` in scale-major
+    chunks on ``device`` (the card when None).  :class:`FusedDetector`
+    computes the same function from one frame-level integral image."""
+    device = resolve_device(device)
+    frame = np.asarray(frame, np.float32)
+    pos = scan_positions(frame.shape[0], frame.shape[1], scale_factor, step,
+                         adaptive)
+    if not pos:
+        return [], 0, 0
+    dets, total_evals = [], 0
+    i = 0
+    while i < len(pos):                 # scan order is scale-major
+        win = pos[i][2]
+        j = i
+        while j < len(pos) and pos[j][2] == win:
+            j += 1
+        for c0 in range(i, j, chunk):
+            group = pos[c0:min(c0 + chunk, j)]
+            patches = np.stack([frame[y:y + win, x:x + win]
+                                for (y, x, _w) in group])
+            F = eval_features_scaled(patches, win, cascade.feats,
+                                     device=device)
+            alive, evals = _run_stages(cascade, F, strictness)
+            dets.extend(group[k] for k in np.where(alive.cpu().numpy())[0])
+            total_evals += int(evals.sum())
+        i = j
+    return dets, len(pos), total_evals
 
 
 # ---------------------------------------------------------------------------
@@ -433,3 +676,25 @@ def detect_faces_batch(cascade: Cascade, frames, scale_factor=1.25,
         det.calibrate(frames[: min(4, len(frames))])
     return det.detect(frames)
 
+
+def harvest_hard_negatives(frames, truth, n: int = 1500, seed: int = 0):
+    """Bootstrap negatives from scene windows away from true faces (the
+    classic cascade-training trick): up to 10 frames drawn by
+    ``np.random.default_rng(seed)``, ``n // 10`` windows of a coarse scan
+    each, those within 15 pixels of a true face left out.  Returns float32
+    (m, 400) canonical windows, as the reference's."""
+    rng = np.random.default_rng(seed)
+    neg = []
+    idxs = rng.choice(len(frames), min(10, len(frames)), replace=False)
+    per = max(1, n // len(idxs))
+    for i in idxs:
+        pos = scan_positions(frames[i].shape[0], frames[i].shape[1], 1.6,
+                             0.08, True)
+        take = rng.choice(len(pos), min(per, len(pos)), replace=False)
+        wins = extract_windows(frames[i], [pos[j] for j in take])
+        for w, (yy, xx, _sz) in zip(wins, [pos[j] for j in take]):
+            near = any(abs(yy - fy) < 15 and abs(xx - fx) < 15
+                       for (fy, fx, _s) in truth[i]["faces"])
+            if not near:
+                neg.append(w.reshape(-1))
+    return np.stack(neg).astype(np.float32)

@@ -7,6 +7,12 @@ installed here: 22 motion frames, 550 windows, 108 auths.
 BENCH_fa_hotpath.json, measured with an earlier JAX, records 549 windows
 for the same workload: one window of the 10x33 cascade sits within float32
 rounding of a stage decision.
+
+The training record (assets/train_reference.npz, written by
+benchmarks/torch_export_train_reference.py) holds JAX's initial weights
+and batch schedule of that NN; from them the port trains it on the CPU,
+and trains the asset's cascade, as chip_smoke's training phase holds the
+card to.
 """
 
 import hashlib
@@ -16,25 +22,36 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from chip_smoke import (
     VJ8_CODEC_ERR,
+    cascade_check,
     cost_volume64,
     lm_record_check,
     near_integer_canvas,
+    nn_readings,
     serving_record_check,
     serving_replay,
     serving_videos,
+    trained_funnel_check,
+    training_set,
     vj8_codec_error,
 )
 from test_torch_pipeline import matched_scores
+from test_torch_train import jax_schedule
+
+from repro.camera.face_nn import init_face_nn as jax_init_face_nn
 
 from repro_torch.bridge import (
     ASSET,
     OFFLOAD_ASSET,
     SERVING_ASSET,
+    TRAIN_ASSET,
     load_fa_reference,
     load_offload_reference,
     load_serving_reference,
+    load_train_reference,
 )
 from repro_torch.camera.offload import FaceAuthOffloadExecutor
 from repro_torch.camera.pipelines import (
@@ -43,7 +60,13 @@ from repro_torch.camera.pipelines import (
     calibrate_fa,
     fa_pipeline,
 )
-from repro_torch.camera.synthetic import security_video
+from repro_torch.camera.face_nn import fit_face_nn
+from repro_torch.camera.synthetic import face_dataset, security_video
+from repro_torch.camera.viola_jones import (
+    cascade_apply,
+    make_feature_pool,
+    train_cascade,
+)
 
 # the test files run in parallel worker processes: one intra-op thread
 # per process keeps PyTorch's CPU kernels from oversubscribing the cores
@@ -347,3 +370,74 @@ def test_vj8_codec_error_is_the_bound_reading(ref, serving):
     err = vj8_codec_error(ex, serving_videos(serving),
                           serving.config["chunk"])
     assert VJ8_CODEC_ERR - 1e-4 < err <= VJ8_CODEC_ERR
+
+
+# -- the training reference (assets/train_reference.npz) ----------------------
+
+
+@pytest.fixture(scope="module")
+def train():
+    return load_train_reference(device="cpu")
+
+
+def test_train_asset_holds_what_jax_draws(train):
+    """The initial weights and the batch schedule are what JAX draws now
+    under the legacy threefry layout, the asset NN's."""
+    assert os.path.getsize(TRAIN_ASSET) < 1 << 20
+    assert (train.n_per_class, train.data_seed, train.n_negatives) == (
+        400, 3, 1500)
+    assert tuple(train.batches.shape) == (1500, 128)
+    with jax.threefry_partitionable(False):
+        init = jax_init_face_nn(jax.random.PRNGKey(0), 400, 8)
+        sched = jax_schedule(1500, 2 * train.n_per_class)
+    np.testing.assert_array_equal(train.batches.numpy(), sched)
+    for k in ("w1", "b1", "w2", "b2"):
+        np.testing.assert_array_equal(getattr(train.init, k).numpy(),
+                                      np.asarray(getattr(init, k)), err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def trained(ref, train):
+    """The port's full-width training on the CPU: the cascade on the face
+    set and the video's hard negatives, the NN from JAX's draws."""
+    frames, truth = security_video(**ref.video)
+    X, y, n_faces, _ = training_set(frames, truth)
+    casc = train_cascade(X, y, make_feature_pool(n=250), device="cpu")
+    nn = fit_face_nn(train.init, X[:n_faces], y[:n_faces], train.batches)
+    return dict(frames=frames, X=X, y=y, n_faces=n_faces, cascade=casc,
+                nn=nn)
+
+
+def test_port_trains_the_asset_nn_from_jax_draws(ref, train, trained):
+    n = trained["n_faces"]
+    r = nn_readings(trained["nn"], ref.nn, trained["X"][:n],
+                    trained["y"][:n])
+    assert r["max_abs"] <= 1e-5            # 9.54e-7 here; the card 1e-4
+    assert r["error"] == train.classification_error == 0.03625
+    assert r["int8_differ"] == 0
+
+
+def test_port_trains_the_asset_cascade(ref, train, trained):
+    d = cascade_check("train_cascade (CPU)", trained["cascade"], ref.cascade)
+    assert d["thresholds"] < 1e-6          # 9.88e-7
+    acc, evals = cascade_apply(ref.cascade,
+                               trained["X"].reshape(-1, 20, 20),
+                               device="cpu")
+    assert int((acc.numpy() != train.accepted).sum()) <= 2
+    assert int((evals.numpy() != train.stage_evals).sum()) <= 2
+
+
+def test_port_trained_models_drive_the_funnel(ref, trained):
+    """The funnel on the port-trained models against the JAX executor on
+    the asset's: what chip_smoke's training phase holds the card to."""
+    frames = trained["frames"]
+    base = FaceAuthExecutor(ref.cascade, ref.nn, 144, 176, device="cpu",
+                            **ref.scan)
+    base.calibrate(frames)
+    ex = FaceAuthExecutor(trained["cascade"], trained["nn"], 144, 176,
+                          device="cpu", **ref.scan)
+    assert ex.calibrate(frames) == (ref.frame_capacity, ref.window_capacity,
+                                    ref.cascade_capacities)
+    out = ex(frames)
+    assert trained_funnel_check(out, ref, base(frames)) == (1, 0)
+    assert (int(out.n_windows.sum()), int(out.n_auth.sum())) == (549, 108)
