@@ -170,12 +170,46 @@ that the float32 one holds no tensor-core instruction, then:
    SDPA (the window as a dense boolean mask).  bf16 runs the ``wgmma``
    kernel and float32 the CUDA-core one; each flash row names the kernel
    that ran;
-9. profile phase — every torch.profiler session of the run: each kernel's
+9. LM training phase — yi-9b, then rwkv6-7b, at full width, 8 layers
+   deep (TRAIN_LAYERS), bf16 parameters with a float32 master, one model
+   on the card at a time after the serving models are freed: weights
+   drawn on the card (seed 0), ``train.loop.train`` for 12 steps of
+   ``batch_for_step(DataConfig(vocab, 2048, 8, 0), step)`` with the
+   training CLI's AdamW (lr 3e-3, warmup 1, cosine over 12 steps),
+   checkpoints every 4 steps held in host memory (``MemoryCheckpoints``:
+   a full-width 8-layer checkpoint is 27-32 GB, and the machine lets a run
+   write 45 GiB to its disk in all) and a failure injected once at step 9,
+   after which the loop restores step 8 and replays.  Every loss and grad
+   norm finite; the replayed step 8 equal
+   to the first (bits, else the reference's rtol 1e-5 / atol 1e-6);
+   every weight leaf's step-0 gradient finite and nonzero; the launches
+   of every step the predicted TRAIN_LAUNCHES (each layer's forward
+   kernel twice, the second time under ``torch.utils.checkpoint``'s
+   recompute, and its backward kernel once); step ms (host clock, median
+   of the steps after the first), tokens/s, model FLOPs share, peak GiB,
+   ``adamw_update``'s ms (CUDA events).  Then the backward kernels against
+   their plain versions on layer 0's inputs at step 1 (rows 7g and 7h:
+   the forward kernel's O and log-sum-exp first held to ``mha_streaming``'s,
+   which the plain backward then takes; ``flash_attention_bwd`` in bf16
+   within FLASH_TOL + FLASH_TOL |plain| and FLASH_BWD_BF16_REL of max
+   |plain|, in float32 within FLASH_BWD_F32_TOL of it, each beside SDPA's
+   backward, timed as
+   forward + backward less forward; row 8b: ``rwkv_wkv_bwd`` within
+   WKV_REL), every run bit-equal to the next; the forward with its
+   log-sum-exp bit-equal to the forward without; on drawn inputs (flash at
+   yi's heads with S = 4000, causal and with a window of 1024, both
+   dtypes; WKV at T = 650 with w = 0 in some channels and a seeded
+   nonzero u); the JAX training records
+   (``assets/lm_train_reference.npz``) through the kernels in float32;
+   and the loop with its checkpoints on disk at the record's yi config
+   (a failure replayed bit-equal, a resume);
+10. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
-   share), the executed offload cut and one serve call of each LM, the
-   serving dispatches' kernel launches by the profiler's names (held to
-   the wrappers' counts), with the funnel's host time just before and
+   share), the executed offload cut, one serve call of each LM and one
+   training step of each (each model built anew when its profile runs),
+   the serving dispatches' kernel launches by the profiler's names (held
+   to the wrappers' counts), with the funnel's host time just before and
    just after the sessions.
 
 One-ulp sensitivity E: how far a model's logits move, relative to the
@@ -323,17 +357,21 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def launch_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
+def launch_device_ms(fn, kernel, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds of one launch of the CUDA kernel named
     ``kernel``, by torch.profiler over ``reps`` calls of ``fn``: the
     kernel alone, without the host time between launches that CUDA events
-    around back-to-back calls also count.  The profiler now and then drops
-    a kernel's record; a session that does not see exactly ``reps``
+    around back-to-back calls also count.  ``kernel`` may be (name, n): a
+    wrapper whose one launch runs n CUDA kernels whose names hold ``name``
+    (the backward kernels), timed together.  The profiler now and then
+    drops a kernel's record; a session that does not see exactly ``reps``
     launches is taken again, and after ``tries`` such sessions the call
     fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    kernel, per_call = kernel if isinstance(kernel, tuple) else (kernel, 1)
+    want = reps * per_call
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -344,12 +382,12 @@ def launch_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
         events = [e for e in prof.key_averages()
                   if str(e.device_type).endswith("CUDA") and kernel in e.key]
         count = sum(e.count for e in events)
-        if count == reps:
-            return sum(e.self_device_time_total for e in events) / 1e3 / count
-        print(f"profiler saw {count} launches of {kernel}, expected {reps}: "
+        if count == want:
+            return sum(e.self_device_time_total for e in events) / 1e3 / reps
+        print(f"profiler saw {count} launches of {kernel}, expected {want}: "
               "profiling again", flush=True)
     raise AssertionError(f"profiler saw {count} launches of {kernel}, "
-                         f"expected {reps}, in each of {tries} sessions")
+                         f"expected {want}, in each of {tries} sessions")
 
 
 def call_device_ms(fn, reps: int = 20) -> float:
@@ -3496,6 +3534,27 @@ def wkv_row(probes, args, launches):
         n_ops, PEAK_F32_OPS_S, reps=5, shape="x".join(map(str, r.shape)))
 
 
+def serve_call(arch, device):
+    """The serve call of ``lm_serve_phase`` on a model built anew from the
+    same seeds, for the profile phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.serve.engine import generate
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device, seed=0)
+    prompts = make_prompts(cfg, LM_REQUESTS, LM_PROMPT, seed=1, device=device)
+    return lambda: generate(model, prompts, LM_GEN)
+
+
+def free_card():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def lm_phase(probes, device="cuda"):
     """The LM serving slice: each model at full width, the kernel rows on
     its own inputs, the float32 consistency check and the JAX record.
@@ -3505,14 +3564,14 @@ def lm_phase(probes, device="cuda"):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import KERNEL_SHAPES
-    from repro_torch.serve.engine import generate
 
     rows, targets = [], []
     for arch in LM_KERNEL:
         model, prompts, launches, serve_ms, args = lm_serve_phase(arch,
                                                                    device)
+        del model, prompts
         targets.append((f"{arch} serve call",
-                        lambda m=model, p=prompts: generate(m, p, LM_GEN),
+                        Deferred(lambda a=arch: serve_call(a, device)),
                         serve_ms))
         if arch == "yi-9b":
             q, k, v = args
@@ -3521,7 +3580,7 @@ def lm_phase(probes, device="cuda"):
         else:
             rows.append(wkv_row(probes, args, launches))
         del args
-        torch.cuda.empty_cache()
+        free_card()
     for arch in LM_KERNEL:
         lm_parity_phase(arch, device)
     lm_record_phase(device)
@@ -3547,6 +3606,826 @@ def lm_phase(probes, device="cuda"):
     rows += flash_row(probes, q, k, v, 0, FLASH_32K_ATOL, FLASH_32K_RTOL,
                       label="x".join(map(str, q.shape)))
     return rows, targets
+
+
+# -- LM training -----------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 8, 2048, 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 9
+TRAIN_LR = 3e-3                 # launch/train.py's --lr
+# launches per training step, predicted: each layer's forward kernel once
+# in the forward and once more where torch.utils.checkpoint recomputes the
+# layer in the backward; the backward kernel once per layer
+TRAIN_LAUNCHES = {"yi-9b": {"flash_attention": 2 * TRAIN_LAYERS,
+                            "flash_attention_bwd": TRAIN_LAYERS},
+                  "rwkv6-7b": {"rwkv_wkv": 2 * TRAIN_LAYERS,
+                               "rwkv_wkv_bwd": TRAIN_LAYERS}}
+REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6   # tests/test_train.py:136-138
+# The flash backward against its plain version, the plain one given the
+# plain forward's O and log-sum-exp.  bf16: each output within the
+# forward's elementwise bound (FLASH_TOL) and within FLASH_BWD_BF16_REL of
+# its max |plain|: the kernel rounds its float32 sums to bf16 once, at most
+# half a spacing, 2^-8 of max |plain|, and the bound is twice that
+# (readings 2.1e-3 to 2.8e-3), so that zeros or a flipped sign fail at any
+# output size.  float32: within FLASH_BWD_F32_TOL of max |plain| per
+# output.  The forward kernel's O is held to the plain forward's within
+# FLASH_O_REL of max |plain| in bf16 (one spacing of the top binade: both
+# round; reading 4.3e-3) and FLASH_BWD_F32_TOL in float32 (readings
+# 2e-7); each row's log-sum-exp within FLASH_LSE_REL of the largest
+# |logit| the row could hold (readings 2.8e-7 in bf16, whose tensor-core
+# sums err with their terms' size, at most 9e-8 in float32)
+FLASH_BWD_BF16_REL = FLASH_O_REL = 2.0 ** -7
+FLASH_BWD_F32_TOL = 1e-4
+FLASH_LSE_REL = 2e-6
+FLASH_BWD_S, FLASH_BWD_B, FLASH_BWD_WINDOW = 4000, 2, 1024
+WKV_BWD_T = 650
+
+
+def train_flops(cfg, n_params: int) -> float:
+    """Model FLOPs of one training step: 6 N per token, plus causal
+    attention's two products (2 s t d each, halved by the mask) three times
+    over (forward, and twice in the backward) in every attention layer."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * n_params * tokens
+    if cfg.mixer != "rwkv":
+        flops += (3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.d_head
+                  * _causal_pairs(TRAIN_SEQ) * cfg.n_layers)
+    return flops
+
+
+class MemoryCheckpoints:
+    """``train``'s checkpoint store in host memory, for the full-width runs:
+    each save keeps every leaf as the host array ``ckpt.checkpoint`` would
+    write (bf16 as its raw values) under the leaf's name, with ``extra``.
+    A checkpoint there is 27-32 GB, and a call on the card's machine may
+    write 45 GiB to its disk in all; the package's on-disk store runs in
+    ``lm_train_disk_run`` at the JAX record's config."""
+
+    def __init__(self):
+        self._saved = {}
+
+    def save(self, step, tree, extra=None):
+        from repro_torch.ckpt import checkpoint as ck
+
+        leaves = {}
+        for path, leaf in ck._flatten(tree):
+            arr = ck.host_array(leaf)   # a copy unless it views a CPU tensor
+            leaves[ck._name(path)] = np.array(arr, copy=not arr.flags.owndata)
+        self._saved[step] = (leaves, dict(extra or {}))
+
+    def latest_step(self):
+        return max(self._saved, default=None)
+
+    def restore(self, step, like_tree):
+        from repro_torch.ckpt import checkpoint as ck
+
+        leaves, extra = self._saved[step]
+        out = []
+        for path, like in ck._flatten(like_tree):
+            arr = leaves[ck._name(path)]
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"shape drift for {ck._name(path)}: saved "
+                                 f"{arr.shape} vs {tuple(like.shape)}")
+            out.append(ck._restore_leaf(arr, like))
+        return ck._unflatten(like_tree, iter(out)), dict(extra)
+
+    def prune(self, keep):
+        for step in sorted(self._saved)[:-keep]:
+            del self._saved[step]
+
+
+class _LastCall:
+    """While ``on`` is true, keeps (clones of) the arguments of the latest
+    call of ``module.name``: in a backward pass that is layer 0's."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args, self.on = None, False
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            if self.on:
+                self.args = tuple(a.clone() for a in args)
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def lm_train_run(arch, device):
+    """``train.loop.train`` on ``arch`` at full width, TRAIN_LAYERS deep, in
+    bf16 with a float32 master: TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens, checkpoints every TRAIN_CKPT_EVERY held in host
+    memory (``MemoryCheckpoints``: a checkpoint is 27 GB for yi and 32 GB
+    for rwkv, and the card's machine lets a run write 45 GiB to its disk
+    in all), a failure injected once at step TRAIN_FAIL_AT, after which
+    the loop restores the step-8 checkpoint and replays.  Holds every loss
+    and grad norm finite, the replayed step 8 to the first (bits, else
+    REPLAY_RTOL / REPLAY_ATOL), every weight leaf's step-0 gradient finite
+    and nonzero, and each step's kernel launches to TRAIN_LAUNCHES.
+    Returns (readings, layer 0's backward-kernel inputs at step 1); the
+    readings hold the launches of each step and the optimizer's share of
+    the step (``adamw_update`` between CUDA events, no synchronisation
+    added)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+    from repro_torch.launch.train import batches, opt_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.loop import LoopConfig, train
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS)
+    model = Model(cfg, device)
+    n_params = model.n_params()
+    make = batches(DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0), model.device)
+    want = TRAIN_LAUNCHES[arch]
+    ops_module, bwd_fn = ((flash_ops, "flash_attention_bwd_cuda")
+                          if arch == "yi-9b" else (wkv_ops, "rwkv_wkv_bwd_cuda"))
+    per_step, state, grads_seen = [], {"step": None}, {}
+
+    def make_batch(step):
+        if state["step"] is not None:     # the launches of the step just run
+            per_step.append((state["step"], dict(_build.launches)))
+        _build.reset_launches()
+        state["step"] = step
+        cap.on = step == 1 and cap.args is None
+        return make(step)
+
+    failed = {"done": False}
+
+    def fail_hook(step):
+        if step == TRAIN_FAIL_AT and not failed["done"]:
+            failed["done"] = True
+            raise RuntimeError("injected node failure")
+
+    grads_of, adamw = step_mod.grads_of, step_mod.adamw_update
+    adam_events = []
+
+    def timed_adamw(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = adamw(*a, **kw)
+        end.record()
+        adam_events.append((start, end))
+        return out
+
+    def checked_grads(m, batch):
+        loss, metrics, grads = grads_of(m, batch)
+        if not grads_seen:
+            grads_seen.update(
+                n_leaves=len(grads),
+                bad=[n for n, g in grads.items()
+                     if not (bool(torch.isfinite(g).all())
+                             and float(g.abs().max()) > 0)])
+        return loss, metrics, grads
+
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_mod.grads_of, step_mod.adamw_update = checked_grads, timed_adamw
+    store = MemoryCheckpoints()
+    try:
+        with _LastCall(ops_module, bwd_fn) as cap:
+            t0 = time.perf_counter()
+            _m, _state, out = train(
+                model, make_batch,
+                LoopConfig(total_steps=TRAIN_STEPS,
+                           ckpt_every=TRAIN_CKPT_EVERY, keep=1),
+                opt_config(TRAIN_LR, TRAIN_STEPS), seed=0,
+                fail_hook=fail_hook, verbose=False, store=store)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+    finally:
+        step_mod.grads_of, step_mod.adamw_update = grads_of, adamw
+    del store
+    per_step.append((state["step"], dict(_build.launches)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    expect = list(range(TRAIN_FAIL_AT)) + list(range(TRAIN_FAIL_AT - 1,
+                                                      TRAIN_STEPS))
+    if not failed["done"] or steps != expect:
+        raise AssertionError(f"{arch}: steps run {steps}, expected {expect}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"{arch}: non-finite loss or grad norm: {hist}")
+    first, again = hist[TRAIN_FAIL_AT - 1], hist[TRAIN_FAIL_AT]
+    same = (first["loss"] == again["loss"]
+            and first["grad_norm"] == again["grad_norm"])
+    if not same and not all(
+            abs(first[k] - again[k]) <= REPLAY_ATOL + REPLAY_RTOL * abs(first[k])
+            for k in ("loss", "grad_norm")):
+        raise AssertionError(f"{arch}: the replayed step 8 differs: {first} "
+                             f"!= {again}")
+    if grads_seen.get("bad") or grads_seen.get("n_leaves") != len(
+            list(model.parameters())):
+        raise AssertionError(f"{arch}: step-0 gradients not finite and "
+                             f"nonzero in every leaf: {grads_seen}")
+    bad = [(s, c) for s, c in per_step
+           if {k: c.get(k, 0) for k in want} != want
+           or set(c) - set(want)]
+    if bad or len(per_step) != len(hist):
+        raise AssertionError(f"{arch}: launches per step {per_step}, "
+                             f"predicted {want}")
+    ms = 1e3 * statistics.median(h["dt"] for h in hist[1:])
+    adam_ms = statistics.median(a.elapsed_time(b) for a, b in adam_events[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params)
+    readings = {"arch": arch, "layers": TRAIN_LAYERS, "params": n_params,
+                "step_ms": ms, "tokens_s": tokens / (ms / 1e3),
+                "model_flops": flops,
+                "mfu": flops / (ms / 1e3) / PEAK_BF16_OPS_S,
+                "adamw_ms": adam_ms, "launches": per_step[0][1],
+                "peak_gib": peak, "resident_gib": resident, "loop_s": loop_s,
+                "losses": [h["loss"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "replay_bit_equal": same}
+    print(f"{arch} training, {TRAIN_LAYERS} layers at full width "
+          f"({n_params / 1e9:.3f} B parameters, bf16 with a float32 master), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses "
+          f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}", flush=True)
+    print(f"{arch} training: step {ms:.3f} ms (host clock, synchronised, "
+          f"median of the {len(hist) - 1} steps after the first), "
+          f"{readings['tokens_s']:.1f} tokens/s, model FLOPs {flops:.4g} a "
+          f"step (6 N per token + causal attention) = "
+          f"{100 * readings['mfu']:.2f}% of 989 TFLOP/s; peak "
+          f"{peak:.2f} GiB ({resident:.2f} GiB of earlier phases resident "
+          f"before the run); loop {loop_s:.1f} s with {len(hist)} steps, "
+          f"checkpoints and the restore", flush=True)
+    print(f"{arch} training: adamw_update {adam_ms:.3f} ms a step (CUDA "
+          f"events around it, median of {len(adam_events) - 1} steps), "
+          f"{100 * adam_ms / ms:.1f}% of the step", flush=True)
+    print(f"{arch} training: step {TRAIN_FAIL_AT} failed once (injected), "
+          f"step {TRAIN_FAIL_AT - 1} replayed from its checkpoint: loss "
+          f"{again['loss']!r} vs {first['loss']!r}, grad norm "
+          f"{again['grad_norm']!r} vs {first['grad_norm']!r} "
+          f"({'bit-equal' if same else 'within the reference rtol/atol'}); "
+          f"step-0 gradients finite and nonzero in all "
+          f"{grads_seen['n_leaves']} leaves; launches per step "
+          f"{per_step[0][1]} at every one of {len(per_step)} steps "
+          f"(predicted {want}); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del model, _m, _state
+    return readings, cap.args
+
+
+def _bwd_module(name):
+    """SOURCE and REPLACES of a backward kernel's row: its own source, the
+    TPU kernel whose forward it differentiates."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+    from repro_torch.kernels.rwkv_scan import cuda as wcuda
+
+    mod = fcuda if name == "flash_attention_bwd" else wcuda
+    return SimpleNamespace(SOURCE=mod.BWD_SOURCE, REPLACES=mod.REPLACES)
+
+
+def flash_plain_forward(q, k, v, o, lse, label, window=None):
+    """The forward kernel's O and log-sum-exp on ``q, k, v`` against
+    ``mha_streaming``'s (kv heads expanded, float32 arithmetic, O in v's
+    dtype): O within FLASH_O_REL (bf16) or FLASH_BWD_F32_TOL (float32) of
+    its max |plain|; each row's lse within FLASH_LSE_REL of the largest
+    |logit| the row could hold, scale |q_i| max_j |k_j| (a float32 sum's
+    error grows with its terms, not with its value).  Returns the plain (O,
+    lse), which the plain backward takes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import expand_kv
+    from repro_torch.kernels.flash_attention.ref import mha_streaming
+
+    H, KV = q.shape[2], k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    pos = torch.arange(q.shape[1], device=q.device)
+    o_ref, lse_ref = mha_streaming(q, expand_kv(k, H), expand_kv(v, H), pos,
+                                   pos, scale, window=window, return_lse=True)
+    rel = FLASH_O_REL if q.dtype == torch.bfloat16 else FLASH_BWD_F32_TOL
+    o_err, o_top = max_abs_err(o, o_ref), float(o_ref.abs().max())
+    q_norm = q.float().norm(dim=-1).transpose(1, 2)               # (b, H, s)
+    k_norm = k.float().norm(dim=-1).amax(dim=1).repeat_interleave(
+        H // KV, dim=1)                                           # (b, H)
+    size = scale * q_norm * k_norm[..., None]
+    lse_rel = float(((lse.double() - lse_ref.double()).abs()
+                     / size.double().clamp_min(1e-30)).max())
+    print(f"flash_attention {label}: O {o_err:.3g} from the plain forward "
+          f"(max |plain| {o_top:.4g}, {o_err / o_top:.3g} of it, bound "
+          f"{rel:g}); lse {max_abs_err(lse, lse_ref):.3g} (max |plain| "
+          f"{float(lse_ref.abs().max()):.4g}), {lse_rel:.3g} of its row's "
+          f"scale |q_i| max |k_j| / sqrt(d) (bound {FLASH_LSE_REL:g})",
+          flush=True)
+    if (lse.shape != lse_ref.shape or not o_err <= rel * o_top
+            or not lse_rel <= FLASH_LSE_REL):
+        raise AssertionError(f"flash_attention {label}: the forward kernel's "
+                             f"O or log-sum-exp differs from the plain one")
+    return o_ref, lse_ref
+
+
+def flash_bwd_check(q, k, v, o, dout, lse, label, window=None, f32_tol=None):
+    """The flash backward kernel, given the forward kernel's ``o`` and
+    ``lse``, against ``flash_attention_bwd_ref`` given the plain forward's
+    (``flash_plain_forward``, which first holds the two forwards together),
+    both computing in float32 from the same q, k, v, dout: bf16 outputs
+    within FLASH_TOL + FLASH_TOL |plain| and within FLASH_BWD_BF16_REL of
+    each output's max |plain|, float32 within ``f32_tol`` of it.  Returns
+    (max |err|, plain function)."""
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    scale = q.shape[-1] ** -0.5
+    o_ref, lse_ref = flash_plain_forward(q, k, v, o, lse, label, window=window)
+
+    def plain():
+        return flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o_ref, dout)), lse_ref,
+            window=window, scale=scale)
+
+    got = fcuda.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                         window=window, scale=scale)
+    want = plain()
+    again = fcuda.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
+                                           window=window, scale=scale)
+    deterministic = all(torch_equal(a, b) for a, b in zip(got, again))
+    rel = FLASH_BWD_BF16_REL if f32_tol is None else f32_tol
+    errs, bad, worst = [], [], 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = max_abs_err(a, b)
+        top = float(b.abs().max())
+        worst = max(worst, err)
+        ok = err <= rel * top and bool(a.isfinite().all())
+        if f32_tol is None:             # the forward's elementwise bound too
+            ok = ok and not bool(((a.double() - b.double()).abs() > FLASH_TOL
+                                  + FLASH_TOL * b.double().abs()).any())
+        errs.append(f"{name} {err:.3g} (max |plain| {top:.4g}, "
+                    f"{err / top:.3g} of it)")
+        if not ok:
+            bad.append(name)
+    bound = (f"{FLASH_TOL:g} + {FLASH_TOL:g} |plain| and {rel:g} of max "
+             "|plain|" if f32_tol is None else f"{rel:g} of max |plain|")
+    print(f"flash_attention_bwd {label} {str(q.dtype).split('.')[-1]}: "
+          f"max |err| {', '.join(errs)}; bound {bound}; two runs "
+          f"bit-equal {deterministic}", flush=True)
+    if bad or not deterministic:
+        raise AssertionError(f"flash_attention_bwd {label}: {bad} outside "
+                             f"the bound, deterministic {deterministic}")
+    return worst, plain
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def sdpa_backward_ms(q, k, v, dout, window=None):
+    """SDPA's backward alone on the model's layout, as forward + backward
+    less forward (CUDA events): the flash backend in bf16, the efficient one
+    in float32 (the flash backend takes no float32, and the efficient one
+    no GQA: its k and v get the query heads' count, outside the timed
+    calls); a window as a dense boolean mask.  None where SDPA refuses the
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention.ops import expand_kv
+
+    H, s = q.shape[2], q.shape[1]
+    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+               and window is None else SDPBackend.EFFICIENT_ATTENTION)
+    if backend == SDPBackend.EFFICIENT_ATTENTION:
+        k, v = expand_kv(k, H), expand_kv(v, H)
+    KV = k.shape[2]
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    gt = dout.transpose(1, 2)
+
+    def fwd():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=KV != H)
+
+    def fwd_bwd():
+        out = fwd()
+        out.backward(gt)
+        qt.grad = kt.grad = vt.grad = None
+
+    try:
+        with torch.no_grad():
+            f_ms = device_ms(fwd, reps=5)
+        fb_ms = device_ms(fwd_bwd, reps=5)
+    except RuntimeError as e:     # backend rules of SDPA
+        print(f"SDPA backward not timed: {e}", flush=True)
+        return None
+    print(f"SDPA ({backend.name} backend) on {tuple(q.shape)} "
+          f"{str(q.dtype).split('.')[-1]}: forward + backward {fb_ms:.4f} ms, "
+          f"forward {f_ms:.4f} ms (CUDA events)", flush=True)
+    return fb_ms - f_ms
+
+
+def flash_bwd_rows(probes, args, launches):
+    """Rows 7g (bf16) and 7h (float32) on layer 0's backward-kernel inputs
+    at step 1 of the yi-9b training run, then the drawn checks at yi's heads
+    with S = FLASH_BWD_S, causal and windowed, in both dtypes; every check
+    first holds the forward kernel's O and log-sum-exp to the plain
+    forward's, which the plain backward then takes.  Also: the forward with
+    its log-sum-exp gives O bit-equal to the forward without."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+
+    q, k, v, o, dout, lse = args
+    KV = k.shape[2]
+    o_plain = fcuda.flash_attention_cuda(q, k, v)
+    o_lse, lse_again = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
+    if not (torch.equal(o_plain, o) and torch.equal(o_lse, o)
+            and torch.equal(lse_again, lse)):
+        raise AssertionError("the forward with its log-sum-exp is not the "
+                             "forward without it, bit for bit")
+    print(f"flash_attention {tuple(q.shape)} bf16: O with the log-sum-exp "
+          "requested == O without it == the training run's, bit for bit; "
+          "lse == the run's", flush=True)
+    b, s, H, d = q.shape
+    n_ops = 5 * 2 * d * _causal_pairs(s) * b * H
+    mod = _bwd_module("flash_attention_bwd")
+    rows = []
+    for label, dtype, tol, peak in (("7g", torch.bfloat16, None,
+                                     PEAK_BF16_OPS_S),
+                                    ("7h", torch.float32, FLASH_BWD_F32_TOL,
+                                     PEAK_F32_OPS_S)):
+        if dtype == torch.bfloat16:
+            x = (q, k, v, o, dout, lse)
+        else:
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            o32, lse32 = fcuda.flash_attention_cuda(q32, k32, v32,
+                                                    return_lse=True)
+            x = (q32, k32, v32, o32, dout.float(), lse32)
+        shape = "x".join(map(str, q.shape)) + f" {str(dtype).split('.')[-1]}"
+        err, plain = flash_bwd_check(*x, f"{label} {shape} (layer 0, step 1)",
+                                     f32_tol=tol)
+        plain_ms = device_ms(plain, reps=1, warm=0)
+        lib_ms = sdpa_backward_ms(x[0], x[1], x[2], x[4])
+        esize = x[0].element_size()
+        n_bytes = (esize * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                            + dout.numel()) + 4 * lse.numel())
+        row = kernel_row(
+            probes, "flash_attention_bwd", mod,
+            launches if dtype == torch.bfloat16 else 0, err,
+            lambda x=x: fcuda.flash_attention_bwd_cuda(*x), plain_ms, lib_ms,
+            n_bytes, n_ops, peak, reps=5, shape=f"{label} {shape}",
+            kernel=("flash_attention_bwd", 2))
+        row["backward_of"] = "row 7"
+        rows.append(row)
+        del x
+    del q, k, v, o, dout, lse
+    torch.cuda.empty_cache()
+    dev = o_plain.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for window in (None, FLASH_BWD_WINDOW):
+        for dtype, tol in ((torch.bfloat16, None),
+                           (torch.float32, FLASH_BWD_F32_TOL)):
+            q, k, v = (torch.randn((FLASH_BWD_B, FLASH_BWD_S, heads, d),
+                                   device=dev, generator=gen).to(dtype)
+                       for heads in (H, KV, KV))
+            o, lse = fcuda.flash_attention_cuda(q, k, v, window=window,
+                                                return_lse=True)
+            dout = torch.randn(q.shape, device=dev,
+                               generator=gen).to(dtype)
+            flash_bwd_check(q, k, v, o, dout, lse,
+                            f"drawn {FLASH_BWD_B}x{FLASH_BWD_S}x{H}/"
+                            f"{k.shape[2]}x{d}"
+                            + (f" window {window}" if window else " causal"),
+                            window=window, f32_tol=tol)
+            del q, k, v, o, dout, lse
+            torch.cuda.empty_cache()
+    return rows
+
+
+def wkv_bwd_plain(r, k, v, w, u, dout):
+    """``wkv_bwd_ref`` on the model's layout -> (dr, dk, dv, dw, du)."""
+    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref
+
+    B, T, H, K = r.shape
+
+    def hf(x):
+        return x.transpose(1, 2).reshape(B * H, T, x.shape[-1])
+
+    out = wkv_bwd_ref(*(hf(x) for x in (r, k, v, w)),
+                      u.expand(B, H, K).reshape(B * H, K), hf(dout))
+    grads = [x.reshape(B, H, T, x.shape[-1]).transpose(1, 2)
+             for x in out[:4]]
+    return (*grads, out[4].reshape(B, H, K).sum(0))
+
+
+def wkv_bwd_check(args, label):
+    """The WKV backward kernel against ``wkv_bwd_ref``: every output within
+    WKV_REL of its largest plain entry.  Returns the largest |err|."""
+    from repro_torch.kernels.rwkv_scan import cuda as wcuda
+
+    got = wcuda.rwkv_wkv_bwd_cuda(*args)
+    want = wkv_bwd_plain(*args)
+    again = wcuda.rwkv_wkv_bwd_cuda(*args)
+    deterministic = all(torch_equal(a, b) for a, b in zip(got, again))
+    rels, worst = [], 0.0
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        err = max_abs_err(a, b)
+        worst = max(worst, err)
+        rel = err / float(b.abs().max())
+        rels.append(f"{name} {rel:.3g}")
+        if not (rel < WKV_REL and bool(a.isfinite().all())):
+            raise AssertionError(f"rwkv_wkv_bwd {label} {name}: relative "
+                                 f"error {rel:g}")
+    print(f"rwkv_wkv_bwd {tuple(args[0].shape)}, {label}: relative error "
+          f"{', '.join(rels)}; bound {WKV_REL}; two runs bit-equal "
+          f"{deterministic}", flush=True)
+    if not deterministic:
+        raise AssertionError("rwkv_wkv_bwd is not deterministic")
+    return worst
+
+
+def wkv_bwd_rows(probes, args, launches):
+    """Row 8b on layer 0's backward-kernel inputs at step 1 of the rwkv6-7b
+    training run (u as trained one step, so nonzero), then drawn inputs at
+    T = WKV_BWD_T (ragged against the chunk of 16) with w = 0 in some
+    channels and a seeded nonzero u."""
+    import torch
+
+    from repro_torch.kernels.rwkv_scan import cuda as wcuda
+
+    r = args[0]
+    B, T, H, K = r.shape
+    err = wkv_bwd_check(args, "layer 0 at step 1 of the training run, u "
+                        f"max {float(args[4].abs().max()):.3g}")
+    plain_ms = device_ms(lambda: wkv_bwd_plain(*args), reps=1, warm=0)
+    # the function's traffic: r, k, v, w, dout read, dr, dk, dv, dw written,
+    # u read and du written; the chunk states the design stores every
+    # BWD_CHUNK steps are its own scratch, printed beside the row
+    n_bytes = 4 * 9 * r.numel() + 4 * 2 * args[4].numel()
+    scratch = 2 * 4 * B * H * -(-T // wcuda.BWD_CHUNK) * K * K
+    print(f"rwkv_wkv_bwd 8b: the design's chunk-state scratch, written and "
+          f"read, {scratch / 1e9:.3f} GB = "
+          f"{1e3 * scratch / PEAK_BYTES_S:.4f} ms at 3.35 TB/s (not in the "
+          f"bound: the function does not need it)", flush=True)
+    # the plain reverse recurrence's operations per step and (b, h): the
+    # forward state (3 K V), dr, dk, dv and dw (2 K V each), dS (3 K V)
+    n_ops = 14 * K * K * T * B * H
+    row = kernel_row(probes, "rwkv_wkv_bwd", _bwd_module("rwkv_wkv_bwd"),
+                     launches, err, lambda: wcuda.rwkv_wkv_bwd_cuda(*args),
+                     plain_ms, None, n_bytes, n_ops, PEAK_F32_OPS_S, reps=5,
+                     shape="8b " + "x".join(map(str, r.shape)),
+                     kernel=("rwkv_wkv_bwd", 2))
+    row["backward_of"] = "row 8"
+    dev = r.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (B, WKV_BWD_T, H, K)
+
+    def draw(std):
+        return std * torch.randn(shape, device=dev, generator=gen)
+
+    w = torch.sigmoid(draw(10.0))
+    w[:, ::3, :, ::2] = 0.0
+    u = WKV_BONUS_STD * torch.randn((H, K), device=dev, generator=gen)
+    wkv_bwd_check((draw(0.5), draw(0.5), draw(0.5), w, u, draw(1.0)),
+                  f"drawn, T = {WKV_BWD_T}, w = 0 in every third step's even "
+                  f"channels, u ~ {WKV_BONUS_STD} N(0, 1)")
+    return row
+
+
+def lm_train_record_check(rec, device):
+    """The port's train step on one JAX training record
+    (``assets/lm_train_reference.npz``): the step-0 gradient of every leaf
+    by its norm and its probe g . p, and each step's loss, ce and grad norm,
+    within max(RECORD_REL, E) of JAX's, E the record's one-ulp sensitivity
+    of that quantity (a probe relative to |g| |p|, the rest relative to
+    their size); the learning rate within one float32 ulp.  Returns the
+    readings."""
+    import torch
+
+    from repro_torch.bridge import (
+        lm_params_from,
+        lm_train_probe,
+        numpy_lm_params,
+        to_jax_tree,
+    )
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import grads_of, make_train_step
+
+    model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
+                           device=device)
+    data = DataConfig(**rec.data)
+
+    def batch(step):
+        return {"tokens": torch.as_tensor(batch_for_step(data, step)["tokens"],
+                                          device=model.device)}
+
+    e = rec.sensitivity
+    _loss, _met, grads = grads_of(model, batch(0))
+    tree = to_jax_tree(model, grads)
+    worst = {"g_norm": 0.0, "g_probe": 0.0}
+    for i, name in enumerate(rec.leaf_names):
+        g = tree
+        for key in name.split("/"):
+            g = g[key]
+        g = g.double().cpu().numpy()
+        probe = lm_train_probe(g.shape)
+        norm = np.sqrt(rec.g_sq[i])
+        worst["g_norm"] = max(worst["g_norm"],
+                              abs(np.sqrt(np.sum(g * g)) - norm) / norm)
+        worst["g_probe"] = max(worst["g_probe"], abs(
+            np.sum(g * probe) - rec.g_probe[i]) / (
+                norm * np.sqrt(np.sum(probe * probe))))
+    for k, v in worst.items():
+        if v > max(RECORD_REL, e[k]):
+            raise AssertionError(f"{rec.cfg.name} record: step-0 gradient "
+                                 f"{k} {v:.3g} from JAX, bound "
+                                 f"{max(RECORD_REL, e[k]):.3g}")
+    del grads, tree
+    state = init_opt_state(model.named_leaves())
+    step_fn = make_train_step(model, AdamWConfig(**rec.opt))
+    rel = {"loss": [], "ce": [], "grad_norm": []}
+    for s in range(rec.steps):
+        state, met = step_fn(state, batch(s))
+        for k in rel:
+            want = float(rec.__dict__[k][s])
+            r = abs(float(met[k]) - want) / abs(want)
+            rel[k].append(r)
+            if r > max(RECORD_REL, e[k][s]):
+                raise AssertionError(f"{rec.cfg.name} record step {s}: {k} "
+                                     f"{float(met[k])!r} vs JAX {want!r} "
+                                     f"({r:.3g}, bound "
+                                     f"{max(RECORD_REL, e[k][s]):.3g})")
+        lr, want = np.float32(float(met["lr"])), rec.lr[s]
+        if abs(int(lr.view(np.int32)) - int(want.view(np.int32))) > 1:
+            raise AssertionError(f"record step {s}: lr {lr!r} vs {want!r}")
+    return {"steps": rec.steps, "grad": worst, "steps_rel": rel}
+
+
+def lm_train_record_phase(device):
+    """The JAX training records on the card, through the kernels."""
+    import torch
+
+    from repro_torch.bridge import load_lm_train_reference
+    from repro_torch.kernels import _build
+
+    for name, rec in load_lm_train_reference().items():
+        _build.reset_launches()
+        readings = lm_train_record_check(rec, device)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        fwd = LM_KERNEL[rec.cfg.name]
+        if counts.get(fwd, 0) < 1 or counts.get(fwd + "_bwd", 0) < 1:
+            raise AssertionError(f"training record {name}: kernels not "
+                                 f"launched: {counts}")
+        e = rec.sensitivity
+        print(f"JAX training record {name} ({rec.cfg.n_layers} layers, "
+              f"{rec.data['global_batch']} x {rec.data['seq']} tokens, "
+              f"{rec.steps} steps, float32): step-0 gradient leaf norms "
+              f"within {readings['grad']['g_norm']:.3g} (bound "
+              f"{max(RECORD_REL, e['g_norm']):.3g}), probes within "
+              f"{readings['grad']['g_probe']:.3g} (bound "
+              f"{max(RECORD_REL, e['g_probe']):.3g}); per step loss "
+              f"{[f'{r:.3g}' for r in readings['steps_rel']['loss']]} (E "
+              f"{[f'{x:.3g}' for x in e['loss']]}), grad norm "
+              f"{[f'{r:.3g}' for r in readings['steps_rel']['grad_norm']]} "
+              f"(E {[f'{x:.3g}' for x in e['grad_norm']]}); lr within an "
+              f"ulp; launches {counts}", flush=True)
+
+
+def lm_train_disk_run(device):
+    """The loop with its checkpoints on disk, on the card, at the JAX
+    training record's yi config (float32, heads of 128: the float32 flash
+    kernels and their backward): 8 steps, checkpoints every 4 into a
+    temporary directory, a failure injected at step 5 and replayed from
+    step 4 (bit-equal), then a second ``train`` that resumes from the last
+    checkpoint and runs steps 8 and 9."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.bridge import load_lm_train_reference
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import batches
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    rec = load_lm_train_reference()["yi"]
+    make = batches(DataConfig(**rec.data), device)
+    opt_cfg = AdamWConfig(**rec.opt)
+    failed = []
+
+    def fail_hook(step):
+        if step == 5 and not failed:
+            failed.append(step)
+            raise RuntimeError("injected node failure")
+
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        _m, _s, out = train(Model(rec.cfg, device), make,
+                            LoopConfig(total_steps=8, ckpt_every=4,
+                                       ckpt_dir=d), opt_cfg,
+                            fail_hook=fail_hook, verbose=False)
+        _m, _s, more = train(Model(rec.cfg, device), make,
+                             LoopConfig(total_steps=10, ckpt_every=4,
+                                        ckpt_dir=d), opt_cfg, verbose=False)
+        files = sorted(os.listdir(d))
+    torch.cuda.synchronize()
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    replay = [(h["loss"], h["grad_norm"]) for h in hist if h["step"] == 4]
+    counts = dict(_build.launches)
+    if (steps != [0, 1, 2, 3, 4, 4, 5, 6, 7] or len(set(replay)) != 1
+            or [h["step"] for h in more["history"]] != [8, 9]
+            or counts.get("flash_attention_bwd", 0) < 1):
+        raise AssertionError(f"the on-disk loop: steps {steps}, replayed "
+                             f"step 4 {replay}, resumed "
+                             f"{[h['step'] for h in more['history']]}, "
+                             f"launches {counts}")
+    print(f"loop with checkpoints on disk ({rec.cfg.name} record config, "
+          f"float32): steps {steps}, step 4 replayed bit-equal "
+          f"{replay[0]}; a second train resumed at step 8 and ran "
+          f"{[h['step'] for h in more['history']]}; checkpoints left "
+          f"{files}; launches {counts}", flush=True)
+
+
+class Deferred:
+    """A profile target built only when its profile runs, and freed after
+    it, so that no two full-width models share the card."""
+
+    def __init__(self, build):
+        self.build = build
+
+
+def train_step_target(arch, device):
+    """One training step of ``arch`` at the training phase's size, for the
+    profile phase: (model, state and batch built on the card, then the
+    step)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import batches, opt_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS)
+    model = Model(cfg, device)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    state = {"opt": init_opt_state(model.named_leaves())}
+    step = make_train_step(model, opt_config(TRAIN_LR, TRAIN_STEPS))
+    batch = batches(DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=0),
+                    model.device)(0)
+
+    def one():
+        state["opt"], _met = step(state["opt"], batch)
+    return one
+
+
+def lm_train_phase(probes, device="cuda"):
+    """The LM training slice: each model's training run (one at a time),
+    the backward kernels' rows and checks, and the JAX training records.
+    Returns (kernel rows, profile targets, readings)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows, targets, readings = [], [], []
+    for arch in TRAIN_LAUNCHES:
+        r, args = lm_train_run(arch, device)
+        readings.append(r)
+        bwd = [k for k in TRAIN_LAUNCHES[arch] if k.endswith("_bwd")][0]
+        launches = r["launches"][bwd]       # measured: each step's count
+        if arch == "yi-9b":
+            rows += flash_bwd_rows(probes, args, launches)
+        else:
+            rows.append(wkv_bwd_rows(probes, args, launches))
+        del args
+        torch.cuda.empty_cache()
+        targets.append((f"{arch} training step ({TRAIN_LAYERS} layers)",
+                        Deferred(lambda a=arch: train_step_target(a, device)),
+                        r["step_ms"]))
+    lm_train_record_phase(device)
+    lm_train_disk_run(device)
+    print(f"LM training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, targets, readings
 
 
 def profile_phase(label, fn, wall_ms):
@@ -3656,7 +4535,13 @@ def profiles_phase(ex, frames, targets, probes, dispatches=()):
               f"{row['device_ms']:.4f} ms{lib} (torch.profiler, 20 calls)",
               flush=True)
     for label, fn, wall in targets:
-        profile_phase(label, fn, wall)
+        if isinstance(fn, Deferred):        # one full-width model at a time
+            fn = fn.build()
+            profile_phase(label, fn, wall)
+            del fn
+            free_card()
+        else:
+            profile_phase(label, fn, wall)
     for label, fn, want in dispatches:
         dispatch_profile(label, fn, want)
     ms = host_ms(lambda: ex(frames))
@@ -3720,6 +4605,10 @@ def main() -> int:
     lm_rows, lm_targets = lm_phase(probes)
     rows += lm_rows
     targets += lm_targets
+    free_card()
+    train_rows, train_targets, _readings = lm_train_phase(probes)
+    rows += train_rows
+    targets += train_targets
     profiles_phase(ex, frames, targets + [offload_target], probes,
                    dispatches)
 

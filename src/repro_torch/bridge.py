@@ -51,6 +51,18 @@ the same weights can go to the JAX model and, through
 ``assets/lm_reference.npz``: the JAX model's logits and greedy tokens on
 two reduced float32 configs with those weights (written by
 ``benchmarks/torch_export_lm_reference.py``).
+
+Training trees: :func:`to_jax_tree` and :func:`from_jax_tree` carry the
+port's per-layer parameters, gradients or optimizer moments (dicts keyed
+by parameter name) to and from the JAX tree layout (``stack/sub{j}``
+leaves with a leading period axis), and :func:`train_state_tree` is the
+``(params, OptState)`` tree that JAX's ``train`` checkpoints, with leaves
+that stack on the host when saved and restore in place, so a loop
+checkpoint written by either package resumes in the other.
+:func:`load_lm_train_reference` reads ``assets/lm_train_reference.npz``:
+the JAX train step's losses, gradient norms, learning rates and per-leaf
+gradient probes on the two configs of ``lm_reference.npz`` (written by
+``benchmarks/torch_export_lm_train_reference.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ import torch
 
 from repro_torch.camera.face_nn import FaceNN
 from repro_torch.camera.viola_jones import Cascade, HaarFeature
+from repro_torch.ckpt.checkpoint import host_array
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.models.layers import numpy_leaf, tree_map
@@ -76,6 +89,7 @@ LM_ASSET = ASSET.parent / "lm_reference.npz"
 RESILIENCE_ASSET = ASSET.parent / "resilience_reference.npz"
 SERVING_ASSET = ASSET.parent / "serving_reference.npz"
 TRAIN_ASSET = ASSET.parent / "train_reference.npz"
+LM_TRAIN_ASSET = ASSET.parent / "lm_train_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -427,4 +441,156 @@ def load_lm_reference(path=None) -> dict:
             f: z[f"{name}_{f}"] for f in (
                 "prompts", "teacher", "prefill_logits", "decode_logits",
                 "greedy", "greedy_gap", "greedy_max")})
+    return out
+
+
+# -- training trees -----------------------------------------------------------
+
+
+def leaf_layout(model) -> list:
+    """[(JAX path, port parameter names)] in the reference's leaf order; a
+    stacked leaf (``stack/...``) lists its slices in layer order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [(path, [names[id(t)] for t in tensors])
+            for path, _s, tensors in model._leaves()]
+
+
+def _put(tree: dict, path, leaf):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def to_jax_tree(model, named: dict) -> dict:
+    """A dict keyed by parameter name (parameters, gradients, moments) as
+    the JAX tree: stacked leaves stacked along a leading period axis."""
+    out = {}
+    for path, names in leaf_layout(model):
+        leaf = (torch.stack([named[n] for n in names]) if path[0] == "stack"
+                else named[names[0]])
+        _put(out, path, leaf)
+    return out
+
+
+def from_jax_tree(model, tree, device=None, dtype=None) -> dict:
+    """The inverse of :func:`to_jax_tree` for a tree of anything numpy
+    reads: name -> tensor on ``device`` (the model's when None), in
+    ``dtype`` (float32 when None)."""
+    device = model.device if device is None else device
+    out = {}
+    for path, names in leaf_layout(model):
+        a = tree
+        for k in path:
+            a = a[k]
+        a = np.asarray(a, dtype=np.float32)
+        if path[0] != "stack":
+            a = a[None]
+        for i, n in enumerate(names):
+            out[n] = torch.tensor(a[i], dtype=dtype or torch.float32,
+                                  device=device)
+    return out
+
+
+class StackedLeaf:
+    """One leaf of a checkpoint tree over the port's per-layer tensors:
+    stacked on the host only when saved (bf16 as its raw 2-byte values, as
+    JAX writes it), and copied back into those tensors in place when
+    restored, so a full-width state never holds a second copy on the
+    card."""
+
+    def __init__(self, tensors, stacked: bool):
+        self.tensors, self.stacked = tensors, stacked
+        first = tensors[0]
+        self.shape = ((len(tensors),) + tuple(first.shape) if stacked
+                      else tuple(first.shape))
+
+    def __array__(self, dtype=None, copy=None):
+        host = [host_array(t) for t in self.tensors]
+        a = np.stack(host) if self.stacked else host[0]
+        return a if dtype is None else a.astype(dtype)
+
+    @torch.no_grad()
+    def restore(self, arr):
+        """Copy a restored leaf (numpy, or a bf16 tensor on the host) into
+        the tensors, cast to their dtype."""
+        parts = arr if self.stacked else arr[None]
+        for t, a in zip(self.tensors, parts):
+            if isinstance(a, np.ndarray):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            t.copy_(a)
+
+
+def train_state_tree(model, opt_state):
+    """``(params, OptState(step, master, mu, nu))`` in the JAX layout, the
+    tree JAX's ``train`` checkpoints, with :class:`StackedLeaf` leaves over
+    the model's parameters and the state's tensors.  ``step`` is the
+    state's own tensor: a restore returns a new one in the tree."""
+    from repro_torch.train.optimizer import OptState
+
+    def tree(named):
+        out = {}
+        for path, names in leaf_layout(model):
+            _put(out, path, StackedLeaf([named[n] for n in names],
+                                        path[0] == "stack"))
+        return out
+
+    return (tree(model.named_leaves()),
+            OptState(step=opt_state.step, master=tree(opt_state.master),
+                     mu=tree(opt_state.mu), nu=tree(opt_state.nu)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LMTrainRecord:
+    """The JAX train step on one reduced float32 config with
+    ``numpy_lm_params(cfg, seed)`` weights: per step the loss, ce, global
+    gradient norm and learning rate; at step 0, per leaf (JAX paths joined
+    by "/"), the float64 sums of g^2 and of g * probe, the probe drawn by
+    :func:`lm_train_probe`; and each quantity's one-ulp sensitivity E (its
+    move, relative to its size, when every weight moves by one ulp): a list
+    per step for "loss", "ce" and "grad_norm", one number for "g_norm" (a
+    leaf's |g|) and "g_probe" (a leaf's g . p relative to |g| |p|)."""
+
+    cfg: object
+    seed: int
+    data: dict                    # DataConfig fields
+    steps: int
+    opt: dict                     # AdamWConfig fields
+    loss: np.ndarray              # (steps,)
+    ce: np.ndarray
+    grad_norm: np.ndarray
+    lr: np.ndarray
+    leaf_names: list
+    g_sq: np.ndarray              # (leaves,) float64
+    g_probe: np.ndarray           # (leaves,) float64
+    sensitivity: dict             # quantity -> E
+
+
+PROBE_SEED = 7
+
+
+def lm_train_probe(shape) -> np.ndarray:
+    """The probe vector of one gradient leaf: standard normals from numpy's
+    generator seeded with PROBE_SEED, float64."""
+    return np.random.default_rng(PROBE_SEED).standard_normal(shape)
+
+
+def load_lm_train_reference(path=None) -> dict:
+    """name -> :class:`LMTrainRecord` (names: "yi", "rwkv")."""
+    import json
+
+    with np.load(LM_TRAIN_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    out = {}
+    for name in (str(n) for n in z["names"]):
+        desc = json.loads(str(z[f"{name}_config"]))
+        cfg = dataclasses.replace(
+            get_config(desc["arch"], smoke=desc["smoke"]),
+            param_dtype=torch.float32, **desc["overrides"])
+        out[name] = LMTrainRecord(
+            cfg=cfg, seed=int(z["seed"]), data=desc["data"],
+            steps=int(desc["steps"]), opt=desc["opt"],
+            leaf_names=list(desc["leaves"]),
+            sensitivity=desc["sensitivity"], **{
+                f: z[f"{name}_{f}"] for f in (
+                    "loss", "ce", "grad_norm", "lr", "g_sq", "g_probe")})
     return out

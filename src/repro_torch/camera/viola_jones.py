@@ -41,6 +41,7 @@ from repro_torch.core.cascade import (
     capacities_from_counts,
     compacting_cascade,
 )
+from repro_torch.core.reduction import sqrt_rn
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.kernels.haar_frontend.ops import haar_stage_scores
 from repro_torch.kernels.haar_frontend.ref import _sign
@@ -577,7 +578,8 @@ class FusedDetector:
         area = self._areas[sids]
         mu = s1 / area
         var = s2 / area - mu * mu
-        sd = torch.sqrt(var.clamp(min=1e-6))
+        # correctly rounded (the CPU's float32 root is not), as XLA's
+        sd = sqrt_rn(var.clamp(min=1e-6))
         inv = torch.reciprocal(sd * area)
         B, n = inv.shape
         return torch.stack([self._bases.to(torch.float32).expand(B, n),

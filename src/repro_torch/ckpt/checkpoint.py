@@ -3,16 +3,25 @@
 
 * **Layout**: one ``.npy`` per leaf plus a JSON manifest in
   ``step_<N:08d>/``.  A tree is nested dicts (keys in sorted order),
-  lists and tuples (by index) over leaves (tensors, numpy arrays,
-  scalars); a leaf is named by the ``/``-joined keys and indices on its
-  path, as JAX's ``tree_flatten_with_path`` names it, so either package
-  restores what the other wrote.
+  named tuples (fields in order, named ``.field``), lists and tuples (by
+  index) over leaves (tensors, numpy arrays, scalars, or anything with
+  ``shape`` and ``__array__``); a leaf is named by the ``/``-joined keys,
+  fields and indices on its path, as JAX's ``tree_flatten_with_path``
+  names it, so either package restores what the other wrote.  A bf16
+  leaf is written as JAX writes one: its raw 2-byte values (numpy dtype
+  ``V2``) with dtype "bfloat16" in the manifest, which the restore reads
+  back as bf16.
 * **Atomic**: writes go to ``step_N.tmp/`` and are renamed into place
   after the manifest is fsynced; a crash mid-save never corrupts the
   latest checkpoint (restore scans for the newest *complete* manifest).
 * **Restore by name**: leaves come back by logical path, onto the device
-  and dtype of the matching ``like_tree`` leaf.  One card has no mesh, so
-  there is no ``shardings`` argument.
+  and dtype of the matching ``like_tree`` leaf; a ``like_tree`` leaf with
+  a ``restore(array)`` method takes the array itself (in place) and stays
+  in the tree.  One card has no mesh, so there is no ``shardings``
+  argument.
+
+The training loop reaches these functions through
+:class:`DirectoryCheckpoints`.
 
 ``telemetry=`` on save and restore (any object with ``enabled``,
 ``counters.bump`` and ``emit``) charges the §15 counters and emits a
@@ -36,6 +45,9 @@ def _flatten(tree, path=()):
     if isinstance(tree, dict):
         return [item for k in sorted(tree)
                 for item in _flatten(tree[k], path + (k,))]
+    if _is_namedtuple(tree):
+        return [item for f in tree._fields
+                for item in _flatten(getattr(tree, f), path + ("." + f,))]
     if isinstance(tree, (list, tuple)):
         return [item for i, v in enumerate(tree)
                 for item in _flatten(v, path + (i,))]
@@ -44,11 +56,18 @@ def _flatten(tree, path=()):
     return [(path, tree)]
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from the
     iterator ``leaves``."""
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(getattr(like, f), leaves)
+                            for f in like._fields))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     if like is None:
@@ -60,10 +79,22 @@ def _name(path) -> str:
     return "/".join(str(k) for k in path)
 
 
-def _host(leaf) -> np.ndarray:
+BF16_RAW = np.dtype("V2")      # how numpy holds JAX's bf16 on disk
+
+
+def host_array(leaf) -> np.ndarray:
+    """A leaf as the array its ``.npy`` holds (a bf16 tensor as its raw
+    2-byte values)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy().view(BF16_RAW)
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_RAW else str(arr.dtype)
 
 
 def _on(telemetry) -> bool:
@@ -84,13 +115,13 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
     nbytes = 0
     for path, leaf in _flatten(tree):
         name = _name(path)
-        arr = _host(leaf)
+        arr = host_array(leaf)
         fname = name.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         nbytes += int(arr.nbytes)
         manifest["leaves"].append(
             {"name": name, "file": fname, "shape": list(arr.shape),
-             "dtype": str(arr.dtype)})
+             "dtype": _dtype_name(arr)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -127,8 +158,15 @@ def read_extra(ckpt_dir: str, step: int) -> dict:
 
 
 def _restore_leaf(arr: np.ndarray, like):
+    if arr.dtype == BF16_RAW:                 # a bf16 leaf's raw values
+        arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if hasattr(like, "restore"):
+        like.restore(arr)
+        return like
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+        return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
+    if isinstance(arr, torch.Tensor):
+        arr = arr.float().numpy()
     return arr.astype(np.asarray(like).dtype)
 
 
@@ -168,3 +206,22 @@ def prune_old(ckpt_dir: str, keep: int = 3):
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
                       ignore_errors=True)
+
+
+class DirectoryCheckpoints:
+    """The functions above on one directory: the training loop's store."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = ckpt_dir
+
+    def save(self, step: int, tree, extra: dict | None = None):
+        return save_checkpoint(self.ckpt_dir, step, tree, extra=extra)
+
+    def latest_step(self):
+        return latest_step(self.ckpt_dir)
+
+    def restore(self, step: int, like_tree):
+        return restore_checkpoint(self.ckpt_dir, step, like_tree)
+
+    def prune(self, keep: int):
+        prune_old(self.ckpt_dir, keep)

@@ -1,6 +1,6 @@
 """Quantization primitives of the JAX package's ``core/reduction.py``.
 
-What the face-auth NN and the offload wire codec need so far:
+What the face-auth NN, the offload wire codec and AdamW need so far:
 :func:`quantize_blocks` and, over it, :func:`quantize_bits`,
 :func:`quantize_int8` and :func:`dequantize_int8`
 (without the reference's stochastic-rounding ``key``, which comes with
@@ -26,6 +26,15 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c``, computed as XLA computes it under
     ``jit``: a float32 multiply by the float32 reciprocal of ``c``."""
     return x * float(np.float32(1.0) / np.float32(c))
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA computes it.  On
+    the card PyTorch's float32 root is correctly rounded; on the CPU it is
+    not, so there the float64 root is rounded once."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def flat_blocks(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -155,8 +155,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int Tk, int H, int KV, float scale,
-                           int window) {
+                           float* __restrict__ lse, int S, int Tk, int H,
+                           int KV, float scale, int window) {
   constexpr int NC = D / 64;                  // float4 column groups of acc
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][D]  q * scale
@@ -303,6 +303,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 8 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(bh) * S + row] = __fadd_rn(m[i], logf(denom));
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float4 out = make_float4(
@@ -314,8 +316,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int KV, float scale, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int KV, float scale, int window,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + 4 * BK * D + BK * LDP);
   auto kernel = flash_attention_kernel<D>;
@@ -330,8 +332,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, KV,
-      scale, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Tk, H,
+      KV, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,8 +554,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
-                           __nv_bfloat16* __restrict__ o, int S, int Tk,
-                           int H, int KV, float scale, int window) {
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int S, int Tk, int H,
+                           int KV, float scale, int window) {
   constexpr int NB = D / 64;                  // 64-wide d boxes
   constexpr uint32_t kTile = NB * kBox;       // bytes of a Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -712,6 +715,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const float d0 = fmaxf(l0, 1e-37f), d1 = fmaxf(l1, 1e-37f);
+    if (lse != nullptr && tq == 0) {
+      float* lb = lse + static_cast<size_t>(bh) * S;
+      if (row < S) lb[row] = __fadd_rn(m0, logf(d0));
+      if (row + 8 < S) lb[row + 8] = __fadd_rn(m1, logf(d1));
+    }
     const size_t q_row = static_cast<size_t>(H) * D;
     __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * D + 2 * tq;
 #pragma unroll
@@ -774,8 +782,8 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int KV, float scale, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int KV, float scale, int window,
            cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -795,34 +803,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(B * H, n_qt);                     // heaviest query tiles first
   kernel<<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, Tk, H, KV, scale,
-      window);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, KV,
+      scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tensor_core
 
 // dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  D: 64 or 128.
-// Returns cudaErrorInvalidValue for any other dtype or D.
+// lse: null, or (B, H, S) float32 that gets each row's log-sum-exp of its
+// scaled logits (m + log l, in the domain the kernel exponentiates), which
+// the backward (csrc/flash_attention_bwd.cu) reads; O is the same either
+// way.  Returns cudaErrorInvalidValue for any other dtype or D.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype, int B,
-                                     int S, int Tk, int H, int KV, int D,
-                                     float scale, int window,
+                                     const void* v, void* o, float* lse,
+                                     int dtype, int B, int S, int Tk, int H,
+                                     int KV, int D, float scale, int window,
                                      cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Tk <= 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 128)
-    return cuda_core::launch<128>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                         window, stream);
+    return cuda_core::launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
+                                  window, stream);
   if (dtype == 0 && D == 64)
-    return cuda_core::launch<64>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                        window, stream);
+    return cuda_core::launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
+                                 window, stream);
   if (dtype == 1 && D == 128)
-    return tensor_core::launch<128>(q, k, v, o, B, S, Tk, H, KV, scale,
+    return tensor_core::launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
                                     window, stream);
   if (dtype == 1 && D == 64)
-    return tensor_core::launch<64>(q, k, v, o, B, S, Tk, H, KV, scale, window,
-                                   stream);
+    return tensor_core::launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
+                                   window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

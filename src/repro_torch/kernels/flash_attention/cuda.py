@@ -1,6 +1,10 @@
-"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``):
-one C entry point that launches the ``wgmma`` + TMA kernel for bf16 and
-the float32 CUDA-core kernel for float32."""
+"""Wrappers of the CUDA flash-attention kernels.
+
+``csrc/flash_attention.cu`` (the forward): one C entry point that launches
+the ``wgmma`` + TMA kernel for bf16 and the float32 CUDA-core kernel for
+float32, and writes each row's log-sum-exp when asked.
+``csrc/flash_attention_bwd.cu`` (its backward): one C entry point that
+launches the dq kernel, then the dkdv kernel, for either dtype."""
 
 from __future__ import annotations
 
@@ -12,12 +16,15 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:87"
 HEAD_DIMS = (64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -25,23 +32,29 @@ def _kernel():
     if _fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _fn = _build.bind("repro_flash_attention",
-                          [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                           i, p])
+                          [p, p, p, p, p, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, p])
     return _fn
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, window=None, scale=None) -> torch.Tensor:
-    """Causal attention, one launch.  q: (b, s, H, d), k/v: (b, t, KV, d)
-    CUDA, bf16 or float32, KV | H, d in ``HEAD_DIMS`` -> (b, s, H, d) in
-    q's dtype."""
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _bwd_fn = _build.bind("repro_flash_attention_bwd",
+                              [p] * 10 + [i] * 7 + [ctypes.c_float, i, p])
+    return _bwd_fn
+
+
+def _check_inputs(q, k, v, window, extra=()):
+    """The checks both wrappers make; returns (b, s, H, d, t, KV)."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+        raise ValueError("the flash-attention kernels need CUDA tensors")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"q has dtype {q.dtype}; the kernel takes bf16 or "
+        raise TypeError(f"q has dtype {q.dtype}; the kernels take bf16 or "
                         "float32")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _build.require(t, name, q.dtype, 4, dev)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -57,14 +70,58 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head size {d} not built; have {HEAD_DIMS}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    return b, s, H, d, t, KV
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, window=None, scale=None, return_lse=False):
+    """Causal attention, one launch.  q: (b, s, H, d), k/v: (b, t, KV, d)
+    CUDA, bf16 or float32, KV | H, d in ``HEAD_DIMS`` -> (b, s, H, d) in
+    q's dtype; with ``return_lse`` also each row's log-sum-exp of its
+    scaled logits, (b, H, s) float32, which the backward reads (the
+    output is the same bits either way)."""
+    b, s, H, d, t, KV = _check_inputs(q, k, v, window)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty_like(q)
+    lse = (torch.empty((b, H, s), device=q.device, dtype=torch.float32)
+           if return_lse else None)
     if o.numel() == 0 or t == 0:
-        return o.zero_()
+        o.zero_()
+        return (o, lse.fill_(-math.inf)) if return_lse else o
     rc = _kernel()(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                   None if lse is None else _build.ptr(lse),
                    _DTYPE_CODE[q.dtype], b, s, t, H, KV, d,
                    ctypes.c_float(scale), 0 if window is None else window,
                    _build.stream_of(q))
     _build.check(rc, NAME)
     _build.launches[NAME] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(q, k, v, o, dout, lse, *, window=None,
+                             scale=None):
+    """The backward of :func:`flash_attention_cuda`, one launch of the
+    dq and dkdv kernels.  q, o, dout: (b, s, H, d), k/v: (b, t, KV, d),
+    all CUDA in one dtype (bf16 or float32), lse: (b, H, s) float32 from
+    the forward -> (dq, dk, dv) in q's dtype."""
+    b, s, H, d, t, KV = _check_inputs(q, k, v, window,
+                                      (("o", o), ("dout", dout)))
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / dout {tuple(dout.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    _build.require(lse, "lse", torch.float32, 3, q.device)
+    if lse.shape != (b, H, s):
+        raise ValueError(f"lse {tuple(lse.shape)}, expected {(b, H, s)}")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or t == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
+    rc = _bwd_kernel()(*(_build.ptr(x) for x in (q, k, v, o, dout, lse, delta,
+                                                  dq, dk, dv)),
+                       _DTYPE_CODE[q.dtype], b, s, t, H, KV, d,
+                       ctypes.c_float(scale), 0 if window is None else window,
+                       _build.stream_of(q))
+    _build.check(rc, BWD_NAME)
+    _build.launches[BWD_NAME] += 1
+    return dq, dk, dv

@@ -6,7 +6,10 @@ recurrence from the zero state over (BH, T, K) (``kernels/rwkv_scan/ref.py``
 ``wkv_ref``), which also returns the final state.  :func:`wkv_chunked_ref`
 is the CUDA kernel's chunked arithmetic (``csrc/rwkv_scan.cu``) in plain
 PyTorch, for the tests and ``chip_smoke.py``; the CPU route stays
-:func:`wkv_ref`.
+:func:`wkv_ref`.  :func:`wkv_bwd_ref` is the recurrence's backward as an
+explicit reverse recurrence, the plain version of the backward kernel
+(``csrc/rwkv_scan_bwd.cu``); on the CPU the model differentiates
+:func:`wkv_ref` with autograd.
 """
 
 from __future__ import annotations
@@ -75,3 +78,46 @@ def wkv_chunked_ref(r, k, v, w, u, chunk: int = CHUNK):
         S = incl[:, -1, :, None] * S + (kc * Bs).transpose(1, 2) @ vc
     out = torch.cat(outs, dim=1)[:, :T] if outs else v.new_zeros(v.shape)
     return out, S
+
+
+def wkv_bwd_ref(r, k, v, w, u, dout, ckpt_every: int = 64):
+    """The backward of :func:`wkv_ref` for a zero cotangent of the final
+    state, over (BH, T, K) (v, dout (BH, T, V), u (BH, K)) -> (dr, dk, dv,
+    dw, du (BH, K)).  A reverse recurrence from dS_T = 0:
+    e_t = v_t . dout_t, dr_t = S_t dout_t + u k_t e_t,
+    dk_t = dS_{t+1} v_t + r_t u e_t,
+    dv_t = dS_{t+1}^T k_t + (r_t . u k_t) dout_t,
+    dw_t = rowsum(dS_{t+1} S_t), du = sum_t r_t k_t e_t,
+    dS_t = diag(w_t) dS_{t+1} + r_t dout_t^T.  The states S_t come from the
+    forward recurrence, kept every ``ckpt_every`` steps and rebuilt in
+    between, so memory stays at ``ckpt_every`` states."""
+    BH, T, K = r.shape
+    V = v.shape[2]
+    S = r.new_zeros((BH, K, V))
+    starts = []
+    for t in range(T):
+        if t % ckpt_every == 0:
+            starts.append(S)
+        S, _ = wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+    grads = [torch.zeros_like(x) for x in (r, k, v, w)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros_like(u)
+    dS = r.new_zeros((BH, K, V))
+    for c in reversed(range(len(starts))):
+        t0 = c * ckpt_every
+        states = [starts[c]]
+        for t in range(t0, min(T, t0 + ckpt_every) - 1):
+            states.append(w[:, t, :, None] * states[-1]
+                          + k[:, t, :, None] * v[:, t, None, :])
+        for t in reversed(range(t0, t0 + len(states))):
+            St = states[t - t0]
+            rt, kt, vt, wt, gt = r[:, t], k[:, t], v[:, t], w[:, t], dout[:, t]
+            e = (vt * gt).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bkv,bv->bk", St, gt) + u * kt * e
+            dk[:, t] = torch.einsum("bkv,bv->bk", dS, vt) + rt * u * e
+            dv[:, t] = (torch.einsum("bkv,bk->bv", dS, kt)
+                        + (rt * u * kt).sum(-1, keepdim=True) * gt)
+            dw[:, t] = (dS * St).sum(-1)
+            du = du + rt * kt * e
+            dS = wt[:, :, None] * dS + rt[:, :, None] * gt[:, None, :]
+    return dr, dk, dv, dw, du

@@ -8,6 +8,12 @@ returns the reference's stacked tree (``stack/sub{j}`` with a leading
 period axis), which is what :meth:`Model.init` draws from, what
 :meth:`Model.load_tree` reads and what ``bridge.numpy_lm_params`` builds.
 
+:meth:`Model.forward` is the full forward that autograd sees (each layer
+under ``torch.utils.checkpoint`` when ``cfg.remat``, the counterpart of
+the reference's ``jax.checkpoint`` of its period body) and
+:meth:`Model.loss` the next-token cross-entropy on it; the serving calls
+(``logits``, ``prefill``, ``decode_step``) run it without autograd.
+
 MoE, MLA, Mamba and encoder-decoder configurations raise
 ``NotImplementedError`` at construction; of the ten configs, yi-9b,
 codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b and rwkv6-7b
@@ -21,6 +27,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -244,6 +251,14 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return param_count(self.specs())
 
+    def named_leaves(self) -> dict:
+        """name -> parameter, in the reference's leaf order (a stacked
+        leaf's slices in layer order): the order in which the optimizer
+        sums the gradient norm."""
+        names = {id(p): n for n, p in self.named_parameters()}
+        return {names[id(t)]: t for _path, _s, tensors in self._leaves()
+                for t in tensors}
+
     def _leaves(self):
         """(path, spec, tensors) for every leaf of the reference's tree;
         ``tensors`` are the port's parameters that hold its slices along
@@ -299,14 +314,49 @@ class Model(nn.Module):
         return torch.arange(s, dtype=torch.int32,
                             device=tokens.device).expand(b, s)
 
-    @torch.no_grad()
-    def logits(self, tokens):
-        """tokens: (b, s) -> logits (b, s, vocab), the full forward."""
+    def _period(self, i: int, x, positions):
+        """Layers i .. i + period - 1 (one period of the reference's
+        scanned stack) -> x."""
+        for layer in self.layers[i:i + self.period]:
+            x, _entry = layer(x, positions)
+        return x
+
+    def forward(self, tokens):
+        """tokens: (b, s) -> logits (b, s, vocab), the full forward.  Under
+        autograd with ``cfg.remat`` each period runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward), as the reference's ``jax.checkpoint`` of its period."""
         x = embed(self.embed, tokens)
         positions = self._positions(tokens)
-        for layer in self.layers:
-            x, _entry = layer(x, positions)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i in range(0, len(self.layers), self.period):
+            if remat:
+                x = checkpoint(self._period, i, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._period(i, x, positions)
         return self._head(x)
+
+    @torch.no_grad()
+    def logits(self, tokens):
+        """tokens: (b, s) -> logits (b, s, vocab), without autograd."""
+        return self.forward(tokens)
+
+    def loss(self, batch):
+        """Next-token cross-entropy: (loss, {"ce", "aux"}).  ``aux`` (the
+        reference's MoE balance loss) is 0 for every family the port runs.
+        The gold logit is a gather, which gives the bits of the reference's
+        masked sum: that sum adds zeros to one value."""
+        tokens = batch["tokens"]
+        logits = self.forward(tokens)
+        tgt = tokens[:, 1:].long()
+        lg = logits[:, :-1].float()
+        del logits
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        ce = (logz - gold).mean()
+        aux = ce.new_zeros(())
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens):

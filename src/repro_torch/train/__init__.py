@@ -1,0 +1,2 @@
+"""LM training on one card: AdamW (``optimizer``), the train step
+(``step``) and the fault-tolerant loop (``loop``)."""

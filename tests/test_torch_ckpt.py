@@ -204,3 +204,78 @@ def test_telemetry_counts_as_jax(tmp_path):
     save_checkpoint(str(tmp_path / "off"), 0, {"x": torch.zeros(1)},
                     telemetry=off)
     assert off.counters.totals() == {}
+
+
+def test_named_tuples_are_named_as_jax_names_them(tmp_path):
+    """A named tuple's fields are ``.field`` path parts in both packages,
+    so the training loop's ``(params, OptState)`` tree keeps one name per
+    leaf across them."""
+    from repro.train.optimizer import OptState as JaxOptState
+
+    from repro_torch.train.optimizer import OptState
+
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    jtree = ({"w": jnp.asarray(w)}, JaxOptState(
+        step=jnp.int32(3), master={"w": jnp.asarray(w)},
+        mu={"w": jnp.zeros((2, 3))}, nu={"w": jnp.ones((2, 3))}))
+    ptree = ({"w": torch.tensor(w)}, OptState(
+        step=torch.tensor(3, dtype=torch.int32), master={"w": torch.tensor(w)},
+        mu={"w": torch.zeros((2, 3))}, nu={"w": torch.ones((2, 3))}))
+    save_checkpoint(str(tmp_path / "p"), 1, ptree)
+    jck.save_checkpoint(str(tmp_path / "j"), 1, jtree)
+
+    def names(d):
+        with open(os.path.join(d, "step_00000001", "manifest.json")) as f:
+            return sorted(x["name"] for x in json.load(f)["leaves"])
+
+    assert names(tmp_path / "p") == names(tmp_path / "j")
+    got, _ = restore_checkpoint(str(tmp_path / "j"), 1, ptree)
+    assert isinstance(got[1], OptState) and int(got[1].step) == 3
+    assert torch.equal(got[1].nu["w"], torch.ones((2, 3)))
+    jgot, _ = jck.restore_checkpoint(str(tmp_path / "p"), 1, jtree)
+    np.testing.assert_array_equal(np.asarray(jgot[1].master["w"]), w)
+
+
+def test_bf16_leaves_are_written_as_jax_writes_them(tmp_path):
+    """A bf16 leaf goes to disk as its raw 2-byte values with dtype
+    "bfloat16" in the manifest, the bytes JAX writes; the port restores
+    either package's as bf16."""
+    vals = np.array([0.0, 1.5, -3.25, 1e-3, 6e4], np.float32)
+    save_checkpoint(str(tmp_path / "p"), 1,
+                    {"a": torch.tensor(vals).to(torch.bfloat16)})
+    jck.save_checkpoint(str(tmp_path / "j"), 1,
+                        {"a": jnp.asarray(vals, jnp.bfloat16)})
+    raw = [np.load(str(tmp_path / d / "step_00000001" / "a.npy"))
+           for d in ("p", "j")]
+    assert raw[0].dtype == raw[1].dtype and raw[0].tobytes() == raw[1].tobytes()
+    like = {"a": torch.zeros(5, dtype=torch.bfloat16)}
+    for d in ("p", "j"):
+        got, _ = restore_checkpoint(str(tmp_path / d), 1, like)
+        assert got["a"].dtype == torch.bfloat16
+        assert torch.equal(got["a"], torch.tensor(vals).to(torch.bfloat16))
+
+
+def test_memory_checkpoints_hold_what_a_directory_holds(tmp_path):
+    """chip_smoke.py's host-memory store keeps what the package's on-disk
+    store keeps."""
+    from chip_smoke import MemoryCheckpoints
+    from repro_torch.ckpt.checkpoint import DirectoryCheckpoints
+
+    tree = {"x": torch.arange(6.0), "h": torch.ones(3, dtype=torch.bfloat16),
+            "n": [np.int32(4)]}
+    like = {"x": torch.zeros(6), "h": torch.zeros(3, dtype=torch.bfloat16),
+            "n": [np.int32(0)]}
+    stores = [MemoryCheckpoints(), DirectoryCheckpoints(str(tmp_path))]
+    for store in stores:
+        for step in (2, 4, 6):
+            store.save(step, tree, extra={"next_step": step})
+        tree["x"] += 1          # a save is a copy, not a view
+        store.prune(2)
+        tree["x"] -= 1
+        assert store.latest_step() == 6
+        got, extra = store.restore(4, like)
+        assert extra == {"next_step": 4}
+        assert torch.equal(got["x"], torch.arange(6.0))
+        assert got["h"].dtype == torch.bfloat16 and int(got["n"][0]) == 4
+    with pytest.raises(KeyError):
+        stores[0].restore(2, like)

@@ -7,12 +7,15 @@ lengths and GQA.
 
 Tolerances are the reference's own (tests/test_kernels.py:43): 2e-5 in
 float32, atol = rtol = 2e-2 in bf16.  The CUDA kernel runs only on the
-card; ``chip_smoke.py`` holds it to these plain versions there.
+card; ``chip_smoke.py`` holds it to these plain versions there.  The
+backward's plain version ``flash_attention_bwd_ref`` is held to autograd
+and to JAX's vjp of ``_mha_streaming`` at the end.
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
@@ -22,7 +25,11 @@ from repro.models.attention import _mha_streaming as jax_mha_streaming
 
 from repro_torch.kernels.flash_attention import cuda as fcuda
 from repro_torch.kernels.flash_attention.ops import expand_kv, flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref, mha_streaming
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    flash_attention_bwd_ref,
+    mha_streaming,
+)
 
 # the test files run in parallel worker processes: one intra-op thread
 # per process keeps PyTorch's CPU kernels from oversubscribing the cores
@@ -416,3 +423,87 @@ def test_cuda_core_emulation_ragged(b, s, H, KV, d, window):
         *(jnp.moveaxis(a, 2, 1).reshape(b * H, s, d) for a in (q, kf, vf)),
         causal=True, window=window)
     close(want, heads_first(got))
+
+
+# -- the backward (csrc/flash_attention_bwd.cu's plain version) ------------
+#
+# ``flash_attention_bwd_ref`` computes dq, dk, dv from the forward's output
+# and log-sum-exp (``mha_streaming(..., return_lse=True)``) with the kv
+# heads expanded and summed back.  It is held to autograd through
+# ``mha_streaming`` and to jax.vjp of the reference's ``_mha_streaming``
+# with its kv heads repeated (``attention_train``'s form), in float32:
+# within 2e-5 of each gradient's largest entry (the float32 TOL above).
+
+def rel_max(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def jax_attention_vjp(q, k, v, g, window, scale):
+    H = q.shape[2]
+
+    def fwd(q, k, v):
+        rep = H // k.shape[2]
+        pos = jnp.arange(q.shape[1], dtype=jnp.int32)
+        return jax_mha_streaming(q, jnp.repeat(k, rep, axis=2),
+                                 jnp.repeat(v, rep, axis=2), pos, pos, scale,
+                                 window=window)
+    _, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("b,s,H,KV,d,window", [
+    (1, 650, 4, 4, 64, None),       # GQA group 1, S ragged
+    (1, 650, 8, 2, 128, None),      # group 4
+    (1, 650, 8, 1, 64, 200),        # group 8, a window
+    (2, 200, 4, 1, 128, 64),        # group 4, a window, d 128
+])
+def test_flash_bwd_ref_against_autograd_and_jax(b, s, H, KV, d, window):
+    rng = np.random.default_rng(s + H + d)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, H, d), (b, s, KV, d), (b, s, KV, d)))
+    g = rng.standard_normal((b, s, H, d)).astype(np.float32)
+    scale = d ** -0.5
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    pos = torch.arange(s)
+    o, lse = mha_streaming(leaves[0], expand_kv(leaves[1], H),
+                           expand_kv(leaves[2], H), pos, pos, scale,
+                           window=window, return_lse=True)
+    o.backward(torch.tensor(g))
+    got = flash_attention_bwd_ref(*(torch.tensor(a) for a in (q, k, v)),
+                                  o.detach(), torch.tensor(g), lse.detach(),
+                                  window=window, scale=scale, chunk=256)
+    want = jax_attention_vjp(q, k, v, g, window, scale)
+    for name, a, t, j in zip(("dq", "dk", "dv"), got, leaves, want):
+        assert a.shape == t.shape, name
+        assert rel_max(a.numpy(), t.grad.numpy()) < 2e-5, name
+        assert rel_max(a.numpy(), j) < 2e-5, name
+
+
+def test_lse_is_the_rows_logsumexp():
+    """The streaming form's lse is logsumexp of the scaled, masked logits
+    (what the kernel writes and its backward reads)."""
+    _, (tq, tk, tv) = qkv([(1, 70, 2, 64)] * 3, 21)
+    pos = torch.arange(70)
+    _o, lse = mha_streaming(tq, tk, tv, pos, pos, 0.125, window=9,
+                            chunk=16, return_lse=True)
+    logits = torch.einsum("bshd,bthd->bhst", tq, tk) * 0.125
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - 9)
+    want = torch.logsumexp(torch.where(mask, logits, -torch.inf), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=2e-6,
+                               rtol=2e-6)
+
+
+def test_autograd_route_on_cpu_is_the_streaming_form():
+    """flash_attention on CPU tensors differentiates the plain streaming
+    form; the CUDA backward wrapper refuses CPU tensors."""
+    _, (tq, tk, tv) = qkv([(1, 12, 4, 64), (1, 12, 2, 64), (1, 12, 2, 64)],
+                          22)
+    leaves = [t.requires_grad_(True) for t in (tq, tk, tv)]
+    out = flash_attention(*leaves)
+    assert "FlashAttention" not in type(out.grad_fn).__name__
+    out.square().sum().backward()
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+    lse = torch.zeros((1, 4, 12))
+    with pytest.raises(ValueError, match="CUDA"):
+        fcuda.flash_attention_bwd_cuda(tq, tk, tv, tq, tq, lse)

@@ -114,3 +114,37 @@ def test_resilience_layer_runs_without_jax(tmp_path):
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "[resilience] ok" in out.stdout
+
+
+TRAIN_MODULES = ["data.pipeline", "train.optimizer", "train.step",
+                 "train.loop", "launch.train", "ckpt.checkpoint", "bridge"]
+
+
+def test_lm_training_runs_without_jax(tmp_path):
+    """The training slice imports, and the training CLI trains, checkpoints
+    and finishes on the CPU, in a process where neither JAX nor the
+    reference package can be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {TRAIN_MODULES!r}:\n"
+        "    importlib.import_module('repro_torch.' + m)\n"
+        "from repro_torch.launch.train import main\n"
+        "out = main(['--device', 'cpu', '--arch', 'rwkv6-7b', '--steps', '3',"
+        " '--global-batch', '2', '--seq', '12', '--ckpt-every', '2',"
+        f" '--ckpt-dir', {str(tmp_path)!r}])\n"
+        "assert [h['step'] for h in out['history']] == [0, 1, 2]\n"
+        "assert not any(k.split('.')[0] in ('jax', 'repro') for k in "
+        "sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[train]" in out.stdout
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002",
+                                            "step_00000003"]

@@ -9,7 +9,8 @@ Tolerance: the reference's own, relative error below 2e-4 of the largest
 |output| (tests/test_kernels.py:372) against the chunked kernel; against
 the sequential oracle and the scan, which run the same steps in float32,
 1e-5.  The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it
-to these plain versions there.
+to these plain versions there.  The backward's plain version
+``wkv_bwd_ref`` is held to autograd and to JAX's vjp at the end.
 """
 
 import jax
@@ -26,6 +27,7 @@ from repro_torch.kernels.rwkv_scan import cuda as wcuda
 from repro_torch.kernels.rwkv_scan.ops import rwkv_wkv
 from repro_torch.kernels.rwkv_scan.ref import (
     CHUNK,
+    wkv_bwd_ref,
     wkv_chunked_ref,
     wkv_ref,
     wkv_step,
@@ -193,3 +195,80 @@ def test_kernel_constants():
     assert c["kMinBlocks"] * c["kThreads"] <= 2048
     # the B * H blocks of the rwkv6-7b prefill fill one wave
     assert 8 * 64 <= 132 * c["kMinBlocks"]
+
+
+# -- the backward (csrc/rwkv_scan_bwd.cu's plain version) ------------------
+#
+# ``wkv_bwd_ref``, the explicit reverse recurrence, is held to autograd
+# through ``wkv_ref`` and to jax.vjp through the reference's scan of
+# _wkv_step, for a zero cotangent of the final state (the training path
+# never uses it).  All three run the same float32 steps in different
+# orders: relative 1e-5 of each gradient's largest entry, the sequential
+# tolerance above.
+
+
+def jax_scan_vjp(r, k, v, w, u, g):
+    """Cotangents of (r, k, v, w, u) for output cotangent ``g`` through
+    the reference's scan of _wkv_step, u (BH, K) per row."""
+    def outs(r, k, v, w, u):
+        def step(S, inp):
+            return jax_wkv_step(S, *inp, u)
+        _S, o = jax.lax.scan(step, jnp.zeros((1, r.shape[0], r.shape[2],
+                                              v.shape[2])),
+                             tuple(jnp.moveaxis(a, 1, 0)[:, None]
+                                   for a in (r, k, v, w)))
+        return jnp.moveaxis(o[:, 0], 0, 1)
+    _, vjp = jax.vjp(outs, *(jnp.asarray(a) for a in (r, k, v, w, u)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("T,dscale,w_zero", [
+    (100, 2.0, False),          # ragged against the kernel's chunk of 16
+    (37, 3.0, True),            # w = 0 in every third step's even channels
+    (130, 10.0, True),
+])
+def test_wkv_bwd_ref_against_autograd_and_jax(T, dscale, w_zero):
+    r, k, v, w, u = inputs(3, T, 64, dscale, T + 1)
+    if w_zero:
+        w[:, ::3, ::2] = 0.0
+    g = np.random.default_rng(T).standard_normal(v.shape).astype(np.float32)
+    got = wkv_bwd_ref(*(torch.tensor(a) for a in (r, k, v, w, u, g)),
+                      ckpt_every=16)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (r, k, v, w, u)]
+    out, _state = wkv_ref(*leaves)
+    out.backward(torch.tensor(g))
+    want = jax_scan_vjp(r, k, v, w, u, g)
+    assert rel(want[4], np.zeros_like(want[4])) > 0     # u is moved
+    for name, a, t, j in zip("rkvwu", got, leaves, want):
+        assert rel(a.numpy(), t.grad.numpy()) < 1e-5, name
+        assert rel(a.numpy(), j) < 1e-5, name
+    assert all(torch.isfinite(a).all() for a in got)
+
+
+def test_wkv_bwd_ref_rebuilds_states_at_any_spacing():
+    r, k, v, w, u = inputs(2, 45, 64, 3.0, 11)
+    g = np.random.default_rng(12).standard_normal(v.shape).astype(np.float32)
+    args = [torch.tensor(a) for a in (r, k, v, w, u, g)]
+    every = wkv_bwd_ref(*args, ckpt_every=1)
+    for spacing in (16, 64):
+        for a, b in zip(wkv_bwd_ref(*args, ckpt_every=spacing), every):
+            assert torch.equal(a, b)
+
+
+def test_autograd_route_on_cpu_is_the_plain_recurrence():
+    """ops.rwkv_wkv on CPU tensors differentiates the plain recurrence (no
+    kernel, no custom backward); the CUDA backward wrapper refuses CPU
+    tensors."""
+    b, T, H = 1, 20, 2
+    r, k, v, w, _ = inputs(b * H, T, 64, 2.0, 13)
+    u = np.random.default_rng(14).standard_normal((H, 64)).astype(np.float32)
+    leaves = [torch.tensor(a.reshape(b, H, T, 64)).transpose(1, 2)
+              .contiguous().requires_grad_(True) for a in (r, k, v, w)]
+    tu = torch.tensor(u, requires_grad=True)
+    out, _state = rwkv_wkv(*leaves, tu)
+    assert out.grad_fn is not None and "RwkvWkv" not in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert all(t.grad is not None for t in leaves) and tu.grad is not None
+    t = torch.zeros((1, 4, 1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        wcuda.rwkv_wkv_bwd_cuda(t, t, t, t, torch.zeros((1, 64)), t)
