@@ -11,7 +11,10 @@ strip ``RS`` and the blocks per SM of its ``__launch_bounds__``; section
 FlashAttention's P, instead of the committed hi + lo pair; ``flash``) and
 of its float32 kernel (masks on every tile or on cut tiles only, blocks
 of 64 or 128 queries, the order of the q k^T fragment loads and the
-unrolling of P V; ``flash_f32``), of ``src/repro_torch/csrc/rwkv_scan.cu``
+unrolling of P V; ``flash_f32``), of the bf16 kernels of
+``src/repro_torch/csrc/flash_attention_bwd.cu`` (tile sizes, ring depth,
+P and dS as one bf16 term; ``flash_bwd``, which also prints the
+per-kernel device times), of ``src/repro_torch/csrc/rwkv_scan.cu``
 (the products as one TF32 term instead of 3xTF32, and three blocks an SM
 instead of four; ``wkv``) and of ``src/repro_torch/csrc/haar_stage.cu``
 (windows a thread scores together, slot blocks a frame, the table path
@@ -42,12 +45,13 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
 
 # (RS, blocks per SM); the first is the committed kernel
 INTEGRAL = {"rs64_3blocks": (64, 3), "rs32_4blocks": (32, 4),
             "rs32_8blocks": (32, 8), "rs64_4blocks": (64, 4)}
-FLASH_ONE_P = ("        wgmma_pv<D>(acc, hi, vd);\n"
-               "        wgmma_pv<D>(acc, lo, vd);\n")
+FLASH_ONE_P = ("        wgmma_rs<D>(acc, hi, vd);\n"
+               "        wgmma_rs<D>(acc, lo, vd);\n")
 
 
 def build(name, source, nvcc, flags):
@@ -57,13 +61,15 @@ def build(name, source, nvcc, flags):
     with open(src, "w") as f:
         f.write(source)
     lib = os.path.join(out_dir, name + ".so")
-    proc = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-shared", src,
-                           "-o", lib], capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-I", CSRC,
+                           "-shared", src, "-o", lib], capture_output=True,
+                          text=True)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     regs = [line.split("ptxas info    :")[-1].strip()
             for line in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in line or "spill" in line]
+            if "registers" in line or "spill" in line
+            or "Performance Loss" in line]
     print(f"{name}: {'; '.join(regs)}", flush=True)
     return ctypes.CDLL(lib)
 
@@ -161,10 +167,11 @@ def flash_variants(nvcc, flags):
     fns = {}
     for name, src in (("p_hi_lo", text),
                       ("p_one_bf16", text.replace(
-                          FLASH_ONE_P, "        wgmma_pv<D>(acc, hi, vd);\n"))):
+                          FLASH_ONE_P, "        wgmma_rs<D>(acc, hi, vd);\n"))):
         fn = build(f"flash_{name}", src, nvcc, flags).repro_flash_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                       i, p]
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -172,6 +179,7 @@ def flash_variants(nvcc, flags):
         b, s, H, d = q.shape
         o = torch.empty_like(q)
         rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       None,
                        1, b, s, k.shape[1], H, k.shape[2], d,
                        ctypes.c_float(d ** -0.5), 0,
                        torch.cuda.current_stream().cuda_stream)
@@ -216,6 +224,210 @@ def flash_variants(nvcc, flags):
         del q, k, v
         torch.cuda.empty_cache()
     return result
+
+# the bf16 backward's constants (csrc/flash_attention_bwd.cu, tensor_core)
+# that its variants change: {variant: {constant: value}}
+FLASH_BWD = {"committed": {},
+             "dq_bk64": {"kDqBK": 64},
+             "kv_stages3": {"kKvStages": 3},
+             "one_bf16": {"kPTerms": 1, "kDsTerms": 1}}
+
+
+def kernel_device_ms(fn, reps):
+    """{"dq": ms, "dkdv": ms}: each backward kernel's mean device time per
+    launch over ``reps`` calls of ``fn`` (torch.profiler, after the
+    events; the profiler now and then drops a record, so the mean is over
+    the launches it saw)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for part in ("dq", "dkdv"):
+            if f"flash_attention_bwd_{part}_kernel" in e.key:
+                out[part] = e.self_device_time_total / 1e3 / e.count
+    return out
+
+
+def set_constants(text, values, label):
+    """``text`` with each ``constexpr int <name> = <n>;`` of ``values``
+    set to its value."""
+    import re
+
+    for name, value in values.items():
+        text, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {value};", text)
+        if n != 1:
+            raise RuntimeError(f"{label}: {name} is not one constant of the "
+                               "source")
+    return text
+
+
+def flash_bwd_variants(nvcc, flags):
+    """The bf16 backward at yi-9b's training step (8 x 2048 x 32/4 x 128,
+    causal) with q and k at unit scale and at the random-weight models'
+    ~30x (v at 9x), and on the inputs of the CPU emulation's test at yi's
+    scale (tests/test_torch_flash_attention.py ``yi_scale_bwd``: 2 x 2048
+    x 8/2 x 128, numpy seeds 1 and 2).  Each variant of ``FLASH_BWD`` (the
+    committed kernels; dq's key tiles of 64; the dkdv ring three stages
+    deep; P and dS as one bf16 term, FlashAttention's rounding) is held to
+    ``flash_attention_bwd_ref`` given the plain forward's O and lse (each
+    output's max |err| over its max |plain|, beside the card's 2^-7 bound,
+    also in bf16 steps of max |plain|'s binade; the worst |err| over the
+    card's elementwise 2e-2 + 2e-2 |plain|; two runs bit-equal) twice:
+    given the forward kernel's O and lse, as
+    the training step runs it, and given the plain forward's, which leaves
+    the backward's own rounding alone.  At the training shape each variant
+    is then timed with CUDA events in turns, and each of its two kernels
+    by torch.profiler."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+    from repro_torch.kernels.flash_attention.ops import expand_kv
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        mha_streaming,
+    )
+    from repro_torch.models.layers import pin_matmul_precision
+
+    pin_matmul_precision()
+    text = open(os.path.join(CSRC, "flash_attention_bwd.cu")).read()
+    fns, scratch_fns = {}, {}
+    for name, values in FLASH_BWD.items():
+        src = set_constants(text, values, name)
+        lib = build(f"flash_bwd_{name}", src, nvcc, flags)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = lib.repro_flash_attention_bwd
+        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+        fn = lib.repro_flash_attention_bwd_scratch
+        fn.argtypes = [i, i, i]
+        fn.restype = ctypes.c_longlong
+        scratch_fns[name] = fn
+
+    def call(name, q, k, v, o, dout, lse):
+        b, s, H, d = q.shape
+        out = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        scratch = torch.empty(scratch_fns[name](b, H, s), device=q.device)
+        rc = fns[name](*(t.data_ptr() for t in (q, k, v, o, dout, lse, scratch,
+                                                *out)),
+                       1, b, s, k.shape[1], H, k.shape[2], d,
+                       ctypes.c_float(d ** -0.5), 0,
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"flash bwd {name}: CUDA error {rc}")
+        return out
+
+    def draw_like_the_test(b, s, H, KV, d, seed, qk=1.0, vs=1.0):
+        """tests/test_torch_flash_attention.py's ``bf16_qkv``."""
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        return [torch.tensor(amp * rng.standard_normal(shape)).bfloat16()
+                .cuda() for shape, amp in (((b, s, H, d), qk),
+                                           ((b, s, KV, d), qk),
+                                           ((b, s, KV, d), vs))]
+
+    def inputs():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b, s, H, KV, d = 8, 2048, 32, 4, 128
+        for qk, vs in ((1.0, 1.0), (30.0, 9.0)):
+            q, k, v, dout = (
+                (amp * torch.randn(shape, device="cuda", generator=gen)
+                 ).bfloat16() for shape, amp in (
+                    ((b, s, H, d), qk), ((b, s, KV, d), qk),
+                    ((b, s, KV, d), vs), ((b, s, H, d), 1.0)))
+            yield f"{b}x{s}x{H}/{KV}x{d} q,k x{qk:g} v x{vs:g}", True, (
+                q, k, v, dout)
+        q, k, v = draw_like_the_test(2, 2048, 8, 2, 128, 1, 30.0, 9.0)
+        dout = draw_like_the_test(2, 2048, 8, 2, 128, 2)[0]
+        yield "2x2048x8/2x128 q,k x30 v x9 (the emulation's inputs)", False, (
+            q, k, v, dout)
+
+    def rel_err(got, want):
+        """Per output: max |err| / max |plain|; the same max |err| in bf16
+        steps of max |plain|'s binade (the card's 2^-7 bound is 1 to 2 such
+        steps: one step there always passes it, two always fail); and the
+        worst |err| / (2e-2 + 2e-2 |plain|), the card's elementwise bound."""
+        import math
+
+        out = {"rel": [], "top_steps": [], "elem": []}
+        for a, w in zip(got, want):
+            err = (a.double() - w.double()).abs()
+            top = float(w.double().abs().max())
+            out["rel"].append(float(err.max()) / top)
+            out["top_steps"].append(float(err.max()) / 2.0 ** (
+                math.floor(math.log2(top)) - 7))
+            out["elem"].append(float((err / (2e-2 + 2e-2 * w.double().abs()))
+                                     .max()))
+        return out
+
+    result = {}
+    for label, timed, (q, k, v, dout) in inputs():
+        H, s, d = q.shape[2], q.shape[1], q.shape[3]
+        o, lse = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
+        pos = torch.arange(s, device="cuda")
+        o_ref, lse_ref = mha_streaming(q, expand_kv(k, H), expand_kv(v, H),
+                                       pos, pos, d ** -0.5, return_lse=True)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, dout, lse_ref)
+        entry = {}
+        for name in fns:
+            got = call(name, q, k, v, o, dout, lse)
+            again = call(name, q, k, v, o, dout, lse)
+            r = rel_err(got, want)
+            entry[name] = {
+                "rel_err": r["rel"], "top_steps": r["top_steps"],
+                "elem": r["elem"],
+                "bit_equal_runs": all(torch.equal(a, x)
+                                      for a, x in zip(got, again))}
+            del got, again
+            got = call(name, q, k, v, o_ref.contiguous(), dout,
+                       lse_ref.contiguous())
+            r = rel_err(got, want)
+            entry[name].update({"rel_err_plain_forward": r["rel"],
+                                "top_steps_plain_forward": r["top_steps"],
+                                "elem_plain_forward": r["elem"]})
+            del got
+        del want, o_ref, lse_ref
+        if timed:
+            times = in_turns({name: (lambda n=name: call(n, q, k, v, o, dout,
+                                                         lse))
+                              for name in fns}, 10)
+            for name in fns:
+                entry[name]["ms"] = times[name]
+                entry[name]["device_ms"] = kernel_device_ms(
+                    lambda n=name: call(n, q, k, v, o, dout, lse), 5)
+
+        def line(e):
+            def three(key):
+                return "/".join(f"{x:.3g}" for x in e[key])
+
+            out = (f"dq/dk/dv {three('rel_err')}, top steps "
+                   f"{three('top_steps')}, elementwise {three('elem')} "
+                   f"(plain forward's O, lse: {three('rel_err_plain_forward')}"
+                   f", top steps {three('top_steps_plain_forward')}, "
+                   f"elementwise {three('elem_plain_forward')}), bit-equal "
+                   f"{e['bit_equal_runs']}")
+            if "ms" in e:
+                out += (", ms " + " / ".join(f"{t:.4f}" for t in e["ms"])
+                        + ", device " + ", ".join(
+                            f"{k} {t:.4f}" for k, t in e["device_ms"].items()))
+            return out
+
+        print(f"flash_attention_bwd {label} (bound 2^-7 = {2.0 ** -7:.4g} of "
+              "max |plain|): " + "; ".join(f"{n} {line(e)}"
+                                           for n, e in entry.items()),
+              flush=True)
+        result[label] = entry
+        del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+    return result
+
 
 # the float32 kernel's q k^T loop and loop heads as committed
 F32_QK = """#pragma unroll 2
@@ -301,7 +513,8 @@ def flash_f32_variants(nvcc, flags):
     for name, src in variants.items():
         fn = build(f"flash_f32_{name}", src, nvcc, flags).repro_flash_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                       i, p]
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -309,6 +522,7 @@ def flash_f32_variants(nvcc, flags):
         b, s, H, d = q.shape
         o = torch.empty_like(q)
         rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       None,
                        0, b, s, k.shape[1], H, k.shape[2], d,
                        ctypes.c_float(d ** -0.5), window or 0,
                        torch.cuda.current_stream().cuda_stream)
@@ -870,7 +1084,8 @@ def main() -> int:
 
 PARENT = None
 SECTIONS = {"integral": integral_variants, "flash": flash_variants,
-            "flash_f32": flash_f32_variants, "wkv": wkv_variants,
+            "flash_f32": flash_f32_variants, "flash_bwd": flash_bwd_variants,
+            "wkv": wkv_variants,
             "haar": haar_variants, "blur": blur_variants,
             "codec": codec_variants}
 

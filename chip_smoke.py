@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (at
 first use, into ``build/repro_torch``) and checks with ``cuobjdump -sass``
-that the bf16 flash kernel is a ``wgmma`` kernel (HGMMA in its SASS) and
-that the float32 one holds no tensor-core instruction, then:
+that the bf16 flash kernels, the forward and the backward's dq and dkdv,
+are ``wgmma`` kernels (HGMMA in their SASS) and that the float32 ones hold
+no tensor-core instruction, then:
 
 1. main-path phase — builds ``FaceAuthExecutor`` at full width (62 frames
    of 144x176, the paper's scan, the 10x33-trained cascade and the
@@ -192,9 +193,10 @@ that the float32 one holds no tensor-core instruction, then:
    the forward kernel's O and log-sum-exp first held to ``mha_streaming``'s,
    which the plain backward then takes; ``flash_attention_bwd`` in bf16
    within FLASH_TOL + FLASH_TOL |plain| and FLASH_BWD_BF16_REL of max
-   |plain|, in float32 within FLASH_BWD_F32_TOL of it, each beside SDPA's
-   backward, timed as
-   forward + backward less forward; row 8b: ``rwkv_wkv_bwd`` within
+   |plain|, in float32 within FLASH_BWD_F32_TOL of it, each beside the
+   parent commit's time and SDPA's backward, timed as forward + backward
+   less forward (its device time, of the backward alone on a kept graph,
+   in the profile phase); row 8b: ``rwkv_wkv_bwd`` within
    WKV_REL), every run bit-equal to the next; the forward with its
    log-sum-exp bit-equal to the forward without; on drawn inputs (flash at
    yi's heads with S = 4000, causal and with a window of 1024, both
@@ -276,11 +278,13 @@ def gpu_name_and_power() -> str:
 
 
 def wgmma_check():
-    """The bf16 flash kernel is a ``wgmma`` kernel: the SASS of the built
+    """The bf16 flash kernels are ``wgmma`` kernels: the SASS of the built
     library (``cuobjdump -sass``) holds HGMMA, the ``wgmma`` instruction,
-    in both its head sizes (24 at D 128, 20 at D 64); the float32 kernel
-    holds no tensor-core instruction (HGMMA or HMMA): its products stay
-    float32 FMAs, never TF32.  The int8 kernels' IMMA counts are printed."""
+    in the forward at both its head sizes (24 at D 128, 20 at D 64) and in
+    both bf16 backward kernels (dq and dkdv) at both; the float32 forward
+    and backward kernels hold no tensor-core instruction (HGMMA or HMMA):
+    their products stay float32 FMAs, never TF32.  The int8 kernels' IMMA
+    counts are printed."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -300,7 +304,7 @@ def wgmma_check():
             for op in ops:
                 counts[fn][op] += f" {op}" in line
     for name, n in sorted(counts.items()):
-        if "flash_attention_kernel" in name or "quant_" in name:
+        if "flash_attention" in name or "quant_" in name:
             print(f"SASS {name}: " + ", ".join(f"{n[op]} {op}" for op in ops),
                   flush=True)
     flash = {k: v for k, v in counts.items() if "flash_attention_kernel" in k}
@@ -312,8 +316,27 @@ def wgmma_check():
         raise AssertionError("expected 24 and 20 HGMMA in the bf16 flash "
                              "kernels and no tensor-core instruction in the "
                              f"float32 ones: {bf16}, {f32}")
+    bwd = {k: v for k, v in counts.items() if "flash_attention_bwd" in k}
+    bwd_bf16 = {k: v["HGMMA"] for k, v in bwd.items() if "tensor_core" in k}
+    bwd_f32 = [v["HGMMA"] + v["HMMA"] for k, v in bwd.items()
+               if "cuda_core" in k]
+    kinds = {(part, d) for part in ("_dq_", "_dkdv_") for d in ("64", "128")
+             for k in bwd_bf16 if part in k and f"ILi{d}E" in k}
+    if (len(bwd_bf16) != 4 or len(kinds) != 4
+            or not all(bwd_bf16.values()) or len(bwd_f32) != 4
+            or any(bwd_f32)):
+        raise AssertionError("expected HGMMA in the bf16 backward's dq and "
+                             "dkdv kernels at D 64 and 128, and no "
+                             "tensor-core instruction in the float32 "
+                             f"ones: {bwd_bf16}, {bwd_f32}")
     print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma), 24 "
           "and 20; the float32 kernel's no HGMMA or HMMA", flush=True)
+    print("flash_attention_bwd: the bf16 dq and dkdv kernels' SASS holds "
+          "HGMMA (wgmma) at D 64 and 128 ("
+          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} "
+                      f"D {'128' if 'ILi128E' in k else '64'} {n}"
+                      for k, n in sorted(bwd_bf16.items()))
+          + "); the float32 ones' no HGMMA or HMMA", flush=True)
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -414,8 +437,9 @@ def kernel_row(probes, name, module, launches, err, fn, plain_ms,
                library_fn=None, shared_ms=None, kernel=None):
     """One line of the kernels JSON; ``fn`` launches the kernel once and
     goes into ``probes`` for the profile phase, with ``library_fn`` (the
-    library call timed as ``library_ms``), which fills the row's
-    ``device_ms`` and ``library_device_ms`` there.  ``shared_ms``, where
+    library call timed as ``library_ms``, or a ``Deferred`` that builds it
+    there), which fills the row's ``device_ms`` and ``library_device_ms``
+    there.  ``shared_ms``, where
     given, is a third bound term: the kernel's shared-memory loads at 32
     a clock on every SM.  The row's ``bound_term`` names the largest term;
     ``bound_by`` counts shared loads as operations (of the load pipe), so
@@ -3638,6 +3662,15 @@ FLASH_BWD_BF16_REL = FLASH_O_REL = 2.0 ** -7
 FLASH_BWD_F32_TOL = 1e-4
 FLASH_LSE_REL = 2e-6
 FLASH_BWD_S, FLASH_BWD_B, FLASH_BWD_WINDOW = 4000, 2, 1024
+# the bf16 kernels' D = 64 instantiation, which no model of the path
+# runs, on drawn inputs (b, s, H, KV, d) ragged against the tiles, causal
+# and with a window of FLASH_BWD_D64_WINDOW
+FLASH_BWD_D64, FLASH_BWD_D64_WINDOW = (2, 1000, 8, 2, 64), 100
+# rows 7g and 7h of the parent commit, the first-draft backward, as
+# recorded (CUDA events on an NVIDIA H100 80GB HBM3 at 700 W; not measured
+# by this script): printed beside this run's times, never in the kernels
+# line.  7h's kernels are the same code now
+FLASH_BWD_PARENT_MS = {"7g": 33.9454, "7h": 33.3843}
 WKV_BWD_T = 650
 
 
@@ -3987,13 +4020,12 @@ def torch_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def sdpa_backward_ms(q, k, v, dout, window=None):
-    """SDPA's backward alone on the model's layout, as forward + backward
-    less forward (CUDA events): the flash backend in bf16, the efficient one
-    in float32 (the flash backend takes no float32, and the efficient one
-    no GQA: its k and v get the query heads' count, outside the timed
-    calls); a window as a dense boolean mask.  None where SDPA refuses the
-    inputs."""
+def sdpa_forward(q, k, v, window=None):
+    """SDPA's forward on the model's layout, with grad: (backend, a call of
+    it, its leaves).  The flash backend in bf16, the efficient one in
+    float32 (the flash backend takes no float32, and the efficient one no
+    GQA: its k and v get the query heads' count, here); a window as a dense
+    boolean mask."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4010,20 +4042,31 @@ def sdpa_backward_ms(q, k, v, dout, window=None):
     if window is not None:
         i = torch.arange(s, device=q.device)
         mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    gt = dout.transpose(1, 2)
+    leaves = tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                   for t in (q, k, v))
 
     def fwd():
         with sdpa_kernel(backend):
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                *leaves, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=KV != H)
+    return backend, fwd, leaves
+
+
+def sdpa_backward_ms(q, k, v, dout, window=None):
+    """SDPA's backward alone (``sdpa_forward``'s backend), as forward +
+    backward less forward (CUDA events).  Returns (ms, a ``Deferred`` that
+    builds ``sdpa_backward_only``, for the profile phase to time by device
+    and free), or (None, None) where SDPA refuses the inputs."""
+    import torch
+
+    backend, fwd, leaves = sdpa_forward(q, k, v, window)
+    gt = dout.transpose(1, 2)
 
     def fwd_bwd():
-        out = fwd()
-        out.backward(gt)
-        qt.grad = kt.grad = vt.grad = None
+        fwd().backward(gt)
+        for x in leaves:
+            x.grad = None
 
     try:
         with torch.no_grad():
@@ -4031,11 +4074,25 @@ def sdpa_backward_ms(q, k, v, dout, window=None):
         fb_ms = device_ms(fwd_bwd, reps=5)
     except RuntimeError as e:     # backend rules of SDPA
         print(f"SDPA backward not timed: {e}", flush=True)
-        return None
+        return None, None
     print(f"SDPA ({backend.name} backend) on {tuple(q.shape)} "
           f"{str(q.dtype).split('.')[-1]}: forward + backward {fb_ms:.4f} ms, "
           f"forward {f_ms:.4f} ms (CUDA events)", flush=True)
-    return fb_ms - f_ms
+    return fb_ms - f_ms, Deferred(
+        lambda: sdpa_backward_only(q, k, v, dout, window))
+
+
+def sdpa_backward_only(q, k, v, dout, window=None):
+    """A call that runs SDPA's backward alone, on the graph of one forward
+    that it keeps (built at this call, freed with the call)."""
+    _backend, fwd, leaves = sdpa_forward(q, k, v, window)
+    out, gt = fwd(), dout.transpose(1, 2)
+
+    def backward_only():
+        out.backward(gt, retain_graph=True)
+        for x in leaves:
+            x.grad = None
+    return backward_only
 
 
 def flash_bwd_rows(probes, args, launches):
@@ -4079,7 +4136,7 @@ def flash_bwd_rows(probes, args, launches):
         err, plain = flash_bwd_check(*x, f"{label} {shape} (layer 0, step 1)",
                                      f32_tol=tol)
         plain_ms = device_ms(plain, reps=1, warm=0)
-        lib_ms = sdpa_backward_ms(x[0], x[1], x[2], x[4])
+        lib_ms, lib_fn = sdpa_backward_ms(x[0], x[1], x[2], x[4])
         esize = x[0].element_size()
         n_bytes = (esize * (3 * q.numel() + 2 * (k.numel() + v.numel())
                             + dout.numel()) + 4 * lse.numel())
@@ -4088,31 +4145,38 @@ def flash_bwd_rows(probes, args, launches):
             launches if dtype == torch.bfloat16 else 0, err,
             lambda x=x: fcuda.flash_attention_bwd_cuda(*x), plain_ms, lib_ms,
             n_bytes, n_ops, peak, reps=5, shape=f"{label} {shape}",
-            kernel=("flash_attention_bwd", 2))
+            library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
         row["backward_of"] = "row 7"
+        parent = FLASH_BWD_PARENT_MS[label]
+        print(f"flash_attention_bwd {label}: {row['ms']:.4f} ms by CUDA "
+              f"events in this run; the parent commit's first draft, as "
+              f"recorded, {parent:.4f} ms ({parent / row['ms']:.2f}x this "
+              "run's time; not measured here)", flush=True)
         rows.append(row)
         del x
     del q, k, v, o, dout, lse
     torch.cuda.empty_cache()
     dev = o_plain.device
     gen = torch.Generator(device=dev).manual_seed(6)
-    for window in (None, FLASH_BWD_WINDOW):
-        for dtype, tol in ((torch.bfloat16, None),
-                           (torch.float32, FLASH_BWD_F32_TOL)):
-            q, k, v = (torch.randn((FLASH_BWD_B, FLASH_BWD_S, heads, d),
-                                   device=dev, generator=gen).to(dtype)
-                       for heads in (H, KV, KV))
-            o, lse = fcuda.flash_attention_cuda(q, k, v, window=window,
-                                                return_lse=True)
-            dout = torch.randn(q.shape, device=dev,
+    cases = [((FLASH_BWD_B, FLASH_BWD_S, H, KV, d), window, dtype, tol)
+             for window in (None, FLASH_BWD_WINDOW)
+             for dtype, tol in ((torch.bfloat16, None),
+                                (torch.float32, FLASH_BWD_F32_TOL))]
+    cases += [(FLASH_BWD_D64, window, torch.bfloat16, None)
+              for window in (None, FLASH_BWD_D64_WINDOW)]
+    for (cb, cs, cH, cKV, cd), window, dtype, tol in cases:
+        q, k, v = (torch.randn((cb, cs, heads, cd), device=dev,
                                generator=gen).to(dtype)
-            flash_bwd_check(q, k, v, o, dout, lse,
-                            f"drawn {FLASH_BWD_B}x{FLASH_BWD_S}x{H}/"
-                            f"{k.shape[2]}x{d}"
-                            + (f" window {window}" if window else " causal"),
-                            window=window, f32_tol=tol)
-            del q, k, v, o, dout, lse
-            torch.cuda.empty_cache()
+                   for heads in (cH, cKV, cKV))
+        o, lse = fcuda.flash_attention_cuda(q, k, v, window=window,
+                                            return_lse=True)
+        dout = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+        flash_bwd_check(q, k, v, o, dout, lse,
+                        f"drawn {cb}x{cs}x{cH}/{cKV}x{cd}"
+                        + (f" window {window}" if window else " causal"),
+                        window=window, f32_tol=tol)
+        del q, k, v, o, dout, lse
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4527,8 +4591,12 @@ def profiles_phase(ex, frames, targets, probes, dispatches=()):
             continue
         row["device_ms"] = ms
         lib = ""
-        if library_fn is not None:
+        if isinstance(library_fn, Deferred):  # a kept graph: built now
+            row["library_device_ms"] = call_device_ms(library_fn.build())
+            free_card()
+        elif library_fn is not None:
             row["library_device_ms"] = call_device_ms(library_fn)
+        if library_fn is not None:
             lib = (f"; library call {row['library_device_ms']:.4f} ms "
                    "(all its kernels)")
         print(f"kernel {label}: device time per launch "

@@ -108,10 +108,10 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def bind(name: str, argtypes) -> ctypes._CFuncPtr:
+def bind(name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     fn = getattr(library(), name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -4,7 +4,8 @@
 the ``wgmma`` + TMA kernel for bf16 and the float32 CUDA-core kernel for
 float32, and writes each row's log-sum-exp when asked.
 ``csrc/flash_attention_bwd.cu`` (its backward): one C entry point that
-launches the dq kernel, then the dkdv kernel, for either dtype."""
+launches the dq kernel, then the dkdv kernel, for either dtype: the
+``wgmma`` + TMA pair for bf16, the float32 CUDA-core pair for float32."""
 
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _bwd_fn = None
+_scratch_fn = None
 
 
 def _kernel():
@@ -44,6 +46,17 @@ def _bwd_kernel():
         _bwd_fn = _build.bind("repro_flash_attention_bwd",
                               [p] * 10 + [i] * 7 + [ctypes.c_float, i, p])
     return _bwd_fn
+
+
+def _scratch_floats(b, H, s):
+    """The floats of the scratch the backward's C call needs, as the C
+    library reports them."""
+    global _scratch_fn
+    if _scratch_fn is None:
+        i = ctypes.c_int
+        _scratch_fn = _build.bind("repro_flash_attention_bwd_scratch",
+                                  [i, i, i], ctypes.c_longlong)
+    return _scratch_fn(b, H, s)
 
 
 def _check_inputs(q, k, v, window, extra=()):
@@ -116,9 +129,10 @@ def flash_attention_bwd_cuda(q, k, v, o, dout, lse, *, window=None,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty_like(lse)
-    rc = _bwd_kernel()(*(_build.ptr(x) for x in (q, k, v, o, dout, lse, delta,
-                                                  dq, dk, dv)),
+    scratch = torch.empty(_scratch_floats(b, H, s), device=q.device,
+                          dtype=torch.float32)
+    rc = _bwd_kernel()(*(_build.ptr(x) for x in (q, k, v, o, dout, lse,
+                                                  scratch, dq, dk, dv)),
                        _DTYPE_CODE[q.dtype], b, s, t, H, KV, d,
                        ctypes.c_float(scale), 0 if window is None else window,
                        _build.stream_of(q))

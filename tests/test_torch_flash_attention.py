@@ -9,7 +9,8 @@ Tolerances are the reference's own (tests/test_kernels.py:43): 2e-5 in
 float32, atol = rtol = 2e-2 in bf16.  The CUDA kernel runs only on the
 card; ``chip_smoke.py`` holds it to these plain versions there.  The
 backward's plain version ``flash_attention_bwd_ref`` is held to autograd
-and to JAX's vjp of ``_mha_streaming`` at the end.
+and to JAX's vjp of ``_mha_streaming``, and the bf16 backward kernels'
+arithmetic, emulated in torch ops, to that plain backward, at the end.
 """
 
 import numpy as np
@@ -507,3 +508,435 @@ def test_autograd_route_on_cpu_is_the_streaming_form():
     lse = torch.zeros((1, 4, 12))
     with pytest.raises(ValueError, match="CUDA"):
         fcuda.flash_attention_bwd_cuda(tq, tk, tv, tq, tq, lse)
+
+
+# -- the bf16 backward kernels' numerics, emulated with torch ops ----------
+#
+# The bf16 backward (csrc/flash_attention_bwd.cu, tensor_core) runs two
+# wgmma kernels.  dq: blocks of kDqBQ query rows over the key tiles of
+# kDqBK that its mask leaves; S = q k^T and dP = dO V^T with float32 sums,
+# the scale on S in float32, P = exp(scale S - lse) (0 where masked), dS =
+# P (dP - Dl) rounded to kDsTerms bf16 terms (hi = bf16(x), lo = bf16(x -
+# hi)) before dQ += dS K; Dl sums a quarter of d per thread with FMAs, in
+# order, then (a0 + a1) + (a2 + a3).  dkdv: blocks of kKvBK keys walk the
+# kv head's query heads in order and, for each, the query tiles of kKvBQ
+# its mask leaves; P^T rounded to kPTerms terms before dV += P^T dO, dS^T
+# to kDsTerms before dK += dS^T Q.  Outputs round once to bf16.
+# ``tensor_core_bwd_emulation`` does the same with torch ops, the tile
+# sizes, terms and skip rules read from the source, and is held to
+# ``flash_attention_bwd_ref`` within the card's bounds (chip_smoke.py
+# FLASH_BWD_BF16_REL and FLASH_TOL): 2^-7 of each output's max |plain| and
+# MODEL_BOUND elementwise.
+
+BWD_SOURCE = "flash_attention_bwd.cu"
+BWD_REL = 2.0 ** -7
+SMEM_PER_BLOCK = 232_448          # 227 KB, the H100's most for one block
+
+
+def _cu_text(name):
+    import pathlib
+
+    return (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / name).read_text()
+
+
+def _tc_namespace(text):
+    """The bf16 kernels' part of the backward source."""
+    return text[text.index("namespace tensor_core {"):]
+
+
+def bwd_constants():
+    """The ``constexpr int k...`` constants of the bf16 backward."""
+    import re
+
+    return {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", _tc_namespace(_cu_text(BWD_SOURCE)))}
+
+
+def _c_to_py(expr):
+    """A C int expression of the source as Python: ``a ? b : c``, integer
+    ``/`` of non-negative ints, ``min``/``max``, ``&&``."""
+    import re
+
+    expr = " ".join(expr.split())
+    m = re.fullmatch(r"(.+?) \? (.+) : (.+)", expr)
+    if m:
+        return (f"(({_c_to_py(m[2])}) if ({_c_to_py(m[1])}) else "
+                f"({_c_to_py(m[3])}))")
+    return expr.replace("/", "//").replace("&&", " and ")
+
+
+def bwd_rule(name, **env):
+    """Evaluate ``const int <name> = ...;`` of the bf16 backward with the
+    kernel's constants and ``env`` (window 0: none)."""
+    import re
+
+    text = _tc_namespace(_cu_text(BWD_SOURCE))
+    expr = re.search(rf"const int {name} =\s*(.+?);", text, re.S)[1]
+    return eval(_c_to_py(expr), {"min": min, "max": max},
+                {**bwd_constants(), **env})
+
+
+def dq_key_tiles(q0, s, t, window):
+    """The dq block at query row q0 visits these key tiles (k0 values)."""
+    env = dict(q0=q0, S=s, Tk=t, window=window or 0)
+    for name in ("k_stop", "k_min", "k_first", "n_tiles"):
+        env[name] = bwd_rule(name, **env)
+    return [env["k_first"] + i * bwd_constants()["kDqBK"]
+            for i in range(env["n_tiles"])]
+
+
+def dkdv_query_tiles(k0, s, t, window):
+    """The dkdv block at key k0 visits these query tiles (q0 values), for
+    each query head of its group."""
+    env = dict(k0=k0, S=s, Tk=t, window=window or 0)
+    for name in ("q_begin", "q_end", "n_q"):
+        env[name] = bwd_rule(name, **env)
+    return [env["q_begin"] + i * bwd_constants()["kKvBQ"]
+            for i in range(env["n_q"])]
+
+
+def bf16_terms(x, terms):
+    """x as the sum of ``terms`` bf16 values (hi, then lo = bf16(x - hi))."""
+    hi = x.bfloat16().float()
+    return hi if terms == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _fma_rows(g, o):
+    """sum_j g[..., j] o[..., j] over the last axis, one FMA per step (each
+    rounded once to float32), in order."""
+    acc = torch.zeros(g.shape[:-1], dtype=torch.float64)
+    g64, o64 = g.double(), o.double()
+    for j in range(g.shape[-1]):
+        acc = (acc + g64[..., j] * o64[..., j]).float().double()
+    return acc.float()
+
+
+def wgmma_sum(eq, a, b):
+    """``einsum(eq, a, b)`` over the last axis as the tensor cores sum a
+    score product: in k16 steps, each step's products and the running sum
+    added exactly and the result truncated toward zero to float32 (Fasi et
+    al., "Numerical behavior of NVIDIA tensor cores", 2021, measured this
+    on earlier generations; on the H100 it gives the card's readings)."""
+    acc = None
+    for c in range(0, a.shape[-1], 16):
+        x = torch.einsum(eq, a[..., c:c + 16].double(),
+                         b[..., c:c + 16].double())
+        if acc is not None:
+            x = x + acc.double()
+        f = x.float()
+        acc = torch.where(f.double().abs() > x.abs(),
+                          torch.nextafter(f, torch.zeros_like(f)), f)
+    return acc
+
+
+def tensor_core_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
+                              p_terms=None, ds_terms=None, wgmma_sums=False):
+    """q, o, dout: (b, s, H, d), k/v: (b, t, KV, d) bf16, lse (b, H, s) ->
+    (dq, dk, dv) bf16, as the bf16 kernels compute them.  ``p_terms`` /
+    ``ds_terms`` override the source's kPTerms / kDsTerms.  The score
+    products S and dP are float32 sums in the plain backward's order, which
+    leaves the rounding of P and dS alone, or with ``wgmma_sums`` summed as
+    the tensor cores sum them (``wgmma_sum``)."""
+    score = wgmma_sum if wgmma_sums else torch.einsum
+    c = bwd_constants()
+    p_terms = c["kPTerms"] if p_terms is None else p_terms
+    ds_terms = c["kDsTerms"] if ds_terms is None else ds_terms
+    b, s, H, d = q.shape
+    t, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf, kf, vf, gf, of = (x.float().transpose(1, 2)
+                          for x in (q, k, v, dout, o))   # (b, heads, n, d)
+    quarters = [_fma_rows(gf[..., i * d // 4:(i + 1) * d // 4],
+                          of[..., i * d // 4:(i + 1) * d // 4])
+                for i in range(4)]
+    dl = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
+
+    def visible(rows, cols):           # (rows, cols) -> mask
+        ok = cols[None] <= rows[:, None]
+        if window:
+            ok &= cols[None] > rows[:, None] - window
+        return ok
+
+    dq = torch.zeros((b, H, s, d))
+    for q0 in range(0, s, c["kDqBQ"]):
+        rows = torch.arange(q0, min(s, q0 + c["kDqBQ"]))
+        acc = torch.zeros((b, H, len(rows), d))
+        for k0 in dq_key_tiles(q0, s, t, window):
+            cols = torch.arange(k0, min(t, k0 + c["kDqBK"]))
+            kt = kf[:, :, cols].repeat_interleave(G, dim=1)
+            vt = vf[:, :, cols].repeat_interleave(G, dim=1)
+            sc = score("bhqd,bhkd->bhqk", qf[:, :, rows], kt) * scale
+            p = torch.where(visible(rows, cols),
+                            torch.exp(sc - lse[:, :, rows, None]), 0.0)
+            dp = score("bhqd,bhkd->bhqk", gf[:, :, rows], vt)
+            ds = p * (dp - dl[:, :, rows, None])
+            acc = acc + torch.einsum("bhqk,bhkd->bhqd",
+                                     bf16_terms(ds, ds_terms), kt)
+        dq[:, :, rows] = acc * scale
+    dk = torch.zeros((b, KV, t, d))
+    dv = torch.zeros((b, KV, t, d))
+    for k0 in range(0, t, c["kKvBK"]):
+        cols = torch.arange(k0, min(t, k0 + c["kKvBK"]))
+        ak = torch.zeros((b, KV, len(cols), d))
+        av = torch.zeros_like(ak)
+        for g in range(G):                 # the group's heads, in order
+            hs = torch.arange(KV) * G + g
+            for q0 in dkdv_query_tiles(k0, s, t, window):
+                rows = torch.arange(q0, min(s, q0 + c["kKvBQ"]))
+                qt, gt = qf[:, hs][:, :, rows], gf[:, hs][:, :, rows]
+                st = score("bhkd,bhqd->bhkq", kf[:, :, cols], qt) * scale
+                p = torch.where(visible(rows, cols).T,
+                                torch.exp(st - lse[:, hs][:, :, None, rows]),
+                                0.0)
+                dpt = score("bhkd,bhqd->bhkq", vf[:, :, cols], gt)
+                ds = p * (dpt - dl[:, hs][:, :, None, rows])
+                av = av + torch.einsum("bhkq,bhqd->bhkd",
+                                       bf16_terms(p, p_terms), gt)
+                ak = ak + torch.einsum("bhkq,bhqd->bhkd",
+                                       bf16_terms(ds, ds_terms), qt)
+        dk[:, :, cols] = ak * scale
+        dv[:, :, cols] = av
+    return tuple(x.transpose(1, 2).bfloat16() for x in (dq, dk, dv))
+
+
+def bwd_case(q, k, v, dout, scale, window=None):
+    """The plain forward's (O, lse) and the plain backward on them: what the
+    card holds the kernels to."""
+    H, s, t = q.shape[2], q.shape[1], k.shape[1]
+    o, lse = mha_streaming(q, expand_kv(k, H), expand_kv(v, H),
+                           torch.arange(s), torch.arange(t), scale,
+                           window=window, return_lse=True)
+    want = flash_attention_bwd_ref(q, k, v, o, dout, lse, window=window,
+                                   scale=scale)
+    return o, lse, want
+
+
+def bwd_readings(got, want):
+    """[max |err| / max |plain|] and [worst elementwise over MODEL_BOUND],
+    for dq, dk, dv."""
+    rel = [float((a.double() - w.double()).abs().max()
+                 / w.double().abs().max()) for a, w in zip(got, want)]
+    return rel, [worst(a, w, MODEL_BOUND) for a, w in zip(got, want)]
+
+
+def assert_bwd_within(got, want, rel_bound=BWD_REL):
+    rel, elem = bwd_readings(got, want)
+    assert all(x.shape == w.shape and x.dtype == torch.bfloat16
+               for x, w in zip(got, want))
+    assert max(rel) <= rel_bound, rel
+    assert max(elem) <= 1, elem
+    return rel
+
+
+def test_bwd_tiles_fit_shared_memory():
+    """Shared memory of both kernels at D 64 and 128, from the source's own
+    ``dq_smem`` / ``dkdv_smem`` expressions and constants, within the 227 KB
+    a block may have; the scratch's rows (S padded to kRowPad) cover every
+    row of a dq block and of a dkdv tile."""
+    import re
+
+    text = _tc_namespace(_cu_text(BWD_SOURCE))
+    c = bwd_constants()
+    assert c["kRowPad"] % c["kDqBQ"] == 0 and c["kRowPad"] % c["kKvBQ"] == 0
+    for fn in ("dq_smem", "dkdv_smem"):
+        expr = re.search(rf"constexpr size_t {fn}\(\) \{{\s*return (.+?);",
+                         text, re.S)[1]
+        for D in (64, 128):
+            need = eval(_c_to_py(expr), {"box_bytes": lambda r: 128 * r},
+                        {**c, "D": D})
+            assert 0 < need <= SMEM_PER_BLOCK, (fn, D, need)
+
+
+@pytest.mark.parametrize("s,t,window", [
+    (2048, 2048, None), (650, 650, None), (777, 777, 100), (4000, 4000, 1024),
+    (130, 130, 7), (300, 300, 64), (200, 333, None), (333, 200, 50),
+    (1, 1, None),
+])
+def test_bwd_skip_rules_visit_exactly_the_live_tiles(s, t, window):
+    """Each kernel visits exactly the tiles in which the mask leaves a
+    (query, key) pair, for every block of the grid."""
+    c = bwd_constants()
+    rows, cols = torch.arange(s)[:, None], torch.arange(t)[None]
+    mask = cols <= rows
+    if window:
+        mask &= cols > rows - window
+    for q0 in range(0, s, c["kDqBQ"]):
+        live = [k0 for k0 in range(0, t, c["kDqBK"])
+                if mask[q0:q0 + c["kDqBQ"], k0:k0 + c["kDqBK"]].any()]
+        assert dq_key_tiles(q0, s, t, window) == live, q0
+    for k0 in range(0, t, c["kKvBK"]):
+        live = [q0 for q0 in range(0, s, c["kKvBQ"])
+                if mask[q0:q0 + c["kKvBQ"], k0:k0 + c["kKvBK"]].any()]
+        assert dkdv_query_tiles(k0, s, t, window) == live, k0
+
+
+@pytest.fixture(scope="module")
+def yi_scale_bwd():
+    """q and k at 30x unit scale, v at 9x (the yi-9b scale of
+    ``test_one_bf16_p_breaks_the_model_bound_at_full_width_scale``), a unit
+    cotangent; the plain forward's O and lse and the plain backward."""
+    q, k, v = bf16_qkv(2, 2048, 8, 2, 128, 1, qk_scale=30.0, v_scale=9.0)
+    dout = bf16_qkv(2, 2048, 8, 2, 128, 2)[0]
+    o, lse, want = bwd_case(q, k, v, dout, 128 ** -0.5)
+    return q, k, v, o, dout, lse, want
+
+
+def test_tensor_core_bwd_numerics_at_model_scale(yi_scale_bwd):
+    """The design's rounding of P and dS (hi + lo for each) alone, with S
+    and dP summed in the plain backward's own order, keeps each output
+    within half the card's 2^-7 bound at yi's scale, where the outputs' own
+    bf16 rounding already takes up to 2^-8.  (The card's tensor cores sum S
+    otherwise and read one bf16 step more: ``yi_scale_bwd_wgmma``.)"""
+    q, k, v, o, dout, lse, want = yi_scale_bwd
+    got = tensor_core_bwd_emulation(q, k, v, o, dout, lse, 128 ** -0.5)
+    assert_bwd_within(got, want, BWD_REL / 2)
+
+
+def test_one_bf16_p_or_ds_leaves_no_margin_at_model_scale(yi_scale_bwd):
+    """The rounding of P and dS alone (S and dP in the plain backward's
+    order): with one term, dS moves dK past half the 2^-7 bound at yi's
+    scale (5.59e-3 of max |plain|) and breaks the elementwise MODEL_BOUND
+    (24.7 times it), and P moves dV past half the bound (4.44e-3), where
+    two terms keep each output within 1.40e-3 (0.38 of MODEL_BOUND).  What
+    the card reads, where S's own sums add one step, is in
+    ``test_one_bf16_term_breaks_the_elementwise_bound_with_wgmma_sums``."""
+    q, k, v, o, dout, lse, want = yi_scale_bwd
+    one_ds = tensor_core_bwd_emulation(q, k, v, o, dout, lse, 128 ** -0.5,
+                                       p_terms=2, ds_terms=1)
+    one_p = tensor_core_bwd_emulation(q, k, v, o, dout, lse, 128 ** -0.5,
+                                      p_terms=1, ds_terms=2)
+    rel_ds, elem_ds = bwd_readings(one_ds, want)
+    rel_p, _ = bwd_readings(one_p, want)
+    assert rel_ds[1] > BWD_REL / 2 and max(elem_ds) > 10, (rel_ds, elem_ds)
+    assert rel_p[2] > BWD_REL / 2, rel_p
+
+
+# benchmarks/torch_kernel_variants.py ``flash_bwd`` on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W), the committed kernels given the plain forward's
+# O and lse on ``yi_scale_bwd``'s inputs: dQ, dK, dV in bf16 steps of max
+# |plain|'s binade, and their worst |err| over MODEL_BOUND
+CARD_YI_SCALE_STEPS = [0.5, 1.0, 1.0]
+CARD_YI_SCALE_ELEM = [5.65, 1.50, 0.345]
+
+
+def top_steps(got, want):
+    """Per output: max |err| in bf16 steps of max |plain|'s binade (the
+    2^-7 bound admits one such step, never two)."""
+    import math
+
+    out = []
+    for a, w in zip(got, want):
+        top = float(w.double().abs().max())
+        out.append(float((a.double() - w.double()).abs().max())
+                   / 2.0 ** (math.floor(math.log2(top)) - 7))
+    return out
+
+
+@pytest.fixture(scope="module")
+def yi_scale_bwd_wgmma(yi_scale_bwd):
+    """The emulation at yi's scale with S and dP summed as the tensor
+    cores sum them, with the source's terms and with one term of each."""
+    q, k, v, o, dout, lse, want = yi_scale_bwd
+    design = tensor_core_bwd_emulation(q, k, v, o, dout, lse, 128 ** -0.5,
+                                       wgmma_sums=True)
+    one = tensor_core_bwd_emulation(q, k, v, o, dout, lse, 128 ** -0.5,
+                                    p_terms=1, ds_terms=1, wgmma_sums=True)
+    return design, one, want
+
+
+def test_bwd_emulation_with_wgmma_sums_reads_the_cards_steps(
+        yi_scale_bwd_wgmma):
+    """With S and dP summed as the tensor cores sum them, the emulation
+    reads what the card reads on these inputs: dK and dV one bf16 step of
+    the top binade off (5.59e-3 and 4.44e-3 of max |plain|, the most the
+    2^-7 bound admits), dQ half a step; at logits of ~1e3 the truncated
+    sums of S, not the rounding of P or dS, set that step."""
+    design, _one, want = yi_scale_bwd_wgmma
+    assert top_steps(design, want) == CARD_YI_SCALE_STEPS
+    rel, elem = bwd_readings(design, want)
+    assert max(rel) <= BWD_REL, rel
+    for got, card in zip(elem, CARD_YI_SCALE_ELEM):
+        assert abs(got - card) <= 0.05 * card, (elem, CARD_YI_SCALE_ELEM)
+
+
+def test_one_bf16_term_breaks_the_elementwise_bound_with_wgmma_sums(
+        yi_scale_bwd_wgmma):
+    """Why the kernels keep P and dS as two bf16 terms, as the card reads
+    it: one term leaves the steps as they are on these inputs but puts dQ
+    and dK 5 and 16 times further past the elementwise MODEL_BOUND (30.6
+    and 24.7 times it, against 5.65 and 1.50)."""
+    design, one, want = yi_scale_bwd_wgmma
+    assert top_steps(one, want) == top_steps(design, want)
+    _rel, elem_design = bwd_readings(design, want)
+    _rel, elem_one = bwd_readings(one, want)
+    assert elem_one[0] > 4 * elem_design[0], (elem_one, elem_design)
+    assert elem_one[1] > 10 * elem_design[1], (elem_one, elem_design)
+
+
+@pytest.mark.parametrize("b,s,H,KV,d,window", [
+    (2, 600, 4, 2, 128, None),        # ragged against every tile, GQA
+    (1, 777, 4, 1, 64, 100),          # a window, group 4, D 64
+    (2, 333, 6, 3, 64, 50),
+    (1, 650, 8, 2, 128, 200),         # yi's group of 4 heads a kv head
+    (1, 130, 2, 2, 128, 7),           # a window narrower than a tile
+])
+def test_tensor_core_bwd_numerics_random(b, s, H, KV, d, window):
+    q, k, v = bf16_qkv(b, s, H, KV, d, 14)
+    dout = bf16_qkv(b, s, H, KV, d, 15)[0]
+    o, lse, want = bwd_case(q, k, v, dout, d ** -0.5, window)
+    got = tensor_core_bwd_emulation(q, k, v, o, dout, lse, d ** -0.5, window)
+    assert_bwd_within(got, want)
+
+
+@pytest.fixture(scope="module")
+def yi_layer0_bwd_inputs():
+    """q, k, v and the output's cotangent of layer 0's attention in the loss
+    backward of the tests/test_torch_lm.py yi-family fixture (yi's smoke
+    config, the JAX model's ``init`` at PRNGKey(42) bridged, remat off so
+    that the layer runs once) on 2 x 300 tokens, as bf16."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import registry as jax_registry
+    from repro.models.transformer import Model as JaxModel
+    from repro_torch.bridge import lm_params_from
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.train.step import grads_of
+
+    jc = dataclasses.replace(jax_registry.get_config("yi-9b", smoke=True),
+                             param_dtype=jnp.float32)
+    pc = dataclasses.replace(registry.get_config("yi-9b", smoke=True),
+                             param_dtype=torch.float32, remat=False)
+    params = JaxModel(jc).init(jax.random.PRNGKey(42))
+    model = lm_params_from(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), params), pc, device="cpu")
+    toks = np.random.default_rng(8).integers(0, jc.vocab, (2, 300))
+    captured = {}
+    real = flash_ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if "q" not in captured:
+            captured.update(q=q.detach().bfloat16(), k=k.detach().bfloat16(),
+                            v=v.detach().bfloat16(), scale=kw["scale"])
+            out.register_hook(lambda g: captured.update(dout=g.bfloat16()))
+        return out
+
+    flash_ops.flash_attention = spy
+    try:
+        grads_of(model, {"tokens": torch.as_tensor(toks)})
+    finally:
+        flash_ops.flash_attention = real
+    return captured
+
+
+def test_tensor_core_bwd_numerics_on_yi_layer0(yi_layer0_bwd_inputs):
+    x = yi_layer0_bwd_inputs
+    q, k, v, dout, scale = x["q"], x["k"], x["v"], x["dout"], x["scale"]
+    assert float(dout.float().abs().max()) > 0
+    o, lse, want = bwd_case(q, k, v, dout, scale)
+    got = tensor_core_bwd_emulation(q, k, v, o, dout, lse, scale)
+    assert_bwd_within(got, want)
