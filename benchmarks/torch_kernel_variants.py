@@ -16,7 +16,10 @@ unrolling of P V; ``flash_f32``), of the bf16 kernels of
 P and dS as one bf16 term; ``flash_bwd``, which also prints the
 per-kernel device times), of ``src/repro_torch/csrc/rwkv_scan.cu``
 (the products as one TF32 term instead of 3xTF32, and three blocks an SM
-instead of four; ``wkv``) and of ``src/repro_torch/csrc/haar_stage.cu``
+instead of four; ``wkv``), of ``src/repro_torch/csrc/rwkv_scan_bwd.cu``
+(its cluster barrier with release semantics, its first pass's ring three
+chunks deep, and the parent's kernel; ``wkv_bwd``) and of
+``src/repro_torch/csrc/haar_stage.cu``
 (windows a thread scores together, slot blocks a frame, the table path
 for the small stages or the global path for every stage; ``haar``) and
 of ``src/repro_torch/csrc/bilateral_blur.cu`` (tile shapes, threads and
@@ -659,6 +662,99 @@ def wkv_variants(nvcc, flags):
     return result
 
 
+def wkv_bwd_variants(nvcc, flags):
+    """The WKV backward (``src/repro_torch/csrc/rwkv_scan_bwd.cu``) at the
+    rwkv6-7b training step (8 x 2048 x 64 heads of 64): the committed
+    kernel, its cluster barrier with release semantics (a release waits
+    for every outstanding global store and copy; the committed design
+    orders only buffer reuse with it and sends dv's partials by st.async),
+    its first pass with a ring of three chunks instead of two, and, with
+    ``--parent``, the parent commit's kernel.  Each against the plain
+    reverse recurrence on drawn inputs (2 x 650 x 4, w = 0 in some
+    channels; the committed kernel within 2e-4 of each output's max
+    |plain|), then all timed in turns."""
+    import torch
+
+    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref
+
+    text = open(os.path.join(CSRC, "rwkv_scan_bwd.cu")).read()
+    variants = {
+        "committed": text,
+        "release_arrive": _substitute(
+            text, [("barrier.cluster.arrive.relaxed.aligned",
+                    "barrier.cluster.arrive.release.aligned")],
+            "rwkv_scan_bwd.cu"),
+        "states_ring3": _substitute(
+            text, [("kStatesStages = 2;", "kStatesStages = 3;")],
+            "rwkv_scan_bwd.cu"),
+    }
+    if PARENT:
+        variants["parent"] = parent_source(
+            "src/repro_torch/csrc/rwkv_scan_bwd.cu")
+    fns = {}
+    for name, src in variants.items():
+        fn = build(f"wkv_bwd_{name}", src, nvcc, flags).repro_rwkv_wkv_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 13 + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def call(name, r, k, v, w, u, dout):
+        B, T, H, K = r.shape
+        ckpt = torch.empty((B * H * -(-T // 16), K, K), device=r.device)
+        du_part = torch.empty((B, H, K), device=r.device)
+        grads = [torch.empty_like(r) for _ in range(4)]
+        du = torch.empty_like(u)
+        rc = fns[name](*(t.data_ptr() for t in (r, k, v, w, u, dout, ckpt,
+                                                du_part, *grads, du)),
+                       B, T, H, K, K, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"wkv_bwd {name}: CUDA error {rc}")
+        return (*grads, du)
+
+    def plain(r, k, v, w, u, dout):
+        B, T, H, K = r.shape
+
+        def hf(x):
+            return x.transpose(1, 2).reshape(B * H, T, K)
+
+        out = wkv_bwd_ref(*(hf(x) for x in (r, k, v, w)),
+                          u.expand(B, H, K).reshape(B * H, K), hf(dout))
+        return (*(x.reshape(B, H, T, K).transpose(1, 2) for x in out[:4]),
+                out[4].reshape(B, H, K).sum(0))
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def inputs(B, T, H):
+        def draw(std):
+            return std * torch.randn((B, T, H, 64), device="cuda",
+                                     generator=gen)
+        w = torch.sigmoid(draw(3.0))
+        w[:, ::3, :, ::2] = 0.0
+        u = 0.3 * torch.randn((H, 64), device="cuda", generator=gen)
+        return draw(0.5), draw(0.5), draw(0.5), w, u, draw(1.0)
+
+    args = inputs(2, 650, 4)
+    want = plain(*args)
+    result = {}
+    for name in fns:
+        got = call(name, *args)
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+        if name == "committed" and err >= 2e-4:
+            raise AssertionError(f"wkv_bwd {name}: relative error {err}")
+        result[name] = {"rel_err": err}
+    args = inputs(8, 2048, 64)
+    times = in_turns({name: (lambda n=name: call(n, *args)) for name in fns},
+                     5)
+    for name in fns:
+        result[name]["ms"] = times[name]
+    print("rwkv_wkv_bwd 8x2048x64x64: " + ", ".join(
+        f"{n} ms {' / '.join(f'{t:.4f}' for t in e['ms'])} (error "
+        f"{e['rel_err']:.3g})" for n, e in result.items()), flush=True)
+    return result
+
+
 def haar_variants(nvcc, flags):
     """The Haar stage at the funnel's shapes (the full-width executor of
     ``assets/fa_reference.npz``: stage 0 at S = 1 and S = 64, stage 1 at
@@ -1085,7 +1181,7 @@ def main() -> int:
 PARENT = None
 SECTIONS = {"integral": integral_variants, "flash": flash_variants,
             "flash_f32": flash_f32_variants, "flash_bwd": flash_bwd_variants,
-            "wkv": wkv_variants,
+            "wkv": wkv_variants, "wkv_bwd": wkv_bwd_variants,
             "haar": haar_variants, "blur": blur_variants,
             "codec": codec_variants}
 

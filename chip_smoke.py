@@ -200,8 +200,9 @@ no tensor-core instruction, then:
    WKV_REL), every run bit-equal to the next; the forward with its
    log-sum-exp bit-equal to the forward without; on drawn inputs (flash at
    yi's heads with S = 4000, causal and with a window of 1024, both
-   dtypes; WKV at T = 650 with w = 0 in some channels and a seeded
-   nonzero u); the JAX training records
+   dtypes; WKV at T = 650, 11 and 200 (B = 1) with w = 0 in some channels
+   and a seeded nonzero u, the chunked emulation's errors beside the
+   kernel's); the JAX training records
    (``assets/lm_train_reference.npz``) through the kernels in float32;
    and the loop with its checkpoints on disk at the record's yi config
    (a failure replayed bit-equal, a resume);
@@ -3671,7 +3672,15 @@ FLASH_BWD_D64, FLASH_BWD_D64_WINDOW = (2, 1000, 8, 2, 64), 100
 # by this script): printed beside this run's times, never in the kernels
 # line.  7h's kernels are the same code now
 FLASH_BWD_PARENT_MS = {"7g": 33.9454, "7h": 33.3843}
+# row 8b of the parent commit, the first-draft WKV backward (one block of
+# 256 threads a head, CUDA cores), as recorded (CUDA events at the rwkv6-7b
+# training shape on an NVIDIA H100 80GB HBM3 at 700 W; not measured by this
+# script): printed beside this run's time, never in the kernels line
+WKV_BWD_PARENT_MS = 11.9546
+# the drawn backward cases (B, T, H): ragged against the chunk of 16, a T
+# shorter than a chunk, one batch row
 WKV_BWD_T = 650
+WKV_BWD_DRAWN = ((8, WKV_BWD_T, 64), (2, 11, 8), (1, 200, 16))
 
 
 def train_flops(cfg, n_params: int) -> float:
@@ -4180,17 +4189,23 @@ def flash_bwd_rows(probes, args, launches):
     return rows
 
 
-def wkv_bwd_plain(r, k, v, w, u, dout):
-    """``wkv_bwd_ref`` on the model's layout -> (dr, dk, dv, dw, du)."""
-    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref
+def wkv_bwd_plain(r, k, v, w, u, dout, chunked=False):
+    """``wkv_bwd_ref`` (or, ``chunked``, ``wkv_bwd_chunked_ref``, the
+    kernel's chunked arithmetic) on the model's layout -> (dr, dk, dv, dw,
+    du summed over b)."""
+    from repro_torch.kernels.rwkv_scan.ref import (
+        wkv_bwd_chunked_ref,
+        wkv_bwd_ref,
+    )
 
     B, T, H, K = r.shape
 
     def hf(x):
         return x.transpose(1, 2).reshape(B * H, T, x.shape[-1])
 
-    out = wkv_bwd_ref(*(hf(x) for x in (r, k, v, w)),
-                      u.expand(B, H, K).reshape(B * H, K), hf(dout))
+    fn = wkv_bwd_chunked_ref if chunked else wkv_bwd_ref
+    out = fn(*(hf(x) for x in (r, k, v, w)),
+             u.expand(B, H, K).reshape(B * H, K), hf(dout))
     grads = [x.reshape(B, H, T, x.shape[-1]).transpose(1, 2)
              for x in out[:4]]
     return (*grads, out[4].reshape(B, H, K).sum(0))
@@ -4198,25 +4213,31 @@ def wkv_bwd_plain(r, k, v, w, u, dout):
 
 def wkv_bwd_check(args, label):
     """The WKV backward kernel against ``wkv_bwd_ref``: every output within
-    WKV_REL of its largest plain entry.  Returns the largest |err|."""
+    WKV_REL of its largest plain entry, beside the errors of
+    ``wkv_bwd_chunked_ref`` (the kernel's arithmetic in plain PyTorch) on
+    the same inputs.  Returns the largest |err|."""
     from repro_torch.kernels.rwkv_scan import cuda as wcuda
 
     got = wcuda.rwkv_wkv_bwd_cuda(*args)
     want = wkv_bwd_plain(*args)
+    emu = wkv_bwd_plain(*args, chunked=True)
     again = wcuda.rwkv_wkv_bwd_cuda(*args)
     deterministic = all(torch_equal(a, b) for a, b in zip(got, again))
-    rels, worst = [], 0.0
-    for name, a, b in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+    rels, emus, worst = [], [], 0.0
+    for name, a, b, e in zip(("dr", "dk", "dv", "dw", "du"), got, want, emu):
         err = max_abs_err(a, b)
         worst = max(worst, err)
-        rel = err / float(b.abs().max())
+        top = float(b.abs().max())
+        rel = err / top
         rels.append(f"{name} {rel:.3g}")
+        emus.append(f"{max_abs_err(e, b) / top:.3g}")
         if not (rel < WKV_REL and bool(a.isfinite().all())):
             raise AssertionError(f"rwkv_wkv_bwd {label} {name}: relative "
                                  f"error {rel:g}")
     print(f"rwkv_wkv_bwd {tuple(args[0].shape)}, {label}: relative error "
-          f"{', '.join(rels)}; bound {WKV_REL}; two runs bit-equal "
-          f"{deterministic}", flush=True)
+          f"{', '.join(rels)}; bound {WKV_REL}; the chunked emulation's "
+          f"{', '.join(emus)}; two runs bit-equal {deterministic}",
+          flush=True)
     if not deterministic:
         raise AssertionError("rwkv_wkv_bwd is not deterministic")
     return worst
@@ -4224,9 +4245,10 @@ def wkv_bwd_check(args, label):
 
 def wkv_bwd_rows(probes, args, launches):
     """Row 8b on layer 0's backward-kernel inputs at step 1 of the rwkv6-7b
-    training run (u as trained one step, so nonzero), then drawn inputs at
-    T = WKV_BWD_T (ragged against the chunk of 16) with w = 0 in some
-    channels and a seeded nonzero u."""
+    training run (u as trained one step, so nonzero), then drawn inputs
+    (WKV_BWD_DRAWN: T ragged against the chunk of 16, T shorter than a
+    chunk, one batch row) with w = 0 in every third step's even channels
+    and a seeded nonzero u."""
     import torch
 
     from repro_torch.kernels.rwkv_scan import cuda as wcuda
@@ -4241,8 +4263,11 @@ def wkv_bwd_rows(probes, args, launches):
     # BWD_CHUNK steps are its own scratch, printed beside the row
     n_bytes = 4 * 9 * r.numel() + 4 * 2 * args[4].numel()
     scratch = 2 * 4 * B * H * -(-T // wcuda.BWD_CHUNK) * K * K
-    print(f"rwkv_wkv_bwd 8b: the design's chunk-state scratch, written and "
-          f"read, {scratch / 1e9:.3f} GB = "
+    print(f"rwkv_wkv_bwd 8b: the parent commit's first draft took "
+          f"{WKV_BWD_PARENT_MS} ms by CUDA events at this shape (recorded, "
+          "not measured by this run)", flush=True)
+    print(f"rwkv_wkv_bwd 8b: the design's chunk-state scratch, written by "
+          f"its first pass and read by its second, {scratch / 1e9:.3f} GB = "
           f"{1e3 * scratch / PEAK_BYTES_S:.4f} ms at 3.35 TB/s (not in the "
           f"bound: the function does not need it)", flush=True)
     # the plain reverse recurrence's operations per step and (b, h): the
@@ -4252,21 +4277,23 @@ def wkv_bwd_rows(probes, args, launches):
                      launches, err, lambda: wcuda.rwkv_wkv_bwd_cuda(*args),
                      plain_ms, None, n_bytes, n_ops, PEAK_F32_OPS_S, reps=5,
                      shape="8b " + "x".join(map(str, r.shape)),
-                     kernel=("rwkv_wkv_bwd", 2))
+                     kernel=("rwkv_wkv_bwd", 3))
     row["backward_of"] = "row 8"
     dev = r.device
     gen = torch.Generator(device=dev).manual_seed(7)
-    shape = (B, WKV_BWD_T, H, K)
+    for shape in WKV_BWD_DRAWN:
+        shape = (*shape, K)
 
-    def draw(std):
-        return std * torch.randn(shape, device=dev, generator=gen)
+        def draw(std):
+            return std * torch.randn(shape, device=dev, generator=gen)
 
-    w = torch.sigmoid(draw(10.0))
-    w[:, ::3, :, ::2] = 0.0
-    u = WKV_BONUS_STD * torch.randn((H, K), device=dev, generator=gen)
-    wkv_bwd_check((draw(0.5), draw(0.5), draw(0.5), w, u, draw(1.0)),
-                  f"drawn, T = {WKV_BWD_T}, w = 0 in every third step's even "
-                  f"channels, u ~ {WKV_BONUS_STD} N(0, 1)")
+        w = torch.sigmoid(draw(10.0))
+        w[:, ::3, :, ::2] = 0.0
+        u = WKV_BONUS_STD * torch.randn((shape[2], K), device=dev,
+                                        generator=gen)
+        wkv_bwd_check((draw(0.5), draw(0.5), draw(0.5), w, u, draw(1.0)),
+                      f"drawn, w = 0 in every third step's even channels, "
+                      f"u ~ {WKV_BONUS_STD} N(0, 1)")
     return row
 
 
@@ -4492,28 +4519,46 @@ def lm_train_phase(probes, device="cuda"):
     return rows, targets, readings
 
 
-def profile_phase(label, fn, wall_ms):
+def profile_phase(label, fn, wall_ms, sessions=1):
     """Device time by kernel over one call (torch.profiler), against the
-    call's unprofiled wall time."""
+    call's unprofiled wall time.  With ``sessions`` > 1 the call is
+    profiled that many times, each session printed, and the call's span by
+    CUDA events (after the sessions, so a diagnostic, not a reading) is
+    printed beside them: a session whose busy time falls well short of the
+    others' and of that span has lost kernel records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for session in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        tag = f" (session {session + 1} of {sessions})" if sessions > 1 else ""
+        print(f"profile {label}{tag}: {len(kernels)} kernel names, "
+              f"{sum(e.count for e in kernels)} launches, device busy "
+              f"{busy:.4f} ms of {wall_ms:.4f} ms wall "
+              f"({100 * busy / wall_ms:.1f}%)", flush=True)
+        for e in top:
+            print(f"  {e.self_device_time_total / 1e3:9.4f} ms  "
+                  f"x{e.count:<4d} {e.key[:90]}", flush=True)
+        del prof, kernels, top
+    if sessions > 1:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile {label}: {len(kernels)} kernel names, {sum(e.count for e in kernels)} "
-          f"launches, device busy {busy:.4f} ms of {wall_ms:.4f} ms wall "
-          f"({100 * busy / wall_ms:.1f}%)", flush=True)
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
-              f"{e.key[:90]}", flush=True)
+        print(f"profile {label}: the call's span by CUDA events after the "
+              f"sessions {start.elapsed_time(end):.4f} ms (a diagnostic of "
+              "the capture, not a reading)", flush=True)
 
 
 def timing_phase(ex, frames, res):
@@ -4605,7 +4650,10 @@ def profiles_phase(ex, frames, targets, probes, dispatches=()):
     for label, fn, wall in targets:
         if isinstance(fn, Deferred):        # one full-width model at a time
             fn = fn.build()
-            profile_phase(label, fn, wall)
+            # the training steps twice: one earlier run read the rwkv
+            # step's kernels at half of the other runs' device time
+            profile_phase(label, fn, wall,
+                          sessions=2 if "training step" in label else 1)
             del fn
             free_card()
         else:

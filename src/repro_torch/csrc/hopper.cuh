@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the bf16 flash-attention kernels
 // (csrc/flash_attention.cu's forward, csrc/flash_attention_bwd.cu's
-// backward): mbarriers, TMA loads through 4-D tensor maps over the model's
-// (B, T, heads, D) layout, 128-byte-swizzle wgmma descriptors, the wgmma
-// products with float32 sums, and bf16 packing.  Inline PTX, no CUTLASS;
-// sm_90a only (wgmma, setmaxnreg).
+// backward; the WKV backward, csrc/rwkv_scan_bwd.cu, takes the mbarriers
+// for its cluster's dv): mbarriers, TMA loads through 4-D tensor maps over
+// the model's (B, T, heads, D) layout, 128-byte-swizzle wgmma descriptors,
+// the wgmma products with float32 sums, and bf16 packing.  Inline PTX, no
+// CUTLASS; sm_90a only (wgmma, setmaxnreg).
 
 #pragma once
 

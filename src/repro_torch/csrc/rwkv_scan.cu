@@ -50,7 +50,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using tf32::a_frag;
+using tf32::cp_async16;
+using tf32::mma3;
 
 constexpr int kHead = 64;           // K = V
 constexpr int kChunk = 16;          // L: time steps per chunk
@@ -79,70 +85,12 @@ static_assert(kChunk == 16 && kHead == 64 && kThreads == 128,
               "the mma tiles: 16 steps, 64 columns, 4 warps; two threads "
               "a channel for the decays");
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float comp(const float4& a, int e) {
   return e == 0 ? a.x : (e == 1 ? a.y : (e == 2 ? a.z : a.w));
-}
-
-// -- 3xTF32 on mma.sync m16n8k8 ----------------------------------------------
-
-// x = hi + lo: hi is x cut to TF32's 10 mantissa bits (exact), lo the
-// exact remainder, of which the mma reads the top 10 mantissa bits
-// (relative error of the pair below 2^-21).  Cutting instead of
-// cvt.rna.tf32.f32 takes one LOP3 where the rounding takes several.
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 x 8, row-major at a[row * stride + col]) of rows r0..,
-// columns c0..; lane = 4 g + q holds (g, q), (g + 8, q), (g, q + 4),
-// (g + 8, q + 4).  With transposed, the element (row, col) is read at
-// a[col * stride + row].
-template <bool kTransposed>
-__device__ __forceinline__ void a_frag(const float* a, int stride, int r0,
-                                       int c0, unsigned (&hi)[4],
-                                       unsigned (&lo)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int rows[4] = {r0 + g, r0 + g + 8, r0 + g, r0 + g + 8};
-  const int cols[4] = {c0 + q, c0 + q, c0 + q + 4, c0 + q + 4};
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    split(kTransposed ? a[cols[e] * stride + rows[e]]
-                      : a[rows[e] * stride + cols[e]],
-          hi[e], lo[e]);
-}
-
-// c += A B on 3xTF32, B (8 x 8) at b[row * stride + col], rows k0..,
-// columns n0..; lane (g, q) holds (q, g) and (q + 4, g).
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], const float* b,
-                                     int stride, int k0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  unsigned bh0, bl0, bh1, bl1;
-  split(b[(k0 + q) * stride + n0 + g], bh0, bl0);
-  split(b[(k0 + q + 4) * stride + n0 + g], bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
 }
 
 // -- loads ------------------------------------------------------------------

@@ -65,11 +65,12 @@ def _check_inputs(r, k, v, w, u, extra=()):
 
 def rwkv_wkv_bwd_cuda(r, k, v, w, u, dout):
     """The backward of :func:`rwkv_wkv_cuda` for a zero cotangent of the
-    final state, one launch (the recurrence's backward, then the sum of
-    du over b).  r/k/v/w/dout: (B, T, H, 64), u: (H, 64), float32 CUDA,
-    contiguous and 16-byte aligned -> (dr, dk, dv, dw (B, T, H, 64),
-    du (H, 64)).  Takes B * H * ceil(T / 16) * 16 KB of scratch for the
-    states at chunk starts."""
+    final state, one launch (the chunked backward on clusters of four CTAs
+    a head, then the sum of du over b).  r/k/v/w/dout: (B, T, H, 64), u:
+    (H, 64), float32 CUDA, contiguous and 16-byte aligned -> (dr, dk, dv,
+    dw (B, T, H, 64), du (H, 64)).  Takes B * H * ceil(T / 16) * 16 KB of
+    scratch for the states at chunk starts, which the kernel's first pass
+    writes and its second reads."""
     B, T, H = _check_inputs(r, k, v, w, u, (("dout", dout),))
     grads = [torch.empty_like(r) for _ in range(4)]
     du = torch.empty_like(u)

@@ -8,8 +8,9 @@ is the CUDA kernel's chunked arithmetic (``csrc/rwkv_scan.cu``) in plain
 PyTorch, for the tests and ``chip_smoke.py``; the CPU route stays
 :func:`wkv_ref`.  :func:`wkv_bwd_ref` is the recurrence's backward as an
 explicit reverse recurrence, the plain version of the backward kernel
-(``csrc/rwkv_scan_bwd.cu``); on the CPU the model differentiates
-:func:`wkv_ref` with autograd.
+(``csrc/rwkv_scan_bwd.cu``), and :func:`wkv_bwd_chunked_ref` that kernel's
+chunked arithmetic, for the tests and ``chip_smoke.py``; on the CPU the
+model differentiates :func:`wkv_ref` with autograd.
 """
 
 from __future__ import annotations
@@ -121,3 +122,95 @@ def wkv_bwd_ref(r, k, v, w, u, dout, ckpt_every: int = 64):
             du = du + rt * kt * e
             dS = wt[:, :, None] * dS + rt[:, :, None] * gt[:, None, :]
     return dr, dk, dv, dw, du
+
+
+SPLIT = 4       # csrc/rwkv_scan_bwd.cu kSplit: CTAs (channel groups) a head
+
+
+def wkv_bwd_chunked_ref(r, k, v, w, u, dout, chunk: int = CHUNK,
+                        split: int = SPLIT):
+    """The backward kernel's chunked arithmetic (``csrc/rwkv_scan_bwd.cu``)
+    over (BH, T, K), same contract as :func:`wkv_bwd_ref`.  A first pass
+    carries S chunk by chunk as :func:`wkv_chunked_ref` does and keeps it
+    at every chunk start; the chunks are then walked in reverse from
+    dS_L = 0.  Per chunk of L steps, with S_0 the state at its start, dS_L
+    the cotangent at its end, A_t = prod_{m<t} w_m, Bs_t = prod_{m>t} w_m,
+    D_ti = prod_{i<m<t} w_m (all products, no division: w = 0 is exact)
+    and a_ti = D_ti k_i (i < t), the Gram products
+    X = S_0 dout^T, Y = dS_L v^T, G = v dout^T and SdS = rowsum(S_0 dS_L)
+    give, channel by channel (i, j, t in the chunk),
+    W_it = v_i . dS_{t+1} = Bs_t Y_i + sum_{j>t} D_jt r_j G_ij,
+    U_t = S_0 . dS_{t+1} = Bs_t SdS + sum_{j>t} D_jt r_j X_j,
+    dr_t = A_t X_t + sum_{i<t} a_ti G_it + u k_t G_tt,
+    dk_t = W_tt + r_t u G_tt,  dw_t = A_t U_t + sum_{i<t} a_ti W_it,
+    du += r_t k_t G_tt; dv = (k Bs) dS_L + P^T dout with the forward's
+    scores P_ti = sum_k r_t a_ti (i < t), P_tt = sum_k r_t u k_t, summed
+    group by group over ``split`` groups of channels in order, as the
+    kernel's cluster sums its CTAs' partials; and the carry
+    dS_0 = diag(A_L) dS_L + (r A)^T dout.  A ragged last chunk is padded
+    with r = k = v = dout = 0 and w = 1."""
+    BH, T, K = r.shape
+    V = v.shape[2]
+    L = chunk
+    pad = (-T) % L
+    if pad:
+        r, k, v, dout = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                         for t in (r, k, v, dout))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    n = (T + pad) // L
+    idx = torch.arange(L, device=r.device)
+    later = idx[:, None] > idx[None, :]                   # (t, i): t > i
+    ones = r.new_ones((BH, 1, K))
+    starts, S = [], r.new_zeros((BH, K, V))
+    for c in range(n):
+        starts.append(S)
+        kc, vc, wc = (t[:, c * L:(c + 1) * L] for t in (k, v, w))
+        suffix = torch.cumprod(wc.flip(1), dim=1).flip(1)
+        Bs = torch.cat([suffix[:, 1:], ones], dim=1)
+        S = suffix[:, 0, :, None] * S + (kc * Bs).transpose(1, 2) @ vc
+    grads = [torch.zeros_like(t) for t in (r, k, v, w)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros_like(u)
+    dS = r.new_zeros((BH, K, V))
+    groups = torch.arange(K, device=r.device).chunk(split)
+    for c in reversed(range(n)):
+        sl = slice(c * L, (c + 1) * L)
+        rc, kc, vc, wc, gc = (t[:, sl] for t in (r, k, v, w, dout))
+        S0 = starts[c]
+        incl = torch.cumprod(wc, dim=1)
+        A = torch.cat([ones, incl[:, :-1]], dim=1)        # (BH, L, K)
+        suffix = torch.cumprod(wc.flip(1), dim=1).flip(1)
+        Bs = torch.cat([suffix[:, 1:], ones], dim=1)
+        # D[t, i] = prod_{i<m<t} w_m for t > i (1 where t <= i, unused)
+        M = torch.where(later[None, :, :, None], wc[:, :, None, :], 1.0)
+        D = torch.cat([r.new_ones((BH, 1, L, K)),
+                       torch.cumprod(M, dim=1)[:, :-1]], dim=1)
+        a = torch.where(later[None, :, :, None], D * kc[:, None], 0.0)
+        X = S0 @ gc.transpose(1, 2)                       # (BH, K, L)
+        Y = dS @ vc.transpose(1, 2)                       # (BH, K, L)
+        G = vc @ gc.transpose(1, 2)                       # (BH, L, L)
+        SdS = (S0 * dS).sum(-1)                           # (BH, K)
+        diag = torch.diagonal(G, dim1=1, dim2=2)          # e_t
+        # b[j, t] = D_jt r_j for j > t
+        b = torch.where(later[None, :, :, None], D * rc[:, :, None], 0.0)
+        W = (Bs[:, None, :, :] * Y.transpose(1, 2)[:, :, None, :]
+             + torch.einsum("bjtk,bij->bitk", b, G))      # (BH, i, t, K)
+        U = Bs * SdS[:, None] + torch.einsum("bjtk,bkj->btk", b, X)
+        dr[:, sl] = (A * X.transpose(1, 2)
+                     + torch.einsum("btik,bit->btk", a, G)
+                     + u[:, None] * kc * diag[..., None])
+        dk[:, sl] = (torch.diagonal(W, dim1=1, dim2=2).transpose(1, 2)
+                     + rc * u[:, None] * diag[..., None])
+        dw[:, sl] = A * U + torch.einsum("btik,bitk->btk", a, W)
+        du = du + (rc * kc * diag[..., None]).sum(1)
+        part = None
+        for grp in groups:
+            P = torch.einsum("btk,btik->bti", rc[..., grp], a[..., grp])
+            P = P + torch.diag_embed((rc[..., grp] * u[:, None, grp]
+                                      * kc[..., grp]).sum(-1))
+            g = ((kc * Bs)[..., grp] @ dS[:, grp]
+                 + P.transpose(1, 2) @ gc)
+            part = g if part is None else part + g
+        dv[:, sl] = part
+        dS = incl[:, -1, :, None] * dS + (rc * A).transpose(1, 2) @ gc
+    return (*(g[:, :T] for g in grads), du)

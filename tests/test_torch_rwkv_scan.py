@@ -10,7 +10,9 @@ Tolerance: the reference's own, relative error below 2e-4 of the largest
 the sequential oracle and the scan, which run the same steps in float32,
 1e-5.  The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it
 to these plain versions there.  The backward's plain version
-``wkv_bwd_ref`` is held to autograd and to JAX's vjp at the end.
+``wkv_bwd_ref`` is held to autograd and to JAX's vjp at the end, and
+``wkv_bwd_chunked_ref``, the backward kernel's chunked arithmetic, to all
+three within the kernel's bound.
 """
 
 import jax
@@ -27,6 +29,8 @@ from repro_torch.kernels.rwkv_scan import cuda as wcuda
 from repro_torch.kernels.rwkv_scan.ops import rwkv_wkv
 from repro_torch.kernels.rwkv_scan.ref import (
     CHUNK,
+    SPLIT,
+    wkv_bwd_chunked_ref,
     wkv_bwd_ref,
     wkv_chunked_ref,
     wkv_ref,
@@ -272,3 +276,169 @@ def test_autograd_route_on_cpu_is_the_plain_recurrence():
     t = torch.zeros((1, 4, 1, 64))
     with pytest.raises(ValueError, match="CUDA"):
         wcuda.rwkv_wkv_bwd_cuda(t, t, t, t, torch.zeros((1, 64)), t)
+
+
+# -- the backward kernel's chunked arithmetic (wkv_bwd_chunked_ref) ---------
+#
+# csrc/rwkv_scan_bwd.cu's algorithm in plain PyTorch: chunks of CHUNK
+# steps, decays as products of w, the channel split's dv partials summed
+# group by group.  Held, in the model's (B, T, H, 64) layout with du summed
+# over b, to wkv_bwd_ref, to autograd through ops.rwkv_wkv's CPU route
+# (wkv_ref) and to jax.vjp of the reference's scan: every gradient within
+# WKV_REL of its largest plain entry, the kernel's bound on the card.
+
+WKV_REL = 2e-4          # chip_smoke.WKV_REL (tests/test_kernels.py:372)
+
+
+def model_layout_bwd(fn, r, k, v, w, u, g, **kw):
+    """fn over the heads-first rows of (B, T, H, 64) inputs, u (H, 64);
+    -> (dr, dk, dv, dw (B, T, H, 64), du (H, 64) summed over b)."""
+    B, T, H, K = r.shape
+
+    def hf(x):
+        return torch.tensor(x).transpose(1, 2).reshape(B * H, T, K)
+
+    out = fn(*(hf(x) for x in (r, k, v, w)),
+             torch.tensor(np.tile(u, (B, 1))), hf(g), **kw)
+    grads = [x.reshape(B, H, T, K).transpose(1, 2).numpy() for x in out[:4]]
+    return (*grads, out[4].reshape(B, H, K).sum(0).numpy())
+
+
+def model_inputs(B, T, H, dscale, seed, w_mode=None):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, 64)).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = (1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, 64))
+                             * dscale))).astype(np.float32)
+    if w_mode == "zero":                # exp(-exp(x)) underflows to 0
+        w[:, ::3, :, ::2] = 0.0
+    elif w_mode is not None:
+        w[:] = w_mode
+    u = rng.standard_normal((H, 64)).astype(np.float32) * 0.3
+    g = rng.standard_normal((B, T, H, 64)).astype(np.float32)
+    return r, k, v, w, u, g
+
+
+def autograd_model_bwd(r, k, v, w, u, g):
+    leaves = [torch.tensor(a, requires_grad=True) for a in (r, k, v, w, u)]
+    out, _state = rwkv_wkv(*leaves)
+    out.backward(torch.tensor(g))
+    return [t.grad.numpy() for t in leaves]
+
+
+def jax_model_bwd(r, k, v, w, u, g):
+    B, T, H, K = r.shape
+
+    def hf(x):
+        return np.ascontiguousarray(x.transpose(0, 2, 1, 3)).reshape(
+            B * H, T, K)
+
+    out = jax_scan_vjp(*(hf(x) for x in (r, k, v, w)), np.tile(u, (B, 1)),
+                       hf(g))
+    grads = [x.reshape(B, H, T, K).transpose(0, 2, 1, 3) for x in out[:4]]
+    return (*grads, out[4].reshape(B, H, K).sum(0))
+
+
+@pytest.mark.parametrize("B,T,H,dscale,w_mode", [
+    (1, 37, 2, 2.0, None),       # ragged against the chunk of 16, B = 1
+    (2, 100, 2, 3.0, "zero"),    # w = 0 in every third step's even channels
+    (2, 130, 1, 10.0, "zero"),
+    (3, 9, 2, 2.0, None),        # T shorter than a chunk, du summed over 3
+    (1, 40, 2, 1.0, 0.0),        # every decay extreme: w = 0, 1, 1e-30
+    (1, 40, 2, 1.0, 1.0),
+    (2, 40, 1, 1.0, 1e-30),
+])
+def test_wkv_bwd_chunked_ref_against_oracle_autograd_and_jax(B, T, H, dscale,
+                                                             w_mode):
+    r, k, v, w, u, g = model_inputs(B, T, H, dscale, 100 + T, w_mode)
+    got = model_layout_bwd(wkv_bwd_chunked_ref, r, k, v, w, u, g)
+    assert all(np.isfinite(a).all() for a in got)
+    oracle = model_layout_bwd(wkv_bwd_ref, r, k, v, w, u, g, ckpt_every=16)
+    auto = autograd_model_bwd(r, k, v, w, u, g)
+    want = jax_model_bwd(r, k, v, w, u, g)
+    for name, a, o, t, j in zip("rkvwu", got, oracle, auto, want):
+        assert rel(a, o) < WKV_REL, name
+        assert rel(a, t) < WKV_REL, name
+        assert rel(a, j) < WKV_REL, name
+
+
+def test_wkv_bwd_chunked_ref_bonus_moves_the_gradients():
+    """A nonzero u: du is nonzero, and the bonus moves dr, dk and dv by far
+    more than the bound, so an emulation (or kernel) that dropped or
+    misplaced it could not pass; u = 0 agrees with the oracle too."""
+    r, k, v, w, u, g = model_inputs(2, 70, 2, 3.0, 17, "zero")
+    got = model_layout_bwd(wkv_bwd_chunked_ref, r, k, v, w, u, g)
+    zero_u = model_layout_bwd(wkv_bwd_chunked_ref, r, k, v, w, 0 * u, g)
+    want = jax_model_bwd(r, k, v, w, u, g)
+    assert rel(got[4], np.zeros_like(got[4])) > 0
+    assert rel(got[4], want[4]) < WKV_REL
+    for name, a, z in zip("rkv", got[:3], zero_u[:3]):
+        assert rel(a, z) > 10 * WKV_REL, name
+    oracle = model_layout_bwd(wkv_bwd_ref, r, k, v, w, 0 * u, g)
+    for name, a, o in zip("rkvwu", zero_u, oracle):
+        assert rel(a, o) < WKV_REL, name
+
+
+@pytest.mark.parametrize("split", [1, 2, SPLIT, 8])
+def test_wkv_bwd_chunked_ref_channel_split(split):
+    """dv summed over 1-8 channel groups in order (the cluster's CTAs)
+    stays within the bound of the oracle; the other gradients do not
+    depend on the split."""
+    r, k, v, w, u, g = model_inputs(1, 50, 2, 2.0, 23)
+    got = model_layout_bwd(wkv_bwd_chunked_ref, r, k, v, w, u, g,
+                           split=split)
+    one = model_layout_bwd(wkv_bwd_chunked_ref, r, k, v, w, u, g, split=1)
+    oracle = model_layout_bwd(wkv_bwd_ref, r, k, v, w, u, g)
+    for name, a, b, o in zip("rkvwu", got, one, oracle):
+        assert rel(a, o) < WKV_REL, name
+        if name != "v":
+            np.testing.assert_array_equal(a, b)
+
+
+def kernel_constants(name):
+    """The ``constexpr int`` values of a csrc file, expressions evaluated
+    in order (C++'s integer division)."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parents[1] / "src"
+            / "repro_torch" / "csrc" / name).read_text()
+    text = re.sub(r"//[^\n]*", "", text)
+    c = {}
+    for m in re.finditer(r"constexpr int (k\w+) =\s*([^;]+);", text):
+        c[m[1]] = eval(" ".join(m[2].split()).replace("/", "//"), {},
+                       dict(c))
+    return c
+
+
+def test_bwd_kernel_constants():
+    """csrc/rwkv_scan_bwd.cu's chunk and channel split are the emulation's;
+    its shared memory (two stages of the CTA's r, k, w columns and all of
+    v and dout, S_0, dS, X, Y, G, A, k Bs, r A, the scores per warp, two
+    buffers of the cluster's dv partials and their mbarriers, the chunk's
+    outputs) is what this layout counts, fits a
+    block (227 KB) and kMinBlocks blocks an SM (228 KB less 1 KB a block);
+    the threads fit an SM and the cluster is portable (at most 8 CTAs)."""
+    c = kernel_constants("rwkv_scan_bwd.cu")
+    assert c["kChunk"] == CHUNK and c["kSplit"] == SPLIT
+    assert c["kHead"] == 64 and c["kCh"] * c["kSplit"] == 64
+    L, ch, wide = c["kChunk"], c["kCh"], c["kWRow"]
+    stage = 3 * L * c["kSRow"] + 2 * L * wide
+    floats = (2 * stage + 2 * ch * wide + 2 * ch * L + L * c["kGRow"]
+              + L * ch + L * c["kKbRow"] + L * c["kRaRow"]
+              + c["kWarps"] * L * L + 2 * c["kSplit"] * L * ch
+              + 3 * L * ch + 3 * ch + 4)
+    assert floats == c["kSmemFloats"]
+    assert 4 * floats <= 227 * 1024
+    assert c["kMinBlocks"] * (4 * floats + 1024) <= 228 * 1024
+    assert c["kMinBlocks"] * c["kThreads"] <= 2048
+    assert 2 <= c["kSplit"] <= 8
+    # the first pass's kernel: its ring of k, w and v chunks, k Bs and A_L
+    states = (c["kStatesStages"] * (2 * L * c["kSRow"] + L * wide)
+              + L * c["kRaRow"] + ch)
+    assert states == c["kStatesSmemFloats"]
+    assert c["kStatesBlocks"] * (4 * states + 1024) <= 228 * 1024
+    assert c["kStatesBlocks"] * c["kThreads"] <= 2048
+    # the fragment strides: 16-byte rows for cp.async and float4 loads
+    for name in ("kWRow", "kSRow", "kGRow"):
+        assert c[name] % 4 == 0, name
