@@ -14,7 +14,13 @@ of 64 or 128 queries, the order of the q k^T fragment loads and the
 unrolling of P V; ``flash_f32``), of the bf16 kernels of
 ``src/repro_torch/csrc/flash_attention_bwd.cu`` (tile sizes, ring depth,
 P and dS as one bf16 term; ``flash_bwd``, which also prints the
-per-kernel device times), of ``src/repro_torch/csrc/rwkv_scan.cu``
+per-kernel device times) and of its float32 kernels (ring depth, tiles
+of 16, 32 and 64, P and dS through shared memory, the sums split into
+more chains, the loop over d unrolled, one score product at a time, the
+high parts cut instead of rounded, and the parent's first draft with
+``--parent``; ``flash_bwd_f32``, beside SDPA's efficient backward), the
+rate of ``mma.sync`` in TF32 alone (``mma_tf32``), of
+``src/repro_torch/csrc/rwkv_scan.cu``
 (the products as one TF32 term instead of 3xTF32, and three blocks an SM
 instead of four; ``wkv``), of ``src/repro_torch/csrc/rwkv_scan_bwd.cu``
 (its cluster barrier with release semantics, its first pass's ring three
@@ -430,6 +436,459 @@ def flash_bwd_variants(nvcc, flags):
         del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
     return result
+
+
+# mma.sync m16n8k8 TF32 alone: each warp runs rounds of `chains`
+# independent accumulators, so that the tensor cores' rate and one product's
+# latency show apart from any kernel's loads and splits
+MMA_PEAK_SOURCE = r"""
+#include <cuda_runtime.h>
+template <int CH>
+__global__ void peak(float* out, int iters) {
+  float c[CH][4] = {};
+  unsigned a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u, 7u};
+  unsigned b0 = threadIdx.x * 11u, b1 = 13u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < CH; ++k)
+      asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(c[k][0]), "+f"(c[k][1]), "+f"(c[k][2]), "+f"(c[k][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < CH; ++k) s += c[k][0] + c[k][1] + c[k][2] + c[k][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_peak(float* out, int chains, int blocks, int threads,
+                        int iters, cudaStream_t stream) {
+  switch (chains) {
+    case 1: peak<1><<<blocks, threads, 0, stream>>>(out, iters); break;
+    case 2: peak<2><<<blocks, threads, 0, stream>>>(out, iters); break;
+    case 4: peak<4><<<blocks, threads, 0, stream>>>(out, iters); break;
+    case 8: peak<8><<<blocks, threads, 0, stream>>>(out, iters); break;
+    default: return 1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def mma_tf32_peak(nvcc, flags):
+    """The rate of ``mma.sync.m16n8k8`` in TF32 on this card: one block of
+    256 threads an SM (2 warps a scheduler, as the float32 flash backward
+    runs) with 1, 2, 4 and 8 independent accumulators a warp, and two blocks
+    an SM with 4; TFLOP/s and clocks a product a scheduler at the SM clock
+    ``nvidia-smi`` reads (clocks.sm) after the runs."""
+    import torch
+
+    fn = build("mma_tf32_peak", MMA_PEAK_SOURCE, nvcc, flags).mma_peak
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(2 * sms * 256, device="cuda")
+    result = {}
+    for chains, blocks in ((1, sms), (2, sms), (4, sms), (8, sms),
+                           (4, 2 * sms)):
+        iters = 20000 // chains
+
+        def run():
+            rc = fn(out.data_ptr(), chains, blocks, 256, iters,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"mma_peak: CUDA error {rc}")
+        ms = device_ms(run, 3)
+        result[f"{chains} chains, {blocks // sms} block(s) an SM"] = {
+            "ms": ms, "tflops": blocks * 8 * iters * chains * 2048 / ms / 1e9,
+            "mma_per_scheduler": blocks * 8 * iters * chains / (4 * sms)}
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    for label, r in result.items():
+        r["clocks_per_mma"] = r["ms"] * 1e-3 * clock * 1e6 / r["mma_per_scheduler"]
+        print(f"mma.sync m16n8k8 tf32, {label}: {r['tflops']:.1f} TFLOP/s, "
+              f"{r['clocks_per_mma']:.2f} clocks a product a scheduler at "
+              f"{clock:.0f} MHz", flush=True)
+    return result
+
+
+# accumulate's A fragments as committed, from the registers as they stand
+F32_A_SPLIT = """  unsigned ah[N / 8][4], al[N / 8][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split_rn(a[j][0], ah[j][0], al[j][0]);
+    split_rn(a[j][2], ah[j][1], al[j][1]);
+    split_rn(a[j][1], ah[j][2], al[j][2]);
+    split_rn(a[j][3], ah[j][3], al[j][3]);
+  }
+"""
+# the same through shared memory, read back in the natural k order
+F32_A_TRIP = """  __shared__ float trip[8][16][N + 4];
+  float(*tw)[N + 4] = trip[(threadIdx.x >> 5) & 7];
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    tw[g][8 * j + 2 * q] = a[j][0];
+    tw[g][8 * j + 2 * q + 1] = a[j][1];
+    tw[g + 8][8 * j + 2 * q] = a[j][2];
+    tw[g + 8][8 * j + 2 * q + 1] = a[j][3];
+  }
+  __syncwarp();
+  unsigned ah[N / 8][4], al[N / 8][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split_rn(tw[g][8 * j + q], ah[j][0], al[j][0]);
+    split_rn(tw[g + 8][8 * j + q], ah[j][1], al[j][1]);
+    split_rn(tw[g][8 * j + q + 4], ah[j][2], al[j][2]);
+    split_rn(tw[g + 8][8 * j + q + 4], ah[j][3], al[j][3]);
+  }
+"""
+# two_scores' products of one 16-d block as committed: a sum for each of
+# the two products, three dependent mma a step
+F32_SCORE_CHAINS = """      float bs[4], bt[4];
+      mma_zero(bs, xl[0], yh[0], yh[1]);
+      mma_zero(bt, ul[0], wh[0], wh[1]);
+      mma_acc(bs, xh[0], yl[0], yl[1]);
+      mma_acc(bt, uh[0], wl[0], wl[1]);
+      mma_acc(bs, xh[0], yh[0], yh[1]);
+      mma_acc(bt, uh[0], wh[0], wh[1]);
+      mma_acc(bs, xl[1], yh[2], yh[3]);
+      mma_acc(bt, ul[1], wh[2], wh[3]);
+      mma_acc(bs, xh[1], yl[2], yl[3]);
+      mma_acc(bt, uh[1], wl[2], wl[3]);
+      mma_acc(bs, xh[1], yh[2], yh[3]);
+      mma_acc(bt, uh[1], wh[2], wh[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __fadd_rn(s[j][e], bs[e]);
+        t[j][e] = __fadd_rn(t[j][e], bt[e]);
+      }
+"""
+# the same with hi hi and the cross terms in sums of their own: four
+# chains of two and four mma instead of two of six
+F32_SCORE_4CHAINS = """      float bs[4], bt[4], cs[4], ct[4];
+      mma_zero(bs, xh[0], yh[0], yh[1]);
+      mma_zero(bt, uh[0], wh[0], wh[1]);
+      mma_zero(cs, xl[0], yh[0], yh[1]);
+      mma_zero(ct, ul[0], wh[0], wh[1]);
+      mma_acc(bs, xh[1], yh[2], yh[3]);
+      mma_acc(bt, uh[1], wh[2], wh[3]);
+      mma_acc(cs, xh[0], yl[0], yl[1]);
+      mma_acc(ct, uh[0], wl[0], wl[1]);
+      mma_acc(cs, xl[1], yh[2], yh[3]);
+      mma_acc(ct, ul[1], wh[2], wh[3]);
+      mma_acc(cs, xh[1], yl[2], yl[3]);
+      mma_acc(ct, uh[1], wl[2], wl[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __fadd_rn(s[j][e], __fadd_rn(bs[e], cs[e]));
+        t[j][e] = __fadd_rn(t[j][e], __fadd_rn(bt[e], ct[e]));
+      }
+"""
+# one score product alone, put before ``accumulate`` for the variants that
+# take S and dP one after the other
+F32_SCORE_FN = """// s = X Y^T alone, as two_scores computes it
+template <int D, int N>
+__device__ __forceinline__ void score(const float* X, const float* Y, int x0,
+                                      float (&s)[N / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = 16 * kk + 4 * q;
+    unsigned xh[2][4], xl[2][4];
+    {
+      unsigned h0[4], l0[4], h8[4], l8[4];
+      split4(ld4(X + at<D>(x0 + g, col)), h0, l0);
+      split4(ld4(X + at<D>(x0 + g + 8, col)), h8, l8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xh[h][0] = h0[2 * h], xh[h][1] = h8[2 * h];
+        xh[h][2] = h0[2 * h + 1], xh[h][3] = h8[2 * h + 1];
+        xl[h][0] = l0[2 * h], xl[h][1] = l8[2 * h];
+        xl[h][2] = l0[2 * h + 1], xl[h][3] = l8[2 * h + 1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      unsigned yh[4], yl[4];
+      split4(ld4(Y + at<D>(8 * j + g, col)), yh, yl);
+      float bs[4];
+      mma_zero(bs, xl[0], yh[0], yh[1]);
+      mma_acc(bs, xh[0], yl[0], yl[1]);
+      mma_acc(bs, xh[0], yh[0], yh[1]);
+      mma_acc(bs, xl[1], yh[2], yh[3]);
+      mma_acc(bs, xh[1], yl[2], yl[3]);
+      mma_acc(bs, xh[1], yh[2], yh[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], bs[e]);
+    }
+  }
+}
+
+"""
+F32_ACC_HEAD = "// acc += A Z over N rows of Z, A (16 x N) in two_scores' accumulator"
+# in_order's loop head as committed
+F32_IN_ORDER_LOOP = "  for (int c = 1; c <= D / 4; ++c) {\n    const int n = c < D / 4"
+# in_order's loop as committed (4 d an iteration), and the same 8 d an
+# iteration (the same FMAs in the same order)
+F32_IN_ORDER_BODY4 = """  // the next 4 d's loads issued before this 4's FMAs
+  float4 a = ld4(q + (sq << 2)), b = ld4(k + (sk << 2));
+  float4 u = ld4(g + (sq << 2)), w = ld4(v + (sk << 2));
+  for (int c = 1; c <= D / 4; ++c) {
+    const int n = c < D / 4 ? c : 0;
+    const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
+    const float4 u1 = ld4(g + ((n ^ sq) << 2)), w1 = ld4(v + ((n ^ sk) << 2));
+    s = __fmaf_rn(a.x, b.x, s);
+    s = __fmaf_rn(a.y, b.y, s);
+    s = __fmaf_rn(a.z, b.z, s);
+    s = __fmaf_rn(a.w, b.w, s);
+    d = __fmaf_rn(u.x, w.x, d);
+    d = __fmaf_rn(u.y, w.y, d);
+    d = __fmaf_rn(u.z, w.z, d);
+    d = __fmaf_rn(u.w, w.w, d);
+    a = a1, b = b1, u = u1, w = w1;
+  }
+"""
+F32_IN_ORDER_BODY8 = """  float4 a[2], b[2], u[2], w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a[h] = ld4(q + ((h ^ sq) << 2)), b[h] = ld4(k + ((h ^ sk) << 2));
+    u[h] = ld4(g + ((h ^ sq) << 2)), w[h] = ld4(v + ((h ^ sk) << 2));
+  }
+  for (int c = 2; c <= D / 4; c += 2) {
+    const int n = c < D / 4 ? c : 0;
+    float4 a1[2], b1[2], u1[2], w1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a1[h] = ld4(q + (((n + h) ^ sq) << 2));
+      b1[h] = ld4(k + (((n + h) ^ sk) << 2));
+      u1[h] = ld4(g + (((n + h) ^ sq) << 2));
+      w1[h] = ld4(v + (((n + h) ^ sk) << 2));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s = __fmaf_rn(a[h].x, b[h].x, s);
+      s = __fmaf_rn(a[h].y, b[h].y, s);
+      s = __fmaf_rn(a[h].z, b[h].z, s);
+      s = __fmaf_rn(a[h].w, b[h].w, s);
+      d = __fmaf_rn(u[h].x, w[h].x, d);
+      d = __fmaf_rn(u[h].y, w[h].y, d);
+      d = __fmaf_rn(u[h].z, w[h].z, d);
+      d = __fmaf_rn(u[h].w, w[h].w, d);
+      a[h] = a1[h], b[h] = b1[h], u[h] = u1[h], w[h] = w1[h];
+    }
+  }
+"""
+# the float32 backward's variants (csrc/flash_attention_bwd.cu, tf32x3):
+# {variant: ({constant: value}, [(committed text, replacement), ...])}
+FLASH_BWD_F32 = {
+    "committed": ({}, []),
+    "ring2": ({"kDqRing": 2, "kKvRing": 2}, []),
+    "kv_rows16": ({"kKvRows": 16}, []),
+    "dq_64x64": ({"kDqRows": 64, "kDqKeys": 64, "kDqRing": 2}, []),
+    "kv_64x64": ({"kKvKeys": 64, "kKvRows": 64, "kKvRing": 2}, []),
+    "kk_unrolled": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
+                          "#pragma unroll\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
+    "kk_unroll2": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
+                         "#pragma unroll 2\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
+    # P and dS through shared memory (a warp's 16 rows, 18 KB a block, so
+    # with a ring of two: compare with ring2) and back as the A fragment,
+    # with B's rows in their natural order (k = q row q, k = q + 4 row q +
+    # 4), where the committed kernel permutes the contraction and reads the
+    # registers as they stand
+    "smem_trip": ({"kDqRing": 2, "kKvRing": 2}, [(F32_A_SPLIT, F32_A_TRIP),
+                       ("at<D>(8 * j + 2 * q, 32 * cg", "at<D>(8 * j + q, 32 * cg"),
+                       ("at<D>(8 * j + 2 * q + 1, 32 * cg",
+                        "at<D>(8 * j + q + 4, 32 * cg")]),
+    # the score products' sums split likewise: four chains of two and four
+    "score_4chains": ({}, [(F32_SCORE_CHAINS, F32_SCORE_4CHAINS)]),
+    # accumulate's hi hi apart from the cross terms (kApart) in dq too, or
+    # in neither kernel
+    "dq_apart": ({}, [("accumulate<D, kDqKeys, false>",
+                       "accumulate<D, kDqKeys, true>")]),
+    "none_apart": ({}, [("accumulate<D, kKvRows, true>",
+                         "accumulate<D, kKvRows, false>")]),
+    # S and dP (S^T and dP^T) one after the other, each its own pass over D
+    "dq_one_score": ({}, [(F32_ACC_HEAD, F32_SCORE_FN + F32_ACC_HEAD), (
+        "two_scores<D, kDqKeys>(Qs, kt, Gs, Vs + st * kTile, x0, sc, dp);",
+        "score<D, kDqKeys>(Qs, kt, x0, sc);\n"
+        "    score<D, kDqKeys>(Gs, Vs + st * kTile, x0, dp);")]),
+    "kv_one_score": ({}, [(F32_ACC_HEAD, F32_SCORE_FN + F32_ACC_HEAD), (
+        "two_scores<D, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);",
+        "score<D, kKvRows>(Ks, qt, x0, sc);\n"
+        "    score<D, kKvRows>(Vs, gt, x0, dp);")]),
+    # the large P's S and dP summed again in order: out of line (a call a
+    # lane), never (no check, no loop: wrong at the random-weight scale),
+    # above 4 instead of 1; dkdv summing its own again, not taking dq's
+    # slot; 8 d an iteration instead of 4
+    "redo_call": ({}, [("__device__ __forceinline__ float2 in_order(",
+                        "__device__ __noinline__ float2 in_order(")]),
+    "no_redo": ({}, [(
+        "        if (p * fabsf(x) > kRedo) redo |= 1u << (4 * j + e);\n",
+        "")]),
+    "redo4": ({}, [("constexpr float kRedo = 1.f;",
+                    "constexpr float kRedo = 4.f;")]),
+    "kv_no_slot": ({}, [("__float_as_int(rs[2 * kKvRows + c]) == k0 + kr",
+                         "false")]),
+    "in_order_8d": ({}, [(F32_IN_ORDER_BODY4, F32_IN_ORDER_BODY8)]),
+    # diagnostics, wrong where a pair is summed again (held to nothing):
+    # in_order's loop left out, or over half of d
+    "diag_no_chain": ({}, [(F32_IN_ORDER_LOOP,
+                            "  for (int c = 1; c <= 0; ++c) {\n"
+                            "    const int n = c < D / 4")]),
+    "diag_half_chain": ({}, [(F32_IN_ORDER_LOOP,
+                              "  for (int c = 1; c <= D / 8; ++c) {\n"
+                              "    const int n = c < D / 4")]),
+    # the high parts cut (tf32::split) instead of rounded: one IADD less a
+    # value, about twice the error at the random-weight models' scale
+    "cut_split": ({}, [("  split_rn(v.x", "  tf32::split(v.x"),
+                       ("  split_rn(v.y", "  tf32::split(v.y"),
+                       ("  split_rn(v.z", "  tf32::split(v.z"),
+                       ("  split_rn(v.w", "  tf32::split(v.w"),
+                       ("    split_rn(a[j]", "    tf32::split(a[j]")]),
+}
+
+
+def flash_bwd_f32_variants(nvcc, flags):
+    """The float32 backward at yi-9b's training shape (8 x 2048 x 32/4 x
+    128, causal) on two input sets from a seed: unit scale, and bf16 values
+    with q and k at 30x and v at 9x (layer 0's float32 check takes the
+    training run's bf16 values at the random-weight scale, where each
+    row's largest P takes its S summed in order again).  Each variant of
+    ``FLASH_BWD_F32`` and, with ``--parent``, the parent commit's kernels,
+    against the plain backward given the plain forward's O and lse (each
+    output's max |err| over its max |plain|; within 1e-4 with two runs
+    bit-equal on unit inputs, and the committed kernel on both), then timed
+    with CUDA events in turns beside SDPA's efficient backward (forward +
+    backward less forward, kv heads repeated), and each of its two kernels
+    by torch.profiler.  A variant that does not build (its tiles past the
+    227 KB of shared memory) is reported and left out."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+    from repro_torch.kernels.flash_attention.ops import expand_kv
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        mha_streaming,
+    )
+    from repro_torch.models.layers import pin_matmul_precision
+
+    pin_matmul_precision()
+    text = open(os.path.join(CSRC, "flash_attention_bwd.cu")).read()
+    sources = {name: _substitute(set_constants(text, values, name), edits,
+                                 "flash_attention_bwd.cu")
+               for name, (values, edits) in FLASH_BWD_F32.items()}
+    if PARENT:
+        sources["parent"] = parent_source(
+            "src/repro_torch/csrc/flash_attention_bwd.cu")
+    fns, scratch_fns = {}, {}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, src in sources.items():
+        try:
+            lib = build(f"flash_bwd_f32_{name}", src, nvcc, flags)
+        except RuntimeError as e:
+            if name == "committed":
+                raise
+            print(f"{name}: not built ({str(e).splitlines()[-1]})",
+                  flush=True)
+            continue
+        fns[name] = lib.repro_flash_attention_bwd
+        fns[name].argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
+        fns[name].restype = ctypes.c_int
+        scratch_fns[name] = lib.repro_flash_attention_bwd_scratch
+        scratch_fns[name].argtypes = [i, i, i]
+        scratch_fns[name].restype = ctypes.c_longlong
+
+    def call(name, q, k, v, o, dout, lse):
+        b, s, H, d = q.shape
+        out = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        scratch = torch.empty(scratch_fns[name](b, H, s), device=q.device)
+        rc = fns[name](*(t.data_ptr() for t in (q, k, v, o, dout, lse, scratch,
+                                                *out)),
+                       0, b, s, k.shape[1], H, k.shape[2], d,
+                       ctypes.c_float(d ** -0.5), 0,
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"flash bwd f32 {name}: CUDA error {rc}")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, H, KV, d = 8, 2048, 32, 4, 128
+    pos = torch.arange(s, device="cuda")
+    out = {}
+    for label, qk, vs, bf16 in (("unit", 1.0, 1.0, False),
+                                ("bf16 values, q k x30, v x9", 30.0, 9.0,
+                                 True)):
+        q, k, v, dout = (
+            amp * torch.randn(shape, device="cuda", generator=gen)
+            for shape, amp in (((b, s, H, d), qk), ((b, s, KV, d), qk),
+                               ((b, s, KV, d), vs), ((b, s, H, d), 1.0)))
+        if bf16:            # as layer 0's float32 check takes them
+            q, k, v, dout = (x.bfloat16().float() for x in (q, k, v, dout))
+        o, lse = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
+        o_ref, lse_ref = mha_streaming(q, expand_kv(k, H), expand_kv(v, H),
+                                       pos, pos, d ** -0.5, return_lse=True)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, dout, lse_ref)
+        result = {}
+        for name in fns:
+            got = call(name, q, k, v, o, dout, lse)
+            again = call(name, q, k, v, o, dout, lse)
+            rel = [float((a - w).abs().max() / w.abs().max())
+                   for a, w in zip(got, want)]
+            equal = all(torch.equal(a, x) for a, x in zip(got, again))
+            held = name == "committed" or (label == "unit"
+                                           and not name.startswith("diag_"))
+            if held and (max(rel) > 1e-4 or not equal):
+                raise AssertionError(f"flash bwd f32 {name} ({label}): "
+                                     f"dq/dk/dv {rel} of max |plain|, "
+                                     f"bit-equal runs {equal}")
+            result[name] = {"rel_err": rel}
+            del got, again
+        del want, o_ref, lse_ref
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, expand_kv(k, H), expand_kv(v, H))]
+        grad = dout.transpose(1, 2)
+
+        def sdpa_forward():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+        def sdpa_forward_backward():
+            sdpa_forward().backward(grad)
+            for x in leaves:
+                x.grad = None
+
+        calls = {name: (lambda n=name: call(n, q, k, v, o, dout, lse))
+                 for name in fns}
+        calls["sdpa_forward_backward"] = sdpa_forward_backward
+        times = in_turns(calls, 5)
+        with torch.no_grad():
+            forward_ms = device_ms(sdpa_forward, 5)
+        for name in fns:
+            result[name]["ms"] = times[name]
+            result[name]["device_ms"] = kernel_device_ms(calls[name], 5)
+        result["sdpa_efficient"] = {
+            "ms": [t - forward_ms for t in times["sdpa_forward_backward"]]}
+        print(f"flash_attention_bwd float32 {b}x{s}x{H}/{KV}x{d} causal, "
+              f"{label}: " + "; ".join(
+                  f"{n} ms {' / '.join(f'{x:.4f}' for x in e['ms'])}"
+                  + (f" (device {', '.join(f'{k} {x:.4f}' for k, x in e['device_ms'].items())}; "
+                     f"dq/dk/dv {'/'.join(f'{x:.3g}' for x in e['rel_err'])} "
+                     "of max |plain|)" if "device_ms" in e
+                     else " (backward alone)")
+                  for n, e in result.items()), flush=True)
+        out[label] = result
+        del q, k, v, dout, o, lse, leaves, grad, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 # the float32 kernel's q k^T loop and loop heads as committed
@@ -1181,6 +1640,8 @@ def main() -> int:
 PARENT = None
 SECTIONS = {"integral": integral_variants, "flash": flash_variants,
             "flash_f32": flash_f32_variants, "flash_bwd": flash_bwd_variants,
+            "flash_bwd_f32": flash_bwd_f32_variants,
+            "mma_tf32": mma_tf32_peak,
             "wkv": wkv_variants, "wkv_bwd": wkv_bwd_variants,
             "haar": haar_variants, "blur": blur_variants,
             "codec": codec_variants}

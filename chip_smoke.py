@@ -193,15 +193,17 @@ no tensor-core instruction, then:
    the forward kernel's O and log-sum-exp first held to ``mha_streaming``'s,
    which the plain backward then takes; ``flash_attention_bwd`` in bf16
    within FLASH_TOL + FLASH_TOL |plain| and FLASH_BWD_BF16_REL of max
-   |plain|, in float32 within FLASH_BWD_F32_TOL of it, each beside the
-   parent commit's time and SDPA's backward, timed as forward + backward
-   less forward (its device time, of the backward alone on a kept graph,
-   in the profile phase); row 8b: ``rwkv_wkv_bwd`` within
+   |plain|, in float32 (the 3xTF32 ``mma.sync`` kernels) within
+   FLASH_BWD_F32_TOL of it, each beside the first draft's recorded time
+   and SDPA's backward, timed as forward + backward less forward (its
+   device time, of the backward alone on a kept graph, in the profile
+   phase); row 8b: ``rwkv_wkv_bwd`` within
    WKV_REL), every run bit-equal to the next; the forward with its
    log-sum-exp bit-equal to the forward without; on drawn inputs (flash at
-   yi's heads with S = 4000, causal and with a window of 1024, both
-   dtypes; WKV at T = 650, 11 and 200 (B = 1) with w = 0 in some channels
-   and a seeded nonzero u, the chunked emulation's errors beside the
+   yi's heads with S = 4000, causal and with a window of 1024, and at D =
+   64 (FLASH_BWD_D64), both dtypes; WKV at T = 650, 11 and 200 (B = 1)
+   with w = 0 in some channels and a seeded nonzero u, the chunked
+   emulation's errors beside the
    kernel's); the JAX training records
    (``assets/lm_train_reference.npz``) through the kernels in float32;
    and the loop with its checkpoints on disk at the record's yi config
@@ -258,6 +260,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12          # float32 outside the tensor cores
 PEAK_BF16_OPS_S = 989e12        # bf16 tensor cores, dense
+PEAK_TF32_OPS_S = 495e12        # TF32 tensor cores, dense
 PEAK_INT8_OPS_S = 1979e12       # int8 tensor cores
 
 MAX_WINDOW_FLIPS = 2            # tests/test_detect.py:130 borderline allowance
@@ -283,9 +286,11 @@ def wgmma_check():
     library (``cuobjdump -sass``) holds HGMMA, the ``wgmma`` instruction,
     in the forward at both its head sizes (24 at D 128, 20 at D 64) and in
     both bf16 backward kernels (dq and dkdv) at both; the float32 forward
-    and backward kernels hold no tensor-core instruction (HGMMA or HMMA):
-    their products stay float32 FMAs, never TF32.  The int8 kernels' IMMA
-    counts are printed."""
+    holds no tensor-core instruction (HGMMA or HMMA): its products stay
+    float32 FMAs, never TF32; the float32 backward's dq and dkdv kernels
+    (``tf32x3``) hold HMMA, the ``mma.sync`` their 3xTF32 products run on,
+    at D 64 and 128, and no HGMMA.  The int8 kernels' IMMA counts are
+    printed."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -319,17 +324,21 @@ def wgmma_check():
                              f"float32 ones: {bf16}, {f32}")
     bwd = {k: v for k, v in counts.items() if "flash_attention_bwd" in k}
     bwd_bf16 = {k: v["HGMMA"] for k, v in bwd.items() if "tensor_core" in k}
-    bwd_f32 = [v["HGMMA"] + v["HMMA"] for k, v in bwd.items()
-               if "cuda_core" in k]
-    kinds = {(part, d) for part in ("_dq_", "_dkdv_") for d in ("64", "128")
-             for k in bwd_bf16 if part in k and f"ILi{d}E" in k}
-    if (len(bwd_bf16) != 4 or len(kinds) != 4
+    bwd_f32 = {k: v for k, v in bwd.items() if "tf32x3" in k}
+
+    def kinds(names):
+        return {(part, d) for part in ("_dq_", "_dkdv_") for d in ("64", "128")
+                for k in names if part in k and f"ILi{d}E" in k}
+
+    if (len(bwd_bf16) != 4 or len(kinds(bwd_bf16)) != 4
             or not all(bwd_bf16.values()) or len(bwd_f32) != 4
-            or any(bwd_f32)):
+            or len(kinds(bwd_f32)) != 4
+            or not all(v["HMMA"] and not v["HGMMA"]
+                       for v in bwd_f32.values())):
         raise AssertionError("expected HGMMA in the bf16 backward's dq and "
-                             "dkdv kernels at D 64 and 128, and no "
-                             "tensor-core instruction in the float32 "
-                             f"ones: {bwd_bf16}, {bwd_f32}")
+                             "dkdv kernels at D 64 and 128, and HMMA without "
+                             f"HGMMA in the float32 ones: {bwd_bf16}, "
+                             f"{bwd_f32}")
     print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma), 24 "
           "and 20; the float32 kernel's no HGMMA or HMMA", flush=True)
     print("flash_attention_bwd: the bf16 dq and dkdv kernels' SASS holds "
@@ -337,7 +346,11 @@ def wgmma_check():
           + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} "
                       f"D {'128' if 'ILi128E' in k else '64'} {n}"
                       for k, n in sorted(bwd_bf16.items()))
-          + "); the float32 ones' no HGMMA or HMMA", flush=True)
+          + "); the float32 ones' HMMA (3xTF32 mma.sync), no HGMMA ("
+          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} "
+                      f"D {'128' if 'ILi128E' in k else '64'} {n['HMMA']}"
+                      for k, n in sorted(bwd_f32.items()))
+          + ")", flush=True)
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -3358,6 +3371,9 @@ def _causal_pairs(s: int, window=None) -> int:
 # which kernel of csrc/flash_attention.cu runs for each dtype
 FLASH_KERNEL = {"bfloat16": "tensor_core (wgmma + TMA)",
                 "float32": "cuda_core (float32 CUDA cores)"}
+# and of csrc/flash_attention_bwd.cu
+FLASH_BWD_KERNEL = {"bfloat16": "tensor_core (wgmma + TMA)",
+                    "float32": "tf32x3 (3xTF32 mma.sync, cp.async ring)"}
 
 
 def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
@@ -3663,15 +3679,15 @@ FLASH_BWD_BF16_REL = FLASH_O_REL = 2.0 ** -7
 FLASH_BWD_F32_TOL = 1e-4
 FLASH_LSE_REL = 2e-6
 FLASH_BWD_S, FLASH_BWD_B, FLASH_BWD_WINDOW = 4000, 2, 1024
-# the bf16 kernels' D = 64 instantiation, which no model of the path
-# runs, on drawn inputs (b, s, H, KV, d) ragged against the tiles, causal
-# and with a window of FLASH_BWD_D64_WINDOW
+# the kernels' D = 64 instantiations (bf16 and float32), which no model
+# of the path runs, on drawn inputs (b, s, H, KV, d) ragged against the
+# tiles, causal and with a window of FLASH_BWD_D64_WINDOW
 FLASH_BWD_D64, FLASH_BWD_D64_WINDOW = (2, 1000, 8, 2, 64), 100
-# rows 7g and 7h of the parent commit, the first-draft backward, as
-# recorded (CUDA events on an NVIDIA H100 80GB HBM3 at 700 W; not measured
-# by this script): printed beside this run's times, never in the kernels
-# line.  7h's kernels are the same code now
-FLASH_BWD_PARENT_MS = {"7g": 33.9454, "7h": 33.3843}
+# rows 7g and 7h of the first-draft backward (the bf16 one before its
+# redesign, the float32 one before its own), as recorded (CUDA events on an
+# NVIDIA H100 80GB HBM3 at 700 W; not measured by this script): printed
+# beside this run's times, never in the kernels line
+FLASH_BWD_PARENT_MS = {"7g": 33.9454, "7h": 33.6306}
 # row 8b of the parent commit, the first-draft WKV backward (one block of
 # 256 threads a head, CUDA cores), as recorded (CUDA events at the rwkv6-7b
 # training shape on an NVIDIA H100 80GB HBM3 at 700 W; not measured by this
@@ -4107,9 +4123,9 @@ def sdpa_backward_only(q, k, v, dout, window=None):
 def flash_bwd_rows(probes, args, launches):
     """Rows 7g (bf16) and 7h (float32) on layer 0's backward-kernel inputs
     at step 1 of the yi-9b training run, then the drawn checks at yi's heads
-    with S = FLASH_BWD_S, causal and windowed, in both dtypes; every check
-    first holds the forward kernel's O and log-sum-exp to the plain
-    forward's, which the plain backward then takes.  Also: the forward with
+    with S = FLASH_BWD_S and at FLASH_BWD_D64, causal and windowed, in both
+    dtypes; every check first holds the forward kernel's O and log-sum-exp
+    to the plain forward's, which the plain backward then takes.  Also: the forward with
     its log-sum-exp gives O bit-equal to the forward without."""
     import torch
 
@@ -4130,10 +4146,13 @@ def flash_bwd_rows(probes, args, launches):
     n_ops = 5 * 2 * d * _causal_pairs(s) * b * H
     mod = _bwd_module("flash_attention_bwd")
     rows = []
-    for label, dtype, tol, peak in (("7g", torch.bfloat16, None,
-                                     PEAK_BF16_OPS_S),
-                                    ("7h", torch.float32, FLASH_BWD_F32_TOL,
-                                     PEAK_F32_OPS_S)):
+    # 7h's bound: the same float32-accurate work as 3xTF32 on the tensor
+    # cores (three TF32 products for each), the float32 CUDA cores' time for
+    # it printed beside
+    for label, dtype, tol, ops, peak in (
+            ("7g", torch.bfloat16, None, n_ops, PEAK_BF16_OPS_S),
+            ("7h", torch.float32, FLASH_BWD_F32_TOL, 3 * n_ops,
+             PEAK_TF32_OPS_S)):
         if dtype == torch.bfloat16:
             x = (q, k, v, o, dout, lse)
         else:
@@ -4153,14 +4172,23 @@ def flash_bwd_rows(probes, args, launches):
             probes, "flash_attention_bwd", mod,
             launches if dtype == torch.bfloat16 else 0, err,
             lambda x=x: fcuda.flash_attention_bwd_cuda(*x), plain_ms, lib_ms,
-            n_bytes, n_ops, peak, reps=5, shape=f"{label} {shape}",
+            n_bytes, ops, peak, reps=5, shape=f"{label} {shape}",
             library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
         row["backward_of"] = "row 7"
+        row["kernel"] = FLASH_BWD_KERNEL[str(dtype).split(".")[-1]]
         parent = FLASH_BWD_PARENT_MS[label]
-        print(f"flash_attention_bwd {label}: {row['ms']:.4f} ms by CUDA "
-              f"events in this run; the parent commit's first draft, as "
-              f"recorded, {parent:.4f} ms ({parent / row['ms']:.2f}x this "
-              "run's time; not measured here)", flush=True)
+        lib = ("not timed" if lib_ms is None else
+               f"{lib_ms:.4f} ms, {lib_ms / row['ms']:.2f}x this kernel's")
+        print(f"flash_attention_bwd {label} ({row['kernel']}): "
+              f"{row['ms']:.4f} ms by CUDA events in this run; SDPA's "
+              f"backward in this run {lib}; the first draft, as recorded, "
+              f"{parent:.4f} ms ({parent / row['ms']:.2f}x this run's time; "
+              "not measured here)", flush=True)
+        if dtype == torch.float32:
+            print(f"flash_attention_bwd 7h: bound {row['bound_ms']:.4f} ms "
+                  "(3xTF32 at 495 TFLOP/s); the float32 CUDA cores' "
+                  f"{1e3 * n_ops / PEAK_F32_OPS_S:.4f} ms (67 TFLOP/s)",
+                  flush=True)
         rows.append(row)
         del x
     del q, k, v, o, dout, lse
@@ -4171,8 +4199,10 @@ def flash_bwd_rows(probes, args, launches):
              for window in (None, FLASH_BWD_WINDOW)
              for dtype, tol in ((torch.bfloat16, None),
                                 (torch.float32, FLASH_BWD_F32_TOL))]
-    cases += [(FLASH_BWD_D64, window, torch.bfloat16, None)
-              for window in (None, FLASH_BWD_D64_WINDOW)]
+    cases += [(FLASH_BWD_D64, window, dtype, tol)
+              for window in (None, FLASH_BWD_D64_WINDOW)
+              for dtype, tol in ((torch.bfloat16, None),
+                                 (torch.float32, FLASH_BWD_F32_TOL))]
     for (cb, cs, cH, cKV, cd), window, dtype, tol in cases:
         q, k, v = (torch.randn((cb, cs, heads, cd), device=dev,
                                generator=gen).to(dtype)

@@ -108,17 +108,95 @@
 // accumulating products the same way, and the exponentials and bf16 splits
 // of one run while the other's products occupy the tensor cores.
 //
-// float32 (cuda_core), the first design, on the float32 CUDA cores
-// (67 TFLOP/s, 10 ms at best at the training shape), which keeps every sum
-// in float32: dq (one block per 64 query rows of a (b, h)) computes its
-// rows' Dl, then walks the key tiles its mask leaves accumulating dQ in
-// registers; dkdv (one block per 64 keys of a (b, kv head)) walks the
-// group's query heads in order and their query tiles.  Tiles are float32
-// in shared memory (about 160 KB at D = 128, one block per SM); a thread
-// owns 4 rows x 4 keys of S and dP (keys tx + 16 j, K and V rows
-// XOR-swizzled by 16-byte chunk, chunk c of row r at c ^ (r & 7), so the
-// 16 keys of a half-warp read 16 distinct bank quads) and 4 rows x D / 16
-// columns of its accumulators.  Tiles are loaded synchronously.
+// float32 (tf32x3): the same two kernels' shape on the tensor cores.  Every
+// product is mma.sync m16n8k8 in 3xTF32 (csrc/tf32_mma.cuh): each float32
+// operand is rounded to a TF32 high part plus the remainder (`split_rn`),
+// and a k8 step adds lo(A) hi(B), hi(A) lo(B) and hi(A) hi(B) to the
+// float32 sums, so the products keep about 21 of float32's 24 bits where
+// one TF32 term keeps 11.  Rounding, not cutting, the high part halves the
+// remainder: at the random-weight models' scale (q, k at 30x: logits of
+// ~1e3, whose error P takes as it is) the cut reads about twice a float32
+// computation's error, the rounding as much as one (tests/test_torch_
+// flash_attention_f32_bwd.py emulates both against a float64 backward).
+// Everything else is float32 as in the plain backward: P = exp(scale S -
+// lse), 0 where masked; dS = P (dP - Dl); Dl summed from o and dO in
+// device memory (a quarter of d a lane, in order, then across the quad);
+// dQ and dK scaled once at the end.  wgmma is not used: it takes TF32 only with both
+// operands K-major in shared memory, and dQ = dS K and dK = dS^T Q read K
+// and Q the other way; mma.sync reads any layout.
+//
+// What bounds it: operations.  The same float32-accurate work as 3xTF32 is
+// 3 x 6.9e11 operations at the training shape, 4.17 ms at the tensor
+// cores' 495 TFLOP/s (TF32, dense), against 10.26 ms for the float32 CUDA
+// cores' 67 TFLOP/s; the design runs 7 products where the math needs 5
+// (dq recomputes S and dP), 5.84 ms at that peak.
+//
+//   dq (one block per kDqRows query rows of a (b, h), 16 a warp): Q and dO
+//   resident, K and V tiles of kDqKeys keys through a kDqRing-deep cp.async
+//   ring; per tile S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K.
+//   Writes the rows' lse and Dl to the scratch, padded to kPad rows, and
+//   each row's slot (below).
+//
+//   dkdv (one block per kKvKeys keys of a (b, kv head), 16 a warp): K and
+//   V resident, then for the kv head's query heads in order, the query
+//   tiles of kKvRows that its mask leaves, with their rows of the scratch,
+//   through a kKvRing-deep ring; per tile S^T = K Q^T, dP^T = V dO^T, P^T
+//   and dS^T in registers, dV += P^T dO, dK += dS^T Q.
+//
+// What the design does about the bound: the ring keeps the next tiles'
+// copies in flight while the warps multiply; a block's warps share every
+// tile in shared memory; each lane reads its operands as float4s from
+// tiles whose 16-byte chunks are XOR-swizzled by row (`swz`), so every read
+// of a quarter-warp hits 32 distinct banks whether it runs along a row (the
+// score products, contracting over d) or down the rows (the accumulating
+// products, contracting over keys or queries).  P and dS never leave the
+// registers: a score tile's m16n8 accumulator holds (g, 2q), (g, 2q + 1),
+// (g + 8, 2q), (g + 8, 2q + 1), and the k8 A fragment wants (g, q), (g + 8,
+// q), (g, q + 4), (g + 8, q + 4); rather than move the values (a shuffle
+// in each quad, or a trip through shared memory), the contraction order is
+// permuted: logical k = q is row 2q of the k8 step's B rows and k = q + 4
+// row 2q + 1, so the accumulator registers are the A fragment as they
+// stand.  Only the warps whose rows or keys an edge cuts mask; tiles the
+// mask empties are never loaded, warps whose part of a tile is empty skip
+// it, and the heaviest blocks run first.
+//
+// The tensor cores cut each sum toward zero, and over a sum of thousands of
+// terms (dK and dV over a kv head's query heads) that bias reached 1.9e-4
+// of max |plain|; so every product starts from zero sums, over 16 d of a
+// score or over one tile's rows of dQ, dK and dV, and is added to the
+// float32 sums rounded to nearest (errors near 1e-6 at the training shape;
+// dkdv sums hi hi apart from the two cross terms, `kApart`).
+//
+// Large logits take the forward's sums.  At the random-weight models'
+// scale (yi's layer 0: logits up to ~8e3) P = exp(scale S - lse) moves by
+// |scale S| 2^-24 for each ulp of S, so the forward's lse holds only
+// against S summed as the forward and the plain backward sum it, one FMA a
+// d in order (cuBLAS's float32 products do the same); 3xTF32 sums moved P
+// by up to 5e-4 there and dQ, dK, dV by 2.6e-4 of max |plain|.  Where P
+// |scale S| > kRedo a lane sums that pair's S and dP again so (`in_order`;
+// dS = P (dP - Dl) cancels at such pairs, and with dP's 3xTF32 sums the
+// chaotic random-weight training records drifted past their one-ulp
+// bound), which at unit scale is almost never and at yi's layer 0 about
+// once a row: chains of 128 dependent FMAs that the warp waits on.  dq
+// does it and writes the first such pair of each row to the row's slot in
+// the scratch (its key, S and dP), and dkdv takes the sums from there
+// instead of summing them again (the same bits: the same chains).
+//
+// What bounds it now, as measured on the H100 (benchmarks/torch_kernel_
+// variants.py `mma_tf32` and `flash_bwd_f32`): mma.sync in TF32 reaches
+// ~317 TFLOP/s on the card, 64% of wgmma's 495 (6.7 clocks a product a
+// scheduler from two independent sums a warp), which puts the 7 products
+// at 9.4 ms; with one dependent sum a warp at two warps a scheduler it
+// takes 13.9 clocks, and these kernels take 13-15, with ~4 other
+// instructions a product (loads, splits, the sums' adds) to issue besides.
+// dkdv's dK and dV take 128 registers a thread at D = 128 and the resident
+// tiles most of the shared memory, so an SM holds 8 warps.  At the
+// random-weight scale the chains of dq cost ~1.1 ms more.  Of the A/B's
+// variants, dkdv's sums apart, the loop over d kept rolled and a ring
+// three deep read fastest or within noise of it; the scores' sums split
+// likewise, one score product at a time, the loop over d unrolled, the
+// high parts cut, tiles of 16 or 64 and P and dS through shared memory
+// read the same or slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,348 +204,652 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "tf32_mma.cuh"
 
-namespace cuda_core {  // the float32 kernels
+namespace tf32x3 {  // the float32 kernels
 
-constexpr int BQ = 64;              // query rows of a tile
-constexpr int BK = 64;              // keys of a tile
-constexpr int kThreads = 256;       // 16 row groups x 16 key groups
-constexpr int LDS = BK + 4;         // floats per row of P, dS (and of dS^T)
-constexpr float kNegInf = -1e30f;
+using tf32::cp_async16_zfill;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
+using tf32::mma_acc;
+using tf32::mma_zero;
+using tf32::split_rn;
 
-__device__ __forceinline__ float4 load4(const float* p) {
+constexpr int kDqRows = 128;    // dq: query rows of a block, 16 a warp
+constexpr int kDqKeys = 32;     // dq: keys of a K / V tile
+constexpr int kDqRing = 3;      // dq: K / V ring depth
+constexpr int kKvKeys = 128;    // dkdv: keys of a block, 16 a warp
+constexpr int kKvRows = 32;     // dkdv: query rows of a Q / dO tile
+constexpr int kKvRing = 3;      // dkdv: Q / dO ring depth
+constexpr int kPad = 128;       // the lse / Dl scratch pads S to this
+// planes of a (b, h)'s rows in the scratch: lse, Dl, then the row's slot:
+// the key of a pair whose S and dP dq summed in order (-1: none), its S
+// and its dP
+constexpr int kRowPlanes = 5;
+// P |scale S| above which a pair's S and dP are summed again the
+// forward's way (`in_order`): below it the 3xTF32 sums' few ulps move P by
+// under 2^-20
+constexpr float kRedo = 1.f;
+static_assert(kPad % kDqRows == 0 && kDqRows % kKvRows == 0,
+              "every row of a dkdv tile below S lies in a dq block");
+static_assert(kDqRows % 16 == 0 && kKvKeys % 16 == 0 && kDqKeys % 8 == 0 &&
+                  kKvRows % 8 == 0 && kDqRing >= 2 && kKvRing >= 2,
+              "16 rows a warp, k8 steps, a ring of at least two");
+
+// Shared memory in bytes.  dq: Q, dO (kDqRows rows), then K[kDqRing],
+// V[kDqRing] (kDqKeys rows).  dkdv: K, V (kKvKeys rows), then per stage Q,
+// dO (kKvRows rows) and the rows' kRowPlanes planes of the scratch (kKvRows
+// floats each).  Rows are D floats.
+template <int D>
+constexpr size_t dq_smem() {
+  return 4 * (2 * kDqRows * D + 2 * kDqRing * kDqKeys * D);
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  return 4 * (2 * kKvKeys * D + kKvRing * (2 * kKvRows * D +
+                                           kRowPlanes * kKvRows));
+}
+
+static_assert(dq_smem<128>() <= 232448 && dkdv_smem<128>() <= 232448,
+              "a block has at most 227 KB of shared memory");
+
+// Chunk c (4 floats) of tile row r lies at chunk c ^ swz(r).  A score
+// product's quarter-warp reads rows 2p, 2p + 1 at four chunks c..c + 3 (c
+// a multiple of 4): swz of the two rows differ in bit 2.  An accumulating
+// product's reads rows 2i + e (i = 0..3) at chunks 2p, 2p + 1: swz(2i + e)
+// takes four values in bits 1-2.  Either way 8 distinct chunks mod 8.
+__device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// float offset of (row r, columns c..c + 3) in a swizzled tile, c % 4 == 0
+template <int D>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * D + (((c >> 2) ^ swz(r)) << 2);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+__device__ __forceinline__ void split4(float4 v, unsigned (&hi)[4],
+                                       unsigned (&lo)[4]) {
+  split_rn(v.x, hi[0], lo[0]);
+  split_rn(v.y, hi[1], lo[1]);
+  split_rn(v.z, hi[2], lo[2]);
+  split_rn(v.w, hi[3], lo[3]);
 }
 
-// four consecutive values of the float32 tensor
-__device__ __forceinline__ float4 read4(const float* p) { return load4(p); }
-
-__device__ __forceinline__ void write4(float* p, float4 v) { store4(p, v); }
-
-// rows [r0, r0 + n) of one head of a (positions, heads, D) tensor into
-// shared rows of D floats, chunk c of row r at c ^ (r & 7) when SWIZZLE;
-// rows at or past `end` are zeros
-template <typename T, int D, bool SWIZZLE>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// rows [r0, r0 + n) of one head of a (positions, heads, D) float32 tensor
+// into a swizzled tile by 16-byte cp.async; rows at or past `end` are zeros
+template <int D, int kThreads>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t row_stride, int r0, int n,
                                           int end) {
   constexpr int C = D / 4;
   for (int i = threadIdx.x; i < n * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < end) x = read4(src + static_cast<size_t>(r0 + r) * row_stride
-                                + c * 4);
-    store4(dst + r * D + (SWIZZLE ? c ^ (r & 7) : c) * 4, x);
+    const int r = i / C, c = 4 * (i % C);
+    const bool in = r0 + r < end;
+    cp_async16_zfill(dst + at<D>(r, c),
+                     in ? src + static_cast<size_t>(r0 + r) * row_stride + c
+                        : src,
+                     in);
   }
 }
 
-// s = A B^T and t = C E^T over D for the thread's rows ty * 4 + i and keys
-// tx + 16 j: A, C plain [BQ][D], B, E swizzled [BK][D]; each sum runs over
-// d in order
+// s = X Y^T and t = U W^T over D for the warp's 16 rows (x0.. of X and U)
+// and N columns (rows 0.. of Y and W), all swizzled tiles, in the m16n8
+// accumulator layout: s[j] holds (g, 8j + 2q), (g, 8j + 2q + 1), (g + 8,
+// 8j + 2q), (g + 8, 8j + 2q + 1) for lane 4g + q.  D runs in blocks of 16
+// at kk; k8 step h of a block takes d = 16 kk + 4 i + 2 h as logical k = i
+// and d + 1 as k = i + 4 (i = 0..3), so that a lane reads its A and B
+// values of both steps as one float4 a row.  A block's six products start
+// from zero sums and are added to s and t once, rounded to nearest (the
+// tensor cores cut each sum toward zero, which over a long sum biases it).
+template <int D, int N>
+__device__ __forceinline__ void two_scores(const float* X, const float* Y,
+                                           const float* U, const float* W,
+                                           int x0, float (&s)[N / 8][4],
+                                           float (&t)[N / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+#pragma unroll 1
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = 16 * kk + 4 * q;
+    // A of step h: (g, k), (g + 8, k), (g, k + 4), (g + 8, k + 4)
+    unsigned xh[2][4], xl[2][4], uh[2][4], ul[2][4];
+    {
+      unsigned h0[4], l0[4], h8[4], l8[4], m0[4], n0[4], m8[4], n8[4];
+      split4(ld4(X + at<D>(x0 + g, col)), h0, l0);
+      split4(ld4(X + at<D>(x0 + g + 8, col)), h8, l8);
+      split4(ld4(U + at<D>(x0 + g, col)), m0, n0);
+      split4(ld4(U + at<D>(x0 + g + 8, col)), m8, n8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xh[h][0] = h0[2 * h], xh[h][1] = h8[2 * h];
+        xh[h][2] = h0[2 * h + 1], xh[h][3] = h8[2 * h + 1];
+        xl[h][0] = l0[2 * h], xl[h][1] = l8[2 * h];
+        xl[h][2] = l0[2 * h + 1], xl[h][3] = l8[2 * h + 1];
+        uh[h][0] = m0[2 * h], uh[h][1] = m8[2 * h];
+        uh[h][2] = m0[2 * h + 1], uh[h][3] = m8[2 * h + 1];
+        ul[h][0] = n0[2 * h], ul[h][1] = n8[2 * h];
+        ul[h][2] = n0[2 * h + 1], ul[h][3] = n8[2 * h + 1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      unsigned yh[4], yl[4], wh[4], wl[4];
+      split4(ld4(Y + at<D>(8 * j + g, col)), yh, yl);
+      split4(ld4(W + at<D>(8 * j + g, col)), wh, wl);
+      // each step lo(A) hi(B), hi(A) lo(B), hi(A) hi(B); the two sums'
+      // products alternate so that no product waits on the one before
+      float bs[4], bt[4];
+      mma_zero(bs, xl[0], yh[0], yh[1]);
+      mma_zero(bt, ul[0], wh[0], wh[1]);
+      mma_acc(bs, xh[0], yl[0], yl[1]);
+      mma_acc(bt, uh[0], wl[0], wl[1]);
+      mma_acc(bs, xh[0], yh[0], yh[1]);
+      mma_acc(bt, uh[0], wh[0], wh[1]);
+      mma_acc(bs, xl[1], yh[2], yh[3]);
+      mma_acc(bt, ul[1], wh[2], wh[3]);
+      mma_acc(bs, xh[1], yl[2], yl[3]);
+      mma_acc(bt, uh[1], wl[2], wl[3]);
+      mma_acc(bs, xh[1], yh[2], yh[3]);
+      mma_acc(bt, uh[1], wh[2], wh[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __fadd_rn(s[j][e], bs[e]);
+        t[j][e] = __fadd_rn(t[j][e], bt[e]);
+      }
+    }
+  }
+}
+
+// acc += A Z over N rows of Z, A (16 x N) in two_scores' accumulator
+// layout, Z (N x D) a swizzled tile.  k8 step j takes Z's rows 8j..8j + 7
+// with a[j] as the A fragment as it stands: logical k = q is row 8j + 2q
+// and k = q + 4 row 8j + 2q + 1.  The output columns are permuted so that
+// a lane reads its B values as float4s: of a 32-column group cg, n-tile t
+// takes column 32 cg + 4 n + t as logical n, so acc[cg][t] holds (g, 32 cg
+// + 8q + t), (g, 32 cg + 8q + 4 + t), (g + 8, 32 cg + 8q + t), (g + 8, 32
+// cg + 8q + 4 + t).  A group's products over the N rows start from zero
+// sums and are added to acc once, rounded to nearest; with kApart hi(A)
+// hi(B) is summed apart from the two cross terms (eight chains of dependent
+// products where one sum a tile makes four).
+template <int D, int N, bool kApart>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 32][4][4],
+                                           const float (&a)[N / 8][4],
+                                           const float* Z) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  unsigned ah[N / 8][4], al[N / 8][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split_rn(a[j][0], ah[j][0], al[j][0]);
+    split_rn(a[j][2], ah[j][1], al[j][1]);
+    split_rn(a[j][1], ah[j][2], al[j][2]);
+    split_rn(a[j][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int cg = 0; cg < D / 32; ++cg) {
+    // hi(A) hi(B) in part; lo(A) hi(B) and hi(A) lo(B) in cross, or in part
+    // before hi hi with one sum; each over the four n-tiles
+    float part[4][4], cross[4][4];
+    float(&lo)[4][4] = kApart ? cross : part;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      unsigned h0[4], l0[4], h1[4], l1[4];
+      split4(ld4(Z + at<D>(8 * j + 2 * q, 32 * cg + 4 * g)), h0, l0);
+      split4(ld4(Z + at<D>(8 * j + 2 * q + 1, 32 * cg + 4 * g)), h1, l1);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (j == 0) mma_zero(lo[t], al[j], h0[t], h1[t]);
+        else mma_acc(lo[t], al[j], h0[t], h1[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) mma_acc(lo[t], ah[j], l0[t], l1[t]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (kApart && j == 0) mma_zero(part[t], ah[j], h0[t], h1[t]);
+        else mma_acc(part[t], ah[j], h0[t], h1[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[cg][t][e] = __fadd_rn(
+            acc[cg][t][e],
+            kApart ? __fadd_rn(part[t][e], cross[t][e]) : part[t][e]);
+  }
+}
+
+// acc's rows g (at p0, if ok0) and g + 8 (at p8, if ok8), times `mul`, in
+// the column order of `accumulate`
 template <int D>
-__device__ __forceinline__ void two_scores(const float* A, const float* B,
-                                           const float* C, const float* E,
-                                           float (&s)[4][4],
-                                           float (&t)[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+__device__ __forceinline__ void store_rows(float* p0, float* p8, bool ok0,
+                                           bool ok8,
+                                           const float (&acc)[D / 32][4][4],
+                                           float mul) {
+  const int q = threadIdx.x & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int cg = 0; cg < D / 32; ++cg)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-#pragma unroll 2
-  for (int d4 = 0; d4 < D; d4 += 4) {
-    const int col = (((d4 >> 2) ^ (tx & 7)) << 2);
-    float4 a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = load4(A + (ty * 4 + i) * D + d4);
-      c[i] = load4(C + (ty * 4 + i) * D + d4);
+    for (int half = 0; half < 2; ++half) {
+      const int c = 32 * cg + 8 * q + 4 * half;
+      if (ok0)
+        st4(p0 + c, __fmul_rn(acc[cg][0][half], mul),
+            __fmul_rn(acc[cg][1][half], mul), __fmul_rn(acc[cg][2][half], mul),
+            __fmul_rn(acc[cg][3][half], mul));
+      if (ok8)
+        st4(p8 + c, __fmul_rn(acc[cg][0][2 + half], mul),
+            __fmul_rn(acc[cg][1][2 + half], mul),
+            __fmul_rn(acc[cg][2][2 + half], mul),
+            __fmul_rn(acc[cg][3][2 + half], mul));
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 b = load4(B + (tx + 16 * j) * D + col);
-      const float4 e = load4(E + (tx + 16 * j) * D + col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          s[i][j] = __fmaf_rn(comp(a[i], x), comp(b, x), s[i][j]);
-          t[i][j] = __fmaf_rn(comp(c[i], x), comp(e, x), t[i][j]);
-        }
-    }
+}
+
+// S = q . k and dP = dO . v of one (query, key) pair as the float32
+// forward kernel (csrc/flash_attention.cu, cuda_core) and the plain
+// backward's products sum them: one FMA a d, in order.  Q, G (dO) hold the
+// query at row qr, K, V the key at row kr, all swizzled tiles.  For the
+// few pairs where P is large and the logit large: there P = exp(scale S -
+// lse) moves by |scale S| 2^-24 for each ulp of S, and the forward's lse
+// holds only against the forward's own S; dS = P (dP - Dl) cancels there,
+// so dP is summed the plain backward's way too.
+template <int D>
+__device__ __forceinline__ float2 in_order(const float* Q, const float* K,
+                                           const float* G, const float* V,
+                                           int qr, int kr) {
+  const float *q = Q + qr * D, *k = K + kr * D, *g = G + qr * D,
+              *v = V + kr * D;
+  const int sq = swz(qr), sk = swz(kr);
+  float s = 0.f, d = 0.f;
+  // the next 4 d's loads issued before this 4's FMAs
+  float4 a = ld4(q + (sq << 2)), b = ld4(k + (sk << 2));
+  float4 u = ld4(g + (sq << 2)), w = ld4(v + (sk << 2));
+  for (int c = 1; c <= D / 4; ++c) {
+    const int n = c < D / 4 ? c : 0;
+    const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
+    const float4 u1 = ld4(g + ((n ^ sq) << 2)), w1 = ld4(v + ((n ^ sk) << 2));
+    s = __fmaf_rn(a.x, b.x, s);
+    s = __fmaf_rn(a.y, b.y, s);
+    s = __fmaf_rn(a.z, b.z, s);
+    s = __fmaf_rn(a.w, b.w, s);
+    d = __fmaf_rn(u.x, w.x, d);
+    d = __fmaf_rn(u.y, w.y, d);
+    d = __fmaf_rn(u.z, w.z, d);
+    d = __fmaf_rn(u.w, w.w, d);
+    a = a1, b = b1, u = u1, w = w1;
   }
+  return make_float2(s, d);
 }
 
-__device__ __forceinline__ bool visible(int row, int col, int S, int Tk,
-                                        int window) {
-  bool ok = row < S && col < Tk && col <= row;
-  if (window > 0) ok = ok && col > row - window;
-  return ok;
-}
-
-// P and dS of the thread's 4 x 4 (rows q0 + ty * 4 + i, keys k0 + tx + 16 j)
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
-                                      const float* lse_s, const float* dl_s,
-                                      int q0, int k0, int S, int Tk,
-                                      float scale, int window) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = visible(q0 + r, k0 + tx + 16 * j, S, Tk, window);
-      const float p =
-          ok ? expf(__fsub_rn(__fmul_rn(s[i][j], scale), lse_s[r])) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = __fmul_rn(p, __fsub_rn(dp[i][j], dl_s[r]));
-    }
-  }
-}
-
-// One block: BQ query rows of one (b, h).  Computes their Dl (written to
-// `delta`), then dQ.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dq_kernel(const T* __restrict__ q,
-                                  const T* __restrict__ k,
-                                  const T* __restrict__ v,
-                                  const T* __restrict__ o,
-                                  const T* __restrict__ dout,
+// One block: kDqRows query rows of one (b, h), 16 a warp.  Writes the
+// rows' planes to `rows` ((B, H, kRowPlanes, S padded to kPad) float32:
+// lse, Dl (0 past S), the slot), then dQ.
+template <int D>
+__global__ void __launch_bounds__(2 * kDqRows, 1)
+    flash_attention_bwd_dq_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ o,
+                                  const float* __restrict__ dout,
                                   const float* __restrict__ lse,
-                                  float* __restrict__ delta,
-                                  T* __restrict__ dq, int S, int Tk, int H,
-                                  int KV, float scale, int window) {
-  constexpr int NC = D / 64;
+                                  float* __restrict__ rows,
+                                  float* __restrict__ dq, int S, int Tk,
+                                  int H, int KV, float scale, int window) {
+  constexpr int kThreads = 2 * kDqRows;
+  constexpr int kTile = kDqKeys * D;         // floats of a K or V tile
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D]
-  float* dOs = Qs + BQ * D;                      // [BQ][D]
-  float* Ks = dOs + BQ * D;                      // [BK][D] swizzled
-  float* Vs = Ks + BK * D;                       // [BK][D] swizzled
-  float* dSt = Vs + BK * D;                      // [BK][LDS]: dS^T
-  float* lse_s = dSt + BK * LDS;                 // [BQ]
-  float* dl_s = lse_s + BQ;                      // [BQ]
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Gs = Qs + kDqRows * D;              // dO
+  float* Ks = Gs + kDqRows * D;              // K[kDqRing]
+  float* Vs = Ks + kDqRing * kTile;          // V[kDqRing]
 
-  const int tid = threadIdx.x;
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
+  const int n_qt = (S + kDqRows - 1) / kDqRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kDqRows;
+  // key tiles in which the mask leaves a pair: none past the block's last
+  // row; with a window none wholly before k_min, the first key row q0 sees
+  const int k_stop = min(Tk, min(S, q0 + kDqRows));
+  const int k_min = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_first = k_min / kDqKeys * kDqKeys;
+  const int n_tiles =
+      k_stop > k_min ? (k_stop - k_first + kDqKeys - 1) / kDqKeys : 0;
   const size_t q_row = static_cast<size_t>(H) * D;
   const size_t kv_row = static_cast<size_t>(KV) * D;
   const size_t q_off = (static_cast<size_t>(b) * S * H + h) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Tk * KV + kvh) * D;
 
-  load_rows<T, D, false>(Qs, q + q_off, q_row, q0, BQ, S);
-  load_rows<T, D, false>(dOs, dout + q_off, q_row, q0, BQ, S);
-  __syncthreads();
-  {
-    // Dl of row tid / 4: four quarters of d in order, then summed across
-    // the four threads (the same bits in each)
-    const int r = tid >> 2, part = tid & 3;
-    float acc = 0.f;
-    if (q0 + r < S) {
-      const T* orow = o + q_off + static_cast<size_t>(q0 + r) * q_row;
-#pragma unroll 4
-      for (int d = part * (D / 4); d < (part + 1) * (D / 4); d += 4) {
-        const float4 a = read4(orow + d);
-        const float4 g = load4(dOs + r * D + d);
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          acc = __fmaf_rn(comp(g, x), comp(a, x), acc);
-      }
-    }
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
-    if (part == 0) {
-      dl_s[r] = acc;
-      lse_s[r] = q0 + r < S ? lse[static_cast<size_t>(bh) * S + q0 + r] : 0.f;
-      if (q0 + r < S) delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
-    }
+  // K and V tile i into stage i % kDqRing
+  auto issue = [&](int i) {
+    const int st = i % kDqRing;
+    const int k0 = k_first + i * kDqKeys;
+    load_tile<D, kThreads>(Ks + st * kTile, k + kv_off, kv_row, k0, kDqKeys,
+                           Tk);
+    load_tile<D, kThreads>(Vs + st * kTile, v + kv_off, kv_row, k0, kDqKeys,
+                           Tk);
+  };
+  load_tile<D, kThreads>(Qs, q + q_off, q_row, q0, kDqRows, S);
+  load_tile<D, kThreads>(Gs, dout + q_off, q_row, q0, kDqRows, S);
+  for (int i = 0; i < kDqRing - 1; ++i) {
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
   }
-
-  const int qr = tid >> 4, qc = tid & 15;   // dQ rows qr * 4 + i, columns
-  float acc[4][4 * NC];                     // qc * 4 + 64 c + e
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-
-  const int k_stop = min(Tk, q0 + BQ);
-  const int k_first = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
-  for (int k0 = k_first; k0 < k_stop; k0 += BK) {
-    __syncthreads();            // the last tile's dS^T and K are read
-    load_rows<T, D, true>(Ks, k + kv_off, kv_row, k0, BK, Tk);
-    load_rows<T, D, true>(Vs, v + kv_off, kv_row, k0, BK, Tk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    two_scores<D>(Qs, Ks, dOs, Vs, s, dp);
-    probs(s, dp, lse_s, dl_s, q0, k0, S, Tk, scale, window);
-    {
-      const int ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        store4(dSt + (tx + 16 * j) * LDS + ty * 4,
-               make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]));
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 ds = load4(dSt + j * LDS + qr * 4);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int chunk = (c * 64 + qc * 4) >> 2;
-        const float4 kk = load4(Ks + j * D + ((chunk ^ (j & 7)) << 2));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] =
-                __fmaf_rn(comp(ds, i), comp(kk, e), acc[i][c * 4 + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + qr * 4 + i;
-    if (row >= S) continue;
-    T* dst = dq + q_off + static_cast<size_t>(row) * q_row;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      write4(dst + c * 64 + qc * 4,
-             make_float4(__fmul_rn(acc[i][c * 4 + 0], scale),
-                         __fmul_rn(acc[i][c * 4 + 1], scale),
-                         __fmul_rn(acc[i][c * 4 + 2], scale),
-                         __fmul_rn(acc[i][c * 4 + 3], scale)));
-  }
-}
-
-// One block: BK keys of one (b, kv head).  Walks the kv head's H / KV
-// query heads in order and their query tiles, accumulating dK and dV.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_attention_bwd_dkdv_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ k,
-                                    const T* __restrict__ v,
-                                    const T* __restrict__ dout,
-                                    const float* __restrict__ lse,
-                                    const float* __restrict__ delta,
-                                    T* __restrict__ dk, T* __restrict__ dv,
-                                    int S, int Tk, int H, int KV, float scale,
-                                    int window) {
-  constexpr int NC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // [BK][D] swizzled
-  float* Vs = Ks + BK * D;                       // [BK][D] swizzled
-  float* Qs = Vs + BK * D;                       // [BQ][D]
-  float* dOs = Qs + BQ * D;                      // [BQ][D]
-  float* Ps = dOs + BQ * D;                      // [BQ][LDS]
-  float* dSs = Ps + BQ * LDS;                    // [BQ][LDS]
-  float* lse_s = dSs + BQ * LDS;                 // [BQ]
-  float* dl_s = lse_s + BQ;                      // [BQ]
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK;
-  const int bkv = blockIdx.y;
+  const int lane = tid & 31;
+  const int g = lane >> 2;                  // row in an 8-row group
+  const int tq = lane & 3;                  // column pair in an 8-column group
+  const int x0 = 16 * (tid >> 5);           // the warp's rows in the block
+  const int r_lo = q0 + x0;
+  const int rl = min(r_lo + 16, S) - 1;     // the warp's last row below S
+  const int row = r_lo + g;                 // and row + 8
+  const int s_pad = (S + kPad - 1) / kPad * kPad;
+  float* rg = rows + static_cast<size_t>(bh) * kRowPlanes * s_pad;
+
+  // Dl = rowsum(dO o) and lse of rows row and row + 8 (0 past S), read
+  // while the first tiles land: each lane of a quad sums a quarter of d in
+  // order, then the quad adds the four sums (the same bits in each).  Both
+  // go to the (b, h)'s rows of the scratch, which dkdv copies from
+  float dl[2], ls[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = row + 8 * j;
+    float a = 0.f;
+    if (r < S) {
+      const size_t at0 = q_off + static_cast<size_t>(r) * q_row + tq * (D / 4);
+      const float4* op = reinterpret_cast<const float4*>(o + at0);
+      const float4* gp = reinterpret_cast<const float4*>(dout + at0);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const float4 ov = op[c], gv = gp[c];
+        a = __fmaf_rn(gv.x, ov.x, a);
+        a = __fmaf_rn(gv.y, ov.y, a);
+        a = __fmaf_rn(gv.z, ov.z, a);
+        a = __fmaf_rn(gv.w, ov.w, a);
+      }
+    }
+    a = hopper::quad_sum(a);
+    dl[j] = a;
+    ls[j] = r < S ? lse[static_cast<size_t>(bh) * S + r] : 0.f;
+    if (tq == 0) {                          // r < S padded: every row
+      rg[r] = ls[j];
+      rg[s_pad + r] = a;
+      rg[2 * s_pad + r] = __int_as_float(-1);   // no slot yet
+    }
+  }
+  bool filled[2] = {false, false};          // the rows' slots, in the quad
+
+  float acc[D / 32][4][4];                  // dQ: rows row, row + 8
+#pragma unroll
+  for (int cg = 0; cg < D / 32; ++cg)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[cg][t][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile it has landed and every warp is done with tile it - 1, whose
+    // stage takes tile it - 1 + kDqRing
+    cp_async_wait<kDqRing - 2>();
+    __syncthreads();
+    if (it + kDqRing - 1 < n_tiles) issue(it + kDqRing - 1);
+    cp_async_commit();
+    const int st = it % kDqRing;
+    const int k0 = k_first + it * kDqKeys;
+    const int k1 = min(k0 + kDqKeys, Tk) - 1;   // the last key below Tk
+    // the warp's rows r_lo..rl against keys k0..k1: skipped where the mask
+    // leaves no pair, masked only where an edge cuts
+    const bool live =
+        r_lo <= rl && k0 <= rl && (window <= 0 || k1 > r_lo - window);
+    if (!live) continue;
+    const bool edge = k1 > r_lo || k0 + kDqKeys > Tk ||
+                      (window > 0 && k0 <= rl - window);
+    const float* kt = Ks + st * kTile;
+    float sc[kDqKeys / 8][4], dp[kDqKeys / 8][4];
+    two_scores<D, kDqKeys>(Qs, kt, Gs, Vs + st * kTile, x0, sc, dp);
+    // P = exp(scale S - lse), 0 where masked, into sc; where P takes S's
+    // rounding, S and dP again the forward's way (`in_order`); then dS =
+    // P (dP - Dl), into sc
+    unsigned redo = 0;                      // bit 4j + e
+#pragma unroll
+    for (int j = 0; j < kDqKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jr = e >> 1;              // row + 8 jr
+        bool valid = true;
+        if (edge) {
+          const int r = row + 8 * jr;
+          const int c = k0 + 8 * j + 2 * tq + (e & 1);
+          valid = c < Tk && c <= r;
+          if (window > 0) valid = valid && c > r - window;
+        }
+        const float x = __fmul_rn(sc[j][e], scale);
+        float p = expf(__fsub_rn(x, ls[jr]));
+        if (!valid) p = 0.f;
+        if (p * fabsf(x) > kRedo) redo |= 1u << (4 * j + e);
+        sc[j][e] = p;
+      }
+    // the first such pair of each row also goes to the row's slot, where
+    // dkdv takes its sums instead of summing them again
+    bool cand[2] = {false, false};
+    float2 cs[2];
+    int ck[2];
+    while (redo) {
+      const int i = __ffs(redo) - 1;
+      redo &= redo - 1;
+      const int jr = (i >> 1) & 1;
+      const int c = 8 * (i >> 2) + 2 * tq + (i & 1);   // the tile's key
+      const float2 sd = in_order<D>(Qs, kt, Gs, Vs + st * kTile,
+                                    x0 + g + 8 * jr, c);
+      const float p =
+          expf(__fsub_rn(__fmul_rn(sd.x, scale), jr ? ls[1] : ls[0]));
+#pragma unroll
+      for (int n = 0; n < kDqKeys / 2; ++n)
+        if (n == i) {
+          sc[n >> 2][n & 3] = p;
+          dp[n >> 2][n & 3] = sd.y;
+        }
+      if (!cand[jr]) {
+        cand[jr] = true;
+        cs[jr] = sd;
+        ck[jr] = k0 + c;
+      }
+    }
+#pragma unroll
+    for (int jr = 0; jr < 2; ++jr) {
+      const unsigned m = __ballot_sync(0xffffffffu, cand[jr] && !filled[jr]);
+      const unsigned quad = (m >> (lane & ~3)) & 0xfu;
+      if (quad) {                           // the lowest lane of the quad
+        if (tq == __ffs(quad) - 1) {
+          const int r = row + 8 * jr;
+          rg[2 * s_pad + r] = __int_as_float(ck[jr]);
+          rg[3 * s_pad + r] = cs[jr].x;
+          rg[4 * s_pad + r] = cs[jr].y;
+        }
+        filled[jr] = true;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDqKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = __fmul_rn(sc[j][e], __fsub_rn(dp[j][e], dl[e >> 1]));
+    accumulate<D, kDqKeys, false>(acc, sc, kt);
+  }
+  cp_async_wait<0>();
+
+  // dQ = scale (dS K), rounded once
+  float* qb = dq + q_off + static_cast<size_t>(row) * q_row;
+  store_rows<D>(qb, qb + 8 * q_row, row < S, row + 8 < S, acc, scale);
+}
+
+// One block: kKvKeys keys of one (b, kv head), 16 a warp.  Walks the kv
+// head's H / KV query heads in order and, for each, the query tiles its
+// mask leaves, accumulating dK and dV.
+template <int D>
+__global__ void __launch_bounds__(2 * kKvKeys, 1)
+    flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ dout,
+                                    const float* __restrict__ rows,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int S, int Tk,
+                                    int H, int KV, float scale, int window) {
+  constexpr int kThreads = 2 * kKvKeys;
+  constexpr int kTile = kKvRows * D;         // floats of a Q or dO tile
+  constexpr int kStage = 2 * kTile + kRowPlanes * kKvRows;  // Q, dO, rows
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kKvKeys * D;
+  float* ring = Vs + kKvKeys * D;
+
+  const int bkv = blockIdx.x;
   const int b = bkv / KV;
   const int kvh = bkv - b * KV;
   const int G = H / KV;
+  const int k0 = static_cast<int>(blockIdx.y) * kKvKeys;   // heaviest first
+  const int s_pad = (S + kPad - 1) / kPad * kPad;
+  // query tiles in which the mask leaves a pair: from the tile of row k0;
+  // with a window, none at or past the last key + window
+  const int q_begin = k0 / kKvRows * kKvRows;
+  const int q_end = window > 0 ? min(S, min(Tk, k0 + kKvKeys) - 1 + window) : S;
+  const int n_q = q_end > q_begin ? (q_end - q_begin + kKvRows - 1) / kKvRows : 0;
+  const int n_iters = G * n_q;
   const size_t q_row = static_cast<size_t>(H) * D;
   const size_t kv_row = static_cast<size_t>(KV) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Tk * KV + kvh) * D;
 
-  load_rows<T, D, true>(Ks, k + kv_off, kv_row, k0, BK, Tk);
-  load_rows<T, D, true>(Vs, v + kv_off, kv_row, k0, BK, Tk);
-
-  const int kr = tid >> 4, kc = tid & 15;   // keys kr * 4 + j, columns
-  float ak[4][4 * NC], av[4][4 * NC];       // kc * 4 + 64 c + e
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) ak[j][c] = av[j][c] = 0.f;
-
-  // query tiles that see a key of this block: rows >= k0 and, with a
-  // window, rows < k0 + BK - 1 + window
-  const int q_begin = k0 / BQ * BQ;
-  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
-  for (int g = 0; g < G; ++g) {
+  // tile i of the walk (query head kvh G + i / n_q) into stage i % kKvRing:
+  // Q, dO, and the tile's rows of the dq kernel's scratch (lse, Dl, slot)
+  auto issue = [&](int i) {
+    float* st = ring + (i % kKvRing) * kStage;
+    const int g = i / n_q;
+    const int q0 = q_begin + (i - g * n_q) * kKvRows;
     const int h = kvh * G + g;
-    const size_t bh = static_cast<size_t>(b) * H + h;
     const size_t q_off = (static_cast<size_t>(b) * S * H + h) * D;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-      __syncthreads();          // the last tile's Q, dO, P and dS are read
-      load_rows<T, D, false>(Qs, q + q_off, q_row, q0, BQ, S);
-      load_rows<T, D, false>(dOs, dout + q_off, q_row, q0, BQ, S);
-      if (tid < BQ) {
-        const bool in = q0 + tid < S;
-        lse_s[tid] = in ? lse[bh * S + q0 + tid] : 0.f;
-        dl_s[tid] = in ? delta[bh * S + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      two_scores<D>(Qs, Ks, dOs, Vs, s, dp);
-      probs(s, dp, lse_s, dl_s, q0, k0, S, Tk, scale, window);
-      {
-        const int ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            Ps[(ty * 4 + i) * LDS + tx + 16 * j] = s[i][j];
-            dSs[(ty * 4 + i) * LDS + tx + 16 * j] = dp[i][j];
-          }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {
-        const float4 p = load4(Ps + i * LDS + kr * 4);
-        const float4 ds = load4(dSs + i * LDS + kr * 4);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 go = load4(dOs + i * D + c * 64 + kc * 4);
-          const float4 qq = load4(Qs + i * D + c * 64 + kc * 4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              av[j][c * 4 + e] =
-                  __fmaf_rn(comp(p, j), comp(go, e), av[j][c * 4 + e]);
-              ak[j][c * 4 + e] =
-                  __fmaf_rn(comp(ds, j), comp(qq, e), ak[j][c * 4 + e]);
-            }
-        }
-      }
+    load_tile<D, kThreads>(st, q + q_off, q_row, q0, kKvRows, S);
+    load_tile<D, kThreads>(st + kTile, dout + q_off, q_row, q0, kKvRows, S);
+    const float* src =
+        rows + (static_cast<size_t>(b) * H + h) * kRowPlanes * s_pad + q0;
+    for (int c = threadIdx.x; c < kRowPlanes * kKvRows / 4; c += kThreads) {
+      const int plane = c / (kKvRows / 4), x = 4 * (c % (kKvRows / 4));
+      cp_async16_zfill(st + 2 * kTile + plane * kKvRows + x,
+                       src + plane * s_pad + x, true);
     }
+  };
+  load_tile<D, kThreads>(Ks, k + kv_off, kv_row, k0, kKvKeys, Tk);
+  load_tile<D, kThreads>(Vs, v + kv_off, kv_row, k0, kKvKeys, Tk);
+  for (int i = 0; i < kKvRing - 1; ++i) {
+    if (i < n_iters) issue(i);
+    cp_async_commit();
   }
 
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;                  // key in an 8-key group
+  const int tq = lane & 3;                   // query pair in an 8-query group
+  const int x0 = 16 * (tid >> 5);            // the warp's keys in the block
+  const int kw = k0 + x0;
+  const int kl = min(kw + 16, Tk) - 1;       // the warp's last key below Tk
+  const int key = kw + gr;                   // and key + 8
+  float ak[D / 32][4][4], av[D / 32][4][4];  // dK, dV: keys key, key + 8
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + kr * 4 + j;
-    if (key >= Tk) continue;
-    const size_t at = kv_off + static_cast<size_t>(key) * kv_row;
+  for (int cg = 0; cg < D / 32; ++cg)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      write4(dk + at + c * 64 + kc * 4,
-             make_float4(__fmul_rn(ak[j][c * 4 + 0], scale),
-                         __fmul_rn(ak[j][c * 4 + 1], scale),
-                         __fmul_rn(ak[j][c * 4 + 2], scale),
-                         __fmul_rn(ak[j][c * 4 + 3], scale)));
-      write4(dv + at + c * 64 + kc * 4,
-             make_float4(av[j][c * 4 + 0], av[j][c * 4 + 1],
-                         av[j][c * 4 + 2], av[j][c * 4 + 3]));
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ak[cg][t][e] = av[cg][t][e] = 0.f;
+
+  for (int it = 0; it < n_iters; ++it) {
+    cp_async_wait<kKvRing - 2>();
+    __syncthreads();
+    if (it + kKvRing - 1 < n_iters) issue(it + kKvRing - 1);
+    cp_async_commit();
+    const float* qt = ring + (it % kKvRing) * kStage;
+    const float* gt = qt + kTile;
+    const float* rs = qt + 2 * kTile;        // lse, Dl, slot key, S, dP
+    const int g = it / n_q;
+    const int q0 = q_begin + (it - g * n_q) * kKvRows;
+    const int q1 = min(q0 + kKvRows, S) - 1;    // the last query below S
+    // the warp's keys kw..kl against queries q0..q1: skipped where the mask
+    // leaves no pair, masked only where an edge cuts
+    const bool live =
+        kw <= kl && kw <= q1 && (window <= 0 || kl > q0 - window);
+    if (!live) continue;
+    const bool edge = kl > q0 || kw + 16 > Tk || q0 + kKvRows > S ||
+                      (window > 0 && kw <= q1 - window);
+    float sc[kKvRows / 8][4], dp[kKvRows / 8][4];
+    two_scores<D, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);
+    // P^T = exp(scale S^T - lse), 0 where masked, into sc; where P takes
+    // S's rounding, S and dP again the forward's way (`in_order`, or dq's
+    // from the query's slot); then dS^T = P^T (dP^T - Dl), into dp
+    unsigned redo = 0;                       // bit 4j + e
+#pragma unroll
+    for (int j = 0; j < kKvRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tq + (e & 1);   // the tile's query
+        bool valid = true;
+        if (edge) {
+          const int qr = q0 + c;
+          const int kc = key + 8 * (e >> 1);
+          valid = kc < Tk && kc <= qr && qr < S;
+          if (window > 0) valid = valid && kc > qr - window;
+        }
+        const float x = __fmul_rn(sc[j][e], scale);
+        float p = expf(__fsub_rn(x, rs[c]));
+        if (!valid) p = 0.f;
+        if (p * fabsf(x) > kRedo) redo |= 1u << (4 * j + e);
+        sc[j][e] = p;
+      }
+    while (redo) {
+      const int i = __ffs(redo) - 1;
+      redo &= redo - 1;
+      const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int kr = x0 + gr + 8 * ((i >> 1) & 1);   // the block's key
+      const float2 sd =
+          __float_as_int(rs[2 * kKvRows + c]) == k0 + kr
+              ? make_float2(rs[3 * kKvRows + c], rs[4 * kKvRows + c])
+              : in_order<D>(qt, Ks, gt, Vs, c, kr);
+      const float p = expf(__fsub_rn(__fmul_rn(sd.x, scale), rs[c]));
+#pragma unroll
+      for (int n = 0; n < kKvRows / 2; ++n)
+        if (n == i) {
+          sc[n >> 2][n & 3] = p;
+          dp[n >> 2][n & 3] = sd.y;
+        }
     }
+#pragma unroll
+    for (int j = 0; j < kKvRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tq + (e & 1);
+        dp[j][e] = __fmul_rn(sc[j][e], __fsub_rn(dp[j][e], rs[kKvRows + c]));
+      }
+    accumulate<D, kKvRows, true>(av, sc, gt);
+    accumulate<D, kKvRows, true>(ak, dp, qt);
   }
+  cp_async_wait<0>();
+
+  // dK = scale (dS^T Q) and dV, rounded once
+  const size_t at0 = kv_off + static_cast<size_t>(key) * kv_row;
+  store_rows<D>(dk + at0, dk + at0 + 8 * kv_row, key < Tk, key + 8 < Tk, ak,
+                scale);
+  store_rows<D>(dv + at0, dv + at0 + 8 * kv_row, key < Tk, key + 8 < Tk, av,
+                1.f);
 }
 
 template <typename Kernel>
@@ -482,36 +864,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int S, int Tk, int H, int KV,
            float scale, int window, cudaStream_t stream) {
-  const size_t smem_dq =
-      sizeof(float) * (2 * BQ * D + 2 * BK * D + BK * LDS + 2 * BQ);
-  const size_t smem_dkdv =
-      sizeof(float) * (2 * BK * D + 2 * BQ * D + 2 * BQ * LDS + 2 * BQ);
-  auto dq_kernel = flash_attention_bwd_dq_kernel<T, D>;
-  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<T, D>;
-  cudaError_t err = allow_smem(dq_kernel, smem_dq);
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel, smem_dkdv);
+  const int n_qt = (S + kDqRows - 1) / kDqRows;
+  const int n_kt = (Tk + kKvKeys - 1) / kKvKeys;
+  if (n_qt > 65535 || n_kt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto dq_kernel = flash_attention_bwd_dq_kernel<D>;
+  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<D>;
+  cudaError_t err = allow_smem(dq_kernel, dq_smem<D>());
+  if (err == cudaSuccess) err = allow_smem(dkdv_kernel, dkdv_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  dq_kernel<<<dim3((S + BQ - 1) / BQ, B * H), kThreads, smem_dq, stream>>>(
-      qt, kt, vt, static_cast<const T*>(o), dot, lse, delta,
-      static_cast<T*>(dq), S, Tk, H, KV, scale, window);
+  const auto* qt = static_cast<const float*>(q);
+  const auto* kt = static_cast<const float*>(k);
+  const auto* vt = static_cast<const float*>(v);
+  const auto* gt = static_cast<const float*>(dout);
+  dq_kernel<<<dim3(B * H, n_qt), 2 * kDqRows, dq_smem<D>(), stream>>>(
+      qt, kt, vt, static_cast<const float*>(o), gt, lse, delta,
+      static_cast<float*>(dq), S, Tk, H, KV, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<dim3((Tk + BK - 1) / BK, B * KV), kThreads, smem_dkdv,
-                stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-                          static_cast<T*>(dv), S, Tk, H, KV, scale, window);
+  dkdv_kernel<<<dim3(B * KV, n_kt), 2 * kKvKeys, dkdv_smem<D>(), stream>>>(
+      qt, kt, vt, gt, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+      S, Tk, H, KV, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace cuda_core
+}  // namespace tf32x3
 
 namespace tensor_core {  // the bf16 kernels
 
@@ -1064,12 +1446,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace tensor_core
 
 // The floats of the `delta` scratch that repro_flash_attention_bwd needs
-// for (B, H, S): B H 2 S', S' = S rounded up to a multiple of kRowPad.
-// The float32 kernels keep Dl there as (B, H, S), the bf16 ones lse and Dl
-// as (B, H, 2, S').
+// for (B, H, S): B H 5 S', S' = S rounded up to a multiple of kRowPad.
+// The bf16 kernels keep lse and Dl there as (B, H, 2, S'), the float32
+// ones lse, Dl and each row's slot as (B, H, 5, S').
+static_assert(tf32x3::kPad == tensor_core::kRowPad && tf32x3::kRowPlanes >= 2,
+              "the float32 layout holds the bf16 one");
 extern "C" long long repro_flash_attention_bwd_scratch(int B, int H, int S) {
   const long long pad = tensor_core::kRowPad;
-  return static_cast<long long>(B) * H * 2 * ((S + pad - 1) / pad * pad);
+  return static_cast<long long>(B) * H * tf32x3::kRowPlanes *
+         ((S + pad - 1) / pad * pad);
 }
 
 // dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  D: 64 or 128.
@@ -1085,13 +1470,11 @@ extern "C" int repro_flash_attention_bwd(
   if (H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 128)
-    return cuda_core::launch<float, 128>(q, k, v, o, dout, lse, delta, dq,
-                                         dk, dv, B, S, Tk, H, KV, scale,
-                                         window, stream);
+    return tf32x3::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               S, Tk, H, KV, scale, window, stream);
   if (dtype == 0 && D == 64)
-    return cuda_core::launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, B, S, Tk, H, KV, scale, window,
-                                        stream);
+    return tf32x3::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                              S, Tk, H, KV, scale, window, stream);
   if (dtype == 1 && D == 128)
     return tensor_core::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                     B, S, Tk, H, KV, scale, window, stream);

@@ -5,7 +5,7 @@ the ``wgmma`` + TMA kernel for bf16 and the float32 CUDA-core kernel for
 float32, and writes each row's log-sum-exp when asked.
 ``csrc/flash_attention_bwd.cu`` (its backward): one C entry point that
 launches the dq kernel, then the dkdv kernel, for either dtype: the
-``wgmma`` + TMA pair for bf16, the float32 CUDA-core pair for float32."""
+``wgmma`` + TMA pair for bf16, the 3xTF32 ``mma.sync`` pair for float32."""
 
 from __future__ import annotations
 
