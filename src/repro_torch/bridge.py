@@ -51,11 +51,16 @@ the same weights can go to the JAX model and, through
 ``assets/lm_reference.npz``: the JAX model's logits and greedy tokens on
 two reduced float32 configs with those weights (written by
 ``benchmarks/torch_export_lm_reference.py``).
+:func:`load_lm_encdec_reference` reads ``assets/lm_encdec_reference.npz``:
+the same for a reduced float32 whisper (encoder-decoder) with its frames,
+and one JAX training step on it (written by
+``benchmarks/torch_export_lm_encdec_reference.py``).
 
 Training trees: :func:`to_jax_tree` and :func:`from_jax_tree` carry the
 port's per-layer parameters, gradients or optimizer moments (dicts keyed
 by parameter name) to and from the JAX tree layout (``stack/sub{j}``
-leaves with a leading period axis), and :func:`train_state_tree` is the
+leaves with a leading period axis, ``enc_stack`` leaves with a leading
+encoder-layer axis), and :func:`train_state_tree` is the
 ``(params, OptState)`` tree that JAX's ``train`` checkpoints, with leaves
 that stack on the host when saved and restore in place, so a loop
 checkpoint written by either package resumes in the other.
@@ -80,7 +85,7 @@ from repro_torch.ckpt.checkpoint import host_array
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.models.layers import numpy_leaf, tree_map
-from repro_torch.models.transformer import Model, model_specs
+from repro_torch.models.transformer import STACKED, Model, model_specs
 
 ASSET = Path(__file__).resolve().parent / "assets" / "fa_reference.npz"
 OFFLOAD_ASSET = ASSET.parent / "offload_reference.npz"
@@ -90,6 +95,7 @@ RESILIENCE_ASSET = ASSET.parent / "resilience_reference.npz"
 SERVING_ASSET = ASSET.parent / "serving_reference.npz"
 TRAIN_ASSET = ASSET.parent / "train_reference.npz"
 LM_TRAIN_ASSET = ASSET.parent / "lm_train_reference.npz"
+LM_ENCDEC_ASSET = ASSET.parent / "lm_encdec_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -386,7 +392,9 @@ def load_serving_reference(path=None) -> ServingReference:
 
 def numpy_lm_params(cfg, seed: int) -> dict:
     """A parameter tree for ``cfg`` laid out as the JAX ``Model(cfg).init``
-    tree (``stack/sub{j}`` leaves with a leading period axis), float32,
+    tree (``stack/sub{j}`` leaves with a leading period axis, an
+    encoder-decoder's ``enc_stack`` leaves with a leading layer axis),
+    float32,
     each leaf drawn from its spec's distribution with numpy's generator
     seeded with ``seed``, leaves in the reference's flatten order."""
     rng = np.random.default_rng(seed)
@@ -397,7 +405,8 @@ def lm_params_from(params_np: dict, cfg, device=None) -> Model:
     """The port's ``Model`` for ``cfg`` on ``device`` (the card when None)
     holding a parameter tree in the JAX layout (numpy arrays, or anything
     numpy reads as float32): ``stack/sub{j}[i]`` goes to layer
-    ``i * period + j``, each leaf cast to its spec's dtype."""
+    ``i * period + j``, ``enc_stack[i]`` to encoder layer i, each leaf
+    cast to its spec's dtype."""
     return Model(cfg, device).load_tree(params_np)
 
 
@@ -421,6 +430,7 @@ class LMRecord:
     greedy: np.ndarray            # (b, n) int32
     greedy_gap: np.ndarray        # (b, n) f32
     greedy_max: np.ndarray        # (b, n) f32
+    frames: np.ndarray | None = None
 
 
 def load_lm_reference(path=None) -> dict:
@@ -466,8 +476,8 @@ def to_jax_tree(model, named: dict) -> dict:
     the JAX tree: stacked leaves stacked along a leading period axis."""
     out = {}
     for path, names in leaf_layout(model):
-        leaf = (torch.stack([named[n] for n in names]) if path[0] == "stack"
-                else named[names[0]])
+        leaf = (torch.stack([named[n] for n in names])
+                if path[0] in STACKED else named[names[0]])
         _put(out, path, leaf)
     return out
 
@@ -483,7 +493,7 @@ def from_jax_tree(model, tree, device=None, dtype=None) -> dict:
         for k in path:
             a = a[k]
         a = np.asarray(a, dtype=np.float32)
-        if path[0] != "stack":
+        if path[0] not in STACKED:
             a = a[None]
         for i, n in enumerate(names):
             out[n] = torch.tensor(a[i], dtype=dtype or torch.float32,
@@ -531,7 +541,7 @@ def train_state_tree(model, opt_state):
         out = {}
         for path, names in leaf_layout(model):
             _put(out, path, StackedLeaf([named[n] for n in names],
-                                        path[0] == "stack"))
+                                        path[0] in STACKED))
         return out
 
     return (tree(model.named_leaves()),
@@ -594,3 +604,42 @@ def load_lm_train_reference(path=None) -> dict:
                 f: z[f"{name}_{f}"] for f in (
                     "loss", "ce", "grad_norm", "lr", "g_sq", "g_probe")})
     return out
+
+
+def encdec_record_frames(desc: dict) -> np.ndarray:
+    """The frames of the encoder-decoder record: standard normals from
+    numpy's generator seeded with ``desc["frame_seed"]``, float32, one
+    (enc_seq, d_model) block a prompt."""
+    o = desc["overrides"]
+    return np.random.default_rng(desc["frame_seed"]).standard_normal(
+        (desc["n_prompts"], o["enc_seq"], o["d_model"]), np.float32)
+
+
+def load_lm_encdec_reference(path=None):
+    """(:class:`LMRecord`, :class:`LMTrainRecord`) of the reduced float32
+    whisper: the serving record with its frames, and one training step on
+    ``encdec_batch_for_step`` batches (one entry a step; the gradient
+    probes of every leaf, ``enc_stack`` and ``cross`` included)."""
+    import json
+
+    with np.load(LM_ENCDEC_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    desc = json.loads(str(z["config"]))
+    cfg = dataclasses.replace(
+        get_config(desc["arch"], smoke=desc["smoke"]),
+        param_dtype=torch.float32, **desc["overrides"])
+    seed = int(z["seed"])
+    serve = LMRecord(cfg=cfg, seed=seed,
+                     sensitivity=float(z["sensitivity"]),
+                     frames=encdec_record_frames(desc), **{
+                         f: z[f] for f in (
+                             "prompts", "teacher", "prefill_logits",
+                             "decode_logits", "greedy", "greedy_gap",
+                             "greedy_max")})
+    train = LMTrainRecord(
+        cfg=cfg, seed=seed, data=desc["data"], steps=int(desc["steps"]),
+        opt=desc["opt"], leaf_names=list(desc["leaves"]),
+        sensitivity=desc["train_sensitivity"], **{
+            f: z[f] for f in ("loss", "ce", "grad_norm", "lr", "g_sq",
+                              "g_probe")})
+    return serve, train

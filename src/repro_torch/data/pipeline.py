@@ -3,9 +3,8 @@
 
 Token streams come from a seeded per-position hash (counter-based, so the
 batch of any step is random access: a restarted job replays the same data
-with no iterator state beyond the step number).  The tokens equal the
-reference's bit for bit.  ``encdec_batch_for_step`` waits for the
-encoder-decoder.
+with no iterator state beyond the step number).  The batches equal the
+reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -57,3 +56,18 @@ def batch_for_step(cfg: DataConfig, step: int, host_index: int = 0,
         structured = (prev * 31 + 7) % cfg.vocab
         toks[:, col] = np.where(gate[:, col] > 0, structured, raw[:, col])
     return {"tokens": toks.astype(np.int32)}
+
+
+def encdec_batch_for_step(cfg: DataConfig, d_model: int, enc_seq: int,
+                          step: int, host_index: int = 0,
+                          host_count: int = 1) -> dict:
+    """Whisper-style batch: the tokens of :func:`batch_for_step` and
+    precomputed frame embeddings (the reference's stub frontend),
+    "enc_input" (rows, enc_seq, d_model) float32, 0.02 times standard
+    normals from numpy's generator seeded by the step and host."""
+    base = batch_for_step(cfg, step, host_index, host_count)
+    rows = cfg.global_batch // host_count
+    rng = np.random.default_rng((cfg.seed << 20) ^ step ^ (host_index << 10))
+    enc = rng.standard_normal((rows, enc_seq, d_model), np.float32) * 0.02
+    base["enc_input"] = enc.astype(np.float32)
+    return base

@@ -7,7 +7,10 @@ filter (the JAX package's ``launch/serve.py`` on one card).
 
 Weights are random, drawn from the specs' distributions with a
 ``torch.Generator`` seeded by ``--seed``; prompts are uniform token ids
-from numpy's generator seeded by ``--seed + 1``.  ``--smoke`` (the
+from numpy's generator seeded by ``--seed + 1``.  An encoder-decoder
+(whisper) gets standard normal frames in the parameter dtype, one
+(enc_seq, d_model) block a request, from a ``torch.Generator`` seeded by
+``--seed + 2``, and serves from their encoder output.  ``--smoke`` (the
 default) takes the reduced config, ``--no-smoke`` the full one.
 """
 
@@ -39,6 +42,16 @@ def make_prompts(cfg, requests: int, prompt_len: int, seed: int,
         0, cfg.vocab, (requests, prompt_len))
     return torch.as_tensor(toks, dtype=torch.long,
                            device=resolve_device(device))
+
+
+def make_frames(cfg, requests: int, seed: int, device=None) -> torch.Tensor:
+    """(requests, enc_seq, d_model) standard normal frame embeddings in the
+    parameter dtype, drawn in float32 from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((requests, cfg.enc_seq, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.param_dtype)
 
 
 def entropy_scorer(model):
@@ -76,6 +89,15 @@ def main(argv=None):
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
 
+    enc_out = None
+    if cfg.is_encdec:
+        frames = make_frames(cfg, args.requests, args.seed + 2, model.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc_out = model.encode(frames)
+        sync()
+        print(f"[serve] encoded {args.requests} x {cfg.enc_seq} frames in "
+              f"{time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     if args.cascade:
         toks, _served, stats = cascade_serve(
@@ -85,8 +107,8 @@ def main(argv=None):
         print(f"[serve] cascade: {int(stats['n_served'])}/{args.requests} "
               "served by the big model")
     else:
-        toks = generate(model, prompts, args.gen, sampler=sampler,
-                        seed=args.seed)
+        toks = generate(model, prompts, args.gen, enc_out=enc_out,
+                        sampler=sampler, seed=args.seed)
     sync()
     dt = time.perf_counter() - t0
     n_tok = args.requests * args.gen

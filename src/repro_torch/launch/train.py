@@ -7,8 +7,10 @@
 
 ``--smoke`` (the default) takes the reduced config, ``--no-smoke`` the
 full one.  Resumes from the newest checkpoint in ``--ckpt-dir``.  Batches
-are ``data.pipeline.batch_for_step``; a fresh start draws the weights with
-a ``torch.Generator`` seeded by ``--seed``.  The reference's ``--mesh``,
+are ``data.pipeline.batch_for_step`` (an encoder-decoder's:
+``encdec_batch_for_step``, its frames cast to the parameter dtype); a
+fresh start draws the weights with a ``torch.Generator`` seeded by
+``--seed``.  The reference's ``--mesh``,
 ``--plan`` and ``--grad-compress`` need several devices and are not
 ported.
 """
@@ -20,7 +22,11 @@ import argparse
 import torch
 
 from repro_torch.configs.registry import get_config, list_archs
-from repro_torch.data.pipeline import DataConfig, batch_for_step
+from repro_torch.data.pipeline import (
+    DataConfig,
+    batch_for_step,
+    encdec_batch_for_step,
+)
 from repro_torch.models.transformer import Model
 from repro_torch.train.loop import LoopConfig, train
 from repro_torch.train.optimizer import AdamWConfig
@@ -33,9 +39,20 @@ def opt_config(lr: float, steps: int) -> AdamWConfig:
                        decay_steps=steps)
 
 
-def batches(data: DataConfig, device):
-    """``make_batch(step)``: the step's tokens on ``device``."""
+def batches(data: DataConfig, device, cfg=None):
+    """``make_batch(step)``: the step's tokens on ``device``; for an
+    encoder-decoder ``cfg`` also its frames ("enc_input"), cast to
+    ``cfg.param_dtype``.  The reference's training CLI feeds them in
+    float32, which its bf16 decoder scan refuses (the encoder output would
+    promote the bf16 stream); its own tests feed them in the parameter
+    dtype, as here."""
     def make_batch(step):
+        if cfg is not None and cfg.is_encdec:
+            b = encdec_batch_for_step(data, cfg.d_model, cfg.enc_seq, step)
+            return {"tokens": torch.as_tensor(b["tokens"], device=device),
+                    "enc_input": torch.as_tensor(b["enc_input"],
+                                                 device=device).to(
+                                                     cfg.param_dtype)}
         toks = batch_for_step(data, step)["tokens"]
         return {"tokens": torch.as_tensor(toks, device=device)}
     return make_batch
@@ -65,8 +82,8 @@ def main(argv=None):
                       global_batch=args.global_batch, seed=args.seed)
     loop_cfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                           ckpt_dir=args.ckpt_dir, accum=args.accum)
-    _model, _state, out = train(model, batches(data, model.device), loop_cfg,
-                                opt_config(args.lr, args.steps),
+    _model, _state, out = train(model, batches(data, model.device, cfg),
+                                loop_cfg, opt_config(args.lr, args.steps),
                                 seed=args.seed)
     hist = out["history"]
     if hist:

@@ -5,9 +5,12 @@ Prefill attention goes through ``kernels.flash_attention.ops``: the
 hand-written kernel on a CUDA tensor, the plain streaming form (the
 reference's ``_mha_streaming``, ``ref.mha_streaming`` there) on a CPU
 tensor.  Decode is the dense form over the
-cache, all softmax math in float32.  MLA, cross-attention and the
-bidirectional encoder are not ported yet (ROADMAP.md queue 1: the rest of
-the LM stack).
+cache, all softmax math in float32.  The encoder's self-attention and the
+decoder's cross-attention (whisper) are the reference's dense einsums in
+plain PyTorch on either device, as the reference computes them outside
+any Pallas kernel; with a ``d_head`` of 4^k their scale 1 / sqrt(d_head)
+is exact, so multiplying by it is the reference's division.  MLA is not
+ported yet (ROADMAP.md queue 1: the rest of the LM stack).
 """
 
 from __future__ import annotations
@@ -143,3 +146,61 @@ def attention_decode(params, cfg, x, cache, position: int):
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     out = out.reshape(b, 1, H, hd).to(x.dtype)
     return dense(params["wo"], out, "bshe,hed->bsd"), cache
+
+
+# ---------------------------------------------------------------------------
+# The encoder and cross attention (whisper): dense, plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _mha(q, k, v, mask, scale):
+    """q: (b, s, kv, g, d), k/v: (b, t, kv, d), mask: (s, t) bool or None
+    (attend everywhere) -> (b, s, kv, g, d).  The reference's dense form:
+    logits in float32 from exactly upcast operands, softmax in float32, the
+    probabilities cast to v's dtype before the PV product, the output cast
+    to v's dtype."""
+    logits = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(v.dtype)
+
+
+def cross_attn_specs(cfg) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.d_head
+    dt = cfg.param_dtype
+    return {"wq": spec((d, H, hd), dtype=dt), "wk": spec((d, H, hd), dtype=dt),
+            "wv": spec((d, H, hd), dtype=dt), "wo": spec((H, hd, d), dtype=dt)}
+
+
+def cross_kv(params, enc_out):
+    """The cross-attention keys and values of the encoder output
+    (b, t, d) -> two (b, t, H, d_head): what a request's decode cache
+    holds."""
+    return (dense(params["wk"], enc_out, "btd,dhe->bthe"),
+            dense(params["wv"], enc_out, "btd,dhe->bthe"))
+
+
+def cross_attend(params, cfg, x, k, v):
+    """Queries of x (b, s, d) against cross keys and values (no mask)."""
+    q = dense(params["wq"], x, "bsd,dhe->bshe")
+    b, s, H, hd = q.shape
+    out = _mha(q.reshape(b, s, H, 1, hd), k, v, None, 1.0 / math.sqrt(hd))
+    return dense(params["wo"], out.reshape(b, s, H, hd), "bshe,hed->bsd")
+
+
+def cross_attention(params, cfg, x, enc_out):
+    """x: (b, s, d) queries; enc_out: (b, t, d) keys/values (no mask)."""
+    return cross_attend(params, cfg, x, *cross_kv(params, enc_out))
+
+
+def bidir_attention(params, cfg, x):
+    """Encoder self-attention (no mask)."""
+    b, s, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.d_head
+    q, k, v = _project_qkv(params, cfg, x)
+    out = _mha(q.reshape(b, s, KV, H // KV, hd), k, v, None,
+               1.0 / math.sqrt(hd))
+    return dense(params["wo"], out.reshape(b, s, H, hd), "bshe,hed->bsd")

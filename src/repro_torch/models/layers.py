@@ -199,6 +199,35 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoidal(seq: int, d_model: int, device: torch.device):
+    half = d_model // 2
+    f32 = np.float32
+    # the exponent as jitted XLA folds it: i * f32(f32(-ln 1e4) / (d/2 - 1))
+    arg = np.arange(half, dtype=f32) * (f32(-math.log(10000.0)) / f32(half - 1))
+    inv = np.exp(arg.astype(np.float64)).astype(f32)
+    ang = np.arange(seq, dtype=f32)[:, None] * inv[None, :]
+    ang = ang.astype(np.float64)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.tensor(table.astype(f32), device=device)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device=None):
+    """Whisper-style fixed sinusoidal embeddings (seq, d_model), float32:
+    sin then cos of pos * 10000^(-i / (d/2 - 1)), computed on the host so
+    the card and the CPU hold one table.  It follows the reference's
+    jitted form: the exponent's constant folded as XLA folds it, the
+    frequencies and angles rounded to float32 as there, and exp, sin and
+    cos each in float64 rounded once.  XLA's float32 exp is its own
+    polynomial: 59 of whisper's 512 frequencies lie an ulp from the jitted
+    reference's (more from the eager one's, which divides), so row p of
+    either table lies within (p + 1) 2^-22 of this one: the position times
+    a frequency's ulp (2^-24), an angle's ulp (at most p 2^-23) and the
+    rounding of sin or cos (1.2e-4 at 1500 x 1024, row 1499).  Computed
+    once per device; ``device`` None is the card."""
+    return _sinusoidal(int(seq), int(d_model), resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

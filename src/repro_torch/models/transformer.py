@@ -1,5 +1,5 @@
-"""Model assembly for the dense and RWKV families (the JAX package's
-``models/transformer.py`` on one card).
+"""Model assembly for the dense, RWKV and encoder-decoder families (the JAX
+package's ``models/transformer.py`` on one card).
 
 The reference stacks parameters and caches per period of layer kinds and
 scans over them; here each layer is an ``nn.Module`` in a Python loop and
@@ -14,10 +14,18 @@ the reference's ``jax.checkpoint`` of its period body) and
 :meth:`Model.loss` the next-token cross-entropy on it; the serving calls
 (``logits``, ``prefill``, ``decode_step``) run it without autograd.
 
-MoE, MLA, Mamba and encoder-decoder configurations raise
+The encoder-decoder (whisper) adds an encoder stack (``enc_stack`` in
+the tree, :class:`EncoderLayer` here) run by :meth:`Model.encode`, and a
+cross-attention step in every decoder layer.  Its serving cache keeps each
+layer's cross keys and values, computed once per request in
+:meth:`Model.prefill`.  The decoder stream and the encoder output must
+share a dtype: where the reference's scan would promote the stream it
+raises, and the port raises a ``ValueError``.
+
+MoE, MLA, Mamba and dense-prefix configurations raise
 ``NotImplementedError`` at construction; of the ten configs, yi-9b,
-codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b and rwkv6-7b
-run.
+codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b, rwkv6-7b and
+whisper-medium run.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from repro_torch.models.layers import (
     param_dict,
     pin_matmul_precision,
     rms_norm,
+    sinusoidal_positions,
     spec,
     stack_specs,
     swiglu,
@@ -86,8 +95,6 @@ def unsupported(cfg):
         return "MLA attention"
     if cfg.mixer == "mamba":
         return "Mamba"
-    if cfg.is_encdec:
-        return "the encoder-decoder"
     if cfg.first_dense:
         return "a dense prefix"
     return None
@@ -129,17 +136,39 @@ def _mlp_specs(cfg, kind: str):
 
 
 def _mixer_specs(cfg, kind: str):
-    if kind == "attn":
+    if kind in ("attn", "bidir"):
         return attn.attn_specs(cfg)
     if kind == "rwkv":
         return ssm.rwkv_time_mix_specs(cfg)
     raise ValueError(kind)
 
 
-def decoder_layer_specs(cfg, kind: tuple) -> dict:
+def decoder_layer_specs(cfg, kind: tuple, cross: bool = False) -> dict:
     mixer, mlp = kind
-    return {"norm1": _norm_specs(cfg), "mixer": _mixer_specs(cfg, mixer),
-            "norm2": _norm_specs(cfg), "mlp": _mlp_specs(cfg, mlp)}
+    out = {"norm1": _norm_specs(cfg), "mixer": _mixer_specs(cfg, mixer),
+           "norm2": _norm_specs(cfg), "mlp": _mlp_specs(cfg, mlp)}
+    if cross:
+        out["norm_cross"] = _norm_specs(cfg)
+        out["cross"] = attn.cross_attn_specs(cfg)
+    return out
+
+
+def encoder_layer_specs(cfg) -> dict:
+    return {"norm1": _norm_specs(cfg), "mixer": _mixer_specs(cfg, "bidir"),
+            "norm2": _norm_specs(cfg), "mlp": _mlp_specs(cfg, cfg.mlp_type)}
+
+
+def check_enc_dtype(x, enc_out):
+    """The decoder stream ``x`` and the encoder output must share a dtype:
+    the reference adds cross-attention in the encoder output's dtype to
+    the stream inside its layer scan, which raises where that promotes
+    the stream (float32 frames to a bf16 model)."""
+    if enc_out is None:
+        raise ValueError("an encoder-decoder needs the encoder output")
+    if enc_out.dtype != x.dtype:
+        raise ValueError(f"the encoder output is {enc_out.dtype} but the "
+                         f"decoder stream is {x.dtype}; give the encoder "
+                         "its input in the model's parameter dtype")
 
 
 def _apply_mlp(p, cfg, kind: str, x, cm_state=None):
@@ -155,18 +184,21 @@ def _apply_mlp(p, cfg, kind: str, x, cm_state=None):
 
 class DecoderLayer(nn.Module):
     """One pre-norm decoder layer: norm1 -> mixer -> norm2 -> MLP, each
-    residual.  Its parameters sit in one ``ParameterDict`` per part, under
+    residual; an encoder-decoder's has norm_cross -> cross-attention after
+    its mixer.  Its parameters sit in one ``ParameterDict`` per part, under
     the reference's names."""
 
     def __init__(self, cfg, kind: tuple, device):
         super().__init__()
         self.cfg, self.kind = cfg, kind
-        specs = decoder_layer_specs(cfg, kind)
-        for part in ("norm1", "mixer", "norm2", "mlp"):
-            setattr(self, part, param_dict(specs[part], device))
+        specs = decoder_layer_specs(cfg, kind, cross=cfg.is_encdec)
+        for part, sp in specs.items():
+            setattr(self, part, param_dict(sp, device))
 
-    def forward(self, x, positions):
-        """Full sequence -> (x, this layer's decode-cache entry)."""
+    def forward(self, x, positions, enc_out=None):
+        """Full sequence -> (x, this layer's decode-cache entry).  An
+        encoder-decoder layer attends to ``enc_out`` after its mixer, and
+        its entry holds the cross keys and values under "cross"."""
         cfg = self.cfg
         mixer, mlp = self.kind
         h = _apply_norm(self.norm1, cfg, x)
@@ -176,6 +208,12 @@ class DecoderLayer(nn.Module):
         else:
             mo, entry = ssm.rwkv_time_mix(self.mixer, cfg, h)
         x = x + mo
+        if cfg.is_encdec:
+            check_enc_dtype(x, enc_out)
+            k, v = attn.cross_kv(self.cross, enc_out)
+            h = _apply_norm(self.norm_cross, cfg, x)
+            x = x + attn.cross_attend(self.cross, cfg, h, k, v)
+            entry = dict(entry, cross={"k": k, "v": v})
         h = _apply_norm(self.norm2, cfg, x)
         mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h)
         if new_cm is not None:
@@ -193,6 +231,12 @@ class DecoderLayer(nn.Module):
         else:
             mo, new_cache = ssm.rwkv_time_mix(self.mixer, cfg, h, cache)
         x = x + mo
+        if cfg.is_encdec:       # the request's cross K/V, from its prefill
+            h = _apply_norm(self.norm_cross, cfg, x)
+            x = x + attn.cross_attend(self.cross, cfg, h,
+                                      cache["cross"]["k"],
+                                      cache["cross"]["v"])
+            new_cache = dict(new_cache, cross=cache["cross"])
         h = _apply_norm(self.norm2, cfg, x)
         cm_state = cache["x_prev_cm"] if mixer == "rwkv" else None
         mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h, cm_state)
@@ -201,19 +245,46 @@ class DecoderLayer(nn.Module):
         return x + mo, new_cache
 
 
+class EncoderLayer(nn.Module):
+    """One pre-norm encoder layer: norm1 -> bidirectional attention ->
+    norm2 -> MLP, each residual."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.cfg = cfg
+        for part, sp in encoder_layer_specs(cfg).items():
+            setattr(self, part, param_dict(sp, device))
+
+    def forward(self, x):
+        cfg = self.cfg
+        x = x + attn.bidir_attention(self.mixer, cfg,
+                                     _apply_norm(self.norm1, cfg, x))
+        mo, _ = _apply_mlp(self.mlp, cfg, cfg.mlp_type,
+                           _apply_norm(self.norm2, cfg, x))
+        return x + mo
+
+
+# the reference's stacked subtrees: a leaf there holds one slice a layer
+STACKED = ("stack", "enc_stack")
+
+
 def model_specs(cfg) -> dict:
     """The reference's parameter spec tree for ``cfg`` (stacked layers)."""
     kinds = layer_kinds(cfg)
     period = find_period(kinds)
     out = {"embed": embed_spec(cfg.vocab, cfg.d_model, cfg.param_dtype),
-           "stack": stack_specs({f"sub{j}": decoder_layer_specs(cfg, k)
-                                 for j, k in enumerate(kinds[:period])},
-                                len(kinds) // period),
+           "stack": stack_specs({f"sub{j}": decoder_layer_specs(
+               cfg, k, cross=cfg.is_encdec)
+               for j, k in enumerate(kinds[:period])}, len(kinds) // period),
            "final_norm": _norm_specs(cfg)}
     if not cfg.tie_embeddings:
         out["unembed"] = {"w": spec((cfg.d_model, cfg.vocab), "scaled",
                                     0.02 / math.sqrt(cfg.d_model),
                                     dtype=cfg.param_dtype)}
+    if cfg.is_encdec:
+        out["enc_stack"] = stack_specs(encoder_layer_specs(cfg),
+                                       cfg.enc_layers)
+        out["enc_final_norm"] = _norm_specs(cfg)
     return out
 
 
@@ -243,6 +314,11 @@ class Model(nn.Module):
         self.final_norm = param_dict(specs["final_norm"], self.device)
         self.unembed = (param_dict(specs["unembed"], self.device)
                         if "unembed" in specs else None)
+        self.enc_layers = nn.ModuleList(EncoderLayer(cfg, self.device)
+                                        for _ in range(cfg.enc_layers))
+        self.enc_final_norm = (param_dict(specs["enc_final_norm"],
+                                          self.device)
+                               if cfg.is_encdec else None)
 
     # -- parameters ------------------------------------------------------
     def specs(self) -> dict:
@@ -270,6 +346,10 @@ class Model(nn.Module):
                 yield path, s, [getattr(self.layers[i], part)[name]
                                 for i in range(j, len(self.layers),
                                                self.period)]
+            elif path[0] == "enc_stack":
+                part, name = path[1], path[2]
+                yield path, s, [getattr(layer, part)[name]
+                                for layer in self.enc_layers]
             else:
                 yield path, s, [getattr(self, path[0])[path[1]]]
 
@@ -296,7 +376,7 @@ class Model(nn.Module):
             if a.shape != s.shape:
                 raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
                                  f"expected {s.shape}")
-            if path[0] != "stack":
+            if path[0] not in STACKED:
                 a = a[None]
             for i, t in enumerate(tensors):
                 t.copy_(torch.tensor(a[i]))
@@ -314,15 +394,32 @@ class Model(nn.Module):
         return torch.arange(s, dtype=torch.int32,
                             device=tokens.device).expand(b, s)
 
-    def _period(self, i: int, x, positions):
+    def _period(self, i: int, x, positions, enc_out=None):
         """Layers i .. i + period - 1 (one period of the reference's
         scanned stack) -> x."""
         for layer in self.layers[i:i + self.period]:
-            x, _entry = layer(x, positions)
+            x, _entry = layer(x, positions, enc_out)
         return x
 
-    def forward(self, tokens):
-        """tokens: (b, s) -> logits (b, s, vocab), the full forward.  Under
+    def encode(self, enc_input):
+        """enc_input: (b, enc_seq, d_model) precomputed frame embeddings
+        (the reference's stub frontend) -> the encoder output in
+        enc_input's dtype: sinusoidal positions added, the bidirectional
+        stack, the final norm.  Under autograd with ``cfg.remat`` each
+        layer runs under ``torch.utils.checkpoint``, as the reference's
+        ``jax.checkpoint`` of its layer."""
+        x = enc_input + sinusoidal_positions(
+            enc_input.shape[1], self.cfg.d_model,
+            enc_input.device).to(enc_input.dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self.enc_layers:
+            x = (checkpoint(layer, x, use_reentrant=False) if remat
+                 else layer(x))
+        return _apply_norm(self.enc_final_norm, self.cfg, x)
+
+    def forward(self, tokens, enc_out=None):
+        """tokens: (b, s) -> logits (b, s, vocab), the full forward;
+        ``enc_out`` is the encoder output of an encoder-decoder.  Under
         autograd with ``cfg.remat`` each period runs under
         ``torch.utils.checkpoint`` (its activations recomputed in the
         backward), as the reference's ``jax.checkpoint`` of its period."""
@@ -331,24 +428,27 @@ class Model(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(0, len(self.layers), self.period):
             if remat:
-                x = checkpoint(self._period, i, x, positions,
+                x = checkpoint(self._period, i, x, positions, enc_out,
                                use_reentrant=False)
             else:
-                x = self._period(i, x, positions)
+                x = self._period(i, x, positions, enc_out)
         return self._head(x)
 
     @torch.no_grad()
-    def logits(self, tokens):
+    def logits(self, tokens, enc_out=None):
         """tokens: (b, s) -> logits (b, s, vocab), without autograd."""
-        return self.forward(tokens)
+        return self.forward(tokens, enc_out)
 
     def loss(self, batch):
-        """Next-token cross-entropy: (loss, {"ce", "aux"}).  ``aux`` (the
-        reference's MoE balance loss) is 0 for every family the port runs.
-        The gold logit is a gather, which gives the bits of the reference's
-        masked sum: that sum adds zeros to one value."""
+        """Next-token cross-entropy: (loss, {"ce", "aux"}); ``batch`` is
+        {"tokens"} and, for an encoder-decoder, "enc_input" too.  ``aux``
+        (the reference's MoE balance loss) is 0 for every family the port
+        runs.  The gold logit is a gather, which gives the bits of the
+        reference's masked sum: that sum adds zeros to one value."""
         tokens = batch["tokens"]
-        logits = self.forward(tokens)
+        enc_out = (self.encode(batch["enc_input"]) if self.cfg.is_encdec
+                   else None)
+        logits = self.forward(tokens, enc_out)
         tgt = tokens[:, 1:].long()
         lg = logits[:, :-1].float()
         del logits
@@ -359,20 +459,24 @@ class Model(nn.Module):
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
-    def prefill(self, tokens):
+    def prefill(self, tokens, enc_out=None):
         """Process a full prompt -> (last-token logits (b, vocab), decode
         cache: one dict per layer).  The cache holds the prompt's length
-        (SWA: the window); ``pad_cache`` extends it for generation."""
+        (SWA: the window); ``pad_cache`` extends it for generation.  An
+        encoder-decoder layer's entry also holds the cross keys and values
+        of ``enc_out`` under "cross", computed here once per request, as
+        the reference's ``prefill_cross``."""
         x = embed(self.embed, tokens)
         positions = self._positions(tokens)
         cache = []
         for layer in self.layers:
-            x, entry = layer(x, positions)
+            x, entry = layer(x, positions, enc_out)
             cache.append(entry)
         return self._head(x[:, -1:])[:, 0], cache
 
     def pad_cache(self, cache, extra: int):
-        """Grow full-attention caches by ``extra`` zero positions."""
+        """Grow full-attention caches by ``extra`` zero positions; the
+        cross keys and values keep the encoder's length."""
         if self.cfg.attn_type == "swa" or self.cfg.mixer == "rwkv":
             return cache    # ring buffer / recurrent state: fixed size
 
@@ -380,18 +484,31 @@ class Model(nn.Module):
             return torch.cat([a, a.new_zeros((a.shape[0], extra)
                                              + a.shape[2:])], dim=1)
 
-        return [{"k": grow(c["k"]), "v": grow(c["v"])} for c in cache]
+        return [dict(c, k=grow(c["k"]), v=grow(c["v"])) for c in cache]
 
     def init_cache(self, batch: int, max_seq: int):
-        return [attn.init_cache(self.cfg, batch, max_seq, self.device)
-                if kind[0] == "attn" else
-                ssm.rwkv_state_init(self.cfg, batch, self.device)
-                for kind in self.kinds]
+        """A zero cache; an encoder-decoder's entries hold zero cross keys
+        and values of the encoder's length, which ``prefill`` fills."""
+        cfg = self.cfg
+        cache = [attn.init_cache(cfg, batch, max_seq, self.device)
+                 if kind[0] == "attn" else
+                 ssm.rwkv_state_init(cfg, batch, self.device)
+                 for kind in self.kinds]
+        if cfg.is_encdec:
+            shape = (batch, cfg.enc_seq, cfg.n_heads, cfg.d_head)
+            cache = [dict(c, cross={
+                "k": torch.zeros(shape, dtype=cfg.param_dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.param_dtype,
+                                 device=self.device)}) for c in cache]
+        return cache
 
     @torch.no_grad()
     def decode_step(self, token, cache, position: int):
         """token: (b, 1) -> (logits (b, 1, vocab), cache).  Attention
-        caches are updated in place."""
+        caches are updated in place.  An encoder-decoder layer projects
+        only the query for its cross step and reads the keys and values
+        from the cache."""
         x = embed(self.embed, token)
         new_cache = []
         for layer, c in zip(self.layers, cache):

@@ -37,13 +37,15 @@ def sample(logits, generator: torch.Generator, cfg: SamplerConfig):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def stream(model, prompt, n_tokens: int, *,
+def stream(model, prompt, n_tokens: int, *, enc_out=None,
            sampler: SamplerConfig = SamplerConfig(), seed: int = 0):
     """Prefill ``prompt`` (b, s), then yield (token (b,), the logits it was
     drawn from (b, vocab)) for each of ``n_tokens`` steps; a decode step
-    runs between two yields."""
+    runs between two yields.  ``enc_out``: an encoder-decoder's encoder
+    output (b, enc_seq, d_model), whose cross keys and values the prefill
+    computes once."""
     s = prompt.shape[1]
-    logits, cache = model.prefill(prompt)
+    logits, cache = model.prefill(prompt, enc_out)
     cache = model.pad_cache(cache, n_tokens)
     gen = torch.Generator(device=prompt.device).manual_seed(seed)
     for t in range(n_tokens):
@@ -54,12 +56,14 @@ def stream(model, prompt, n_tokens: int, *,
             logits = logits[:, 0]
 
 
-def generate(model, prompt, n_tokens: int, *,
+def generate(model, prompt, n_tokens: int, *, enc_out=None,
              sampler: SamplerConfig = SamplerConfig(), seed: int = 0):
     """Prefill the prompt, then ``n_tokens`` greedy or sampled tokens.
-    prompt: (b, s) int64 -> (b, n_tokens) int64."""
+    prompt: (b, s) int64 -> (b, n_tokens) int64; ``enc_out`` as for
+    :func:`stream`."""
     toks = [tok for tok, _logits in stream(model, prompt, n_tokens,
-                                           sampler=sampler, seed=seed)]
+                                           enc_out=enc_out, sampler=sampler,
+                                           seed=seed)]
     if not toks:
         return prompt.new_zeros((prompt.shape[0], 0))
     return torch.stack(toks, dim=1)

@@ -36,7 +36,8 @@ def grads_of(model, batch):
 def make_train_step(model, opt_cfg: AdamWConfig, accum: int = 1):
     """``step(opt_state, batch) -> (opt_state, metrics)``, metrics with
     "loss", "ce", "aux", "grad_norm" and "lr".  ``batch`` is {"tokens":
-    (b, s) tensor on the model's device}.  ``accum`` > 1 splits the batch
+    (b, s) tensor on the model's device}, with "enc_input" (b, enc_seq,
+    d_model) for an encoder-decoder.  ``accum`` > 1 splits the batch
     into that many microbatches, one after another, their gradients summed
     in float32 and divided by ``accum`` (a constant: ``div_const``, as
     XLA compiles the reference's ``g / accum``); the metrics other than
@@ -75,7 +76,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, accum: int = 1):
 
 def make_prefill_step(model):
     def prefill_step(batch):
-        return model.prefill(batch["tokens"])
+        enc_out = (model.encode(batch["enc_input"]) if model.cfg.is_encdec
+                   else None)
+        return model.prefill(batch["tokens"], enc_out)
     return prefill_step
 
 

@@ -57,7 +57,7 @@ torch.set_num_threads(1)
 RUNNABLE = ["yi-9b", "codeqwen1.5-7b", "phi3-medium-14b", "granite-34b",
             "chameleon-34b", "rwkv6-7b"]
 NOT_PORTED = {"mixtral-8x22b": "MoE", "deepseek-v2-236b": "MoE",
-              "jamba-v0.1-52b": "MoE", "whisper-medium": "encoder-decoder"}
+              "jamba-v0.1-52b": "MoE"}
 REL = 1e-4
 B, S, EXTRA, GEN = 2, 10, 4, 6
 
