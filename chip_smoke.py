@@ -229,12 +229,38 @@ no tensor-core instruction, then:
    ms, tokens/s, model FLOPs (the encoder's parameters on the frames, its
    full attention and the cross-attention counted), AdamW's share, peak
    memory; row 7g at layer 0's backward inputs;
-11. profile phase — every torch.profiler session of the run: each kernel's
+11. mixtral phase — mixtral-8x22b, the MoE layer, at full width, 8 of
+   its 56 layers (the whole model does not fit one card), bf16, weights
+   drawn on the card (seed 0): a serve call (8 prompts of 8192 tokens,
+   seed 1, so the window of 4096 binds; 32 greedy tokens) that launches
+   ``flash_attention`` exactly 8 times, all in prefill; every logit
+   finite, ``stream`` == ``generate``; prefill and per-token decode ms,
+   peak memory, the assignments each layer drops in the prefill and in
+   one decode step (capacity 20,480 and 2 an expert).  Routing at the
+   last layer on the MoE inputs of that prefill and decode step, on the
+   card against the CPU port: the float32 router logits within their
+   a-priori summation bound, choices equal except at near ties (printed),
+   weights within what the logits' difference allows, the CPU's
+   ``sort_dispatch`` of the card's choices bit-equal to the card's, and
+   the bf16 layer output within 2^-7 of max + 2^-7 |x| of the CPU port's
+   float32 on the same routing.  Row 7m at the prefill's first flash
+   inputs (8 x 8192 x 48/8 x 128, window 4096; held to 2^-7 of max
+   |plain|, the forward's bound at the models' scale, with the count
+   outside FLASH_TOL's elementwise bound printed), SDPA timed with a
+   boolean window mask.  The float32 parity at 2 layers and capacity
+   factor 16 (nothing drops) within PARITY_REL, and at the published
+   1.25 printed with its drops, not held: the capacity depends on how
+   many tokens a call routes, so forward, prefill and decode drop
+   differently, in the reference too.  The JAX record
+   ``assets/lm_moe_reference.npz`` through the kernels in float32
+   (``moe_record_check``: forward, loss with ce and aux, served logits
+   and greedy tokens within max(1e-4, E), every layer's drops equal);
+12. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each, whisper's included (each model built anew when
-   its profile runs),
+   training step of each, whisper's and mixtral's included (each model
+   built anew when its profile runs; the card's activity alone),
    the serving dispatches' kernel launches by the profiler's names (held
    to the wrappers' counts), with the funnel's host time just before and
    just after the sessions.
@@ -3466,9 +3492,11 @@ FLASH_BWD_KERNEL = {"bfloat16": "tensor_core (wgmma + TMA)",
 
 
 def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
-              label="", f32=False):
+              label="", f32=False, o_rel=None):
     """``flash_attention`` against its plain streaming form on (q, k, v)
-    in the model's layout (bf16, within atol + rtol |plain|), timed beside
+    in the model's layout (bf16, within atol + rtol |plain|, or with
+    ``o_rel`` within o_rel of max |plain|, the count outside the
+    elementwise bound printed), timed beside
     ``scaled_dot_product_attention`` (with a window, through a dense
     boolean mask on the efficient backend).  With ``f32`` the
     same inputs in float32 too (within FLASH_F32_TOL), a row of their own.
@@ -3488,13 +3516,18 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
     scale = d ** -0.5
     pos = torch.arange(s, device=q.device)
     n_ops = 4 * b * H * d * _causal_pairs(s, window)
+    # the plain form's key chunk: its float32 logits (b, H, s, chunk) and
+    # their exponentials within 4 GiB each (8 x 48 x 8192 at 7m: 256)
+    chunk = 1024
+    while b * H * s * chunk * 4 > 2 ** 32:
+        chunk //= 2
 
     def one(q, k, v, atol, rtol, backend, peak_ops, launches):
         dtype = str(q.dtype).split(".")[-1]
 
         def plain():
             return mha_streaming(q, expand_kv(k, H), expand_kv(v, H), pos,
-                                 pos, scale, window=window)
+                                 pos, scale, window=window, chunk=chunk)
 
         got = fcuda.flash_attention_cuda(q, k, v, window=window, scale=scale)
         want = plain()
@@ -3502,11 +3535,14 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
         rms = float(want.double().square().mean().sqrt())
         n_bad = int(((got.double() - want.double()).abs()
                      > atol + rtol * want.double().abs()).sum())
+        top = float(want.abs().max())
         print(f"flash_attention {label} {dtype}, kernel {FLASH_KERNEL[dtype]}"
-              f": max |err| {err:g} (max |plain| {float(want.abs().max()):g},"
-              f" rms {rms:.4g}; bound {atol:g} + {rtol:g} |plain|)",
-              flush=True)
-        if n_bad:
+              f": max |err| {err:g} (max |plain| {top:g}, rms {rms:.4g}); "
+              f"{n_bad} of {want.numel()} values outside {atol:g} + {rtol:g}"
+              f" |plain|" + ("" if o_rel is None else
+                              f"; {err / top:.3g} of max |plain| (bound "
+                              f"{o_rel:g})"), flush=True)
+        if (n_bad if o_rel is None else err > o_rel * top):
             raise AssertionError(f"flash_attention {label} {dtype}: {n_bad} "
                                  "values outside the bound")
         del got
@@ -3519,12 +3555,14 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
             i = torch.arange(s, device=q.device)
             mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
             backend_used = SDPBackend.EFFICIENT_ATTENTION
+            # and the kv heads repeated, as row 7h gives that backend
+            kt, vt = (expand_kv(t, H).transpose(1, 2) for t in (k, v))
 
         def library():
             with sdpa_kernel(backend_used):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=KV != H)
+                    enable_gqa=kt.shape[1] != H)
 
         try:
             lib_err = max_abs_err(library().transpose(1, 2), want)
@@ -4977,6 +5015,448 @@ def whisper_phase(probes, device="cuda"):
     return [fwd_row, bwd_row], targets, r
 
 
+# -- mixtral: the MoE layer ------------------------------------------------------
+
+MIXTRAL = "mixtral-8x22b"
+# the serve call: 8 of 56 layers at full width in bf16 (the whole model,
+# 140.6 B parameters, does not fit one card), 8 requests of 8192-token
+# prompts (the window of 4096 binds from position 4096 on; the published
+# context is 64k), 32 greedy tokens
+MIXTRAL_LAYERS = 8
+MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_GEN = 8, 8192, 32
+# the float32 parity: the reference's own parity test raises the capacity
+# factor so that nothing drops (tests/test_models.py:22-26, _f32_nodrop).
+# Two layers: at 4 the stacked init's random experts turn the model
+# chaotic (benchmarks/torch_mixtral_probe.py --only parity)
+NODROP_FACTOR = 16.0
+MIXTRAL_PARITY_LAYERS = 2
+# routing on the card against the CPU port on the same input: a differing
+# choice must be a near tie, its two CPU probabilities within this many
+# float32 ulps of the larger
+NEAR_TIE_ULPS = 4
+# the bf16 layer output against the CPU port's float32 on the same routing:
+# within 2^-7 of max |float32| + 2^-7 |float32| (h and the expert outputs
+# are rounded to bf16 there; 0.23 of this bound at full width on the CPU)
+MOE_BF16_REL = 2.0 ** -7
+MOE_ROWS = 64             # prefill tokens recomputed in float32 on the CPU
+
+
+class _Drops:
+    """The assignments each MoE dispatch drops while active, in call order
+    (one call a MoE layer): a spy on ``models.moe.sort_dispatch``, which
+    reads each call's count (a host sync: not for timed runs)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.module, self.fn, self.log = moe, moe.sort_dispatch, []
+
+    def __enter__(self):
+        def spy(*args):
+            out = self.fn(*args)
+            self.log.append(int((~out[2]).sum()))
+            return out
+        self.module.sort_dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sort_dispatch = self.fn
+
+
+class _MoEInputs:
+    """The inputs ``models.moe.moe_ffn`` gets from one layer (its ``mlp``
+    parameters ``params``) while active, cloned, in call order."""
+
+    def __init__(self, params):
+        from repro_torch.models import moe
+
+        self.module, self.fn, self.params, self.xs = moe, moe.moe_ffn, params, []
+
+    def __enter__(self):
+        def spy(params, cfg, m, x):
+            if params is self.params:
+                self.xs.append(x.clone())
+            return self.fn(params, cfg, m, x)
+        self.module.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_ffn = self.fn
+
+
+def moe_record_check(model, rec, extras):
+    """The port against the JAX MoE record (``assets/lm_moe_reference.npz``,
+    mixtral's smoke config in float32 at capacity factor 1.25): the full
+    forward's logits, the loss with its ce and aux, and (``lm_record_check``)
+    the prefill, 16 teacher-forced decode steps and greedy tokens, each
+    within max(RECORD_REL, E) of its largest entry, E the record's one-ulp
+    sensitivity of that output; the assignments each layer drops in the
+    forward, the prefill and every decode step equal to JAX's.  Returns
+    the readings."""
+    import torch
+
+    dev = model.device
+    L, n = rec.cfg.n_layers, rec.teacher.shape[1]
+    sens = extras["sensitivity"]
+    toks = torch.as_tensor(np.concatenate([rec.prompts, rec.teacher], 1),
+                           dtype=torch.long, device=dev)
+    with _Drops() as fwd:
+        logits = model.logits(toks).float().cpu().numpy()
+    with torch.no_grad():
+        loss, metrics = model.loss({"tokens": toks})
+    want = extras["logits"]
+    out = {"logits": float(np.abs(logits - want).max() / np.abs(want).max())}
+    for k, got in (("loss", loss), ("ce", metrics["ce"]),
+                   ("aux", metrics["aux"])):
+        out[k] = abs(float(got) - float(extras[k])) / abs(float(extras[k]))
+    for k, v in out.items():
+        if not v <= max(RECORD_REL, sens[k]):
+            raise AssertionError(f"MoE record {k}: {v:.3g} from JAX, bound "
+                                 f"{max(RECORD_REL, sens[k]):.3g}")
+    with _Drops() as served:
+        out["served"], out["served_bound"], out["greedy_compared"] = \
+            lm_record_check(model, rec)
+    drops = {"forward": fwd.log[:L], "prefill": served.log[:L],
+             "decode": np.reshape(served.log[L:L + n * L], (n, L)).tolist()}
+    for k, got in drops.items():
+        if not np.array_equal(got, extras[f"{k}_drops"]):
+            raise AssertionError(f"MoE record: {k} drops {got}, JAX's "
+                                 f"{extras[f'{k}_drops'].tolist()}")
+    out["drops"] = drops
+    return out
+
+
+def mixtral_cfg(layers=None, **kw):
+    """mixtral-8x22b at full width, ``layers`` deep (MIXTRAL_LAYERS when
+    None), fields ``kw`` replaced."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(MIXTRAL), n_layers=layers
+                               or MIXTRAL_LAYERS, **kw)
+
+
+def mixtral_serve_call(device):
+    """The serve call of ``mixtral_serve_phase`` on a model built anew
+    from the same seeds, for the profile phase: (model, prompts, call)."""
+    from repro_torch.launch.serve import build_model, make_prompts
+    from repro_torch.serve.engine import generate
+
+    cfg = mixtral_cfg()
+    model = build_model(cfg, device, seed=0)
+    prompts = make_prompts(cfg, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, seed=1,
+                           device=device)
+    return model, prompts, lambda: generate(model, prompts, MIXTRAL_GEN)
+
+
+def moe_rows_f32(p, m, xt, idx, w, keep, rows):
+    """The MoE output of tokens ``rows`` of ``xt`` in float32 on the CPU,
+    given the routing (idx, w, keep): each kept choice's expert in
+    float32 (``moe._expert_ffn`` on float32 weights), weighted and summed."""
+    import torch
+
+    from repro_torch.models import moe
+
+    x = xt[rows].float()
+    idx, w, keep = idx[rows], w[rows], keep[rows]
+    out = torch.zeros(x.shape, dtype=torch.float32)
+    for e in torch.unique(idx[keep]).tolist():
+        r, j = ((idx == e) & keep).nonzero(as_tuple=True)
+        y = moe._expert_ffn(*(p[k][e:e + 1].cpu().float()
+                              for k in ("w_gate", "w_up", "w_down")),
+                            x[r][None])[0]
+        out.index_add_(0, r, y * w[r, j, None])
+    return out
+
+
+def routing_check(p, m, x, label, n_rows=None):
+    """One layer's MoE on the card against the CPU port, on the input
+    ``x`` that the serve call gave it: the float32 router logits, each
+    within the a-priori bound of two float32 sums of d products (2 d
+    2^-24 sum |x w|); the choices (a differing one must be a near tie: its
+    two CPU probabilities within NEAR_TIE_ULPS ulps); the weights where
+    the choices agree, within what the logits' difference moves them (a
+    top-k weight moves at most half the largest logit move of its row,
+    plus 1e-6 of rounding); the CPU's ``sort_dispatch`` of the card's
+    choices (slot and keep bit-equal to the card's); and the card's bf16
+    output against the CPU port's float32 on that routing (all tokens, or
+    ``n_rows`` drawn ones whose choices agree; MOE_BF16_REL).  Returns the
+    readings."""
+    import torch
+
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    t, e = xt.shape[0], m.n_experts
+    cap = moe._capacity(t, m)
+    w_card, idx_card, aux_card = moe.router_topk(p["router"], m, xt)
+    _, slot_card, keep_card = moe.sort_dispatch(xt, idx_card, e, cap)
+    y_card = moe._moe_local(p, m, xt)[0].float().cpu()
+    logits_card = (xt.float() @ p["router"]).cpu()
+    torch.cuda.synchronize()
+    idx_card, w_card, slot_card, keep_card = (
+        a.cpu() for a in (idx_card, w_card, slot_card, keep_card))
+
+    xt_cpu, router = xt.cpu(), p["router"].cpu()
+    w_cpu, idx_cpu, aux_cpu = moe.router_topk(router, m, xt_cpu)
+    logits = xt_cpu.float() @ router
+    probs = torch.softmax(logits, dim=-1)
+    dlogit = (logits_card - logits).abs()
+    sum_bound = (2 * xt.shape[-1] * 2.0 ** -24
+                 * (xt_cpu.double().abs() @ router.double().abs()))
+    logit_of_bound = float((dlogit / sum_bound).max())
+    w_bound = 0.5 * dlogit.max(dim=-1).values[:, None] + 1e-6
+    r, j = (idx_card != idx_cpu).nonzero(as_tuple=True)
+    pa, pb = probs[r, idx_card[r, j]], probs[r, idx_cpu[r, j]]
+    top = torch.maximum(pa, pb)
+    ulps = (pa - pb).abs() / (torch.nextafter(top, torch.tensor(np.inf)) - top)
+    agree = (idx_card == idx_cpu).all(dim=-1)
+    w_of_bound = (float(((w_card - w_cpu).abs() / w_bound)[agree].max())
+                  if agree.any() else 0.0)
+    _, slot_cpu, keep_cpu = moe.sort_dispatch(xt_cpu[:, :1], idx_card, e, cap)
+    dispatch_equal = (torch.equal(slot_cpu, slot_card)
+                      and torch.equal(keep_cpu, keep_card))
+
+    if n_rows is None:
+        rows = torch.arange(t)
+    else:
+        gen = torch.Generator().manual_seed(6)
+        pool = agree.nonzero()[:, 0]
+        rows = pool[torch.randperm(len(pool), generator=gen)[:n_rows]]
+        dropped = ((~keep_card).any(-1) & agree).nonzero()[:, 0]
+        rows = torch.cat([rows, dropped[:4]])      # a few with a drop
+    want = moe_rows_f32(p, m, xt_cpu, idx_card, w_cpu, keep_card, rows)
+    got = y_card[rows]
+    err = (got - want).abs()
+    bound = MOE_BF16_REL * float(want.abs().max()) + MOE_BF16_REL * want.abs()
+    worst = float((err / bound).max())
+    print(f"mixtral routing {label} ({t} tokens, capacity {cap}): "
+          f"{len(r)} of {idx_card.numel()} choices differ from the CPU "
+          f"port's, {int((ulps <= NEAR_TIE_ULPS).sum())} of them near ties "
+          f"(probabilities {[round(float(u), 1) for u in ulps[:8]]} ulps "
+          f"apart, bound {NEAR_TIE_ULPS}); logits within {float(dlogit.max()):.3g}"
+          f" ({logit_of_bound:.3g} of their float32 sums' bound, max |logit| "
+          f"{float(logits.abs().max()):.4g}); top_w where the choices agree "
+          f"within {float((w_card - w_cpu)[agree].abs().max()):.3g} "
+          f"({w_of_bound:.3g} of the bound the logits give); aux {float(aux_card):.6g}"
+          f" (CPU {float(aux_cpu):.6g}); sort_dispatch on the CPU of the "
+          f"card's choices: slot and keep "
+          f"{'bit-equal' if dispatch_equal else 'DIFFER'}, "
+          f"{int((~keep_card).sum())} of {keep_card.numel()} dropped; the "
+          f"layer's bf16 output on {len(rows)} tokens within "
+          f"{float(err.max()):.4g} of the CPU port's float32 (max |float32| "
+          f"{float(want.abs().max()):.4g}; {worst:.3g} of the bound "
+          f"{MOE_BF16_REL:g} max + {MOE_BF16_REL:g} |x|)", flush=True)
+    if not (ulps <= NEAR_TIE_ULPS).all():
+        raise AssertionError(f"mixtral routing {label}: a differing choice "
+                             "is not a near tie")
+    if not (logit_of_bound <= 1.0 and w_of_bound <= 1.0 and dispatch_equal
+            and worst <= 1.0):
+        raise AssertionError(f"mixtral routing {label}: logits "
+                             f"{logit_of_bound:.3g} and weights "
+                             f"{w_of_bound:.3g} of their bounds, dispatch "
+                             f"equal {dispatch_equal}, output {worst:.3g} of "
+                             "its bound")
+    return {"differ": len(r), "near_ties": int((ulps <= NEAR_TIE_ULPS).sum()),
+            "logits": logit_of_bound, "weights": w_of_bound,
+            "out_of_bound": worst}
+
+
+def mixtral_serve_phase(probes, device):
+    """mixtral-8x22b at full width, MIXTRAL_LAYERS of 56 layers deep, bf16,
+    weights drawn on the card (seed 0): a serve call (8 prompts of 8192
+    tokens, seed 1; 32 greedy tokens) that launches ``flash_attention``
+    exactly once a layer, all in prefill, with the window binding; every
+    logit finite; ``stream`` == ``generate``; prefill and per-token decode
+    times (host clock, median of 3), peak memory; the assignments each
+    layer drops in the prefill and in one decode step; routing on the card
+    against the CPU port at the last layer, on the MoE inputs of the
+    prefill and of that decode step.  Then row 7m at the inputs of the
+    prefill's first flash launch.  Returns (kernel row, serve ms)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import stream
+
+    t0 = time.perf_counter()
+    model, prompts, serve = mixtral_serve_call(device)
+    cfg = model.cfg
+    m = cfg.moe
+    torch.cuda.synchronize()
+    print(f"{MIXTRAL}: {cfg.n_layers} of {get_config(MIXTRAL).n_layers} "
+          f"layers, {model.n_params() / 1e9:.3f} B parameters ({model.n_active_params() / 1e9:.3f} B active a "
+          f"token) in {cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    toks = serve()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    probe = model.layers[-1].mlp
+    with _Drops() as drops, _MoEInputs(probe) as moe_in:
+        _build.reset_launches()
+        _logits, cache = model.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_counts, prefill_drops = dict(_build.launches), list(drops.log)
+        cache = model.pad_cache(cache, 1)
+        _build.reset_launches()
+        drops.log.clear()
+        model.decode_step(toks[:, :1], cache, MIXTRAL_PROMPT)
+        torch.cuda.synchronize()
+        decode_counts, decode_drops = dict(_build.launches), list(drops.log)
+    del cache, _logits
+    print(f"{MIXTRAL} serve call launches {counts}, prefill alone "
+          f"{prefill_counts}, a decode step {decode_counts}; assignments "
+          f"dropped a layer: prefill {prefill_drops} of "
+          f"{MIXTRAL_REQUESTS * MIXTRAL_PROMPT * m.top_k} (capacity "
+          f"{moe._capacity(MIXTRAL_REQUESTS * MIXTRAL_PROMPT, m)} an expert),"
+          f" a decode step {decode_drops} of {MIXTRAL_REQUESTS * m.top_k} "
+          f"(capacity {moe._capacity(MIXTRAL_REQUESTS, m)})", flush=True)
+    want = {"flash_attention": cfg.n_layers}
+    if (counts != want or prefill_counts != want or any(decode_counts.values())
+            or len(prefill_drops) != cfg.n_layers
+            or len(decode_drops) != cfg.n_layers):
+        raise AssertionError(f"{MIXTRAL}: launches {counts} a serve call, "
+                             f"{prefill_counts} in prefill, {decode_counts} "
+                             f"in a decode step; expected {want}, all in "
+                             f"prefill; {len(prefill_drops)} and "
+                             f"{len(decode_drops)} MoE dispatches")
+
+    with _Capture(flash_ops, "flash_attention") as cap:
+        steps = list(stream(model, prompts, MIXTRAL_GEN))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(lg).all()) for _t, lg in steps)
+    same = torch.equal(torch.stack([t for t, _lg in steps], 1), toks)
+    del steps
+    if not finite or not same:
+        raise AssertionError(f"{MIXTRAL}: finite logits {finite}, stream == "
+                             f"generate {same}")
+
+    prefill_ms = host_ms(lambda: model.prefill(prompts), reps=3)
+    serve_ms = host_ms(serve, reps=3)
+    decode_ms = (serve_ms - prefill_ms) / (MIXTRAL_GEN - 1)
+    print(f"{MIXTRAL} serve ({MIXTRAL_REQUESTS} x {MIXTRAL_PROMPT} prompt "
+          f"tokens, window {cfg.window}, {MIXTRAL_GEN} greedy tokens): "
+          f"prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms per "
+          f"token, serve call {serve_ms:.3f} ms = "
+          f"{1e3 * MIXTRAL_REQUESTS * MIXTRAL_GEN / serve_ms:.1f} generated "
+          f"tokens/s (host clock, median of 3); peak {peak / 2 ** 30:.2f} GiB"
+          f" ({resident / 2 ** 30:.2f} GiB resident before the call); every "
+          "logit finite, stream == generate", flush=True)
+
+    x_prefill, x_decode = moe_in.xs
+    routing_check(probe, m, x_decode, f"layer {cfg.n_layers - 1}, decode "
+                  "step")
+    routing_check(probe, m, x_prefill, f"layer {cfg.n_layers - 1}, prefill",
+                  n_rows=MOE_ROWS)
+    del model, prompts, serve, x_prefill, x_decode, moe_in, probe
+    free_card()
+    q, k, v = cap.args
+    rows = flash_row(probes, q, k, v, want["flash_attention"], FLASH_TOL,
+                     FLASH_TOL, window=cfg.window, o_rel=FLASH_O_REL,
+                     label=f"mixtral prefill {'x'.join(map(str, q.shape))}"
+                     f"/{k.shape[2]} window {cfg.window}")
+    return rows[0], serve_ms
+
+
+def mixtral_parity_phase(device):
+    """Full width, MIXTRAL_PARITY_LAYERS deep, float32: prefill (kernel) +
+    decode steps (plain) against the full forward (kernel) at capacity factor
+    NODROP_FACTOR, where nothing drops, within PARITY_REL of the largest
+    |logit|, E printed beside it; then the same at the published 1.25 with
+    the assignments dropped, printed and not held: the capacity depends on
+    how many tokens a call routes, so the forward, the prefill and a
+    decode step drop differently, in the reference too."""
+    import torch
+
+    L = MIXTRAL_PARITY_LAYERS
+    nodrop = mixtral_cfg(L, param_dtype=torch.float32)
+    nodrop = dataclasses.replace(nodrop, moe=dataclasses.replace(
+        nodrop.moe, capacity_factor=NODROP_FACTOR))
+    depth = f"{L} layers, B={PARITY_B}, S={PARITY_S} + {PARITY_EXTRA}"
+    with _Drops() as drops:
+        steps, top, sens = parity_reading(nodrop, device)
+    free_card()
+    rel = max(steps) if steps is not None else float("inf")
+    print(f"{MIXTRAL} float32, {depth}, capacity factor {NODROP_FACTOR:g} "
+          f"({sum(drops.log)} assignments dropped in all): prefill/decode vs "
+          f"forward rel {rel:.3g} of max |logit| {top:.4g} (per step "
+          f"{[f'{e:.3g}' for e in steps or []]}); bound {PARITY_REL:g}; "
+          f"one-ulp sensitivity E {sens:.3g}", flush=True)
+    if rel >= PARITY_REL:
+        raise AssertionError(f"{MIXTRAL}: prefill/decode diverge from the "
+                             f"forward ({rel:.3g} >= {PARITY_REL:g})")
+    published = mixtral_cfg(L, param_dtype=torch.float32)
+    with _Drops() as drops:
+        steps, top, sens = parity_reading(published, device)
+    free_card()
+    log = drops.log
+    print(f"{MIXTRAL} float32, {depth}, the published capacity factor "
+          f"{published.moe.capacity_factor:g} (not held: capacity depends on "
+          f"the call's token count): prefill/decode vs forward per step "
+          f"{[f'{e:.3g}' for e in steps or []]} of max |logit| {top:.4g}; "
+          f"assignments dropped a layer: forward {log[:L]}, prefill "
+          f"{log[L:2 * L]}, decode steps "
+          f"{[log[i:i + L] for i in range(2 * L, (2 + PARITY_EXTRA) * L, L)]}"
+          f"; E {sens:.3g}", flush=True)
+
+
+def mixtral_record_phase(device):
+    """``assets/lm_moe_reference.npz`` on the card through the kernels in
+    float32 (``moe_record_check``)."""
+    import torch
+
+    from repro_torch.bridge import (
+        lm_params_from,
+        load_lm_moe_reference,
+        numpy_lm_params,
+    )
+    from repro_torch.kernels import _build
+
+    rec, extras = load_lm_moe_reference()
+    model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
+                           device=device)
+    _build.reset_launches()
+    r = moe_record_check(model, rec, extras)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    if counts.get("flash_attention", 0) < 1:
+        raise AssertionError(f"MoE record: flash_attention never launched: "
+                             f"{counts}")
+    e = extras["sensitivity"]
+    print(f"JAX record mixtral ({rec.cfg.n_layers} layers, "
+          f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens, window "
+          f"{rec.cfg.window}, capacity factor {rec.cfg.moe.capacity_factor:g}"
+          f", float32): forward logits within {r['logits']:.3g} (E "
+          f"{e['logits']:.3g}); loss {r['loss']:.3g}, ce {r['ce']:.3g}, aux "
+          f"{r['aux']:.3g} (E {e['loss']:.3g}, {e['ce']:.3g}, {e['aux']:.3g});"
+          f" served logits {r['served']:.3g} (bound {r['served_bound']:.3g});"
+          f" {r['greedy_compared']} of {rec.greedy.size} greedy tokens "
+          f"compared, all equal; drops equal to JAX's: forward "
+          f"{r['drops']['forward']}, prefill {r['drops']['prefill']}, decode "
+          f"steps {sum(map(sum, r['drops']['decode']))} in all; launches "
+          f"{counts}", flush=True)
+
+
+def mixtral_phase(probes, device="cuda"):
+    """The MoE slice: the serve call, routing on the card, row 7m, float32
+    parity and the JAX record.  Returns (kernel rows, profile targets)."""
+    t0 = time.perf_counter()
+    row, serve_ms = mixtral_serve_phase(probes, device)
+    mixtral_parity_phase(device)
+    mixtral_record_phase(device)
+    free_card()
+    targets = [(f"{MIXTRAL} serve call ({MIXTRAL_LAYERS} layers)",
+                Deferred(lambda: mixtral_serve_call(device)[-1]), serve_ms)]
+    print(f"mixtral phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return [row], targets
+
+
 def profile_phase(label, fn, wall_ms, sessions=1):
     """Device time by kernel over one call (torch.profiler), against the
     call's unprofiled wall time.  With ``sessions`` > 1 the call is
@@ -4990,8 +5470,10 @@ def profile_phase(label, fn, wall_ms, sessions=1):
     fn()
     torch.cuda.synchronize()
     for session in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the card's activity alone: with the host's too, reading a serve
+        # call's ~1e5 launches back takes minutes for the same kernels,
+        # launches and busy time (benchmarks/torch_mixtral_probe.py)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
@@ -5187,6 +5669,10 @@ def main() -> int:
     whisper_rows, whisper_targets, _whisper = whisper_phase(probes)
     rows += whisper_rows
     targets += whisper_targets
+    free_card()
+    mixtral_rows, mixtral_targets = mixtral_phase(probes)
+    rows += mixtral_rows
+    targets += mixtral_targets
     profiles_phase(ex, frames, targets + [offload_target], probes,
                    dispatches)
 

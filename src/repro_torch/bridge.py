@@ -96,6 +96,7 @@ SERVING_ASSET = ASSET.parent / "serving_reference.npz"
 TRAIN_ASSET = ASSET.parent / "train_reference.npz"
 LM_TRAIN_ASSET = ASSET.parent / "lm_train_reference.npz"
 LM_ENCDEC_ASSET = ASSET.parent / "lm_encdec_reference.npz"
+LM_MOE_ASSET = ASSET.parent / "lm_moe_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -452,6 +453,36 @@ def load_lm_reference(path=None) -> dict:
                 "prompts", "teacher", "prefill_logits", "decode_logits",
                 "greedy", "greedy_gap", "greedy_max")})
     return out
+
+
+def load_lm_moe_reference(path=None):
+    """(:class:`LMRecord`, extras) of the JAX MoE record (mixtral's smoke
+    config in float32 at capacity factor 1.25): the record's served
+    logits and greedy tokens with E of the served logits as its
+    ``sensitivity``, and ``extras`` with the full forward's "logits",
+    "loss", "ce", "aux", each layer's dropped assignments ("forward_drops"
+    and "prefill_drops" (layers,), "decode_drops" (steps, layers)), and
+    "sensitivity": E for each of "logits", "served", "loss", "ce", "aux"."""
+    import json
+
+    with np.load(LM_MOE_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    desc = json.loads(str(z["config"]))
+    cfg = dataclasses.replace(
+        get_config(desc["arch"], smoke=desc["smoke"]),
+        param_dtype=torch.float32, **desc["overrides"])
+    sens = json.loads(str(z["sensitivity"]))
+    rec = LMRecord(cfg=cfg, seed=int(z["seed"]),
+                   sensitivity=float(sens["served"]), **{
+                       f: z[f] for f in (
+                           "prompts", "teacher", "prefill_logits",
+                           "decode_logits", "greedy", "greedy_gap",
+                           "greedy_max")})
+    extras = {k: z[k] for k in ("logits", "loss", "ce", "aux",
+                                "forward_drops", "prefill_drops",
+                                "decode_drops")}
+    extras["sensitivity"] = sens
+    return rec, extras
 
 
 # -- training trees -----------------------------------------------------------

@@ -114,10 +114,12 @@ def param_count(specs) -> int:
 
 
 def param_dict(specs: dict, device) -> torch.nn.ParameterDict:
-    """Uninitialised parameters for a flat dict of specs."""
+    """Uninitialised parameters for a dict of specs; a nested dict (a MoE
+    layer's shared experts) becomes a nested ``ParameterDict``."""
     return torch.nn.ParameterDict({
-        k: torch.nn.Parameter(torch.empty(s.shape, dtype=s.dtype,
-                                          device=device), requires_grad=False)
+        k: param_dict(s, device) if isinstance(s, dict) else
+        torch.nn.Parameter(torch.empty(s.shape, dtype=s.dtype,
+                                       device=device), requires_grad=False)
         for k, s in specs.items()})
 
 

@@ -1,5 +1,5 @@
-"""Model assembly for the dense, RWKV and encoder-decoder families (the JAX
-package's ``models/transformer.py`` on one card).
+"""Model assembly for the dense, MoE, RWKV and encoder-decoder families
+(the JAX package's ``models/transformer.py`` on one card).
 
 The reference stacks parameters and caches per period of layer kinds and
 scans over them; here each layer is an ``nn.Module`` in a Python loop and
@@ -22,9 +22,14 @@ layer's cross keys and values, computed once per request in
 share a dtype: where the reference's scan would promote the stream it
 raises, and the port raises a ``ValueError``.
 
-MoE, MLA, Mamba and dense-prefix configurations raise
-``NotImplementedError`` at construction; of the ten configs, yi-9b,
-codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b, rwkv6-7b and
+A MoE layer (``models/moe.py``) returns its router's auxiliary loss;
+:meth:`Model.forward` sums it over layers when asked (``with_aux``) and
+:meth:`Model.loss` adds it to the cross-entropy, as the reference does.
+Prefill and decode drop it.
+
+MLA, Mamba and dense-prefix configurations raise ``NotImplementedError``
+at construction; of the ten configs, yi-9b, codeqwen1.5-7b,
+phi3-medium-14b, granite-34b, chameleon-34b, mixtral-8x22b, rwkv6-7b and
 whisper-medium run.
 """
 
@@ -39,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     dense,
@@ -89,8 +95,6 @@ def find_period(kinds: list) -> int:
 
 def unsupported(cfg):
     """What of ``cfg`` the port cannot run yet, or None."""
-    if cfg.moe is not None:
-        return "MoE"
     if cfg.attn_type == "mla":
         return "MLA attention"
     if cfg.mixer == "mamba":
@@ -121,6 +125,8 @@ def _apply_norm(p, cfg, x):
 
 def _mlp_specs(cfg, kind: str):
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    if kind == "moe":
+        return moe_lib.moe_specs(cfg, cfg.moe)
     if kind == "swiglu":
         return {"w_gate": spec((d, f), dtype=dt),
                 "w_up": spec((d, f), dtype=dt),
@@ -172,13 +178,18 @@ def check_enc_dtype(x, enc_out):
 
 
 def _apply_mlp(p, cfg, kind: str, x, cm_state=None):
-    """Returns (out, new channel-mix state or None)."""
+    """Returns (out, aux loss, new channel-mix state or None)."""
+    if kind == "moe":
+        y, aux = moe_lib.moe_ffn(p, cfg, cfg.moe, x)
+        return y, aux, None
     if kind == "swiglu":
-        return swiglu(p["w_gate"], p["w_up"], p["w_down"], x), None
+        return swiglu(p["w_gate"], p["w_up"], p["w_down"], x), 0.0, None
     if kind == "gelu":
-        return gelu_mlp(p["w_fc"], p["b_fc"], p["w_proj"], p["b_proj"], x), None
+        return (gelu_mlp(p["w_fc"], p["b_fc"], p["w_proj"], p["b_proj"], x),
+                0.0, None)
     if kind == "rwkv_cm":
-        return ssm.rwkv_channel_mix(p, cfg, x, cm_state)
+        y, last = ssm.rwkv_channel_mix(p, cfg, x, cm_state)
+        return y, 0.0, last
     raise ValueError(kind)
 
 
@@ -196,9 +207,10 @@ class DecoderLayer(nn.Module):
             setattr(self, part, param_dict(sp, device))
 
     def forward(self, x, positions, enc_out=None):
-        """Full sequence -> (x, this layer's decode-cache entry).  An
-        encoder-decoder layer attends to ``enc_out`` after its mixer, and
-        its entry holds the cross keys and values under "cross"."""
+        """Full sequence -> (x, this layer's decode-cache entry, its MoE
+        aux loss or 0.0).  An encoder-decoder layer attends to ``enc_out``
+        after its mixer, and its entry holds the cross keys and values
+        under "cross"."""
         cfg = self.cfg
         mixer, mlp = self.kind
         h = _apply_norm(self.norm1, cfg, x)
@@ -215,10 +227,10 @@ class DecoderLayer(nn.Module):
             x = x + attn.cross_attend(self.cross, cfg, h, k, v)
             entry = dict(entry, cross={"k": k, "v": v})
         h = _apply_norm(self.norm2, cfg, x)
-        mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h)
+        mo, aux, new_cm = _apply_mlp(self.mlp, cfg, mlp, h)
         if new_cm is not None:
             entry = dict(entry, x_prev_cm=new_cm)
-        return x + mo, entry
+        return x + mo, entry, aux
 
     def decode(self, x, cache, position: int):
         """One token against this layer's cache -> (x, new cache)."""
@@ -239,7 +251,7 @@ class DecoderLayer(nn.Module):
             new_cache = dict(new_cache, cross=cache["cross"])
         h = _apply_norm(self.norm2, cfg, x)
         cm_state = cache["x_prev_cm"] if mixer == "rwkv" else None
-        mo, new_cm = _apply_mlp(self.mlp, cfg, mlp, h, cm_state)
+        mo, _aux, new_cm = _apply_mlp(self.mlp, cfg, mlp, h, cm_state)
         if new_cm is not None:
             new_cache = dict(new_cache, x_prev_cm=new_cm)
         return x + mo, new_cache
@@ -259,8 +271,8 @@ class EncoderLayer(nn.Module):
         cfg = self.cfg
         x = x + attn.bidir_attention(self.mixer, cfg,
                                      _apply_norm(self.norm1, cfg, x))
-        mo, _ = _apply_mlp(self.mlp, cfg, cfg.mlp_type,
-                           _apply_norm(self.norm2, cfg, x))
+        mo, _aux, _ = _apply_mlp(self.mlp, cfg, cfg.mlp_type,
+                                 _apply_norm(self.norm2, cfg, x))
         return x + mo
 
 
@@ -327,6 +339,24 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return param_count(self.specs())
 
+    def n_active_params(self) -> int:
+        """Parameters a token uses: the routed experts' leaves (a body of
+        (n_experts, ., .) under w_gate, w_up or w_down, outside "shared")
+        count top_k / n_experts of their size, as the reference's."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.moe is None:
+            return total
+        routed = 0
+        for path, s in tree_leaves(self.specs()):
+            body = s.shape[1:] if path[0] in STACKED else s.shape
+            if (len(body) == 3 and body[0] == cfg.moe.n_experts
+                    and path[-1] in ("w_gate", "w_up", "w_down")
+                    and "shared" not in path):
+                routed += math.prod(s.shape)
+        return total - routed + int(routed * cfg.moe.top_k
+                                    / cfg.moe.n_experts)
+
     def named_leaves(self) -> dict:
         """name -> parameter, in the reference's leaf order (a stacked
         leaf's slices in layer order): the order in which the optimizer
@@ -339,19 +369,23 @@ class Model(nn.Module):
         """(path, spec, tensors) for every leaf of the reference's tree;
         ``tensors`` are the port's parameters that hold its slices along
         the stacked axis (one for an unstacked leaf)."""
+        def leaf(owner, keys):      # a part, then its (nested) names
+            a = getattr(owner, keys[0])
+            for k in keys[1:]:
+                a = a[k]
+            return a
+
         for path, s in tree_leaves(self.specs()):
             if path[0] == "stack":
                 j = int(path[1][3:])
-                part, name = path[2], path[3]
-                yield path, s, [getattr(self.layers[i], part)[name]
+                yield path, s, [leaf(self.layers[i], path[2:])
                                 for i in range(j, len(self.layers),
                                                self.period)]
             elif path[0] == "enc_stack":
-                part, name = path[1], path[2]
-                yield path, s, [getattr(layer, part)[name]
+                yield path, s, [leaf(layer, path[1:])
                                 for layer in self.enc_layers]
             else:
-                yield path, s, [getattr(self, path[0])[path[1]]]
+                yield path, s, [leaf(self, path)]
 
     @torch.no_grad()
     def init(self, generator: torch.Generator):
@@ -396,10 +430,12 @@ class Model(nn.Module):
 
     def _period(self, i: int, x, positions, enc_out=None):
         """Layers i .. i + period - 1 (one period of the reference's
-        scanned stack) -> x."""
+        scanned stack) -> (x, the period's MoE aux loss)."""
+        aux_total = 0.0
         for layer in self.layers[i:i + self.period]:
-            x, _entry = layer(x, positions, enc_out)
-        return x
+            x, _entry, aux = layer(x, positions, enc_out)
+            aux_total = aux_total + aux
+        return x, aux_total
 
     def encode(self, enc_input):
         """enc_input: (b, enc_seq, d_model) precomputed frame embeddings
@@ -417,45 +453,54 @@ class Model(nn.Module):
                  else layer(x))
         return _apply_norm(self.enc_final_norm, self.cfg, x)
 
-    def forward(self, tokens, enc_out=None):
-        """tokens: (b, s) -> logits (b, s, vocab), the full forward;
-        ``enc_out`` is the encoder output of an encoder-decoder.  Under
-        autograd with ``cfg.remat`` each period runs under
-        ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward), as the reference's ``jax.checkpoint`` of its period."""
+    def forward(self, tokens, enc_out=None, with_aux=False):
+        """tokens: (b, s) -> logits (b, s, vocab), the full forward, and
+        with ``with_aux`` the MoE aux loss summed over layers (float32,
+        0 without MoE) beside them; ``enc_out`` is the encoder output of
+        an encoder-decoder.  Under autograd with ``cfg.remat`` each period
+        runs under ``torch.utils.checkpoint`` (its activations recomputed
+        in the backward), as the reference's ``jax.checkpoint`` of its
+        period."""
         x = embed(self.embed, tokens)
         positions = self._positions(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux_total = 0.0
         for i in range(0, len(self.layers), self.period):
             if remat:
-                x = checkpoint(self._period, i, x, positions, enc_out,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._period, i, x, positions, enc_out,
+                                    use_reentrant=False)
             else:
-                x = self._period(i, x, positions, enc_out)
-        return self._head(x)
+                x, aux = self._period(i, x, positions, enc_out)
+            aux_total = aux_total + aux
+        logits = self._head(x)
+        if not with_aux:
+            return logits
+        return logits, torch.as_tensor(aux_total, dtype=torch.float32,
+                                       device=x.device)
 
     @torch.no_grad()
-    def logits(self, tokens, enc_out=None):
-        """tokens: (b, s) -> logits (b, s, vocab), without autograd."""
-        return self.forward(tokens, enc_out)
+    def logits(self, tokens, enc_out=None, with_aux=False):
+        """tokens: (b, s) -> logits (b, s, vocab) (and the aux loss with
+        ``with_aux``), without autograd."""
+        return self.forward(tokens, enc_out, with_aux)
 
     def loss(self, batch):
-        """Next-token cross-entropy: (loss, {"ce", "aux"}); ``batch`` is
-        {"tokens"} and, for an encoder-decoder, "enc_input" too.  ``aux``
-        (the reference's MoE balance loss) is 0 for every family the port
-        runs.  The gold logit is a gather, which gives the bits of the
-        reference's masked sum: that sum adds zeros to one value."""
+        """Next-token cross-entropy plus the MoE aux loss: (ce + aux,
+        {"ce", "aux"}); ``batch`` is {"tokens"} and, for an
+        encoder-decoder, "enc_input" too.  ``aux`` (the routers' balance
+        and z losses summed over layers) is 0 without MoE.  The gold logit
+        is a gather, which gives the bits of the reference's masked sum:
+        that sum adds zeros to one value."""
         tokens = batch["tokens"]
         enc_out = (self.encode(batch["enc_input"]) if self.cfg.is_encdec
                    else None)
-        logits = self.forward(tokens, enc_out)
+        logits, aux = self.forward(tokens, enc_out, with_aux=True)
         tgt = tokens[:, 1:].long()
         lg = logits[:, :-1].float()
         del logits
         logz = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
         ce = (logz - gold).mean()
-        aux = ce.new_zeros(())
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
@@ -470,7 +515,7 @@ class Model(nn.Module):
         positions = self._positions(tokens)
         cache = []
         for layer in self.layers:
-            x, entry = layer(x, positions, enc_out)
+            x, entry, _aux = layer(x, positions, enc_out)
             cache.append(entry)
         return self._head(x[:, -1:])[:, 0], cache
 
