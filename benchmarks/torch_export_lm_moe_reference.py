@@ -19,16 +19,23 @@ numpy's generator seeded with 1.  It stores
   = 2 slots an expert, so steps drop assignments;
 * ``generate``'s 16 greedy tokens from the prompts, with the gap between
   the top two logits and the largest |logit| at each step;
-* the number of assignments each layer drops in the forward, in the
+* the number of assignments each MoE layer drops in the forward, in the
   prefill and in each teacher-forced decode step (read by rebinding
   ``repro.models.moe.sort_dispatch`` in this process only, with an
   ordered ``jax.debug.callback``; the JAX package is not edited);
 * E for each output: ULP_MARGIN times the largest move, relative to the
   output's largest entry (each step's for the served logits), over
-  ULP_SEEDS draws that move every weight by one ulp up or down at random.
+  ULP_SEEDS draws that move every weight by one ulp up or down at random,
+  of which only the draws whose drop counts equal the record's are taken:
+  the forward's for the logits and the loss, the prefill's and every
+  decode step's for the served logits.  A port that drops otherwise fails
+  the drop check on its own, and a draw that reorders the drops moves the
+  logits by far more than rounding (0.44 of max |logit| in deepseek's
+  forward), so it would make E pass almost any answer.
 
 Only outputs and E are stored: ``numpy_lm_params`` rebuilds the weights,
-the seed the tokens.
+the seed the tokens.  ``main(out, desc)`` writes the same record for
+another MoE config (``torch_export_lm_mla_reference.py``: deepseek's).
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python benchmarks/torch_export_lm_moe_reference.py
 """
@@ -53,6 +60,13 @@ DESC = {"arch": "mixtral-8x22b", "smoke": True,
         "overrides": {"n_heads": 6, "n_kv": 1, "d_head": 128}}
 ULP_SEEDS = tuple(range(5, 29))
 ULP_MARGIN = 2
+# the fewest draws with the record's drops that an E may be taken over
+MIN_DRAWS = 8
+# each output's E is taken over the draws whose drops of these runs equal
+# the record's
+DROPS_OF = {"logits": ("forward",), "loss": ("forward",),
+            "ce": ("forward",), "aux": ("forward",),
+            "served": ("prefill", "decode")}
 
 
 def one_ulp(tree, seed):
@@ -62,6 +76,8 @@ def one_ulp(tree, seed):
     def move(a):
         if isinstance(a, dict):
             return {k: move(v) for k, v in a.items()}
+        if isinstance(a, list):
+            return [move(v) for v in a]
         away = np.where(rng.random(a.shape) < 0.5, -np.inf, np.inf)
         return np.nextafter(a, away.astype(np.float32))
 
@@ -91,20 +107,27 @@ def counting_drops(log: list):
         moe.sort_dispatch = orig
 
 
-def config():
+def config(desc=DESC):
+    """(JAX config, port config) of ``desc``, float32; an "mla" override
+    is a dict of ``MLAConfig`` fields."""
     import dataclasses
 
     import jax.numpy as jnp
     import torch
 
     from repro.configs.registry import get_config
+    from repro.models.transformer import MLAConfig
+    from repro_torch.bridge import record_overrides
     from repro_torch.configs import registry as port_registry
 
-    cfg = dataclasses.replace(get_config(DESC["arch"], smoke=DESC["smoke"]),
-                              param_dtype=jnp.float32, **DESC["overrides"])
+    over = dict(desc["overrides"])
+    if "mla" in over:
+        over["mla"] = MLAConfig(**over["mla"])
+    cfg = dataclasses.replace(get_config(desc["arch"], smoke=desc["smoke"]),
+                              param_dtype=jnp.float32, **over)
     port = dataclasses.replace(
-        port_registry.get_config(DESC["arch"], smoke=DESC["smoke"]),
-        param_dtype=torch.float32, **DESC["overrides"])
+        port_registry.get_config(desc["arch"], smoke=desc["smoke"]),
+        param_dtype=torch.float32, **record_overrides(desc))
     return cfg, port
 
 
@@ -139,7 +162,7 @@ def run(model, params, toks, drops=None):
            "loss": np.float32(loss), "ce": np.float32(metrics["ce"]),
            "aux": np.float32(metrics["aux"])}
     if drops is not None:
-        L = model.cfg.n_layers
+        L = sum(kind[1] == "moe" for kind in model.kinds)   # MoE layers
         # the forward runs twice (logits, loss): keep the first
         drops["forward"] = np.asarray(log[:L], np.int32)
         drops["prefill"] = np.asarray(log[n_fwd:n_pre], np.int32)
@@ -158,7 +181,7 @@ def rel_move(moved, base, axis=None):
                   / np.abs(base).max(axis)).max())
 
 
-def main(out=OUT):
+def main(out=OUT, desc=DESC):
     import jax
     import jax.numpy as jnp
 
@@ -167,7 +190,7 @@ def main(out=OUT):
     from repro_torch.bridge import numpy_lm_params
 
     t0 = time.perf_counter()
-    cfg, port_cfg = config()
+    cfg, port_cfg = config(desc)
     model = Model(cfg)
     tree = numpy_lm_params(port_cfg, SEED)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -176,16 +199,23 @@ def main(out=OUT):
     drops = {}
     base = run(model, params, toks, drops)
 
-    moves = {k: 0.0 for k in ("logits", "served", "loss", "ce", "aux")}
+    moves = {k: 0.0 for k in DROPS_OF}
+    draws = {k: 0 for k in DROPS_OF}
     for seed in ULP_SEEDS:
+        moved_drops = {}
         moved = run(model, jax.tree_util.tree_map(jnp.asarray,
-                                                  one_ulp(tree, seed)), toks)
-        moves["logits"] = max(moves["logits"],
-                              rel_move(moved["logits"], base["logits"]))
-        moves["served"] = max(moves["served"], rel_move(
-            moved["served"], base["served"], axis=-1))
-        for k in ("loss", "ce", "aux"):
-            moves[k] = max(moves[k], rel_move(moved[k], base[k]))
+                                                  one_ulp(tree, seed)), toks,
+                    moved_drops)
+        for k, runs in DROPS_OF.items():
+            if not all(np.array_equal(moved_drops[r], drops[r])
+                       for r in runs):
+                continue
+            draws[k] += 1
+            moves[k] = max(moves[k], rel_move(
+                moved[k], base[k], axis=-1 if k == "served" else None))
+    if min(draws.values()) < MIN_DRAWS:
+        raise AssertionError(f"too few one-ulp draws keep the record's "
+                             f"drops: {draws}")
     sens = {k: ULP_MARGIN * v for k, v in moves.items()}
 
     prompts = toks[:, :PROMPT_LEN]
@@ -207,7 +237,7 @@ def main(out=OUT):
         lg = nxt[:, 0]
 
     arrays = {
-        "config": np.array(json.dumps(DESC)), "seed": np.int64(SEED),
+        "config": np.array(json.dumps(desc)), "seed": np.int64(SEED),
         "prompts": prompts, "teacher": toks[:, PROMPT_LEN:],
         "logits": base["logits"], "prefill_logits": base["served"][:, 0],
         "decode_logits": base["served"][:, 1:], "loss": base["loss"],
@@ -218,7 +248,8 @@ def main(out=OUT):
         "sensitivity": np.array(json.dumps(sens)),
     }
     np.savez_compressed(out, **arrays)
-    print(f"{time.perf_counter() - t0:.1f} s; E {sens}; drops: forward "
+    print(f"{time.perf_counter() - t0:.1f} s; E {sens} over {draws} of "
+          f"{len(ULP_SEEDS)} draws; drops: forward "
           f"{drops['forward'].tolist()}, prefill {drops['prefill'].tolist()}"
           f", decode steps {drops['decode'].tolist()}; loss "
           f"{float(base['loss']):.6g} (ce {float(base['ce']):.6g}, aux "

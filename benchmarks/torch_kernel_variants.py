@@ -59,8 +59,8 @@ CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
 # (RS, blocks per SM); the first is the committed kernel
 INTEGRAL = {"rs64_3blocks": (64, 3), "rs32_4blocks": (32, 4),
             "rs32_8blocks": (32, 8), "rs64_4blocks": (64, 4)}
-FLASH_ONE_P = ("        wgmma_rs<D>(acc, hi, vd);\n"
-               "        wgmma_rs<D>(acc, lo, vd);\n")
+FLASH_ONE_P = ("        wgmma_rs<DV>(acc, hi, vd);\n"
+               "        wgmma_rs<DV>(acc, lo, vd);\n")
 
 
 def build(name, source, nvcc, flags):
@@ -176,11 +176,11 @@ def flash_variants(nvcc, flags):
     fns = {}
     for name, src in (("p_hi_lo", text),
                       ("p_one_bf16", text.replace(
-                          FLASH_ONE_P, "        wgmma_rs<D>(acc, hi, vd);\n"))):
+                          FLASH_ONE_P, "        wgmma_rs<DV>(acc, hi, vd);\n"))):
         fn = build(f"flash_{name}", src, nvcc, flags).repro_flash_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -189,7 +189,7 @@ def flash_variants(nvcc, flags):
         o = torch.empty_like(q)
         rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        None,
-                       1, b, s, k.shape[1], H, k.shape[2], d,
+                       1, b, s, k.shape[1], H, k.shape[2], d, d,
                        ctypes.c_float(d ** -0.5), 0,
                        torch.cuda.current_stream().cuda_stream)
         if rc:
@@ -893,14 +893,14 @@ def flash_bwd_f32_variants(nvcc, flags):
 
 # the float32 kernel's q k^T loop and loop heads as committed
 F32_QK = """#pragma unroll 2
-    for (int d4 = 0; d4 < D; d4 += 4) {
+    for (int d4 = 0; d4 < DQK; d4 += 4) {
       float4 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * D + d4);
+      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * DQK + d4);
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const float4 kk =
-            load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+            load4(Kt + (tx + 16 * j) * DQK + (((d4 >> 2) ^ sw) << 2));
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -912,14 +912,14 @@ F32_QK = """#pragma unroll 2
 # the same products with the KJ k float4 loaded first, then one q float4
 # at a time: 4 KJ + 4 fragment registers instead of 32 + 4
 F32_QK_K_FIRST = """#pragma unroll 2
-    for (int d4 = 0; d4 < D; d4 += 4) {
+    for (int d4 = 0; d4 < DQK; d4 += 4) {
       float4 kf[KJ];
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
-        kf[j] = load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+        kf[j] = load4(Kt + (tx + 16 * j) * DQK + (((d4 >> 2) ^ sw) << 2));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float4 a = load4(Qs + (ty * 8 + i) * D + d4);
+        const float4 a = load4(Qs + (ty * 8 + i) * DQK + d4);
 #pragma unroll
         for (int j = 0; j < KJ; ++j)
 #pragma unroll
@@ -975,8 +975,8 @@ def flash_f32_variants(nvcc, flags):
     for name, src in variants.items():
         fn = build(f"flash_f32_{name}", src, nvcc, flags).repro_flash_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -985,7 +985,7 @@ def flash_f32_variants(nvcc, flags):
         o = torch.empty_like(q)
         rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        None,
-                       0, b, s, k.shape[1], H, k.shape[2], d,
+                       0, b, s, k.shape[1], H, k.shape[2], d, d,
                        ctypes.c_float(d ** -0.5), window or 0,
                        torch.cuda.current_stream().cuda_stream)
         if rc:

@@ -239,8 +239,8 @@ no tensor-core instruction, then:
    one decode step (capacity 20,480 and 2 an expert).  Routing at the
    last layer on the MoE inputs of that prefill and decode step, on the
    card against the CPU port: the float32 router logits within their
-   a-priori summation bound, choices equal except at near ties (printed),
-   weights within what the logits' difference allows, the CPU's
+   a-priori summation bound, choices equal except at near ties (within
+   the card's own probability differences; printed), weights within what the logits' difference allows, the CPU's
    ``sort_dispatch`` of the card's choices bit-equal to the card's, and
    the bf16 layer output within 2^-7 of max + 2^-7 |x| of the CPU port's
    float32 on the same routing.  Row 7m at the prefill's first flash
@@ -255,11 +255,26 @@ no tensor-core instruction, then:
    ``assets/lm_moe_reference.npz`` through the kernels in float32
    (``moe_record_check``: forward, loss with ce and aux, served logits
    and greedy tokens within max(1e-4, E), every layer's drops equal);
-12. profile phase — every torch.profiler session of the run: each kernel's
+12. deepseek phase — deepseek-v2-236b, MLA and the dense prefix, at full
+   width, 6 of 60 layers (the dense first layer and five MoE layers of
+   160 experts top-6 with two shared; 21.7 B parameters, 40.5 GiB), bf16,
+   8 x 4096-token prompts, 32 greedy tokens: 6 flash launches, all in
+   prefill, at MLA's key width of 192 (128 + the shared rope key, folded
+   into each head) and value width of 128; finite logits, stream ==
+   generate; a decode cache of the latent and rope key alone; drops a
+   MoE layer; routing at the last layer as mixtral's; row 7mla at the
+   prefill's first flash inputs (held as 7m; SDPA on the first backend
+   that takes dv != d) and the pair on drawn inputs at S = 4000 in bf16
+   and float32; the float32 parity at 2 layers and capacity factor 32
+   (above 160 / 6, so that a call of t tokens keeps all its 6 t choices)
+   with nothing dropped; the JAX
+   record ``assets/lm_mla_reference.npz`` as mixtral's;
+13. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each, whisper's and mixtral's included (each model
+   training step of each, whisper's, mixtral's and deepseek's included
+   (each model
    built anew when its profile runs; the card's activity alone),
    the serving dispatches' kernel launches by the profiler's names (held
    to the wrappers' counts), with the funnel's host time just before and
@@ -332,8 +347,10 @@ def gpu_name_and_power() -> str:
 def wgmma_check():
     """The bf16 flash kernels are ``wgmma`` kernels: the SASS of the built
     library (``cuobjdump -sass``) holds HGMMA, the ``wgmma`` instruction,
-    in the forward at both its head sizes (24 at D 128, 20 at D 64) and in
-    both bf16 backward kernels (dq and dkdv) at both; the float32 forward
+    in the forward at each of its (d, dv) pairs (d / 16 for S = Q K^T and
+    16 for P V's hi and lo terms over a key tile of 128: 20 at (64, 64),
+    24 at (128, 128), 28 at MLA's (192, 128)) and in both bf16 backward
+    kernels (dq and dkdv) at D 64 and 128; the float32 forward
     holds no tensor-core instruction (HGMMA or HMMA): its products stay
     float32 FMAs, never TF32; the float32 backward's dq and dkdv kernels
     (``tf32x3``) hold HMMA, the ``mma.sync`` their 3xTF32 products run on,
@@ -342,6 +359,7 @@ def wgmma_check():
     import shutil
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.cuda import PAIRS
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -366,8 +384,9 @@ def wgmma_check():
                   if "tensor_core" in name)
     f32 = [n["HGMMA"] + n["HMMA"] for name, n in flash.items()
            if "cuda_core" in name]
-    if bf16 != [20, 24] or len(f32) != 2 or any(f32):
-        raise AssertionError("expected 24 and 20 HGMMA in the bf16 flash "
+    want = sorted(d // 16 + 16 for d, _dv in PAIRS)
+    if bf16 != want or len(f32) != len(PAIRS) or any(f32):
+        raise AssertionError(f"expected {want} HGMMA in the bf16 flash "
                              "kernels and no tensor-core instruction in the "
                              f"float32 ones: {bf16}, {f32}")
     bwd = {k: v for k, v in counts.items() if "flash_attention_bwd" in k}
@@ -3498,7 +3517,9 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
     ``o_rel`` within o_rel of max |plain|, the count outside the
     elementwise bound printed), timed beside
     ``scaled_dot_product_attention`` (with a window, through a dense
-    boolean mask on the efficient backend).  With ``f32`` the
+    boolean mask on the efficient backend; with a value width apart
+    from the query-key width, MLA's, on the first backend of flash, cuDNN
+    and efficient that takes it, its name printed).  With ``f32`` the
     same inputs in float32 too (within FLASH_F32_TOL), a row of their own.
     Each row names the kernel that ran."""
     import torch
@@ -3512,10 +3533,11 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
 
     pin_matmul_precision()
     b, s, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[3]
     scale = d ** -0.5
     pos = torch.arange(s, device=q.device)
-    n_ops = 4 * b * H * d * _causal_pairs(s, window)
+    # S = q k^T and P V: 2 (d + dv) operations a causal (query, key) pair
+    n_ops = 2 * b * H * (d + dv) * _causal_pairs(s, window)
     # the plain form's key chunk: its float32 logits (b, H, s, chunk) and
     # their exponentials within 4 GiB each (8 x 48 x 8192 at 7m: 256)
     chunk = 1024
@@ -3551,6 +3573,22 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window is None:
             mask, backend_used = None, backend
+            if dv != d and backend == SDPBackend.FLASH_ATTENTION:
+                # the first backend that takes a value width of its own
+                for cand in (SDPBackend.FLASH_ATTENTION,
+                             SDPBackend.CUDNN_ATTENTION,
+                             SDPBackend.EFFICIENT_ATTENTION):
+                    try:
+                        with sdpa_kernel(cand):
+                            F.scaled_dot_product_attention(
+                                qt[:1, :, :128], kt[:1, :, :128],
+                                vt[:1, :, :128], is_causal=True)
+                        backend_used = cand
+                        break
+                    except RuntimeError as e:
+                        print(f"SDPA {cand.name} backend refuses d {d}, "
+                              f"dv {dv}: {str(e).splitlines()[0][:120]}",
+                              flush=True)
         else:                    # SDPA's window: a dense boolean mask
             i = torch.arange(s, device=q.device)
             mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
@@ -3574,7 +3612,8 @@ def flash_row(probes, q, k, v, launches, atol, rtol, window=None,
             print(f"SDPA not timed: {e}", flush=True)
             library = None
         del want
-        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                      + b * s * H * dv)
         row = kernel_row(
             probes, "flash_attention", fcuda, launches, err,
             lambda: fcuda.flash_attention_cuda(q, k, v, window=window,
@@ -5030,15 +5069,31 @@ MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_GEN = 8, 8192, 32
 # chaotic (benchmarks/torch_mixtral_probe.py --only parity)
 NODROP_FACTOR = 16.0
 MIXTRAL_PARITY_LAYERS = 2
-# routing on the card against the CPU port on the same input: a differing
-# choice must be a near tie, its two CPU probabilities within this many
-# float32 ulps of the larger
-NEAR_TIE_ULPS = 4
 # the bf16 layer output against the CPU port's float32 on the same routing:
 # within 2^-7 of max |float32| + 2^-7 |float32| (h and the expert outputs
 # are rounded to bf16 there; 0.23 of this bound at full width on the CPU)
 MOE_BF16_REL = 2.0 ** -7
 MOE_ROWS = 64             # prefill tokens recomputed in float32 on the CPU
+
+# -- deepseek-v2-236b: MLA and the dense prefix
+DEEPSEEK = "deepseek-v2-236b"
+# the serve call: the dense first layer and five MoE layers of 60 at full
+# width in bf16 (40.5 GiB: the embeddings 2.10 GB, the prefix 0.84 GB, a
+# MoE layer 8.11 GB with its 160 experts, the shared experts and MLA;
+# a seventh layer would pass 72 GiB with the prefill's transients and the
+# earlier phases' resident memory), 8 requests of 4096-token prompts, 32
+# greedy tokens
+DEEPSEEK_LAYERS = 6
+DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT, DEEPSEEK_GEN = 8, 4096, 32
+# the float32 parity at 2 layers (the prefix and one MoE layer): with 160
+# experts and top-6, a call's capacity reaches its token count only at a
+# factor of 160 / 6 = 26.7 or more (at the reference's 16 a decode step
+# of 8 requests has 5 slots an expert), so 32: nothing can drop
+DEEPSEEK_NODROP_FACTOR = 32.0
+DEEPSEEK_PARITY_LAYERS = 2
+# the drawn MLA flash rows (7mla's ragged and float32 counterparts): the
+# serve call's batch and a prompt ragged against the tiles, 32 heads
+DEEPSEEK_RAGGED = (LM_REQUESTS, FLASH_RAGGED_S, 32)
 
 
 class _Drops:
@@ -5090,13 +5145,14 @@ def moe_record_check(model, rec, extras):
     forward's logits, the loss with its ce and aux, and (``lm_record_check``)
     the prefill, 16 teacher-forced decode steps and greedy tokens, each
     within max(RECORD_REL, E) of its largest entry, E the record's one-ulp
-    sensitivity of that output; the assignments each layer drops in the
-    forward, the prefill and every decode step equal to JAX's.  Returns
+    sensitivity of that output; the assignments each MoE layer drops in
+    the forward, the prefill and every decode step equal to JAX's.  Returns
     the readings."""
     import torch
 
     dev = model.device
-    L, n = rec.cfg.n_layers, rec.teacher.shape[1]
+    L = sum(kind[1] == "moe" for kind in model.kinds)      # MoE layers
+    n = rec.teacher.shape[1]
     sens = extras["sensitivity"]
     toks = torch.as_tensor(np.concatenate([rec.prompts, rec.teacher], 1),
                            dtype=torch.long, device=dev)
@@ -5135,17 +5191,42 @@ def mixtral_cfg(layers=None, **kw):
                                or MIXTRAL_LAYERS, **kw)
 
 
-def mixtral_serve_call(device):
-    """The serve call of ``mixtral_serve_phase`` on a model built anew
-    from the same seeds, for the profile phase: (model, prompts, call)."""
+def deepseek_cfg(layers=None, **kw):
+    """deepseek-v2-236b at full width, ``layers`` deep (the dense prefix
+    and MoE layers; DEEPSEEK_LAYERS when None), fields ``kw`` replaced."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(DEEPSEEK), n_layers=layers
+                               or DEEPSEEK_LAYERS, **kw)
+
+
+# each MoE model's serve call: (config, requests, prompt tokens, greedy
+# tokens); its parity's depth and no-drop factor; its JAX record's loader
+MOE_CALLS = {
+    MIXTRAL: (mixtral_cfg, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_GEN),
+    DEEPSEEK: (deepseek_cfg, DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT,
+               DEEPSEEK_GEN)}
+MOE_PARITY = {MIXTRAL: (MIXTRAL_PARITY_LAYERS, NODROP_FACTOR),
+              DEEPSEEK: (DEEPSEEK_PARITY_LAYERS, DEEPSEEK_NODROP_FACTOR)}
+MOE_RECORD = {MIXTRAL: "load_lm_moe_reference",
+              DEEPSEEK: "load_lm_mla_reference"}
+
+
+def moe_serve_call(arch, device):
+    """The serve call of ``moe_serve_phase`` on a model built anew from
+    the same seeds, for the profile phase: (model, prompts, call)."""
     from repro_torch.launch.serve import build_model, make_prompts
     from repro_torch.serve.engine import generate
 
-    cfg = mixtral_cfg()
+    cfg_of, requests, prompt, gen = MOE_CALLS[arch]
+    cfg = cfg_of()
     model = build_model(cfg, device, seed=0)
-    prompts = make_prompts(cfg, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, seed=1,
-                           device=device)
-    return model, prompts, lambda: generate(model, prompts, MIXTRAL_GEN)
+    prompts = make_prompts(cfg, requests, prompt, seed=1, device=device)
+    return model, prompts, lambda: generate(model, prompts, gen)
+
+
+def mixtral_serve_call(device):
+    return moe_serve_call(MIXTRAL, device)
 
 
 def moe_rows_f32(p, m, xt, idx, w, keep, rows):
@@ -5168,13 +5249,17 @@ def moe_rows_f32(p, m, xt, idx, w, keep, rows):
     return out
 
 
-def routing_check(p, m, x, label, n_rows=None):
+def routing_check(p, m, x, label, n_rows=None, arch=MIXTRAL):
     """One layer's MoE on the card against the CPU port, on the input
     ``x`` that the serve call gave it: the float32 router logits, each
     within the a-priori bound of two float32 sums of d products (2 d
-    2^-24 sum |x w|); the choices (a differing one must be a near tie: its
-    two CPU probabilities within NEAR_TIE_ULPS ulps); the weights where
-    the choices agree, within what the logits' difference moves them (a
+    2^-24 sum |x w|); the choices (a differing one must be a near tie by
+    what the run measures: where the card's k-th choice is a and the CPU's
+    b, P[b] - P[a] <= dP[a] + max dP of the row, P the CPU probabilities
+    and dP their difference from the card's; a correct top-k on the card
+    always meets this, since some expert v ranked at or above b on the CPU
+    ranks at or below a on the card, so P[b] - P[a] <= P[v] - P[a] <=
+    dP[a] + dP[v]); the weights where the choices agree, within what the logits' difference moves them (a
     top-k weight moves at most half the largest logit move of its row,
     plus 1e-6 of rounding); the CPU's ``sort_dispatch`` of the card's
     choices (slot and keep bit-equal to the card's); and the card's bf16
@@ -5191,7 +5276,9 @@ def routing_check(p, m, x, label, n_rows=None):
     w_card, idx_card, aux_card = moe.router_topk(p["router"], m, xt)
     _, slot_card, keep_card = moe.sort_dispatch(xt, idx_card, e, cap)
     y_card = moe._moe_local(p, m, xt)[0].float().cpu()
-    logits_card = (xt.float() @ p["router"]).cpu()
+    logits_card = xt.float() @ p["router"]
+    probs_card = torch.softmax(logits_card, dim=-1).cpu()
+    logits_card = logits_card.cpu()
     torch.cuda.synchronize()
     idx_card, w_card, slot_card, keep_card = (
         a.cpu() for a in (idx_card, w_card, slot_card, keep_card))
@@ -5205,10 +5292,12 @@ def routing_check(p, m, x, label, n_rows=None):
                  * (xt_cpu.double().abs() @ router.double().abs()))
     logit_of_bound = float((dlogit / sum_bound).max())
     w_bound = 0.5 * dlogit.max(dim=-1).values[:, None] + 1e-6
+    dprob = (probs_card - probs).abs()
     r, j = (idx_card != idx_cpu).nonzero(as_tuple=True)
-    pa, pb = probs[r, idx_card[r, j]], probs[r, idx_cpu[r, j]]
-    top = torch.maximum(pa, pb)
-    ulps = (pa - pb).abs() / (torch.nextafter(top, torch.tensor(np.inf)) - top)
+    a, b_ = idx_card[r, j], idx_cpu[r, j]
+    gap = probs[r, b_] - probs[r, a]
+    tie_bound = dprob[r, a] + dprob[r].max(dim=-1).values
+    near = gap <= tie_bound
     agree = (idx_card == idx_cpu).all(dim=-1)
     w_of_bound = (float(((w_card - w_cpu).abs() / w_bound)[agree].max())
                   if agree.any() else 0.0)
@@ -5229,11 +5318,13 @@ def routing_check(p, m, x, label, n_rows=None):
     err = (got - want).abs()
     bound = MOE_BF16_REL * float(want.abs().max()) + MOE_BF16_REL * want.abs()
     worst = float((err / bound).max())
-    print(f"mixtral routing {label} ({t} tokens, capacity {cap}): "
+    print(f"{arch} routing {label} ({t} tokens, capacity {cap}): "
           f"{len(r)} of {idx_card.numel()} choices differ from the CPU "
-          f"port's, {int((ulps <= NEAR_TIE_ULPS).sum())} of them near ties "
-          f"(probabilities {[round(float(u), 1) for u in ulps[:8]]} ulps "
-          f"apart, bound {NEAR_TIE_ULPS}); logits within {float(dlogit.max()):.3g}"
+          f"port's, {int(near.sum())} of them near ties (CPU "
+          f"probabilities {[f'{float(g):.3g}' for g in gap[:8]]} apart, "
+          f"bounds {[f'{float(u):.3g}' for u in tie_bound[:8]]} from the "
+          f"card's differences); logits within "
+          f"{float(dlogit.max()):.3g}"
           f" ({logit_of_bound:.3g} of their float32 sums' bound, max |logit| "
           f"{float(logits.abs().max()):.4g}); top_w where the choices agree "
           f"within {float((w_card - w_cpu)[agree].abs().max()):.3g} "
@@ -5246,32 +5337,33 @@ def routing_check(p, m, x, label, n_rows=None):
           f"{float(err.max()):.4g} of the CPU port's float32 (max |float32| "
           f"{float(want.abs().max()):.4g}; {worst:.3g} of the bound "
           f"{MOE_BF16_REL:g} max + {MOE_BF16_REL:g} |x|)", flush=True)
-    if not (ulps <= NEAR_TIE_ULPS).all():
-        raise AssertionError(f"mixtral routing {label}: a differing choice "
+    if not near.all():
+        raise AssertionError(f"{arch} routing {label}: a differing choice "
                              "is not a near tie")
     if not (logit_of_bound <= 1.0 and w_of_bound <= 1.0 and dispatch_equal
             and worst <= 1.0):
-        raise AssertionError(f"mixtral routing {label}: logits "
+        raise AssertionError(f"{arch} routing {label}: logits "
                              f"{logit_of_bound:.3g} and weights "
                              f"{w_of_bound:.3g} of their bounds, dispatch "
                              f"equal {dispatch_equal}, output {worst:.3g} of "
                              "its bound")
-    return {"differ": len(r), "near_ties": int((ulps <= NEAR_TIE_ULPS).sum()),
+    return {"differ": len(r), "near_ties": int(near.sum()),
             "logits": logit_of_bound, "weights": w_of_bound,
             "out_of_bound": worst}
 
 
-def mixtral_serve_phase(probes, device):
-    """mixtral-8x22b at full width, MIXTRAL_LAYERS of 56 layers deep, bf16,
-    weights drawn on the card (seed 0): a serve call (8 prompts of 8192
-    tokens, seed 1; 32 greedy tokens) that launches ``flash_attention``
-    exactly once a layer, all in prefill, with the window binding; every
-    logit finite; ``stream`` == ``generate``; prefill and per-token decode
-    times (host clock, median of 3), peak memory; the assignments each
-    layer drops in the prefill and in one decode step; routing on the card
-    against the CPU port at the last layer, on the MoE inputs of the
-    prefill and of that decode step.  Then row 7m at the inputs of the
-    prefill's first flash launch.  Returns (kernel row, serve ms)."""
+def moe_serve_phase(probes, device, arch):
+    """One MoE model at full width, bf16, weights drawn on the card (seed
+    0): a serve call (``MOE_CALLS[arch]``: prompts of seed 1, greedy
+    tokens) that launches ``flash_attention`` exactly once a layer, all
+    in prefill (mixtral's window binding); every logit finite; ``stream``
+    == ``generate``; prefill and per-token decode times (host clock,
+    median of 3), peak memory; the decode cache's entries and bytes a
+    layer; the assignments each MoE layer drops in the prefill and in one
+    decode step; routing on the card against the CPU port at the last
+    layer, on the MoE inputs of the prefill and of that decode step.
+    Then the flash row (7m, 7mla) at the inputs of the prefill's first
+    flash launch.  Returns (kernel rows, serve ms)."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -5280,13 +5372,18 @@ def mixtral_serve_phase(probes, device):
     from repro_torch.models import moe
     from repro_torch.serve.engine import stream
 
+    _cfg, requests, prompt, gen = MOE_CALLS[arch]
     t0 = time.perf_counter()
-    model, prompts, serve = mixtral_serve_call(device)
+    model, prompts, serve = moe_serve_call(arch, device)
     cfg = model.cfg
     m = cfg.moe
+    n_moe = sum(kind[1] == "moe" for kind in model.kinds)
+    window = cfg.window if cfg.attn_type == "swa" else None
     torch.cuda.synchronize()
-    print(f"{MIXTRAL}: {cfg.n_layers} of {get_config(MIXTRAL).n_layers} "
-          f"layers, {model.n_params() / 1e9:.3f} B parameters ({model.n_active_params() / 1e9:.3f} B active a "
+    print(f"{arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+          f"layers ({cfg.first_dense} dense, {n_moe} MoE), "
+          f"{model.n_params() / 1e9:.3f} B parameters "
+          f"({model.n_active_params() / 1e9:.3f} B active a "
           f"token) in {cfg.param_dtype}, drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -5303,135 +5400,176 @@ def mixtral_serve_phase(probes, device):
         _logits, cache = model.prefill(prompts)
         torch.cuda.synchronize()
         prefill_counts, prefill_drops = dict(_build.launches), list(drops.log)
-        cache = model.pad_cache(cache, 1)
+        cache = model.pad_cache(cache, gen)
+        entry = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                 for k, v in cache[0].items()}
+        entry_bytes = sum(v.numel() * v.element_size()
+                          for v in cache[0].values())
         _build.reset_launches()
         drops.log.clear()
-        model.decode_step(toks[:, :1], cache, MIXTRAL_PROMPT)
+        model.decode_step(toks[:, :1], cache, prompt)
         torch.cuda.synchronize()
         decode_counts, decode_drops = dict(_build.launches), list(drops.log)
     del cache, _logits
-    print(f"{MIXTRAL} serve call launches {counts}, prefill alone "
-          f"{prefill_counts}, a decode step {decode_counts}; assignments "
-          f"dropped a layer: prefill {prefill_drops} of "
-          f"{MIXTRAL_REQUESTS * MIXTRAL_PROMPT * m.top_k} (capacity "
-          f"{moe._capacity(MIXTRAL_REQUESTS * MIXTRAL_PROMPT, m)} an expert),"
-          f" a decode step {decode_drops} of {MIXTRAL_REQUESTS * m.top_k} "
-          f"(capacity {moe._capacity(MIXTRAL_REQUESTS, m)})", flush=True)
+    print(f"{arch} serve call launches {counts}, prefill alone "
+          f"{prefill_counts}, a decode step {decode_counts}; the decode "
+          f"cache a layer {entry}, {entry_bytes} bytes "
+          f"({entry_bytes / 2 ** 20:.1f} MiB); assignments dropped a MoE "
+          f"layer: prefill {prefill_drops} of {requests * prompt * m.top_k} "
+          f"(capacity {moe._capacity(requests * prompt, m)} an expert),"
+          f" a decode step {decode_drops} of {requests * m.top_k} "
+          f"(capacity {moe._capacity(requests, m)})", flush=True)
     want = {"flash_attention": cfg.n_layers}
+    want_cache = ({"ckv", "krope"} if cfg.attn_type == "mla"
+                  else {"k", "v"})
     if (counts != want or prefill_counts != want or any(decode_counts.values())
-            or len(prefill_drops) != cfg.n_layers
-            or len(decode_drops) != cfg.n_layers):
-        raise AssertionError(f"{MIXTRAL}: launches {counts} a serve call, "
+            or len(prefill_drops) != n_moe or len(decode_drops) != n_moe
+            or set(entry) != want_cache):
+        raise AssertionError(f"{arch}: launches {counts} a serve call, "
                              f"{prefill_counts} in prefill, {decode_counts} "
                              f"in a decode step; expected {want}, all in "
                              f"prefill; {len(prefill_drops)} and "
-                             f"{len(decode_drops)} MoE dispatches")
+                             f"{len(decode_drops)} MoE dispatches of "
+                             f"{n_moe}; cache entries {sorted(entry)}")
 
     with _Capture(flash_ops, "flash_attention") as cap:
-        steps = list(stream(model, prompts, MIXTRAL_GEN))
+        steps = list(stream(model, prompts, gen))
     torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(lg).all()) for _t, lg in steps)
     same = torch.equal(torch.stack([t for t, _lg in steps], 1), toks)
     del steps
     if not finite or not same:
-        raise AssertionError(f"{MIXTRAL}: finite logits {finite}, stream == "
+        raise AssertionError(f"{arch}: finite logits {finite}, stream == "
                              f"generate {same}")
 
     prefill_ms = host_ms(lambda: model.prefill(prompts), reps=3)
     serve_ms = host_ms(serve, reps=3)
-    decode_ms = (serve_ms - prefill_ms) / (MIXTRAL_GEN - 1)
-    print(f"{MIXTRAL} serve ({MIXTRAL_REQUESTS} x {MIXTRAL_PROMPT} prompt "
-          f"tokens, window {cfg.window}, {MIXTRAL_GEN} greedy tokens): "
-          f"prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms per "
-          f"token, serve call {serve_ms:.3f} ms = "
-          f"{1e3 * MIXTRAL_REQUESTS * MIXTRAL_GEN / serve_ms:.1f} generated "
+    decode_ms = (serve_ms - prefill_ms) / (gen - 1)
+    print(f"{arch} serve ({requests} x {prompt} prompt tokens"
+          + ("" if window is None else f", window {window}")
+          + f", {gen} greedy tokens): prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per token, serve call {serve_ms:.3f} ms = "
+          f"{1e3 * requests * gen / serve_ms:.1f} generated "
           f"tokens/s (host clock, median of 3); peak {peak / 2 ** 30:.2f} GiB"
           f" ({resident / 2 ** 30:.2f} GiB resident before the call); every "
           "logit finite, stream == generate", flush=True)
 
     x_prefill, x_decode = moe_in.xs
     routing_check(probe, m, x_decode, f"layer {cfg.n_layers - 1}, decode "
-                  "step")
+                  "step", arch=arch)
     routing_check(probe, m, x_prefill, f"layer {cfg.n_layers - 1}, prefill",
-                  n_rows=MOE_ROWS)
+                  n_rows=MOE_ROWS, arch=arch)
     del model, prompts, serve, x_prefill, x_decode, moe_in, probe
     free_card()
     q, k, v = cap.args
+    del cap
+    shape = "x".join(map(str, q.shape)) + f"/{k.shape[2]}"
+    if v.shape[-1] != q.shape[-1]:
+        shape += f" dv {v.shape[-1]}"
     rows = flash_row(probes, q, k, v, want["flash_attention"], FLASH_TOL,
-                     FLASH_TOL, window=cfg.window, o_rel=FLASH_O_REL,
-                     label=f"mixtral prefill {'x'.join(map(str, q.shape))}"
-                     f"/{k.shape[2]} window {cfg.window}")
-    return rows[0], serve_ms
+                     FLASH_TOL, window=window, o_rel=FLASH_O_REL,
+                     label=f"{arch.split('-')[0]} prefill {shape}"
+                     + ("" if window is None else f" window {window}"))
+    del q, k, v
+    free_card()
+    return rows, serve_ms
 
 
-def mixtral_parity_phase(device):
-    """Full width, MIXTRAL_PARITY_LAYERS deep, float32: prefill (kernel) +
-    decode steps (plain) against the full forward (kernel) at capacity factor
-    NODROP_FACTOR, where nothing drops, within PARITY_REL of the largest
-    |logit|, E printed beside it; then the same at the published 1.25 with
-    the assignments dropped, printed and not held: the capacity depends on
-    how many tokens a call routes, so the forward, the prefill and a
+def mla_drawn_rows(probes, device):
+    """The MLA flash pair off the path: drawn unit-normal inputs at
+    DEEPSEEK_RAGGED (batch, a prompt ragged against the tiles, heads),
+    keys of 192 and values of 128, in bf16 (FLASH_32K_ATOL + RTOL |x|)
+    and float32 (FLASH_F32_TOL): the float32 kernel's MLA tiling."""
+    import torch
+
+    b, s, H = DEEPSEEK_RAGGED
+    gen = torch.Generator(device=device).manual_seed(6)
+    q, k, v = (torch.randn((b, s, H, w), device=device, generator=gen)
+               .to(torch.bfloat16) for w in (192, 192, 128))
+    rows = flash_row(probes, q, k, v, 0, FLASH_32K_ATOL, FLASH_32K_RTOL,
+                     f32=True, label=f"{b}x{s}x{H}x192 dv 128")
+    del q, k, v
+    free_card()
+    return rows
+
+
+def moe_parity_phase(device, arch):
+    """Full width, ``MOE_PARITY[arch]`` layers deep, float32, the
+    reference's stacked init: prefill (kernel) + decode steps (plain)
+    against the full forward (kernel) at the no-drop capacity factor,
+    where nothing drops, within PARITY_REL of the largest |logit|, E
+    printed beside it; then the same weights at the published 1.25 with
+    the assignments dropped, printed and not held: the capacity depends
+    on how many tokens a call routes, so the forward, the prefill and a
     decode step drop differently, in the reference too."""
     import torch
 
-    L = MIXTRAL_PARITY_LAYERS
-    nodrop = mixtral_cfg(L, param_dtype=torch.float32)
+    L, factor = MOE_PARITY[arch]
+    cfg_of = MOE_CALLS[arch][0]
+    nodrop = cfg_of(L, param_dtype=torch.float32)
     nodrop = dataclasses.replace(nodrop, moe=dataclasses.replace(
-        nodrop.moe, capacity_factor=NODROP_FACTOR))
+        nodrop.moe, capacity_factor=factor))
+    n = L - nodrop.first_dense                      # MoE layers
     depth = f"{L} layers, B={PARITY_B}, S={PARITY_S} + {PARITY_EXTRA}"
+
     with _Drops() as drops:
         steps, top, sens = parity_reading(nodrop, device)
     free_card()
     rel = max(steps) if steps is not None else float("inf")
-    print(f"{MIXTRAL} float32, {depth}, capacity factor {NODROP_FACTOR:g} "
-          f"({sum(drops.log)} assignments dropped in all): prefill/decode vs "
-          f"forward rel {rel:.3g} of max |logit| {top:.4g} (per step "
-          f"{[f'{e:.3g}' for e in steps or []]}); bound {PARITY_REL:g}; "
-          f"one-ulp sensitivity E {sens:.3g}", flush=True)
-    if rel >= PARITY_REL:
-        raise AssertionError(f"{MIXTRAL}: prefill/decode diverge from the "
-                             f"forward ({rel:.3g} >= {PARITY_REL:g})")
-    published = mixtral_cfg(L, param_dtype=torch.float32)
+    print(f"{arch} float32, {depth}, capacity factor {factor:g}, the "
+          f"reference's stacked init ({sum(drops.log)} assignments dropped "
+          f"in all): prefill/decode vs forward rel {rel:.3g} of max |logit| "
+          f"{top:.4g} (per step {[f'{e:.3g}' for e in steps or []]}); "
+          f"bound {PARITY_REL:g}; one-ulp sensitivity E {sens:.3g}",
+          flush=True)
+    if rel >= PARITY_REL or sum(drops.log):
+        raise AssertionError(f"{arch}: prefill/decode diverge from the "
+                             f"forward ({rel:.3g} >= {PARITY_REL:g}) or "
+                             f"{sum(drops.log)} assignments dropped")
+    published = cfg_of(L, param_dtype=torch.float32)
     with _Drops() as drops:
         steps, top, sens = parity_reading(published, device)
     free_card()
     log = drops.log
-    print(f"{MIXTRAL} float32, {depth}, the published capacity factor "
-          f"{published.moe.capacity_factor:g} (not held: capacity depends on "
-          f"the call's token count): prefill/decode vs forward per step "
-          f"{[f'{e:.3g}' for e in steps or []]} of max |logit| {top:.4g}; "
-          f"assignments dropped a layer: forward {log[:L]}, prefill "
-          f"{log[L:2 * L]}, decode steps "
-          f"{[log[i:i + L] for i in range(2 * L, (2 + PARITY_EXTRA) * L, L)]}"
+    print(f"{arch} float32, {depth}, the reference's stacked init, the "
+          f"published capacity factor {published.moe.capacity_factor:g} (not "
+          f"held: capacity depends on the call's token count): prefill/decode"
+          f" vs forward per step {[f'{e:.3g}' for e in steps or []]} of max "
+          f"|logit| {top:.4g}; assignments dropped a MoE layer: forward "
+          f"{log[:n]}, prefill {log[n:2 * n]}, decode steps "
+          f"{[log[i:i + n] for i in range(2 * n, (2 + PARITY_EXTRA) * n, n)]}"
           f"; E {sens:.3g}", flush=True)
 
 
-def mixtral_record_phase(device):
-    """``assets/lm_moe_reference.npz`` on the card through the kernels in
-    float32 (``moe_record_check``)."""
+def moe_record_phase(device, arch):
+    """The arch's JAX record (``assets/lm_moe_reference.npz``,
+    ``lm_mla_reference.npz``) on the card through the kernels in float32
+    (``moe_record_check``)."""
     import torch
 
-    from repro_torch.bridge import (
-        lm_params_from,
-        load_lm_moe_reference,
-        numpy_lm_params,
-    )
+    from repro_torch import bridge
     from repro_torch.kernels import _build
 
-    rec, extras = load_lm_moe_reference()
-    model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
-                           device=device)
+    rec, extras = getattr(bridge, MOE_RECORD[arch])()
+    model = bridge.lm_params_from(bridge.numpy_lm_params(rec.cfg, rec.seed),
+                                  rec.cfg, device=device)
     _build.reset_launches()
     r = moe_record_check(model, rec, extras)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     if counts.get("flash_attention", 0) < 1:
-        raise AssertionError(f"MoE record: flash_attention never launched: "
-                             f"{counts}")
+        raise AssertionError(f"{arch} record: flash_attention never "
+                             f"launched: {counts}")
     e = extras["sensitivity"]
-    print(f"JAX record mixtral ({rec.cfg.n_layers} layers, "
-          f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens, window "
-          f"{rec.cfg.window}, capacity factor {rec.cfg.moe.capacity_factor:g}"
+    cfg = rec.cfg
+    shape = ("" if cfg.attn_type != "swa" else f", window {cfg.window}")
+    if cfg.attn_type == "mla":
+        shape = (f", MLA {cfg.mla.qk_nope} + {cfg.mla.qk_rope} / "
+                 f"{cfg.mla.v_dim} over a latent of {cfg.mla.kv_lora}, "
+                 f"{cfg.n_heads} heads")
+    print(f"JAX record {arch} ({cfg.n_layers} layers, "
+          f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens{shape}, "
+          f"capacity factor {cfg.moe.capacity_factor:g}"
           f", float32): forward logits within {r['logits']:.3g} (E "
           f"{e['logits']:.3g}); loss {r['loss']:.3g}, ce {r['ce']:.3g}, aux "
           f"{r['aux']:.3g} (E {e['loss']:.3g}, {e['ce']:.3g}, {e['aux']:.3g});"
@@ -5447,14 +5585,33 @@ def mixtral_phase(probes, device="cuda"):
     """The MoE slice: the serve call, routing on the card, row 7m, float32
     parity and the JAX record.  Returns (kernel rows, profile targets)."""
     t0 = time.perf_counter()
-    row, serve_ms = mixtral_serve_phase(probes, device)
-    mixtral_parity_phase(device)
-    mixtral_record_phase(device)
+    rows, serve_ms = moe_serve_phase(probes, device, MIXTRAL)
+    moe_parity_phase(device, MIXTRAL)
+    moe_record_phase(device, MIXTRAL)
     free_card()
     targets = [(f"{MIXTRAL} serve call ({MIXTRAL_LAYERS} layers)",
                 Deferred(lambda: mixtral_serve_call(device)[-1]), serve_ms)]
     print(f"mixtral phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return [row], targets
+    return rows, targets
+
+
+def deepseek_phase(probes, device="cuda"):
+    """The MLA slice: deepseek-v2-236b's serve call at DEEPSEEK_LAYERS of
+    60 layers (the dense prefix and MoE layers), routing on the card, row
+    7mla at the prefill's first flash inputs, the MLA pair on drawn
+    ragged inputs in bf16 and float32, the float32 parity and the JAX
+    record.  Returns (kernel rows, profile targets)."""
+    t0 = time.perf_counter()
+    rows, serve_ms = moe_serve_phase(probes, device, DEEPSEEK)
+    rows += mla_drawn_rows(probes, device)
+    moe_parity_phase(device, DEEPSEEK)
+    moe_record_phase(device, DEEPSEEK)
+    free_card()
+    targets = [(f"{DEEPSEEK} serve call ({DEEPSEEK_LAYERS} layers)",
+                Deferred(lambda: moe_serve_call(DEEPSEEK, device)[-1]),
+                serve_ms)]
+    print(f"deepseek phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, targets
 
 
 def profile_phase(label, fn, wall_ms, sessions=1):
@@ -5587,6 +5744,10 @@ def profiles_phase(ex, frames, targets, probes, dispatches=()):
         print(f"kernel {label}: device time per launch "
               f"{row['device_ms']:.4f} ms{lib} (torch.profiler, 20 calls)",
               flush=True)
+    # the probes hold the kernel rows' inputs (7mla's 4.3 GB among them):
+    # free them before each model is built again for its profile
+    probes.clear()
+    free_card()
     for label, fn, wall in targets:
         if isinstance(fn, Deferred):        # one full-width model at a time
             fn = fn.build()
@@ -5673,6 +5834,10 @@ def main() -> int:
     mixtral_rows, mixtral_targets = mixtral_phase(probes)
     rows += mixtral_rows
     targets += mixtral_targets
+    free_card()
+    deepseek_rows, deepseek_targets = deepseek_phase(probes)
+    rows += deepseek_rows
+    targets += deepseek_targets
     profiles_phase(ex, frames, targets + [offload_target], probes,
                    dispatches)
 

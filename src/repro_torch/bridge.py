@@ -55,12 +55,17 @@ two reduced float32 configs with those weights (written by
 the same for a reduced float32 whisper (encoder-decoder) with its frames,
 and one JAX training step on it (written by
 ``benchmarks/torch_export_lm_encdec_reference.py``).
+:func:`load_lm_moe_reference` and :func:`load_lm_mla_reference` read the
+MoE records (mixtral's and deepseek's reduced float32 configs, written by
+``benchmarks/torch_export_lm_moe_reference.py`` and
+``torch_export_lm_mla_reference.py``).
 
 Training trees: :func:`to_jax_tree` and :func:`from_jax_tree` carry the
 port's per-layer parameters, gradients or optimizer moments (dicts keyed
-by parameter name) to and from the JAX tree layout (``stack/sub{j}``
-leaves with a leading period axis, ``enc_stack`` leaves with a leading
-encoder-layer axis), and :func:`train_state_tree` is the
+by parameter name) to and from the JAX tree layout (a dense prefix's
+layers in the list ``prefix``, ``stack/sub{j}`` leaves with a leading
+period axis, ``enc_stack`` leaves with a leading encoder-layer axis),
+and :func:`train_state_tree` is the
 ``(params, OptState)`` tree that JAX's ``train`` checkpoints, with leaves
 that stack on the host when saved and restore in place, so a loop
 checkpoint written by either package resumes in the other.
@@ -82,6 +87,7 @@ import torch
 from repro_torch.camera.face_nn import FaceNN
 from repro_torch.camera.viola_jones import Cascade, HaarFeature
 from repro_torch.ckpt.checkpoint import host_array
+from repro_torch.configs.lm_archs import MLAConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.models.layers import numpy_leaf, tree_map
@@ -97,6 +103,7 @@ TRAIN_ASSET = ASSET.parent / "train_reference.npz"
 LM_TRAIN_ASSET = ASSET.parent / "lm_train_reference.npz"
 LM_ENCDEC_ASSET = ASSET.parent / "lm_encdec_reference.npz"
 LM_MOE_ASSET = ASSET.parent / "lm_moe_reference.npz"
+LM_MLA_ASSET = ASSET.parent / "lm_mla_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -393,7 +400,8 @@ def load_serving_reference(path=None) -> ServingReference:
 
 def numpy_lm_params(cfg, seed: int) -> dict:
     """A parameter tree for ``cfg`` laid out as the JAX ``Model(cfg).init``
-    tree (``stack/sub{j}`` leaves with a leading period axis, an
+    tree (a dense prefix's layers unstacked in the list ``prefix``,
+    ``stack/sub{j}`` leaves with a leading period axis, an
     encoder-decoder's ``enc_stack`` leaves with a leading layer axis),
     float32,
     each leaf drawn from its spec's distribution with numpy's generator
@@ -405,9 +413,10 @@ def numpy_lm_params(cfg, seed: int) -> dict:
 def lm_params_from(params_np: dict, cfg, device=None) -> Model:
     """The port's ``Model`` for ``cfg`` on ``device`` (the card when None)
     holding a parameter tree in the JAX layout (numpy arrays, or anything
-    numpy reads as float32): ``stack/sub{j}[i]`` goes to layer
-    ``i * period + j``, ``enc_stack[i]`` to encoder layer i, each leaf
-    cast to its spec's dtype."""
+    numpy reads as float32): ``prefix[i]`` goes to layer i,
+    ``stack/sub{j}[i]`` to layer ``first_dense + i * period + j``,
+    ``enc_stack[i]`` to encoder layer i, each leaf cast to its spec's
+    dtype."""
     return Model(cfg, device).load_tree(params_np)
 
 
@@ -455,6 +464,22 @@ def load_lm_reference(path=None) -> dict:
     return out
 
 
+def record_overrides(desc: dict) -> dict:
+    """A record's config overrides as ``dataclasses.replace`` takes them:
+    an "mla" entry (a dict of fields) as an ``MLAConfig``."""
+    over = dict(desc["overrides"])
+    if "mla" in over:
+        over["mla"] = MLAConfig(**over["mla"])
+    return over
+
+
+def load_lm_mla_reference(path=None):
+    """:func:`load_lm_moe_reference` of the JAX MLA record
+    (``assets/lm_mla_reference.npz``: deepseek's smoke config in float32 at
+    the flash kernel's MLA widths, capacity factor 1.25)."""
+    return load_lm_moe_reference(LM_MLA_ASSET if path is None else path)
+
+
 def load_lm_moe_reference(path=None):
     """(:class:`LMRecord`, extras) of the JAX MoE record (mixtral's smoke
     config in float32 at capacity factor 1.25): the record's served
@@ -470,7 +495,7 @@ def load_lm_moe_reference(path=None):
     desc = json.loads(str(z["config"]))
     cfg = dataclasses.replace(
         get_config(desc["arch"], smoke=desc["smoke"]),
-        param_dtype=torch.float32, **desc["overrides"])
+        param_dtype=torch.float32, **record_overrides(desc))
     sens = json.loads(str(z["sensitivity"]))
     rec = LMRecord(cfg=cfg, seed=int(z["seed"]),
                    sensitivity=float(sens["served"]), **{
@@ -490,16 +515,28 @@ def load_lm_moe_reference(path=None):
 
 def leaf_layout(model) -> list:
     """[(JAX path, port parameter names)] in the reference's leaf order; a
-    stacked leaf (``stack/...``) lists its slices in layer order."""
+    stacked leaf (``stack/...``) lists its slices in layer order; a path
+    through the dense prefix holds the layer's index in ``prefix``."""
     names = {id(p): n for n, p in model.named_parameters()}
     return [(path, [names[id(t)] for t in tensors])
             for path, _s, tensors in model._leaves()]
 
 
 def _put(tree: dict, path, leaf):
-    for k in path[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[path[-1]] = leaf
+    """Set ``leaf`` at ``path``, making dicts, and lists where the next
+    key is an index (the prefix's layers, put in order)."""
+    for k, nxt in zip(path[:-1], path[1:]):
+        new = [] if isinstance(nxt, int) else {}
+        if isinstance(tree, list):
+            if k == len(tree):
+                tree.append(new)
+            tree = tree[k]
+        else:
+            tree = tree.setdefault(k, new)
+    if isinstance(tree, list):
+        tree.append(leaf)
+    else:
+        tree[path[-1]] = leaf
 
 
 def to_jax_tree(model, named: dict) -> dict:

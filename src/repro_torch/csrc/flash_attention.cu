@@ -8,11 +8,14 @@
 // -1e30, the running (m, l, acc) are float32, l is clamped at 1e-37 and
 // the output is rounded once to q's dtype.
 //
-// Layout: the model's, q and o (B, S, H, D), k and v (B, T, KV, D), all
-// contiguous.  Query head h reads kv head h / (H / KV) directly, so GQA
-// needs no repeated copy of K and V.  Ragged edges are masked here: query
-// rows past S are not written, key columns past T are masked and their
-// K and V are zeros.
+// Layout: the model's, q (B, S, H, D), k (B, T, KV, D), v (B, T, KV, DV)
+// and o (B, S, H, DV), all contiguous.  Query head h reads kv head
+// h / (H / KV) directly, so GQA needs no repeated copy of K and V.  Ragged
+// edges are masked here: query rows past S are not written, key columns
+// past T are masked and their K and V are zeros.  The (D, DV) pairs built
+// are (64, 64), (128, 128) and (192, 128): MLA's prefill (DeepSeek-V2)
+// attends with keys of 128 + 64 (the shared rope key folded into every
+// head) and values of 128, as the TPU kernel's dv = v.shape[2] allows.
 //
 // What bounds it on the card: operations.  At the yi-9b prefill (B 8,
 // H 32, KV 4, S = T = 4096, D 128) one launch does 4 * B*H * D * S(S+1)/2
@@ -27,9 +30,10 @@
 // issues TMA loads.  The Q tile is loaded once; K and V tiles of BK = 128
 // keys come through a 2-stage ring in shared memory, each stage guarded by
 // a "full" mbarrier (TMA bytes arrived) and an "empty" one (both
-// consumers done), 160 KB at D = 128, one block per SM.  TMA reads the
-// model's layout as a 4-D tensor (D, heads, positions, batch) in 64 x 128
-// boxes with a 128-byte swizzle (a 128-wide head is two boxes), so GQA
+// consumers done), 160 KB at D = 128 and 209 KB at (192, 128), one
+// block per SM.  TMA reads the model's layout as a 4-D tensor (D, heads,
+// positions, batch) in 64 x 128 boxes with a 128-byte swizzle (a 128-wide
+// head is two boxes, a 192-wide one three), so GQA
 // and ragged lengths cost no copies: positions past the end come back as
 // zeros.  S = Q K^T is `wgmma` m64n128k16 with both operands in shared
 // memory and float32 sums in registers; the scale is applied to S in
@@ -73,6 +77,9 @@
 // ring, started a whole tile ahead, so the copy runs under the previous
 // tile's products; two barriers a tile (225 KB at D = 128).  Row max and
 // row sum are reduced across the 16 threads of a row by warp shuffles.
+// At (192, 128) that ring would need 289 KB, so MLA's pair takes key
+// tiles of BK = 32 (each thread 8 rows x 2 keys of S): the two-slot ring
+// stays, in 4 x (128·192 + 2·32·(192 + 128) + 32·132) B = 193 KB.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,9 +92,7 @@
 namespace cuda_core {  // the float32 kernel
 
 constexpr int BQ = 128;             // queries of a block
-constexpr int BK = 64;              // keys of a K / V tile
 constexpr int kThreads = 2 * BQ;    // BQ / 8 row groups x 16 key groups
-constexpr int KJ = BK / 16;         // keys of S a thread holds
 constexpr int LDP = BQ + 4;         // floats per row of P^T in shared memory
 constexpr float kNegInf = -1e30f;
 
@@ -152,19 +157,21 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-template <int D>
+// DQK: the width of q and k, DV: of v and o; BK: keys of a K / V tile
+template <int DQK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int S, int Tk, int H,
                            int KV, float scale, int window) {
-  constexpr int NC = D / 64;                  // float4 column groups of acc
+  constexpr int KJ = BK / 16;                 // keys of S a thread holds
+  constexpr int NC = DV / 64;                 // float4 column groups of acc
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][D]  q * scale
-  float* Ks = Qs + BQ * D;                      // 2 x [BK][D], swizzled
-  float* Vs = Ks + 2 * BK * D;                  // 2 x [BK][D]
-  float* Pt = Vs + 2 * BK * D;                  // [BK][LDP]  P transposed
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][DQK]  q * scale
+  float* Ks = Qs + BQ * DQK;                    // 2 x [BK][DQK], swizzled
+  float* Vs = Ks + 2 * BK * DQK;                // 2 x [BK][DV]
+  float* Pt = Vs + 2 * BK * DV;                 // [BK][LDP]  P transposed
 
   const int n_qt = (S + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
@@ -172,12 +179,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
-  const size_t q_row = static_cast<size_t>(H) * D;
-  const size_t kv_row = static_cast<size_t>(KV) * D;
-  const float* qb = q + (static_cast<size_t>(b) * S * H + h) * D;
-  const float* kb = k + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
-  const float* vb = v + (static_cast<size_t>(b) * Tk * KV + kvh) * D;
-  float* ob = o + (static_cast<size_t>(b) * S * H + h) * D;
+  const size_t q_row = static_cast<size_t>(H) * DQK;
+  const size_t o_row = static_cast<size_t>(H) * DV;
+  const size_t k_row = static_cast<size_t>(KV) * DQK;
+  const size_t v_row = static_cast<size_t>(KV) * DV;
+  const float* qb = q + (static_cast<size_t>(b) * S * H + h) * DQK;
+  const float* kb = k + (static_cast<size_t>(b) * Tk * KV + kvh) * DQK;
+  const float* vb = v + (static_cast<size_t>(b) * Tk * KV + kvh) * DV;
+  float* ob = o + (static_cast<size_t>(b) * S * H + h) * DV;
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;     // rows ty*8 .. ty*8+7 of S, P and acc
@@ -191,13 +200,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the ring: tile t's K and V go to slot t & 1 as one commit group,
   // started a whole tile ahead
-  stage_rows<D, false>(Qs, qb, q_row, q0, BQ, S, tid);
-  stage_rows<D, true>(Ks, kb, kv_row, k_first, BK, Tk, tid);
-  stage_rows<D, false>(Vs, vb, kv_row, k_first, BK, Tk, tid);
+  stage_rows<DQK, false>(Qs, qb, q_row, q0, BQ, S, tid);
+  stage_rows<DQK, true>(Ks, kb, k_row, k_first, BK, Tk, tid);
+  stage_rows<DV, false>(Vs, vb, v_row, k_first, BK, Tk, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  for (int i = tid; i < BQ * D; i += kThreads) Qs[i] = __fmul_rn(Qs[i], scale);
+  for (int i = tid; i < BQ * DQK; i += kThreads)
+    Qs[i] = __fmul_rn(Qs[i], scale);
 
   float m[8], l[8], acc[8][4 * NC];
 #pragma unroll
@@ -214,14 +224,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait<0>();
     __syncthreads();
     if (k0 + BK < k_stop) {
-      stage_rows<D, true>(Ks + (slot ^ 1) * BK * D, kb, kv_row, k0 + BK, BK,
-                          Tk, tid);
-      stage_rows<D, false>(Vs + (slot ^ 1) * BK * D, vb, kv_row, k0 + BK, BK,
-                           Tk, tid);
+      stage_rows<DQK, true>(Ks + (slot ^ 1) * BK * DQK, kb, k_row, k0 + BK,
+                            BK, Tk, tid);
+      stage_rows<DV, false>(Vs + (slot ^ 1) * BK * DV, vb, v_row, k0 + BK,
+                            BK, Tk, tid);
       cp_async_commit();
     }
-    const float* Kt = Ks + slot * BK * D;
-    const float* Vt = Vs + slot * BK * D;
+    const float* Kt = Ks + slot * BK * DQK;
+    const float* Vt = Vs + slot * BK * DV;
     // S = (q * scale) k^T: per 4 columns of d, 8 q float4 and KJ k float4
     // feed 32 KJ FMAs; each s sums d in order
     float s[8][KJ];
@@ -230,14 +240,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-    for (int d4 = 0; d4 < D; d4 += 4) {
+    for (int d4 = 0; d4 < DQK; d4 += 4) {
       float4 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * D + d4);
+      for (int i = 0; i < 8; ++i) a[i] = load4(Qs + (ty * 8 + i) * DQK + d4);
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const float4 kk =
-            load4(Kt + (tx + 16 * j) * D + (((d4 >> 2) ^ sw) << 2));
+            load4(Kt + (tx + 16 * j) * DQK + (((d4 >> 2) ^ sw) << 2));
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -288,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float4 p1 = load4(Pt + kk * LDP + ty * 8 + 4);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float4 vv = load4(Vt + kk * D + c * 64 + tx * 4);
+        const float4 vv = load4(Vt + kk * DV + c * 64 + tx * 4);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float pi = i < 4 ? comp(p0, i) : comp(p1, i - 4);
@@ -312,17 +322,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float4 out = make_float4(
           __fdiv_rn(acc[i][c * 4 + 0], denom), __fdiv_rn(acc[i][c * 4 + 1], denom),
           __fdiv_rn(acc[i][c * 4 + 2], denom), __fdiv_rn(acc[i][c * 4 + 3], denom));
-      store4(ob + row * q_row + c * 64 + tx * 4, out);
+      store4(ob + row * o_row + c * 64 + tx * 4, out);
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tk, int H, int KV, float scale, int window,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + 4 * BK * D + BK * LDP);
-  auto kernel = flash_attention_kernel<D>;
+  constexpr size_t smem =
+      sizeof(float) * (BQ * DQK + 2 * BK * (DQK + DV) + BK * LDP);
+  static_assert(smem <= 227 * 1024, "over a block's shared memory");
+  auto kernel = flash_attention_kernel<DQK, DV, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -357,9 +369,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Warpgroups 0 and 1 consume (64 query rows each), warpgroup 2 produces:
 // one thread of it issues every TMA load.  Shared memory, from a
-// 1024-byte boundary: Q (D/64 boxes), K[kStages], V[kStages] (D/64 boxes
-// each), then the mbarriers full[kStages], empty[kStages] and q.
-template <int D>
+// 1024-byte boundary: Q (DQK/64 boxes), K[kStages] (DQK/64 boxes each),
+// V[kStages] (DV/64 boxes each), then the mbarriers full[kStages],
+// empty[kStages] and q.  DQK: the width of q and k, DV: of v and o.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -367,13 +380,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int S, int Tk, int H,
                            int KV, float scale, int window) {
-  constexpr int NB = D / 64;                  // 64-wide d boxes
-  constexpr uint32_t kTile = NB * kBox;       // bytes of a Q, K or V tile
+  constexpr int NQK = DQK / 64;               // 64-wide boxes of a q / k row
+  constexpr int NV = DV / 64;                 // and of a v row
+  constexpr uint32_t kTileQK = NQK * kBox;    // bytes of a Q or K tile
+  constexpr uint32_t kTileV = NV * kBox;      // bytes of a V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + kTile;
-  const uint32_t sV = sK + kStages * kTile;
-  const uint32_t bars = sV + kStages * kTile;
+  const uint32_t sK = sQ + kTileQK;
+  const uint32_t sV = sK + kStages * kTileQK;
+  const uint32_t bars = sV + kStages * kTileV;
   const uint32_t q_bar = bars + 16 * kStages;
 
   const int bh = blockIdx.x;
@@ -404,19 +419,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     // producer: the Q tile once, then K and V tiles through the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == 128 * kConsumers) {
-      mbar_expect_tx(q_bar, kTile);
-      for (int x = 0; x < NB; ++x)
+      mbar_expect_tx(q_bar, kTileQK);
+      for (int x = 0; x < NQK; ++x)
         tma_load(sQ + x * kBox, &qmap, q_bar, 64 * x, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t full = bars + 8 * s;
         mbar_wait(bars + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * kTile);
+        mbar_expect_tx(full, kTileQK + kTileV);
         const int k0 = k_first + i * BK;
-        for (int x = 0; x < NB; ++x) {
-          tma_load(sK + s * kTile + x * kBox, &kmap, full, 64 * x, kvh, k0, b);
-          tma_load(sV + s * kTile + x * kBox, &vmap, full, 64 * x, kvh, k0, b);
-        }
+        for (int x = 0; x < NQK; ++x)
+          tma_load(sK + s * kTileQK + x * kBox, &kmap, full, 64 * x, kvh, k0,
+                   b);
+        for (int x = 0; x < NV; ++x)
+          tma_load(sV + s * kTileV + x * kBox, &vmap, full, 64 * x, kvh, k0,
+                   b);
       }
     }
   } else {
@@ -426,9 +443,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int tq = lane & 3;                  // column pair in an 8-column group
     const int r_lo = q0 + 64 * wg;            // this warpgroup's rows
     const int row = r_lo + 16 * ((tid & 127) >> 5) + g;  // and row + 8
-    float acc[D / 2];                         // O: rows row, row + 8
+    float acc[DV / 2];                        // O: rows row, row + 8
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     mbar_wait(q_bar, 0);
 
@@ -437,14 +454,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int k0 = k_first + it * BK;
       mbar_wait(bars + 8 * s, (it / kStages) & 1);
 
-      // S = Q K^T over D in steps of 16: a step is 32 bytes into a box
+      // S = Q K^T over DQK in steps of 16: a step is 32 bytes into a box
       float sc[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
         wgmma_ss_n128(sc, smem_desc(sQ + off + wg * 64 * 128, 16, 1024),
-                      smem_desc(sK + s * kTile + off, 16, 1024), kk > 0);
+                      smem_desc(sK + s * kTileQK + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait();
@@ -496,7 +513,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         acc[4 * i] = __fmul_rn(acc[4 * i], a0);
         acc[4 * i + 1] = __fmul_rn(acc[4 * i + 1], a0);
         acc[4 * i + 2] = __fmul_rn(acc[4 * i + 2], a1);
@@ -508,13 +525,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t vd = smem_desc(sV + s * kTile + kk * 2048, kBox, 1024);
+        const uint64_t vd = smem_desc(sV + s * kTileV + kk * 2048, kBox, 1024);
         const uint32_t hi[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
                                 ph[4 * kk + 3]};
         const uint32_t lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
                                 pl[4 * kk + 3]};
-        wgmma_rs<D>(acc, hi, vd);
-        wgmma_rs<D>(acc, lo, vd);
+        wgmma_rs<DV>(acc, hi, vd);
+        wgmma_rs<DV>(acc, lo, vd);
       }
       wgmma_commit();
       wgmma_wait();
@@ -530,35 +547,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row < S) lb[row] = __fadd_rn(m0, logf(d0));
       if (row + 8 < S) lb[row + 8] = __fadd_rn(m1, logf(d1));
     }
-    const size_t q_row = static_cast<size_t>(H) * D;
-    __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * D + 2 * tq;
+    const size_t o_row = static_cast<size_t>(H) * DV;
+    __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * DV + 2 * tq;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       if (row < S)
-        *reinterpret_cast<uint32_t*>(ob + row * q_row + 8 * i) =
+        *reinterpret_cast<uint32_t*>(ob + row * o_row + 8 * i) =
             pack_bf16(__fdiv_rn(acc[4 * i], d0), __fdiv_rn(acc[4 * i + 1], d0));
       if (row + 8 < S)
-        *reinterpret_cast<uint32_t*>(ob + (row + 8) * q_row + 8 * i) =
+        *reinterpret_cast<uint32_t*>(ob + (row + 8) * o_row + 8 * i) =
             pack_bf16(__fdiv_rn(acc[4 * i + 2], d1),
                       __fdiv_rn(acc[4 * i + 3], d1));
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tk, int H, int KV, float scale, int window,
            cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, encode, q, B, S, H, D) ||
-      !make_map(&kmap, encode, k, B, Tk, KV, D) ||
-      !make_map(&vmap, encode, v, B, Tk, KV, D))
+  if (!make_map(&qmap, encode, q, B, S, H, DQK) ||
+      !make_map(&kmap, encode, k, B, Tk, KV, DQK) ||
+      !make_map(&vmap, encode, v, B, Tk, KV, DV))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem =
-      1024 + (1 + 2 * kStages) * (D / 64) * kBox + 8 * (2 * kStages + 1);
-  auto kernel = flash_attention_kernel<D>;
+  constexpr size_t smem = 1024 + ((1 + kStages) * DQK + kStages * DV) / 64 *
+                                     kBox + 8 * (2 * kStages + 1);
+  static_assert(smem <= 227 * 1024, "over a block's shared memory");
+  auto kernel = flash_attention_kernel<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -574,30 +592,38 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace tensor_core
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  D: 64 or 128.
-// lse: null, or (B, H, S) float32 that gets each row's log-sum-exp of its
-// scaled logits (m + log l, in the domain the kernel exponentiates), which
-// the backward (csrc/flash_attention_bwd.cu) reads; O is the same either
-// way.  Returns cudaErrorInvalidValue for any other dtype or D.
+// dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  (D, DV), the
+// widths of q / k and of v / o: (64, 64), (128, 128) or (192, 128) (MLA's
+// folded keys, 128 + 64, against its values of 128).  lse: null, or
+// (B, H, S) float32 that gets each row's log-sum-exp of its scaled logits
+// (m + log l, in the domain the kernel exponentiates), which the backward
+// (csrc/flash_attention_bwd.cu) reads; O is the same either way.  Returns
+// cudaErrorInvalidValue for any other dtype or pair.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, float* lse,
                                      int dtype, int B, int S, int Tk, int H,
-                                     int KV, int D, float scale, int window,
-                                     cudaStream_t stream) {
+                                     int KV, int D, int DV, float scale,
+                                     int window, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Tk <= 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 128)
-    return cuda_core::launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
-                                  window, stream);
-  if (dtype == 0 && D == 64)
-    return cuda_core::launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
-                                 window, stream);
-  if (dtype == 1 && D == 128)
-    return tensor_core::launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
-                                    window, stream);
-  if (dtype == 1 && D == 64)
-    return tensor_core::launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, scale,
-                                   window, stream);
+  if (dtype == 0 && D == 128 && DV == 128)
+    return cuda_core::launch<128, 128, 64>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                           scale, window, stream);
+  if (dtype == 0 && D == 64 && DV == 64)
+    return cuda_core::launch<64, 64, 64>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                         scale, window, stream);
+  if (dtype == 0 && D == 192 && DV == 128)
+    return cuda_core::launch<192, 128, 32>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                           scale, window, stream);
+  if (dtype == 1 && D == 128 && DV == 128)
+    return tensor_core::launch<128, 128>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                         scale, window, stream);
+  if (dtype == 1 && D == 64 && DV == 64)
+    return tensor_core::launch<64, 64>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                       scale, window, stream);
+  if (dtype == 1 && D == 192 && DV == 128)
+    return tensor_core::launch<192, 128>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                         scale, window, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -50,8 +50,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window=None, scale=None) -> torch.Tensor:
-    """q: (b, s, H, d); k/v: (b, t, KV, d) with KV | H -> (b, s, H, d);
-    query i and key j sit at positions i and j."""
+    """q: (b, s, H, d), k: (b, t, KV, d), v: (b, t, KV, dv) with KV | H ->
+    (b, s, H, dv); query i and key j sit at positions i and j."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cuda":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

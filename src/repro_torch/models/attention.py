@@ -1,5 +1,5 @@
-"""Attention (GQA / MQA / MHA, sliding window) with KV caches: the non-MLA
-part of the JAX package's ``models/attention.py``.
+"""Attention (GQA / MQA / MHA, sliding window, DeepSeek's MLA) with KV
+caches: the JAX package's ``models/attention.py``.
 
 Prefill attention goes through ``kernels.flash_attention.ops``: the
 hand-written kernel on a CUDA tensor, the plain streaming form (the
@@ -9,8 +9,16 @@ cache, all softmax math in float32.  The encoder's self-attention and the
 decoder's cross-attention (whisper) are the reference's dense einsums in
 plain PyTorch on either device, as the reference computes them outside
 any Pallas kernel; with a ``d_head`` of 4^k their scale 1 / sqrt(d_head)
-is exact, so multiplying by it is the reference's division.  MLA is not
-ported yet (ROADMAP.md queue 1: the rest of the LM stack).
+is exact, so multiplying by it is the reference's division.
+
+MLA (multi-head latent attention) caches a normed latent ``ckv`` and one
+roped key ``krope`` a position instead of every head's keys and values.
+Its prefill (``mla_train``) folds the shared rope key into every head's
+key, as the reference does, and runs the flash kernel with keys of
+qk_nope + qk_rope and values of v_dim (192 and 128 at DeepSeek-V2's
+width).  Its decode (``mla_decode``) absorbs the key up-projection into
+the query and attends in the latent space, in plain PyTorch on either
+device, as the reference computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -24,17 +32,19 @@ from repro_torch.kernels.flash_attention.ref import STREAM_NEG_INF as NEG_INF
 from repro_torch.models.layers import apply_rope, dense, rms_norm, spec
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1: the rest of the LM "
-        "stack)")
-
-
 def attn_specs(cfg) -> dict:
-    if cfg.attn_type == "mla":
-        raise _not_ported("MLA attention")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
     dt = cfg.param_dtype
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return {
+            "wq": spec((d, H, m.qk_nope + m.qk_rope), dtype=dt),
+            "wkv_down": spec((d, m.kv_lora + m.qk_rope), dtype=dt),
+            "kv_norm": spec((m.kv_lora,), "ones", dtype=dt),
+            "wk_up": spec((m.kv_lora, H, m.qk_nope), dtype=dt),
+            "wv_up": spec((m.kv_lora, H, m.v_dim), dtype=dt),
+            "wo": spec((H, m.v_dim, d), dtype=dt),
+        }
     out = {
         "wq": spec((d, H, hd), dtype=dt),
         "wk": spec((d, KV, hd), dtype=dt),
@@ -97,9 +107,14 @@ def _ring_cache_entry(cfg, k, v):
 
 
 def init_cache(cfg, batch: int, max_seq: int, device):
-    """A zero decode cache.  SWA caches only the window (ring buffer)."""
+    """A zero decode cache.  SWA caches only the window (ring buffer); MLA
+    the latent and the rope key of every position."""
     if cfg.attn_type == "mla":
-        raise _not_ported("MLA attention")
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, max_seq, m.kv_lora),
+                                   dtype=cfg.param_dtype, device=device),
+                "krope": torch.zeros((batch, max_seq, m.qk_rope),
+                                     dtype=cfg.param_dtype, device=device)}
     seq = min(max_seq, cfg.window) if cfg.attn_type == "swa" else max_seq
     shape = (batch, seq, cfg.n_kv, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
@@ -145,6 +160,82 @@ def attention_decode(params, cfg, x, cache, position: int):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     out = out.reshape(b, 1, H, hd).to(x.dtype)
+    return dense(params["wo"], out, "bshe,hed->bsd"), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent KV compression
+# ---------------------------------------------------------------------------
+
+
+def _mla_latent(params, cfg, x, positions):
+    """x (b, s, d) -> (q_nope, roped q_rope, normed ckv, roped k_rope):
+    the query heads and the per-position latent and rope key."""
+    m = cfg.mla
+    q = dense(params["wq"], x, "bsd,dhe->bshe")
+    q_nope, q_rope = q.split([m.qk_nope, m.qk_rope], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = dense(params["wkv_down"], x, "bsd,de->bse")
+    ckv, k_rope = kv.split([m.kv_lora, m.qk_rope], dim=-1)
+    ckv = rms_norm(params["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_train(params, cfg, x, positions, return_kv=False):
+    """Full-sequence causal MLA.  x: (b, s, d).  The rope key, shared by
+    the heads, is folded into each head's key: attention over
+    [nope, rope] keys is the two-term MLA logit sum, with the scale
+    1 / sqrt(qk_nope + qk_rope).  The cache entry is the normed latent
+    and the roped key."""
+    m = cfg.mla
+    q_nope, q_rope, ckv, k_rope = _mla_latent(params, cfg, x, positions)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    del q_nope, q_rope
+    k_nope = dense(params["wk_up"], ckv, "bse,ehn->bshn")
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:3] + (m.qk_rope,))], dim=-1)
+    del k_nope
+    v = dense(params["wv_up"], ckv, "bse,ehn->bshn")
+    out = flash_ops.flash_attention(
+        q, k, v, scale=1.0 / math.sqrt(m.qk_nope + m.qk_rope))
+    del q, k, v
+    y = dense(params["wo"], out, "bshe,hed->bsd")
+    if return_kv:
+        return y, {"ckv": ckv, "krope": k_rope}
+    return y
+
+
+def mla_decode(params, cfg, x, cache, position: int):
+    """One-token MLA decode against a populated cache, with the key
+    up-projection absorbed into the query: scores and values in the
+    latent space.  x: (b, 1, d); the new latent and rope key are written
+    into ``cache`` in place.  The reference's roundings: q_lat and o_lat
+    in x's dtype, the logits as two float32 sums, the softmax in float32
+    (every product of exactly upcast operands, float32 sums)."""
+    m = cfg.mla
+    b = x.shape[0]
+    pos_arr = torch.full((b, 1), position, dtype=torch.int32,
+                         device=x.device)
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_latent(params, cfg, x,
+                                                      pos_arr)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, position] = ckv_new[:, 0]
+    krope[:, position] = k_rope_new[:, 0]
+
+    q_lat = torch.einsum("bshn,ehn->bshe", q_nope.float(),
+                         params["wk_up"].float()).to(x.dtype)
+    logits = torch.einsum("bshe,bte->bhst", q_lat.float(), ckv.float())
+    logits = logits + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                                   krope.float())
+    valid = torch.arange(ckv.shape[1], device=x.device) <= position
+    scale = 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
+    probs = torch.softmax(torch.where(valid, logits * scale, NEG_INF),
+                          dim=-1)
+    o_lat = torch.einsum("bhst,bte->bshe", probs, ckv.float()).to(x.dtype)
+    out = torch.einsum("bshe,ehn->bshn", o_lat.float(),
+                       params["wv_up"].float()).to(x.dtype)
     return dense(params["wo"], out, "bshe,hed->bsd"), cache
 
 

@@ -58,18 +58,25 @@ def stack_specs(specs, n: int):
 
 
 def tree_map(fn, tree):
-    """``fn`` over the leaves of a nest of dicts, in sorted key order."""
+    """``fn`` over the leaves of a nest of dicts and lists, in sorted key
+    order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t) for t in tree]
     return fn(tree)
 
 
 def tree_leaves(tree, path=()):
-    """(path, leaf) pairs of a nest of dicts in the reference's flatten
-    order (keys sorted)."""
+    """(path, leaf) pairs of a nest of dicts and lists (a list's entries
+    keyed by their index) in the reference's flatten order (keys
+    sorted)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from tree_leaves(t, path + (i,))
     else:
         yield path, tree
 

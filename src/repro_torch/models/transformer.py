@@ -4,9 +4,12 @@
 The reference stacks parameters and caches per period of layer kinds and
 scans over them; here each layer is an ``nn.Module`` in a Python loop and
 the cache is a list with one dict per layer.  ``Model.specs()`` still
-returns the reference's stacked tree (``stack/sub{j}`` with a leading
-period axis), which is what :meth:`Model.init` draws from, what
-:meth:`Model.load_tree` reads and what ``bridge.numpy_lm_params`` builds.
+returns the reference's tree: the unstacked dense prefix (``prefix``, a
+list of ``first_dense`` layers, DeepSeek's first dense layer) and the
+stacked body (``stack/sub{j}`` with a leading period axis, the period
+taken over the layers after the prefix), which is what :meth:`Model.init`
+draws from, what :meth:`Model.load_tree` reads and what
+``bridge.numpy_lm_params`` builds.
 
 :meth:`Model.forward` is the full forward that autograd sees (each layer
 under ``torch.utils.checkpoint`` when ``cfg.remat``, the counterpart of
@@ -27,10 +30,11 @@ A MoE layer (``models/moe.py``) returns its router's auxiliary loss;
 :meth:`Model.loss` adds it to the cross-entropy, as the reference does.
 Prefill and decode drop it.
 
-MLA, Mamba and dense-prefix configurations raise ``NotImplementedError``
-at construction; of the ten configs, yi-9b, codeqwen1.5-7b,
-phi3-medium-14b, granite-34b, chameleon-34b, mixtral-8x22b, rwkv6-7b and
-whisper-medium run.
+Mamba configurations raise ``NotImplementedError`` at construction; of
+the ten configs, every one but jamba-v0.1-52b runs: yi-9b,
+codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b,
+mixtral-8x22b, deepseek-v2-236b (MLA and its dense prefix), rwkv6-7b and
+whisper-medium.
 """
 
 from __future__ import annotations
@@ -95,12 +99,8 @@ def find_period(kinds: list) -> int:
 
 def unsupported(cfg):
     """What of ``cfg`` the port cannot run yet, or None."""
-    if cfg.attn_type == "mla":
-        return "MLA attention"
     if cfg.mixer == "mamba":
         return "Mamba"
-    if cfg.first_dense:
-        return "a dense prefix"
     return None
 
 
@@ -214,7 +214,10 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         mixer, mlp = self.kind
         h = _apply_norm(self.norm1, cfg, x)
-        if mixer == "attn":
+        if mixer == "attn" and cfg.attn_type == "mla":
+            mo, entry = attn.mla_train(self.mixer, cfg, h, positions,
+                                       return_kv=True)
+        elif mixer == "attn":
             mo, entry = attn.attention_train(self.mixer, cfg, h, positions,
                                              return_kv=True)
         else:
@@ -237,7 +240,10 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         mixer, mlp = self.kind
         h = _apply_norm(self.norm1, cfg, x)
-        if mixer == "attn":
+        if mixer == "attn" and cfg.attn_type == "mla":
+            mo, new_cache = attn.mla_decode(self.mixer, cfg, h, cache,
+                                            position)
+        elif mixer == "attn":
             mo, new_cache = attn.attention_decode(self.mixer, cfg, h, cache,
                                                   position)
         else:
@@ -280,15 +286,28 @@ class EncoderLayer(nn.Module):
 STACKED = ("stack", "enc_stack")
 
 
+def body_period(cfg) -> int:
+    """The period of the layer kinds after the dense prefix, over which
+    the reference stacks its body (1 when there is no body)."""
+    body = layer_kinds(cfg)[cfg.first_dense:]
+    return find_period(body) if body else 1
+
+
 def model_specs(cfg) -> dict:
-    """The reference's parameter spec tree for ``cfg`` (stacked layers)."""
+    """The reference's parameter spec tree for ``cfg``: the dense prefix
+    unstacked, the body stacked."""
     kinds = layer_kinds(cfg)
-    period = find_period(kinds)
+    body = kinds[cfg.first_dense:]
+    period = body_period(cfg)
     out = {"embed": embed_spec(cfg.vocab, cfg.d_model, cfg.param_dtype),
-           "stack": stack_specs({f"sub{j}": decoder_layer_specs(
-               cfg, k, cross=cfg.is_encdec)
-               for j, k in enumerate(kinds[:period])}, len(kinds) // period),
            "final_norm": _norm_specs(cfg)}
+    if cfg.first_dense:
+        out["prefix"] = [decoder_layer_specs(cfg, k)
+                         for k in kinds[:cfg.first_dense]]
+    if body:
+        out["stack"] = stack_specs({f"sub{j}": decoder_layer_specs(
+            cfg, k, cross=cfg.is_encdec)
+            for j, k in enumerate(body[:period])}, len(body) // period)
     if not cfg.tie_embeddings:
         out["unembed"] = {"w": spec((cfg.d_model, cfg.vocab), "scaled",
                                     0.02 / math.sqrt(cfg.d_model),
@@ -318,7 +337,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = layer_kinds(cfg)
-        self.period = find_period(self.kinds)
+        self.period = body_period(cfg)
         specs = self.specs()
         self.embed = param_dict(specs["embed"], self.device)
         self.layers = nn.ModuleList(DecoderLayer(cfg, k, self.device)
@@ -379,8 +398,11 @@ class Model(nn.Module):
             if path[0] == "stack":
                 j = int(path[1][3:])
                 yield path, s, [leaf(self.layers[i], path[2:])
-                                for i in range(j, len(self.layers),
+                                for i in range(self.cfg.first_dense + j,
+                                               len(self.layers),
                                                self.period)]
+            elif path[0] == "prefix":
+                yield path, s, [leaf(self.layers[path[1]], path[2:])]
             elif path[0] == "enc_stack":
                 yield path, s, [leaf(layer, path[1:])
                                 for layer in self.enc_layers]
@@ -392,7 +414,8 @@ class Model(nn.Module):
         """Draw every parameter from its spec's distribution, leaf by leaf
         in the reference's flatten order.  As in the reference
         (``_init_leaf`` on the stacked tree), a stacked leaf's fan-in is
-        its leading axis: the number of periods."""
+        its leading axis: the number of periods; a prefix leaf, unstacked,
+        has its own."""
         for _path, s, tensors in self._leaves():
             for t in tensors:
                 fill_(t, s, generator)
@@ -428,11 +451,11 @@ class Model(nn.Module):
         return torch.arange(s, dtype=torch.int32,
                             device=tokens.device).expand(b, s)
 
-    def _period(self, i: int, x, positions, enc_out=None):
-        """Layers i .. i + period - 1 (one period of the reference's
-        scanned stack) -> (x, the period's MoE aux loss)."""
+    def _period(self, i: int, x, positions, enc_out=None, n=None):
+        """Layers i .. i + n - 1 (``n`` the period when None: one period
+        of the reference's scanned stack) -> (x, their MoE aux loss)."""
         aux_total = 0.0
-        for layer in self.layers[i:i + self.period]:
+        for layer in self.layers[i:i + (self.period if n is None else n)]:
             x, _entry, aux = layer(x, positions, enc_out)
             aux_total = aux_total + aux
         return x, aux_total
@@ -460,12 +483,14 @@ class Model(nn.Module):
         an encoder-decoder.  Under autograd with ``cfg.remat`` each period
         runs under ``torch.utils.checkpoint`` (its activations recomputed
         in the backward), as the reference's ``jax.checkpoint`` of its
-        period."""
+        period; the dense prefix runs before them without, as the
+        reference's unscanned prefix layers."""
         x = embed(self.embed, tokens)
         positions = self._positions(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        aux_total = 0.0
-        for i in range(0, len(self.layers), self.period):
+        x, aux_total = self._period(0, x, positions, enc_out,
+                                    n=self.cfg.first_dense)
+        for i in range(self.cfg.first_dense, len(self.layers), self.period):
             if remat:
                 x, aux = checkpoint(self._period, i, x, positions, enc_out,
                                     use_reentrant=False)
@@ -520,8 +545,9 @@ class Model(nn.Module):
         return self._head(x[:, -1:])[:, 0], cache
 
     def pad_cache(self, cache, extra: int):
-        """Grow full-attention caches by ``extra`` zero positions; the
-        cross keys and values keep the encoder's length."""
+        """Grow full-attention caches (k and v, MLA's ckv and krope) by
+        ``extra`` zero positions; the cross keys and values keep the
+        encoder's length."""
         if self.cfg.attn_type == "swa" or self.cfg.mixer == "rwkv":
             return cache    # ring buffer / recurrent state: fixed size
 
@@ -529,7 +555,9 @@ class Model(nn.Module):
             return torch.cat([a, a.new_zeros((a.shape[0], extra)
                                              + a.shape[2:])], dim=1)
 
-        return [dict(c, k=grow(c["k"]), v=grow(c["v"])) for c in cache]
+        seq = (("ckv", "krope") if self.cfg.attn_type == "mla"
+               else ("k", "v"))
+        return [dict(c, **{k: grow(c[k]) for k in seq}) for c in cache]
 
     def init_cache(self, batch: int, max_seq: int):
         """A zero cache; an encoder-decoder's entries hold zero cross keys

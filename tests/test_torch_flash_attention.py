@@ -165,17 +165,18 @@ RANDOM_BOUND = (4e-3, 2.0 ** -7)
 
 def tensor_core_emulation(q, k, v, scale, window=None, fold_scale=False,
                           one_bf16_p=False):
-    """q: (b, s, H, d), k/v: (b, t, KV, d) bf16 -> (b, s, H, d) bf16.
-    ``fold_scale`` rounds q * scale to bf16 before the product instead;
-    ``one_bf16_p`` keeps only P's first bf16 term (FlashAttention's P)."""
+    """q: (b, s, H, d), k: (b, t, KV, d), v: (b, t, KV, dv) bf16 ->
+    (b, s, H, dv) bf16.  ``fold_scale`` rounds q * scale to bf16 before
+    the product instead; ``one_bf16_p`` keeps only P's first bf16 term
+    (FlashAttention's P)."""
     b, s, H, d = q.shape
-    t = k.shape[1]
+    t, dv = k.shape[1], v.shape[-1]
     kf, vf = expand_kv(k, H).float(), expand_kv(v, H).float()
     qf = (q.float() * scale).bfloat16().float() if fold_scale else q.float()
     q_pos = torch.arange(s)[:, None]
     m = torch.full((b, H, s), -1e30)
     l = torch.zeros((b, H, s))
-    acc = torch.zeros((b, H, s, d))
+    acc = torch.zeros((b, H, s, dv))
     for k0 in range(0, t, BK):
         logits = torch.einsum("bshd,bchd->bhsc", qf, kf[:, k0:k0 + BK])
         if not fold_scale:
@@ -340,27 +341,29 @@ def test_one_bf16_p_breaks_the_model_bound_at_full_width_scale():
 CC_BQ, CC_BK, CC_THREADS = 128, 64, 16
 
 
-def cuda_core_emulation(q, k, v, scale, window=None):
-    """q: (b, s, H, d), k/v: (b, t, KV, d) float32 -> (b, s, H, d)."""
+def cuda_core_emulation(q, k, v, scale, window=None, bk=CC_BK):
+    """q: (b, s, H, d), k: (b, t, KV, d), v: (b, t, KV, dv) float32 ->
+    (b, s, H, dv), over key tiles of ``bk`` (the kernel's 64, or the 32 of
+    MLA's (192, 128) pair)."""
     b, s, H, d = q.shape
-    t = k.shape[1]
-    pad = -(-t // CC_BK) * CC_BK + CC_BK - t
+    t, dv = k.shape[1], v.shape[-1]
+    pad = -(-t // bk) * bk + bk - t
     kf = torch.nn.functional.pad(expand_kv(k, H), (0, 0, 0, 0, 0, pad))
     vf = torch.nn.functional.pad(expand_kv(v, H), (0, 0, 0, 0, 0, pad))
     qs = q * torch.tensor(scale, dtype=torch.float32)
     lane = torch.arange(CC_THREADS)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, H, dv))
     for q0 in range(0, s, CC_BQ):
         rows = torch.arange(q0, min(s, q0 + CC_BQ))
         k_stop = min(t, q0 + CC_BQ)
-        k_first = max(0, q0 - window + 1) // CC_BK * CC_BK if window else 0
+        k_first = max(0, q0 - window + 1) // bk * bk if window else 0
         m = torch.full((b, H, len(rows)), -1e30)
         l = torch.zeros((b, H, len(rows)))
-        acc = torch.zeros((b, H, len(rows), d))
-        for k0 in range(k_first, k_stop, CC_BK):
-            keys = torch.arange(k0, k0 + CC_BK)
+        acc = torch.zeros((b, H, len(rows), dv))
+        for k0 in range(k_first, k_stop, bk):
+            keys = torch.arange(k0, k0 + bk)
             logits = torch.einsum("bshd,bchd->bhsc", qs[:, rows],
-                                  kf[:, k0:k0 + CC_BK])
+                                  kf[:, k0:k0 + bk])
             valid = (keys[None] < t) & (keys[None] <= rows[:, None])
             if window:
                 valid &= keys[None] > rows[:, None] - window
@@ -369,7 +372,7 @@ def cuda_core_emulation(q, k, v, scale, window=None):
             alpha = torch.exp(m - m_new)
             p = torch.exp(logits - m_new[..., None])
             # key k0 + tx + 16 j -> [..., j, tx]
-            part = p.reshape(*p.shape[:-1], CC_BK // CC_THREADS, CC_THREADS)
+            part = p.reshape(*p.shape[:-1], bk // CC_THREADS, CC_THREADS)
             local = part[..., 0, :]
             for j in range(1, part.shape[-2]):
                 local = local + part[..., j, :]
@@ -377,7 +380,7 @@ def cuda_core_emulation(q, k, v, scale, window=None):
                 local = local + local[..., lane ^ off]
             l = l * alpha + local[..., 0]
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhsc,bchd->bhsd", p, vf[:, k0:k0 + CC_BK])
+                "bhsc,bchd->bhsd", p, vf[:, k0:k0 + bk])
             m = m_new
         out[:, rows] = (acc / l.clamp_min(1e-37)[..., None]).transpose(1, 2)
     return out

@@ -1,10 +1,10 @@
 """The port's LM stack (``repro_torch.models``, ``serve``, ``launch``)
 against the JAX package, on the CPU.
 
-For each of the seven configs the port runs (their SMOKE variants in
-float32, as ``_f32_nodrop`` in tests/test_models.py:22, but mixtral at
-its published MoE capacity factor of 1.25, so that both packages drop
-the same assignments), and sliding-window variants of yi's and mixtral's
+For each of the eight configs the port runs here (their SMOKE variants in
+float32, as ``_f32_nodrop`` in tests/test_models.py:22, but mixtral and
+deepseek at their published MoE capacity factor of 1.25, so that both
+packages drop the same assignments), and sliding-window variants of yi's and mixtral's
 whose window binds, the JAX model's own ``init`` parameters go through
 ``bridge.lm_params_from``; then ``logits``, ``prefill`` (last-token logits
 and every layer's cache), teacher-forced ``decode_step``s and greedy
@@ -59,8 +59,8 @@ from repro_torch.serve.engine import (
 torch.set_num_threads(1)
 
 RUNNABLE = ["yi-9b", "codeqwen1.5-7b", "phi3-medium-14b", "granite-34b",
-            "chameleon-34b", "mixtral-8x22b", "rwkv6-7b"]
-NOT_PORTED = {"deepseek-v2-236b": "MLA attention", "jamba-v0.1-52b": "Mamba"}
+            "chameleon-34b", "mixtral-8x22b", "deepseek-v2-236b", "rwkv6-7b"]
+NOT_PORTED = {"jamba-v0.1-52b": "Mamba"}
 SWA = {"yi-swa": "yi-9b", "mixtral-swa": "mixtral-8x22b"}
 REL = 1e-4
 B, S, EXTRA, GEN = 2, 10, 4, 6
@@ -95,10 +95,13 @@ def rel_err(got, want):
 
 
 def layer_slices(jax_cache, n_layers):
-    """The JAX stacked cache (period 1) as one dict per layer."""
+    """The JAX cache (a dense prefix's layers in its list, then the stack
+    of period 1) as one dict per layer."""
+    out = [{k: np.asarray(a) for k, a in c.items()}
+           for c in jax_cache.get("prefix", [])]
     sub = jax_cache["stack"]["sub0"]
-    return [{k: np.asarray(a[i]) for k, a in sub.items()}
-            for i in range(n_layers)]
+    return out + [{k: np.asarray(a[i]) for k, a in sub.items()}
+                  for i in range(n_layers - len(out))]
 
 
 def greedy_agree(got, want, gap, top, tol):
@@ -271,7 +274,8 @@ def test_greedy_generate(case):
 
 
 @pytest.mark.parametrize("name", ["yi-9b", "granite-34b", "rwkv6-7b",
-                                  "yi-swa", "mixtral-8x22b"])
+                                  "yi-swa", "mixtral-8x22b",
+                                  "deepseek-v2-236b"])
 def test_init_cache_matches_jax(name):
     jc, pc = configs(name)
     want = layer_slices(JaxModel(jc).init_cache(2, 12), jc.n_layers)
@@ -332,7 +336,8 @@ def test_numpy_params_laid_out_as_jax_init(arch):
     jl = jax.tree_util.tree_leaves_with_path(jtree)
     nl = list(tree_leaves(ntree))
     assert [jax.tree_util.keystr(p) for p, _ in jl] == [
-        "".join(f"['{k}']" for k in p) for p, _ in nl]
+        "".join(f"[{k}]" if isinstance(k, int) else f"['{k}']" for k in p)
+        for p, _ in nl]
     for (_p, a), (path, b) in zip(jl, nl):
         assert a.shape == b.shape and b.dtype == np.float32, path
         a = np.asarray(a)
@@ -397,8 +402,7 @@ def test_registry_and_shapes():
 
 @pytest.mark.parametrize("arch", jax_registry.list_archs())
 def test_unsupported_names_what_is_left(arch):
-    """Eight configs run; deepseek is refused for its MLA attention (before
-    its dense prefix) and jamba for Mamba, whatever their MoE."""
+    """Nine configs run; jamba is refused for Mamba, whatever its MoE."""
     for smoke in (False, True):
         assert unsupported(registry.get_config(arch, smoke)) == \
             NOT_PORTED.get(arch)
@@ -408,10 +412,15 @@ def test_unsupported_names_what_is_left(arch):
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
         Model(registry.get_config(arch, smoke=True), device="cpu")
+    # MLA without MoE (the prefix and a dense body) builds and runs
     mla = dataclasses.replace(registry.get_config("deepseek-v2-236b", True),
                               moe=None)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        Model(mla, device="cpu")
+    model = serve_cli.build_model(mla, "cpu", seed=0)
+    toks = serve_cli.make_prompts(mla, 2, 7, seed=1, device="cpu")
+    logits = model.logits(toks)
+    assert logits.shape == (2, 7, mla.vocab)
+    assert torch.isfinite(logits.float()).all()
+    assert generate(model, toks, 2).shape == (2, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +505,7 @@ def test_sample(top_k):
 @pytest.mark.parametrize("argv", [
     ["--arch", "yi-9b", "--smoke"],
     ["--arch", "mixtral-8x22b", "--smoke"],
+    ["--arch", "deepseek-v2-236b", "--smoke"],
     ["--arch", "rwkv6-7b", "--cascade"],
     ["--arch", "granite-34b", "--temperature", "0.7"],
 ])
