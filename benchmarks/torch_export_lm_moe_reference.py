@@ -35,7 +35,8 @@ numpy's generator seeded with 1.  It stores
 
 Only outputs and E are stored: ``numpy_lm_params`` rebuilds the weights,
 the seed the tokens.  ``main(out, desc)`` writes the same record for
-another MoE config (``torch_export_lm_mla_reference.py``: deepseek's).
+another MoE config (``torch_export_lm_mla_reference.py``: deepseek's;
+``torch_export_lm_hybrid_reference.py``: jamba's).
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python benchmarks/torch_export_lm_moe_reference.py
 """
@@ -108,21 +109,23 @@ def counting_drops(log: list):
 
 
 def config(desc=DESC):
-    """(JAX config, port config) of ``desc``, float32; an "mla" override
-    is a dict of ``MLAConfig`` fields."""
+    """(JAX config, port config) of ``desc``, float32; an "mla" or "mamba"
+    override is a dict of ``MLAConfig`` or ``MambaConfig`` fields."""
     import dataclasses
 
     import jax.numpy as jnp
     import torch
 
     from repro.configs.registry import get_config
+    from repro.models.ssm import MambaConfig
     from repro.models.transformer import MLAConfig
     from repro_torch.bridge import record_overrides
     from repro_torch.configs import registry as port_registry
 
     over = dict(desc["overrides"])
-    if "mla" in over:
-        over["mla"] = MLAConfig(**over["mla"])
+    for key, kind in (("mla", MLAConfig), ("mamba", MambaConfig)):
+        if key in over:
+            over[key] = kind(**over[key])
     cfg = dataclasses.replace(get_config(desc["arch"], smoke=desc["smoke"]),
                               param_dtype=jnp.float32, **over)
     port = dataclasses.replace(

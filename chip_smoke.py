@@ -269,12 +269,30 @@ no tensor-core instruction, then:
    (above 160 / 6, so that a call of t tokens keeps all its 6 t choices)
    with nothing dropped; the JAX
    record ``assets/lm_mla_reference.npz`` as mixtral's;
-13. profile phase — every torch.profiler session of the run: each kernel's
+13. jamba phase — jamba-v0.1-52b, Mamba layers with an attention layer in
+   every period of 8, at full width, 8 of 32 layers (one period: 7 Mamba
+   layers and the attention layer 4; MoE, 16 experts top-2, on the odd
+   layers; 13.3 B parameters, 24.8 GiB), bf16, 8 x 4096-token prompts,
+   32 greedy tokens: 1 flash launch, in prefill, at a head group of 4;
+   finite logits, stream == generate; the decode cache a layer of each
+   kind (the Mamba conv and ssm state against the attention keys and
+   values); the serve call's transient memory below one (b, s, d_inner,
+   d_state) float32 tensor (the scan builds its exp(delta A) and Bx a
+   chunk of 256 steps at a time); drops a MoE layer; routing at the last
+   layer as mixtral's; row 7j at the prefill's flash inputs (held as 7m);
+   the last Mamba layer in float32 on the card against the CPU port, on
+   the serve call's own input to it (within (1 + MAMBA_MARGIN) times the
+   CPU port's own distance from a float64 evaluation), and the chunked
+   scan bit-equal to the unchunked one on that layer's inputs at a length
+   ragged against the chunk; the float32 parity at layers 0-4 and
+   capacity factor 16; the JAX record ``assets/lm_hybrid_reference.npz``
+   as mixtral's;
+14. profile phase — every torch.profiler session of the run: each kernel's
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each, whisper's, mixtral's and deepseek's included
-   (each model
+   training step of each, whisper's, mixtral's, deepseek's and jamba's
+   included (jamba's prefill alone too) (each model
    built anew when its profile runs; the card's activity alone),
    the serving dispatches' kernel launches by the profiler's names (held
    to the wrappers' counts), with the funnel's host time just before and
@@ -461,6 +479,25 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+# torch.profiler keeps only the card's records that fall inside its capture
+# window on the host's clock.  Late in a whole run of this script sessions
+# lost records at their end: 0, 0 and 19 of 20 launches of a 14 us kernel
+# in three sessions, and a serve call the last ~8 of its 31 decode steps,
+# as if the card's timestamps, taken to the host's clock, ran later as
+# the process ages.  So each session waits PROFILE_TAIL_S after its last
+# synchronise before it closes.
+PROFILE_TAIL_S = 0.5
+
+
+def close_session():
+    """The end of a profiler session: the card drained, then
+    PROFILE_TAIL_S more inside the capture window."""
+    import torch
+
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_TAIL_S)
+
+
 def launch_device_ms(fn, kernel, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds of one launch of the CUDA kernel named
     ``kernel``, by torch.profiler over ``reps`` calls of ``fn``: the
@@ -482,7 +519,7 @@ def launch_device_ms(fn, kernel, reps: int = 20, tries: int = 3) -> float:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            close_session()
         events = [e for e in prof.key_averages()
                   if str(e.device_type).endswith("CUDA") and kernel in e.key]
         count = sum(e.count for e in events)
@@ -505,7 +542,7 @@ def call_device_ms(fn, reps: int = 20) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        close_session()
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     if not events:
@@ -5095,6 +5132,33 @@ DEEPSEEK_PARITY_LAYERS = 2
 # serve call's batch and a prompt ragged against the tiles, 32 heads
 DEEPSEEK_RAGGED = (LM_REQUESTS, FLASH_RAGGED_S, 32)
 
+# -- jamba-v0.1-52b: Mamba layers with attention in every period of 8
+JAMBA = "jamba-v0.1-52b"
+# the serve call: one whole period of the layer kinds (7 Mamba layers and
+# the attention layer 4; MoE, 16 experts top-2, on the odd layers) of 32
+# at full width in bf16 (13.3 B parameters, 24.8 GiB; the whole model,
+# 51.6 B, does not fit one card), 8 requests of 4096-token prompts, 32
+# greedy tokens
+JAMBA_LAYERS = 8
+JAMBA_REQUESTS, JAMBA_PROMPT, JAMBA_GEN = 8, 4096, 32
+# the float32 parity at layers 0-4: four Mamba layers, two MoE layers and
+# the attention layer, on the reference's stacked init (one period: every
+# matrix drawn at std 1, yet E 8.6e-5 on one H100, not chaotic); at factor
+# 16 a call's capacity 2 t an expert holds all its t choices of 16 experts
+# top-2
+JAMBA_PARITY_LAYERS = 5
+JAMBA_NODROP_FACTOR = 16.0
+# the chunked scan against the unchunked one on the card: 2 requests of
+# the layer's own inputs, a length ragged against the chunk of 256
+JAMBA_SCAN_B, JAMBA_SCAN_S, JAMBA_SCAN_CHUNK = 2, 1000, 256
+# the Mamba layer on the card against the CPU port in float32: the card
+# may lie MAMBA_MARGIN times as far from a float64 evaluation of the layer
+# as the CPU port lies (both round every operation of the same float32
+# computation; their GEMMs sum in other orders), so the two lie within
+# (1 + MAMBA_MARGIN) times the CPU port's own distance of each other
+MAMBA_MARGIN = 4
+MAMBA_CPU_ROWS = 1          # requests recomputed on the CPU
+
 
 class _Drops:
     """The assignments each MoE dispatch drops while active, in call order
@@ -5118,25 +5182,26 @@ class _Drops:
         self.module.sort_dispatch = self.fn
 
 
-class _MoEInputs:
-    """The inputs ``models.moe.moe_ffn`` gets from one layer (its ``mlp``
-    parameters ``params``) while active, cloned, in call order."""
+class _Inputs:
+    """The inputs ``module.name`` (``models.moe.moe_ffn`` or
+    ``models.ssm.mamba_mixer``, both called as (params, cfg, m, x, ...))
+    gets from one layer (its parameters ``params``) while active, cloned,
+    in call order."""
 
-    def __init__(self, params):
-        from repro_torch.models import moe
-
-        self.module, self.fn, self.params, self.xs = moe, moe.moe_ffn, params, []
+    def __init__(self, module, name, params):
+        self.module, self.name, self.params, self.xs = module, name, params, []
+        self.fn = getattr(module, name)
 
     def __enter__(self):
-        def spy(params, cfg, m, x):
+        def spy(params, cfg, m, x, *rest):
             if params is self.params:
                 self.xs.append(x.clone())
-            return self.fn(params, cfg, m, x)
-        self.module.moe_ffn = spy
+            return self.fn(params, cfg, m, x, *rest)
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.module.moe_ffn = self.fn
+        setattr(self.module, self.name, self.fn)
 
 
 def moe_record_check(model, rec, extras):
@@ -5191,6 +5256,15 @@ def mixtral_cfg(layers=None, **kw):
                                or MIXTRAL_LAYERS, **kw)
 
 
+def jamba_cfg(layers=None, **kw):
+    """jamba-v0.1-52b at full width, ``layers`` deep (JAMBA_LAYERS when
+    None), fields ``kw`` replaced."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(JAMBA), n_layers=layers
+                               or JAMBA_LAYERS, **kw)
+
+
 def deepseek_cfg(layers=None, **kw):
     """deepseek-v2-236b at full width, ``layers`` deep (the dense prefix
     and MoE layers; DEEPSEEK_LAYERS when None), fields ``kw`` replaced."""
@@ -5205,11 +5279,14 @@ def deepseek_cfg(layers=None, **kw):
 MOE_CALLS = {
     MIXTRAL: (mixtral_cfg, MIXTRAL_REQUESTS, MIXTRAL_PROMPT, MIXTRAL_GEN),
     DEEPSEEK: (deepseek_cfg, DEEPSEEK_REQUESTS, DEEPSEEK_PROMPT,
-               DEEPSEEK_GEN)}
+               DEEPSEEK_GEN),
+    JAMBA: (jamba_cfg, JAMBA_REQUESTS, JAMBA_PROMPT, JAMBA_GEN)}
 MOE_PARITY = {MIXTRAL: (MIXTRAL_PARITY_LAYERS, NODROP_FACTOR),
-              DEEPSEEK: (DEEPSEEK_PARITY_LAYERS, DEEPSEEK_NODROP_FACTOR)}
+              DEEPSEEK: (DEEPSEEK_PARITY_LAYERS, DEEPSEEK_NODROP_FACTOR),
+              JAMBA: (JAMBA_PARITY_LAYERS, JAMBA_NODROP_FACTOR)}
 MOE_RECORD = {MIXTRAL: "load_lm_moe_reference",
-              DEEPSEEK: "load_lm_mla_reference"}
+              DEEPSEEK: "load_lm_mla_reference",
+              JAMBA: "load_lm_hybrid_reference"}
 
 
 def moe_serve_call(arch, device):
@@ -5362,14 +5439,18 @@ def moe_serve_phase(probes, device, arch):
     layer; the assignments each MoE layer drops in the prefill and in one
     decode step; routing on the card against the CPU port at the last
     layer, on the MoE inputs of the prefill and of that decode step.
-    Then the flash row (7m, 7mla) at the inputs of the prefill's first
-    flash launch.  Returns (kernel rows, serve ms)."""
+    Then the flash row (7m, 7mla, 7j) at the inputs of the prefill's
+    first flash launch.  Returns (kernel rows, {"serve_ms", "prefill_ms",
+    "mamba": (the last Mamba layer's parameters in float32 on the card,
+    its prefill input, its index), or None without Mamba layers}).  With
+    Mamba layers the serve call's transient memory is held below one
+    (b, s, d_inner, d_state) float32 tensor: the scan builds none."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.models import moe
+    from repro_torch.models import moe, ssm
     from repro_torch.serve.engine import stream
 
     _cfg, requests, prompt, gen = MOE_CALLS[arch]
@@ -5378,10 +5459,13 @@ def moe_serve_phase(probes, device, arch):
     cfg = model.cfg
     m = cfg.moe
     n_moe = sum(kind[1] == "moe" for kind in model.kinds)
+    n_attn = sum(kind[0] == "attn" for kind in model.kinds)
+    mamba_at = [i for i, kind in enumerate(model.kinds) if kind[0] == "mamba"]
     window = cfg.window if cfg.attn_type == "swa" else None
     torch.cuda.synchronize()
     print(f"{arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
-          f"layers ({cfg.first_dense} dense, {n_moe} MoE), "
+          f"layers ({cfg.first_dense} dense, {n_moe} MoE, {n_attn} "
+          f"attention, {len(mamba_at)} Mamba), "
           f"{model.n_params() / 1e9:.3f} B parameters "
           f"({model.n_active_params() / 1e9:.3f} B active a "
           f"token) in {cfg.param_dtype}, drawn on the card in "
@@ -5395,16 +5479,20 @@ def moe_serve_phase(probes, device, arch):
     counts = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
     probe = model.layers[-1].mlp
-    with _Drops() as drops, _MoEInputs(probe) as moe_in:
+    mixer = model.layers[mamba_at[-1]].mixer if mamba_at else None
+    with _Drops() as drops, _Inputs(moe, "moe_ffn", probe) as moe_in, \
+            _Inputs(ssm, "mamba_mixer", mixer) as mamba_in:
         _build.reset_launches()
         _logits, cache = model.prefill(prompts)
         torch.cuda.synchronize()
         prefill_counts, prefill_drops = dict(_build.launches), list(drops.log)
         cache = model.pad_cache(cache, gen)
-        entry = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
-                 for k, v in cache[0].items()}
-        entry_bytes = sum(v.numel() * v.element_size()
-                          for v in cache[0].values())
+        entries = {}                    # the first layer of each mixer kind
+        for kind, c in zip(model.kinds, cache):
+            entries.setdefault(kind[0], (
+                {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                 for k, v in c.items()},
+                sum(v.numel() * v.element_size() for v in c.values())))
         _build.reset_launches()
         drops.log.clear()
         model.decode_step(toks[:, :1], cache, prompt)
@@ -5413,24 +5501,38 @@ def moe_serve_phase(probes, device, arch):
     del cache, _logits
     print(f"{arch} serve call launches {counts}, prefill alone "
           f"{prefill_counts}, a decode step {decode_counts}; the decode "
-          f"cache a layer {entry}, {entry_bytes} bytes "
-          f"({entry_bytes / 2 ** 20:.1f} MiB); assignments dropped a MoE "
+          "cache a layer: " + "; ".join(
+              f"{kind} {entry}, {n} bytes ({n / 2 ** 20:.1f} MiB)"
+              for kind, (entry, n) in entries.items())
+          + f"; assignments dropped a MoE "
           f"layer: prefill {prefill_drops} of {requests * prompt * m.top_k} "
           f"(capacity {moe._capacity(requests * prompt, m)} an expert),"
           f" a decode step {decode_drops} of {requests * m.top_k} "
           f"(capacity {moe._capacity(requests, m)})", flush=True)
-    want = {"flash_attention": cfg.n_layers}
-    want_cache = ({"ckv", "krope"} if cfg.attn_type == "mla"
-                  else {"k", "v"})
+    want = {"flash_attention": n_attn}
+    want_cache = {"attn": ({"ckv", "krope"} if cfg.attn_type == "mla"
+                           else {"k", "v"}), "mamba": {"conv", "ssm"}}
     if (counts != want or prefill_counts != want or any(decode_counts.values())
             or len(prefill_drops) != n_moe or len(decode_drops) != n_moe
-            or set(entry) != want_cache):
+            or any(set(entry) != want_cache[kind]
+                   for kind, (entry, _n) in entries.items())):
         raise AssertionError(f"{arch}: launches {counts} a serve call, "
                              f"{prefill_counts} in prefill, {decode_counts} "
                              f"in a decode step; expected {want}, all in "
                              f"prefill; {len(prefill_drops)} and "
                              f"{len(decode_drops)} MoE dispatches of "
-                             f"{n_moe}; cache entries {sorted(entry)}")
+                             f"{n_moe}; cache entries {entries}")
+    if mamba_at:
+        mc = cfg.mamba
+        whole = 4 * requests * prompt * mc.expand * cfg.d_model * mc.d_state
+        print(f"{arch}: the serve call's transient "
+              f"{(peak - resident) / 2 ** 30:.2f} GiB above the resident; one "
+              f"(b, s, d_inner, d_state) float32 tensor {whole / 2 ** 30:.2f}"
+              " GiB", flush=True)
+        if peak - resident >= whole:
+            raise AssertionError(f"{arch}: the serve call's transient "
+                                 f"{peak - resident} bytes, not below one "
+                                 f"whole scan tensor of {whole}")
 
     with _Capture(flash_ops, "flash_attention") as cap:
         steps = list(stream(model, prompts, gen))
@@ -5459,7 +5561,12 @@ def moe_serve_phase(probes, device, arch):
                   "step", arch=arch)
     routing_check(probe, m, x_prefill, f"layer {cfg.n_layers - 1}, prefill",
                   n_rows=MOE_ROWS, arch=arch)
-    del model, prompts, serve, x_prefill, x_decode, moe_in, probe
+    mamba = None
+    if mamba_at:
+        mamba = ({k: v.detach().float() for k, v in mixer.items()},
+                 mamba_in.xs[0], mamba_at[-1])
+    del model, prompts, serve, x_prefill, x_decode, moe_in, mamba_in, probe
+    del mixer
     free_card()
     q, k, v = cap.args
     del cap
@@ -5472,7 +5579,8 @@ def moe_serve_phase(probes, device, arch):
                      + ("" if window is None else f" window {window}"))
     del q, k, v
     free_card()
-    return rows, serve_ms
+    return rows, {"serve_ms": serve_ms, "prefill_ms": prefill_ms,
+                  "mamba": mamba}
 
 
 def mla_drawn_rows(probes, device):
@@ -5504,12 +5612,14 @@ def moe_parity_phase(device, arch):
     decode step drop differently, in the reference too."""
     import torch
 
+    from repro_torch.models.transformer import layer_kinds
+
     L, factor = MOE_PARITY[arch]
     cfg_of = MOE_CALLS[arch][0]
     nodrop = cfg_of(L, param_dtype=torch.float32)
     nodrop = dataclasses.replace(nodrop, moe=dataclasses.replace(
         nodrop.moe, capacity_factor=factor))
-    n = L - nodrop.first_dense                      # MoE layers
+    n = sum(kind[1] == "moe" for kind in layer_kinds(nodrop))   # MoE layers
     depth = f"{L} layers, B={PARITY_B}, S={PARITY_S} + {PARITY_EXTRA}"
 
     with _Drops() as drops:
@@ -5567,6 +5677,10 @@ def moe_record_phase(device, arch):
         shape = (f", MLA {cfg.mla.qk_nope} + {cfg.mla.qk_rope} / "
                  f"{cfg.mla.v_dim} over a latent of {cfg.mla.kv_lora}, "
                  f"{cfg.n_heads} heads")
+    if cfg.mixer == "mamba":
+        shape = (f", Mamba d_state {cfg.mamba.d_state}, attention at layers "
+                 f"{[i for i, k in enumerate(model.kinds) if k[0] == 'attn']}"
+                 f" ({cfg.n_heads}/{cfg.n_kv} heads of {cfg.d_head})")
     print(f"JAX record {arch} ({cfg.n_layers} layers, "
           f"{rec.prompts.shape[0]} x {rec.prompts.shape[1]} tokens{shape}, "
           f"capacity factor {cfg.moe.capacity_factor:g}"
@@ -5585,12 +5699,13 @@ def mixtral_phase(probes, device="cuda"):
     """The MoE slice: the serve call, routing on the card, row 7m, float32
     parity and the JAX record.  Returns (kernel rows, profile targets)."""
     t0 = time.perf_counter()
-    rows, serve_ms = moe_serve_phase(probes, device, MIXTRAL)
+    rows, times = moe_serve_phase(probes, device, MIXTRAL)
     moe_parity_phase(device, MIXTRAL)
     moe_record_phase(device, MIXTRAL)
     free_card()
     targets = [(f"{MIXTRAL} serve call ({MIXTRAL_LAYERS} layers)",
-                Deferred(lambda: mixtral_serve_call(device)[-1]), serve_ms)]
+                Deferred(lambda: mixtral_serve_call(device)[-1]),
+                times["serve_ms"])]
     print(f"mixtral phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets
 
@@ -5602,15 +5717,160 @@ def deepseek_phase(probes, device="cuda"):
     ragged inputs in bf16 and float32, the float32 parity and the JAX
     record.  Returns (kernel rows, profile targets)."""
     t0 = time.perf_counter()
-    rows, serve_ms = moe_serve_phase(probes, device, DEEPSEEK)
+    rows, times = moe_serve_phase(probes, device, DEEPSEEK)
     rows += mla_drawn_rows(probes, device)
     moe_parity_phase(device, DEEPSEEK)
     moe_record_phase(device, DEEPSEEK)
     free_card()
     targets = [(f"{DEEPSEEK} serve call ({DEEPSEEK_LAYERS} layers)",
                 Deferred(lambda: moe_serve_call(DEEPSEEK, device)[-1]),
-                serve_ms)]
+                times["serve_ms"])]
     print(f"deepseek phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, targets
+
+
+def mamba_f64(p, cfg, x):
+    """The Mamba mixer over a full sequence from the zero state in float64
+    (the reference's operations without its float32 roundings), on the
+    CPU -> (out, final ssm state)."""
+    import torch
+    import torch.nn.functional as F
+
+    m = cfg.mamba
+    p = {k: v.double() for k, v in p.items()}
+    x = x.double()
+    b, s, _d = x.shape
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xpad = torch.cat([xi.new_zeros((b, m.d_conv - 1, xi.shape[-1])), xi], 1)
+    xc = F.silu(sum(xpad[:, i:i + s] * p["conv_w"][i]
+                    for i in range(m.d_conv)) + p["conv_b"])
+    dt, B, C = (xc @ p["x_proj"]).split([m.dt_rank, m.d_state, m.d_state], -1)
+
+    def rms(v, w):
+        return v * torch.rsqrt(v.square().mean(-1, keepdim=True)
+                               + cfg.norm_eps) * w
+
+    dt, B, C = rms(dt, p["dt_norm"]), rms(B, p["b_norm"]), rms(C, p["c_norm"])
+    delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    h = x.new_zeros((b, xc.shape[-1], m.d_state))
+    ys = []
+    for t in range(s):
+        h = (torch.exp(delta[:, t, :, None] * A) * h
+             + delta[:, t, :, None] * B[:, t, None, :] * xc[:, t, :, None])
+        ys.append((h * C[:, t, None, :]).sum(-1))
+    y = (torch.stack(ys, 1) + p["D"] * xc) * F.silu(z)
+    return y @ p["out_proj"], h
+
+
+def mamba_layer_check(cfg, p, x, layer):
+    """The Mamba layer on the card against the CPU port, in float32, on the
+    serve call's own prefill input ``x`` of layer ``layer`` (its bf16
+    weights ``p`` in float32): the card's output and final state for all
+    requests, the CPU port's for the first MAMBA_CPU_ROWS, and a float64
+    evaluation of those (``mamba_f64``).  Both float32 runs round every
+    operation of the same computation; the card may lie MAMBA_MARGIN
+    times as far from float64 as the CPU port does, so the two are held
+    within (1 + MAMBA_MARGIN) D of each other, D the CPU port's own
+    distance from float64, each relative to the float64 answer's largest
+    entry (the card's own distance printed beside it).  Then the chunked
+    scan on the card against the unchunked one, bit for bit, on the
+    layer's own scan inputs at JAMBA_SCAN_B x JAMBA_SCAN_S (ragged against
+    the chunk of JAMBA_SCAN_CHUNK).  Returns the readings."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    seen = []
+    scan = ssm._mamba_scan
+
+    def spy(*args, **kw):
+        seen.append(args[:5])
+        return scan(*args, **kw)
+
+    t0 = time.perf_counter()
+    ssm._mamba_scan = spy
+    try:
+        with torch.no_grad():
+            out, st = ssm.mamba_mixer(p, cfg, cfg.mamba, x.float())
+        torch.cuda.synchronize()
+    finally:
+        ssm._mamba_scan = scan
+    card_s = time.perf_counter() - t0
+    rows = slice(0, MAMBA_CPU_ROWS)
+    got = {"out": out[rows].cpu(), "ssm": st["ssm"][rows].cpu()}
+    del out, st
+    pc = {k: v.cpu() for k, v in p.items()}
+    xc = x[rows].float().cpu()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, st = ssm.mamba_mixer(pc, cfg, cfg.mamba, xc)
+        cpu = {"out": out, "ssm": st["ssm"]}
+        exact = dict(zip(("out", "ssm"), mamba_f64(pc, cfg, xc)))
+    cpu_s = time.perf_counter() - t0
+    read = {}
+    for k in ("out", "ssm"):
+        top = float(exact[k].abs().max())
+        d_cpu = float((cpu[k].double() - exact[k]).abs().max()) / top
+        d_card = float((got[k].double() - exact[k]).abs().max()) / top
+        diff = float((got[k].double() - cpu[k].double()).abs().max()) / top
+        read[k] = (diff, (1 + MAMBA_MARGIN) * d_cpu, d_card, d_cpu, top)
+        finite = bool(torch.isfinite(got[k]).all())
+        print(f"{JAMBA} Mamba layer {layer} float32 {k} "
+              f"({tuple(x.shape[:2])} on the card, {MAMBA_CPU_ROWS} on the "
+              f"CPU): card vs CPU port {diff:.3g} of max |float64| {top:.4g},"
+              f" bound (1 + {MAMBA_MARGIN}) x {d_cpu:.3g} = "
+              f"{read[k][1]:.3g} (the CPU port's distance from float64); "
+              f"the card's own {d_card:.3g}; finite {finite}", flush=True)
+        if not finite or diff > read[k][1]:
+            raise AssertionError(f"{JAMBA} Mamba layer {layer} {k}: card vs "
+                                 f"CPU {diff:.3g}, bound {read[k][1]:.3g}")
+    print(f"{JAMBA} Mamba layer {layer}: {card_s:.2f} s on the card, "
+          f"{cpu_s:.2f} s on the CPU (float32 and float64)", flush=True)
+
+    b, n, c = JAMBA_SCAN_B, JAMBA_SCAN_S, JAMBA_SCAN_CHUNK
+    args = [a[:b, :n].contiguous() if a.dim() == 3 else a for a in seen[0]]
+    del seen
+    y1, h1 = ssm._mamba_scan(*args, chunk=c)
+    y2, h2 = ssm._mamba_scan(*args, chunk=n)
+    equal = torch.equal(y1, y2) and torch.equal(h1, h2)
+    print(f"{JAMBA} scan on the card at {b} x {n} of layer {layer}'s inputs: "
+          f"chunks of {c} (the last {n % c}) vs one chunk of {n}: "
+          f"{'bit-equal' if equal else 'DIFFER'}", flush=True)
+    if not equal:
+        raise AssertionError(f"{JAMBA}: the chunked scan differs from the "
+                             "unchunked one")
+    return read
+
+
+def jamba_phase(probes, device="cuda"):
+    """The Mamba slice: jamba-v0.1-52b's serve call at JAMBA_LAYERS of 32
+    layers (``moe_serve_phase``: one flash launch, routing, row 7j), the
+    last Mamba layer on the card against the CPU port and the chunked
+    scan against the unchunked one, the float32 parity and the JAX
+    record.  Returns (kernel rows, profile targets: the serve call and its
+    prefill)."""
+    t0 = time.perf_counter()
+    rows, times = moe_serve_phase(probes, device, JAMBA)
+    p, x, layer = times.pop("mamba")
+    mamba_layer_check(jamba_cfg(), p, x, layer)
+    del p, x
+    free_card()
+    moe_parity_phase(device, JAMBA)
+    moe_record_phase(device, JAMBA)
+    free_card()
+
+    def prefill_call():
+        model, prompts, _serve = moe_serve_call(JAMBA, device)
+        return lambda: model.prefill(prompts)
+
+    targets = [(f"{JAMBA} serve call ({JAMBA_LAYERS} layers)",
+                Deferred(lambda: moe_serve_call(JAMBA, device)[-1]),
+                times["serve_ms"]),
+               (f"{JAMBA} prefill ({JAMBA_LAYERS} layers)",
+                Deferred(prefill_call), times["prefill_ms"])]
+    print(f"jamba phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets
 
 
@@ -5632,7 +5892,7 @@ def profile_phase(label, fn, wall_ms, sessions=1):
         # launches and busy time (benchmarks/torch_mixtral_probe.py)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-            torch.cuda.synchronize()
+            close_session()
         kernels = [e for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -5698,7 +5958,7 @@ def dispatch_profile(label, fn, want):
     fn()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
-        torch.cuda.synchronize()
+        close_session()
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     got = {name: sum(e.count for e in events if name in e.key)
@@ -5838,6 +6098,10 @@ def main() -> int:
     deepseek_rows, deepseek_targets = deepseek_phase(probes)
     rows += deepseek_rows
     targets += deepseek_targets
+    free_card()
+    jamba_rows, jamba_targets = jamba_phase(probes)
+    rows += jamba_rows
+    targets += jamba_targets
     profiles_phase(ex, frames, targets + [offload_target], probes,
                    dispatches)
 

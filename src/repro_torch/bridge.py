@@ -55,10 +55,12 @@ two reduced float32 configs with those weights (written by
 the same for a reduced float32 whisper (encoder-decoder) with its frames,
 and one JAX training step on it (written by
 ``benchmarks/torch_export_lm_encdec_reference.py``).
-:func:`load_lm_moe_reference` and :func:`load_lm_mla_reference` read the
-MoE records (mixtral's and deepseek's reduced float32 configs, written by
-``benchmarks/torch_export_lm_moe_reference.py`` and
-``torch_export_lm_mla_reference.py``).
+:func:`load_lm_moe_reference`, :func:`load_lm_mla_reference` and
+:func:`load_lm_hybrid_reference` read the MoE records (mixtral's,
+deepseek's and jamba's reduced float32 configs, written by
+``benchmarks/torch_export_lm_moe_reference.py``,
+``torch_export_lm_mla_reference.py`` and
+``torch_export_lm_hybrid_reference.py``).
 
 Training trees: :func:`to_jax_tree` and :func:`from_jax_tree` carry the
 port's per-layer parameters, gradients or optimizer moments (dicts keyed
@@ -87,7 +89,7 @@ import torch
 from repro_torch.camera.face_nn import FaceNN
 from repro_torch.camera.viola_jones import Cascade, HaarFeature
 from repro_torch.ckpt.checkpoint import host_array
-from repro_torch.configs.lm_archs import MLAConfig
+from repro_torch.configs.lm_archs import MambaConfig, MLAConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.models.layers import numpy_leaf, tree_map
@@ -104,6 +106,7 @@ LM_TRAIN_ASSET = ASSET.parent / "lm_train_reference.npz"
 LM_ENCDEC_ASSET = ASSET.parent / "lm_encdec_reference.npz"
 LM_MOE_ASSET = ASSET.parent / "lm_moe_reference.npz"
 LM_MLA_ASSET = ASSET.parent / "lm_mla_reference.npz"
+LM_HYBRID_ASSET = ASSET.parent / "lm_hybrid_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -466,10 +469,12 @@ def load_lm_reference(path=None) -> dict:
 
 def record_overrides(desc: dict) -> dict:
     """A record's config overrides as ``dataclasses.replace`` takes them:
-    an "mla" entry (a dict of fields) as an ``MLAConfig``."""
+    an "mla" or "mamba" entry (a dict of fields) as an ``MLAConfig`` or a
+    ``MambaConfig``."""
     over = dict(desc["overrides"])
-    if "mla" in over:
-        over["mla"] = MLAConfig(**over["mla"])
+    for key, kind in (("mla", MLAConfig), ("mamba", MambaConfig)):
+        if key in over:
+            over[key] = kind(**over[key])
     return over
 
 
@@ -478,6 +483,15 @@ def load_lm_mla_reference(path=None):
     (``assets/lm_mla_reference.npz``: deepseek's smoke config in float32 at
     the flash kernel's MLA widths, capacity factor 1.25)."""
     return load_lm_moe_reference(LM_MLA_ASSET if path is None else path)
+
+
+def load_lm_hybrid_reference(path=None):
+    """:func:`load_lm_moe_reference` of the JAX hybrid record
+    (``assets/lm_hybrid_reference.npz``: jamba's smoke config in float32,
+    Mamba layers with attention at layers 2 and 6 and MoE on odd layers,
+    at the flash kernel's d_head of 128 and the published d_state of 16,
+    capacity factor 1.25)."""
+    return load_lm_moe_reference(LM_HYBRID_ASSET if path is None else path)
 
 
 def load_lm_moe_reference(path=None):

@@ -1,11 +1,20 @@
-"""RWKV6 (Finch) time-mix and channel-mix: the RWKV part of the JAX
-package's ``models/ssm.py``.
+"""Attention-free sequence mixers: RWKV6 (Finch) time-mix and
+channel-mix, and Mamba, Jamba's mixer (the JAX package's
+``models/ssm.py``).
 
-A prefill from the zero state runs the WKV recurrence through
+RWKV: a prefill from the zero state runs the WKV recurrence through
 ``kernels.rwkv_scan.ops`` (the hand-written kernel on a CUDA tensor, the
 plain sequential recurrence on a CPU tensor); a call with a carried state
 (decode) runs the plain single step, as the reference computes it outside
-any Pallas kernel.  Mamba is not ported yet.
+any Pallas kernel.
+
+Mamba: the reference has no Pallas kernel for it (its ``_mamba_scan`` is a
+``jax.lax.scan``), so the selective scan here is plain PyTorch, a step at
+a time.  The reference builds the scan's ``exp(delta A)`` and ``Bx`` whole,
+(b, s, d_inner, d_state) in float32 (17.2 GB each at 8 x 4096 tokens of
+jamba's full width); :func:`_mamba_scan` builds them one chunk of time
+steps at a time from the same elementwise products, so any chunk size
+gives the same bits.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv_scan.ref import wkv_step as _wkv_step
-from repro_torch.models.layers import dense, spec
+from repro_torch.models.layers import dense, rms_norm, spec
 
 RWKV_HEAD_DIM = 64
 RWKV_LORA_MIX = 32
@@ -141,3 +150,113 @@ def rwkv_channel_mix(params, cfg, x, x_prev_last=None):
     kv = dense(params["wv"], k, "bsf,fd->bsd")
     r = torch.sigmoid(dense(params["wr"], xr, "bsd,de->bse").float())
     return r.to(x.dtype) * kv, x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM): Jamba's mixer
+# ---------------------------------------------------------------------------
+
+# the scan's chunk: time steps whose float32 (b, steps, d_inner, d_state)
+# buffers (exp(delta A), Bx, the states) stay within this many bytes each:
+# 256 steps at 8 requests of jamba's full width
+MAMBA_CHUNK_BYTES = 2 ** 30
+
+
+def mamba_specs(cfg, m) -> dict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    di = m.expand * d
+    return {
+        "in_proj": spec((d, 2 * di), dtype=dt),
+        "conv_w": spec((m.d_conv, di), scale=1.0, dtype=dt),
+        "conv_b": spec((di,), "zeros", dtype=dt),
+        "x_proj": spec((di, m.dt_rank + 2 * m.d_state), dtype=dt),
+        "dt_proj": spec((m.dt_rank, di), dtype=dt),
+        "dt_bias": spec((di,), "zeros", dtype=torch.float32),
+        "A_log": spec((di, m.d_state), "zeros", dtype=torch.float32),
+        "D": spec((di,), "ones", dtype=torch.float32),
+        "out_proj": spec((di, d), dtype=dt),
+        # Jamba adds RMS norms on dt, B and C
+        "dt_norm": spec((m.dt_rank,), "ones", dtype=dt),
+        "b_norm": spec((m.d_state,), "ones", dtype=dt),
+        "c_norm": spec((m.d_state,), "ones", dtype=dt),
+    }
+
+
+def mamba_state_init(cfg, m, batch: int, device):
+    di = m.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((batch, m.d_conv - 1, di), dtype=cfg.param_dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, di, m.d_state), device=device),
+    }
+
+
+def mamba_chunk(b: int, di: int, n: int) -> int:
+    """Time steps a chunk of the scan: MAMBA_CHUNK_BYTES of float32
+    (b, steps, di, n)."""
+    return max(1, MAMBA_CHUNK_BYTES // (4 * b * di * n))
+
+
+def _mamba_scan(delta, A, B, xc, C, h0=None, chunk=None):
+    """The reference's ``_mamba_scan(delta, A, Bx, C, h0)`` with its Bx
+    given by its factors: h_t = exp(delta_t A) h_{t-1} + Bx_t, y_t = C_t .
+    h_t, where Bx = (delta B) xc, in that association.
+    delta, xc: (b, s, di); A: (di, n); B, C: (b, s, n); h0: (b, di, n) or
+    None (zero), all float32 -> (y (b, s, di), h_s).  ``exp(delta A)`` and
+    ``Bx`` are built ``chunk`` time steps at a time (``mamba_chunk`` when
+    None), so no (b, s, di, n) tensor is made.  Every step is one
+    ``addcmul`` whatever the chunk, so the bits are the same at any chunk
+    size; where its multiply-add is fused (PyTorch's CPU kernel, and nvcc
+    contracts it on the card) it rounds once, as the reference's XLA
+    does with its FMA."""
+    b, s, di = delta.shape
+    n = A.shape[-1]
+    chunk = mamba_chunk(b, di, n) if chunk is None else chunk
+    h = (torch.zeros((b, di, n), dtype=torch.float32, device=delta.device)
+         if h0 is None else h0)
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        dA = torch.exp(delta[:, sl, :, None] * A)
+        Bx = (delta[:, sl, :, None] * B[:, sl, None, :]) * xc[:, sl, :, None]
+        hs = []
+        for t in range(dA.shape[1]):
+            h = torch.addcmul(Bx[:, t], dA[:, t], h)
+            hs.append(h)
+        del dA, Bx
+        ys.append((torch.stack(hs, dim=1) * C[:, sl, None, :]).sum(-1))
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_mixer(params, cfg, m, x, state=None):
+    """x: (b, s, d) -> (out, new state {"conv", "ssm"}).  ``state`` None: the
+    sequence from the zero state; with a state, it carries on from it (the
+    decode step)."""
+    b, s, d = x.shape
+    di = m.expand * d
+    xz = dense(params["in_proj"], x, "bsd,de->bse")
+    xi, z = xz.chunk(2, dim=-1)
+
+    # depthwise causal conv over the sequence, carrying its last inputs
+    pad = (torch.zeros((b, m.d_conv - 1, di), dtype=xi.dtype,
+                       device=x.device) if state is None else state["conv"])
+    xpad = torch.cat([pad, xi], dim=1)
+    conv_w = params["conv_w"].float()                      # (w, di)
+    xc = sum(xpad[:, i:i + s].float() * conv_w[i] for i in range(m.d_conv))
+    xc = F.silu(xc + params["conv_b"].float()).to(x.dtype)
+
+    proj = dense(params["x_proj"], xc, "bse,ef->bsf")
+    dt, B, C = proj.split([m.dt_rank, m.d_state, m.d_state], dim=-1)
+    dt = rms_norm(params["dt_norm"], dt, cfg.norm_eps)
+    B = rms_norm(params["b_norm"], B, cfg.norm_eps).float()
+    C = rms_norm(params["c_norm"], C, cfg.norm_eps).float()
+    pre = dense(params["dt_proj"], dt, "bsr,re->bse").float() + params["dt_bias"]
+    delta = torch.logaddexp(pre, pre.new_zeros(()))  # jax.nn.softplus's form
+    A = -torch.exp(params["A_log"])                      # (di, n)
+    xc32 = xc.float()
+    ys, h = _mamba_scan(delta, A, B, xc32, C,
+                        None if state is None else state["ssm"])
+    y = ys + params["D"] * xc32
+    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    out = dense(params["out_proj"], y, "bse,ed->bsd")
+    return out, {"conv": xpad[:, s:] if m.d_conv > 1 else pad, "ssm": h}

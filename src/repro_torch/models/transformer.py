@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, RWKV and encoder-decoder families
-(the JAX package's ``models/transformer.py`` on one card).
+"""Model assembly for the dense, MoE, RWKV, hybrid (Mamba and attention)
+and encoder-decoder families (the JAX package's ``models/transformer.py``
+on one card).
 
 The reference stacks parameters and caches per period of layer kinds and
 scans over them; here each layer is an ``nn.Module`` in a Python loop and
@@ -30,11 +31,10 @@ A MoE layer (``models/moe.py``) returns its router's auxiliary loss;
 :meth:`Model.loss` adds it to the cross-entropy, as the reference does.
 Prefill and decode drop it.
 
-Mamba configurations raise ``NotImplementedError`` at construction; of
-the ten configs, every one but jamba-v0.1-52b runs: yi-9b,
-codeqwen1.5-7b, phi3-medium-14b, granite-34b, chameleon-34b,
-mixtral-8x22b, deepseek-v2-236b (MLA and its dense prefix), rwkv6-7b and
-whisper-medium.
+All ten configs run: yi-9b, codeqwen1.5-7b, phi3-medium-14b,
+granite-34b, chameleon-34b, mixtral-8x22b, deepseek-v2-236b (MLA and its
+dense prefix), rwkv6-7b, whisper-medium and jamba-v0.1-52b (Mamba layers
+with an attention layer in every period of 8, MoE on odd layers).
 """
 
 from __future__ import annotations
@@ -98,9 +98,8 @@ def find_period(kinds: list) -> int:
 
 
 def unsupported(cfg):
-    """What of ``cfg`` the port cannot run yet, or None."""
-    if cfg.mixer == "mamba":
-        return "Mamba"
+    """What of ``cfg`` the port cannot run yet, or None: None for every
+    config of the reference."""
     return None
 
 
@@ -146,6 +145,8 @@ def _mixer_specs(cfg, kind: str):
         return attn.attn_specs(cfg)
     if kind == "rwkv":
         return ssm.rwkv_time_mix_specs(cfg)
+    if kind == "mamba":
+        return ssm.mamba_specs(cfg, cfg.mamba)
     raise ValueError(kind)
 
 
@@ -220,6 +221,8 @@ class DecoderLayer(nn.Module):
         elif mixer == "attn":
             mo, entry = attn.attention_train(self.mixer, cfg, h, positions,
                                              return_kv=True)
+        elif mixer == "mamba":
+            mo, entry = ssm.mamba_mixer(self.mixer, cfg, cfg.mamba, h)
         else:
             mo, entry = ssm.rwkv_time_mix(self.mixer, cfg, h)
         x = x + mo
@@ -246,6 +249,9 @@ class DecoderLayer(nn.Module):
         elif mixer == "attn":
             mo, new_cache = attn.attention_decode(self.mixer, cfg, h, cache,
                                                   position)
+        elif mixer == "mamba":
+            mo, new_cache = ssm.mamba_mixer(self.mixer, cfg, cfg.mamba, h,
+                                            cache)
         else:
             mo, new_cache = ssm.rwkv_time_mix(self.mixer, cfg, h, cache)
         x = x + mo
@@ -328,11 +334,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        what = unsupported(cfg)
-        if what is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP.md queue 1: "
-                "the rest of the LM stack)")
         pin_matmul_precision()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -547,7 +548,7 @@ class Model(nn.Module):
     def pad_cache(self, cache, extra: int):
         """Grow full-attention caches (k and v, MLA's ckv and krope) by
         ``extra`` zero positions; the cross keys and values keep the
-        encoder's length."""
+        encoder's length, and a Mamba layer's state its size."""
         if self.cfg.attn_type == "swa" or self.cfg.mixer == "rwkv":
             return cache    # ring buffer / recurrent state: fixed size
 
@@ -557,7 +558,8 @@ class Model(nn.Module):
 
         seq = (("ckv", "krope") if self.cfg.attn_type == "mla"
                else ("k", "v"))
-        return [dict(c, **{k: grow(c[k]) for k in seq}) for c in cache]
+        return [dict(c, **{k: grow(c[k]) for k in seq if k in c})
+                for c in cache]
 
     def init_cache(self, batch: int, max_seq: int):
         """A zero cache; an encoder-decoder's entries hold zero cross keys
@@ -565,6 +567,8 @@ class Model(nn.Module):
         cfg = self.cfg
         cache = [attn.init_cache(cfg, batch, max_seq, self.device)
                  if kind[0] == "attn" else
+                 ssm.mamba_state_init(cfg, cfg.mamba, batch, self.device)
+                 if kind[0] == "mamba" else
                  ssm.rwkv_state_init(cfg, batch, self.device)
                  for kind in self.kinds]
         if cfg.is_encdec:

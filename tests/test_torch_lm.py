@@ -1,10 +1,10 @@
 """The port's LM stack (``repro_torch.models``, ``serve``, ``launch``)
 against the JAX package, on the CPU.
 
-For each of the eight configs the port runs here (their SMOKE variants in
-float32, as ``_f32_nodrop`` in tests/test_models.py:22, but mixtral and
-deepseek at their published MoE capacity factor of 1.25, so that both
-packages drop the same assignments), and sliding-window variants of yi's and mixtral's
+For each of the nine decoder-only configs (their SMOKE variants in
+float32, as ``_f32_nodrop`` in tests/test_models.py:22, but mixtral,
+deepseek and jamba at their published MoE capacity factor of 1.25, so
+that both packages drop the same assignments), and sliding-window variants of yi's and mixtral's
 whose window binds, the JAX model's own ``init`` parameters go through
 ``bridge.lm_params_from``; then ``logits``, ``prefill`` (last-token logits
 and every layer's cache), teacher-forced ``decode_step``s and greedy
@@ -59,8 +59,8 @@ from repro_torch.serve.engine import (
 torch.set_num_threads(1)
 
 RUNNABLE = ["yi-9b", "codeqwen1.5-7b", "phi3-medium-14b", "granite-34b",
-            "chameleon-34b", "mixtral-8x22b", "deepseek-v2-236b", "rwkv6-7b"]
-NOT_PORTED = {"jamba-v0.1-52b": "Mamba"}
+            "chameleon-34b", "mixtral-8x22b", "deepseek-v2-236b", "rwkv6-7b",
+            "jamba-v0.1-52b"]
 SWA = {"yi-swa": "yi-9b", "mixtral-swa": "mixtral-8x22b"}
 REL = 1e-4
 B, S, EXTRA, GEN = 2, 10, 4, 6
@@ -96,11 +96,12 @@ def rel_err(got, want):
 
 def layer_slices(jax_cache, n_layers):
     """The JAX cache (a dense prefix's layers in its list, then the stack
-    of period 1) as one dict per layer."""
+    of periods, ``sub{j}`` a period's j-th layer) as one dict per layer."""
     out = [{k: np.asarray(a) for k, a in c.items()}
            for c in jax_cache.get("prefix", [])]
-    sub = jax_cache["stack"]["sub0"]
-    return out + [{k: np.asarray(a[i]) for k, a in sub.items()}
+    period = len(jax_cache["stack"])
+    return out + [{k: np.asarray(a[i // period]) for k, a in
+                   jax_cache["stack"][f"sub{i % period}"].items()}
                   for i in range(n_layers - len(out))]
 
 
@@ -169,8 +170,8 @@ def case(request):
     want["cache_tol"] = {
         k: max(REL, *(rel_err(m[k], w[k])
                       for c in ("prefill_cache", "decode_cache")
-                      for m, w in zip(moved[c], want[c])))
-        for k in want["prefill_cache"][0]}
+                      for m, w in zip(moved[c], want[c]) if k in w))
+        for k in {k for c in want["prefill_cache"] for k in c}}
     want["greedy"] = np.asarray(jax_generate(jm, params, jt[:, :S], GEN))
     # the reference's logits along its own greedy path, for the tie rule
     gl, gc = fns[1](params, jt[:, :S])
@@ -275,7 +276,7 @@ def test_greedy_generate(case):
 
 @pytest.mark.parametrize("name", ["yi-9b", "granite-34b", "rwkv6-7b",
                                   "yi-swa", "mixtral-8x22b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_init_cache_matches_jax(name):
     jc, pc = configs(name)
     want = layer_slices(JaxModel(jc).init_cache(2, 12), jc.n_layers)
@@ -402,17 +403,13 @@ def test_registry_and_shapes():
 
 @pytest.mark.parametrize("arch", jax_registry.list_archs())
 def test_unsupported_names_what_is_left(arch):
-    """Nine configs run; jamba is refused for Mamba, whatever its MoE."""
+    """All ten configs run, full and smoke."""
     for smoke in (False, True):
-        assert unsupported(registry.get_config(arch, smoke)) == \
-            NOT_PORTED.get(arch)
+        assert unsupported(registry.get_config(arch, smoke)) is None
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        Model(registry.get_config(arch, smoke=True), device="cpu")
-    # MLA without MoE (the prefix and a dense body) builds and runs
+def test_mla_without_moe_runs():
+    """MLA without MoE (the prefix and a dense body) builds and runs."""
     mla = dataclasses.replace(registry.get_config("deepseek-v2-236b", True),
                               moe=None)
     model = serve_cli.build_model(mla, "cpu", seed=0)
@@ -506,6 +503,7 @@ def test_sample(top_k):
     ["--arch", "yi-9b", "--smoke"],
     ["--arch", "mixtral-8x22b", "--smoke"],
     ["--arch", "deepseek-v2-236b", "--smoke"],
+    ["--arch", "jamba-v0.1-52b", "--smoke"],
     ["--arch", "rwkv6-7b", "--cascade"],
     ["--arch", "granite-34b", "--temperature", "0.7"],
 ])
