@@ -177,9 +177,10 @@ no tensor-core instruction, then:
    drawn on the card (seed 0), ``train.loop.train`` for 12 steps of
    ``batch_for_step(DataConfig(vocab, 2048, 8, 0), step)`` with the
    training CLI's AdamW (lr 3e-3, warmup 1, cosine over 12 steps),
-   checkpoints every 4 steps held in host memory (``MemoryCheckpoints``:
-   a full-width 8-layer checkpoint is 27-32 GB, and the machine lets a run
-   write 45 GiB to its disk in all) and a failure injected once at step 9,
+   checkpoints every 4 steps held in host memory, one at a time
+   (``MemoryCheckpoints``: a full-width 8-layer checkpoint is 27-32 GB,
+   and the machine lets a run write 45 GiB to its disk in all) and a
+   failure injected once at step 9,
    after which the loop restores step 8 and replays.  Every loss and grad
    norm finite; the replayed step 8 equal
    to the first (bits, else the reference's rtol 1e-5 / atol 1e-6);
@@ -254,7 +255,26 @@ no tensor-core instruction, then:
    differently, in the reference too.  The JAX record
    ``assets/lm_moe_reference.npz`` through the kernels in float32
    (``moe_record_check``: forward, loss with ce and aux, served logits
-   and greedy tokens within max(1e-4, E), every layer's drops equal);
+   and greedy tokens within max(1e-4, E), every layer's drops equal).
+   Then MoE training (``mixtral_train_phase``): ``train.loop.train`` on 1
+   of the 56 layers at full width (2.91 B parameters, 43.3 GiB with
+   gradients, master and moments), bf16 with a float32 master, 6 steps
+   of 8 x 2048 tokens, checkpoints every 4 steps in host memory (40.7 GB
+   each), a failure at step 5 replayed from step 4, with every check of
+   the LM training phase (2 forward and 1 backward launches a step) and,
+   besides, each step's aux loss and the assignments the layer drops in
+   the step's forward (counted once, not in the remat recompute), the
+   model FLOPs by active parameters (top 2 of the 8 experts), the card's
+   peak and the host's peak RSS; row 7gm at layer 0's backward inputs at
+   step 1 (8 x 2048 x 48/8 x 128, causal: the window of 4096 does not
+   bind) beside SDPA's flash backward; ``adamw_update`` in slices
+   bit-equal to the whole-leaf update on one 64000 x 4096 leaf; the
+   select backward of the expert loop's ``w[i]`` timed on one expert
+   leaf beside ``unbind``'s; and the JAX MoE training record
+   ``assets/lm_moe_train_reference.npz`` through the kernels in float32
+   (``lm_train_record_check``: the step-0 gradient of every leaf, each
+   step's loss, ce, aux and grad norm within max(1e-4, E), the lr within
+   an ulp, each step's drops equal);
 12. deepseek phase — deepseek-v2-236b, MLA and the dense prefix, at full
    width, 6 of 60 layers (the dense first layer and five MoE layers of
    160 experts top-6 with two shared; 21.7 B parameters, 40.5 GiB), bf16,
@@ -291,7 +311,8 @@ no tensor-core instruction, then:
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each, whisper's, mixtral's, deepseek's and jamba's
+   training step of each (mixtral's at its 1 layer), whisper's,
+   mixtral's, deepseek's and jamba's
    included (jamba's prefill alone too) (each model
    built anew when its profile runs; the card's activity alone),
    the serving dispatches' kernel launches by the profiler's names (held
@@ -862,11 +883,13 @@ def gemm_rows(probes, ex, xw, launches):
 
 
 def _bits_equal(a, b) -> bool:
-    """Bit-for-bit equality (float tensors compared as int32 words)."""
+    """Bit-for-bit equality (float32 and bf16 tensors compared as int32
+    and int16 words)."""
     import torch
 
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    words = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in words and b.dtype == a.dtype:
+        a, b = a.view(words[a.dtype]), b.view(words[a.dtype])
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -3859,11 +3882,18 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 4, 9
 TRAIN_LR = 3e-3                 # launch/train.py's --lr
 # launches per training step, predicted: each layer's forward kernel once
 # in the forward and once more where torch.utils.checkpoint recomputes the
-# layer in the backward; the backward kernel once per layer
+# layer in the backward; the backward kernel once per layer.  mixtral's
+# run is 1 of 56 layers deep (MIXTRAL_TRAIN_LAYERS, below)
+MIXTRAL_TRAIN_LAYERS = 1
 TRAIN_LAUNCHES = {"yi-9b": {"flash_attention": 2 * TRAIN_LAYERS,
                             "flash_attention_bwd": TRAIN_LAYERS},
                   "rwkv6-7b": {"rwkv_wkv": 2 * TRAIN_LAYERS,
-                               "rwkv_wkv_bwd": TRAIN_LAYERS}}
+                               "rwkv_wkv_bwd": TRAIN_LAYERS},
+                  "mixtral-8x22b": {
+                      "flash_attention": 2 * MIXTRAL_TRAIN_LAYERS,
+                      "flash_attention_bwd": MIXTRAL_TRAIN_LAYERS}}
+# the LM training phase's runs (mixtral's runs in its own phase)
+LM_TRAIN_ARCHS = ("yi-9b", "rwkv6-7b")
 REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6   # tests/test_train.py:136-138
 # The flash backward against its plain version, the plain one given the
 # plain forward's O and log-sum-exp.  bf16: each output within the
@@ -3906,8 +3936,9 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
     """Model FLOPs of one training step of ``batch`` x ``seq`` tokens: 6 per
     parameter and token it applies to, plus attention's two products (2 s
     t d each) three times over (forward, and twice in the backward).  A
-    decoder applies its parameters to every token and attends causally
-    (half the pairs).  An encoder-decoder's encoder applies its own, and
+    decoder applies its active parameters (``Model.n_active_params``, the
+    reference's count: a MoE layer's routed experts count top_k of
+    n_experts) to every token and attends causally (half the pairs).  An encoder-decoder's encoder applies its own, and
     each decoder layer its cross keys' and values' projections, to the
     enc_seq frames of every row; its encoder attends to all frame pairs
     and each decoder layer's cross-attention to all token-frame pairs."""
@@ -3920,7 +3951,7 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
         on_frames += sum(p.numel() for p in model.enc_final_norm.values())
         on_frames += sum(layer.cross[w].numel() for layer in model.layers
                          for w in ("wk", "wv"))
-    flops = (6.0 * (model.n_params() - on_frames) * tokens
+    flops = (6.0 * (model.n_active_params() - on_frames) * tokens
              + 6.0 * on_frames * frames)
     if cfg.mixer != "rwkv":
         flops += per_pair * _causal_pairs(seq) * cfg.n_layers
@@ -3930,7 +3961,9 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
     return flops
 
 
-FLOPS_RULE = {False: "6 N per token + causal attention",
+FLOPS_RULE = {False: "6 N per token, N the active parameters (a MoE "
+                     "layer's routed experts at top_k of n_experts) + "
+                     "causal attention",
               True: "6 N per token or frame + causal, encoder and cross "
                     "attention"}
 
@@ -3939,9 +3972,14 @@ class MemoryCheckpoints:
     """``train``'s checkpoint store in host memory, for the full-width runs:
     each save keeps every leaf as the host array ``ckpt.checkpoint`` would
     write (bf16 as its raw values) under the leaf's name, with ``extra``.
-    A checkpoint there is 27-32 GB, and a call on the card's machine may
-    write 45 GiB to its disk in all; the package's on-disk store runs in
-    ``lm_train_disk_run`` at the JAX record's config."""
+    It holds one checkpoint at a time: a save drops the older one before
+    it copies the new one, into the older one's arrays where a leaf's
+    shape and type are the same (host pages already mapped: a copy from
+    the card at its link's rate).  A checkpoint there is 10.6-40.7 GB
+    (whisper to mixtral's one layer), and a call on the card's machine
+    may write 45 GiB to its disk in all and holds 96 GiB of host memory;
+    the package's on-disk store runs in ``lm_train_disk_run`` at the JAX
+    record's config."""
 
     def __init__(self):
         self._saved = {}
@@ -3949,10 +3987,15 @@ class MemoryCheckpoints:
     def save(self, step, tree, extra=None):
         from repro_torch.ckpt import checkpoint as ck
 
+        old = {}
+        for leaves, _extra in self._saved.values():
+            old.update(leaves)
+        self._saved.clear()
         leaves = {}
         for path, leaf in ck._flatten(tree):
-            arr = ck.host_array(leaf)   # a copy unless it views a CPU tensor
-            leaves[ck._name(path)] = np.array(arr, copy=not arr.flags.owndata)
+            name = ck._name(path)
+            leaves[name] = _host_copy(leaf, old.pop(name, None))
+        del old
         self._saved[step] = (leaves, dict(extra or {}))
 
     def latest_step(self):
@@ -3976,6 +4019,30 @@ class MemoryCheckpoints:
             del self._saved[step]
 
 
+def _host_copy(leaf, dst=None):
+    """A checkpoint tree's leaf as ``ckpt.checkpoint.host_array`` gives it,
+    a ``bridge.StackedLeaf``'s tensors copied from the card straight into
+    their slices of ``dst`` where its shape and type fit (else into a new
+    array)."""
+    import torch
+
+    from repro_torch.bridge import StackedLeaf
+    from repro_torch.ckpt import checkpoint as ck
+
+    if not isinstance(leaf, StackedLeaf):
+        arr = ck.host_array(leaf)   # a copy unless it views a CPU tensor
+        return np.array(arr, copy=not arr.flags.owndata)
+    raw = leaf.tensors[0].dtype == torch.bfloat16
+    dtype = (ck.BF16_RAW if raw else
+             torch.empty(0, dtype=leaf.tensors[0].dtype).numpy().dtype)
+    if dst is None or dst.shape != leaf.shape or dst.dtype != dtype:
+        dst = np.empty(leaf.shape, dtype)
+    host = torch.from_numpy(dst.view(np.int16) if raw else dst)
+    for t, h in zip(leaf.tensors, host if leaf.stacked else host[None]):
+        h.copy_(t.detach().view(torch.int16) if raw else t.detach())
+    return dst
+
+
 class _LastCall:
     """While ``on`` is true, keeps (clones of) the arguments of the latest
     call of ``module.name``: in a backward pass that is layer 0's."""
@@ -3997,6 +4064,49 @@ class _LastCall:
         setattr(self.module, self.name, self.fn)
 
 
+class _ForwardDrops:
+    """The assignments each MoE dispatch drops in the forward of
+    ``model.loss``, counted once a forward: a spy on
+    ``models.moe.sort_dispatch`` that counts only while ``model.loss``
+    runs, so not in the backward, where ``torch.utils.checkpoint``
+    recomputes each layer under remat and dispatches again.  ``groups()``
+    gives one list a ``loss`` call (a step, or a microbatch), one count a
+    MoE layer in call order; the counts stay on the card until read."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+
+        self.module, self.fn, self.model = moe, moe.sort_dispatch, model
+        self.log, self.on = [], False
+
+    def __enter__(self):
+        def spy(*args):
+            out = self.fn(*args)
+            if self.on:
+                self.log[-1].append((~out[2]).sum())
+            return out
+
+        loss = self.model.loss
+
+        def counted_loss(batch):
+            self.log.append([])
+            self.on = True
+            try:
+                return loss(batch)
+            finally:
+                self.on = False
+        self.module.sort_dispatch = spy
+        self.model.loss = counted_loss
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sort_dispatch = self.fn
+        del self.model.loss
+
+    def groups(self):
+        return [[int(n) for n in group] for group in self.log]
+
+
 def train_size(**size) -> dict:
     """A training run's size: TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH,
     TRAIN_STEPS, TRAIN_CKPT_EVERY and TRAIN_FAIL_AT as they stand at the
@@ -4013,18 +4123,24 @@ def lm_train_run(arch, device, want=None, **size):
     with a float32 master: ``steps``
     steps of ``batch`` x ``seq`` tokens (an encoder-decoder's batches with
     their ``batch`` x enc_seq frames), checkpoints every ``ckpt_every`` held
-    in host memory (``MemoryCheckpoints``: a checkpoint is 27 GB for yi,
-    32 GB for rwkv and 10.6 GB for whisper, and the card's machine lets a
-    run write 45 GiB to its disk in all), a failure injected once at step
+    in host memory, one at a time (``MemoryCheckpoints``: a checkpoint is
+    27 GB for yi, 32 GB for rwkv, 10.6 GB for whisper and 40.7 GB for
+    mixtral's one layer, and the card's machine lets a run write 45 GiB to
+    its disk in all), a failure injected once at step
     ``fail_at``, after which the loop restores the checkpoint of step
     ``fail_at`` - 1 and replays.  Holds every loss and grad norm finite,
     the replayed step to the first (bits, else REPLAY_RTOL / REPLAY_ATOL),
     every weight leaf's step-0 gradient finite and nonzero, and each
     step's kernel launches to ``want`` (TRAIN_LAUNCHES[arch] when None).
     Returns (readings, layer 0's backward-kernel inputs at step 1); the
-    readings hold the launches of each step and the optimizer's share of
+    readings hold the launches of each step, the optimizer's share of
     the step (``adamw_update`` between CUDA events, no synchronisation
-    added)."""
+    added), the card's and the host's peak memory, and for a MoE model
+    each step's aux loss and the assignments each MoE layer drops in the
+    step's forward (``_ForwardDrops``: the recompute under remat is not
+    counted)."""
+    import resource
+
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -4070,7 +4186,7 @@ def lm_train_run(arch, device, want=None, **size):
             raise RuntimeError("injected node failure")
 
     grads_of, adamw = step_mod.grads_of, step_mod.adamw_update
-    adam_events = []
+    adam_events, aux = [], []
 
     def timed_adamw(*a, **kw):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -4082,6 +4198,7 @@ def lm_train_run(arch, device, want=None, **size):
 
     def checked_grads(m, batch):
         loss, metrics, grads = grads_of(m, batch)
+        aux.append(metrics["aux"])
         if not grads_seen:
             grads_seen.update(
                 n_leaves=len(grads),
@@ -4096,8 +4213,10 @@ def lm_train_run(arch, device, want=None, **size):
     _build.reset_launches()
     step_mod.grads_of, step_mod.adamw_update = checked_grads, timed_adamw
     store = MemoryCheckpoints()
+    drops = (_ForwardDrops(model) if cfg.moe is not None
+             else contextlib.nullcontext())
     try:
-        with _LastCall(ops_module, bwd_fn) as cap:
+        with _LastCall(ops_module, bwd_fn) as cap, drops:
             t0 = time.perf_counter()
             _m, _state, out = train(
                 model, make_batch,
@@ -4112,6 +4231,8 @@ def lm_train_run(arch, device, want=None, **size):
     del store
     per_step.append((state["step"], dict(_build.launches)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # this process's peak resident host memory (KiB on Linux)
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     hist = out["history"]
     ran = [h["step"] for h in hist]
     expect = list(range(fail_at)) + list(range(fail_at - 1, steps))
@@ -4147,15 +4268,22 @@ def lm_train_run(arch, device, want=None, **size):
                 "model_flops": flops,
                 "mfu": flops / (ms / 1e3) / PEAK_BF16_OPS_S,
                 "adamw_ms": adam_ms, "launches": per_step[0][1],
-                "peak_gib": peak, "resident_gib": resident, "loop_s": loop_s,
+                "peak_gib": peak, "resident_gib": resident,
+                "host_peak_gib": host_peak, "loop_s": loop_s,
                 "losses": [h["loss"] for h in hist],
                 "grad_norms": [h["grad_norm"] for h in hist],
-                "replay_bit_equal": same}
-    depth = (f"{cfg.enc_layers} + {cfg.n_layers}" if cfg.is_encdec
-             else f"{cfg.n_layers}")
+                "replay_bit_equal": same,
+                "aux": [float(a) for a in aux]}
+    if cfg.moe is not None:
+        readings["drops"] = drops.groups()
+        if len(readings["drops"]) != len(hist):
+            raise AssertionError(f"{arch}: {len(readings['drops'])} "
+                                 f"forwards counted, {len(hist)} steps run")
+    depth = (f"{cfg.enc_layers} + {cfg.n_layers} layers" if cfg.is_encdec
+             else f"{cfg.n_layers} layer" + "s" * (cfg.n_layers > 1))
     frames = (f" and {batch} x {cfg.enc_seq} frames" if cfg.is_encdec
               else "")
-    print(f"{arch} training, {depth} layers at full width "
+    print(f"{arch} training, {depth} at full width "
           f"({n_params / 1e9:.3f} B parameters, bf16 with a float32 master), "
           f"{batch} x {seq} tokens{frames} a step: losses "
           f"{[round(h['loss'], 4) for h in hist]}, grad norms "
@@ -4166,8 +4294,14 @@ def lm_train_run(arch, device, want=None, **size):
           f"step ({FLOPS_RULE[cfg.is_encdec]}) = "
           f"{100 * readings['mfu']:.2f}% of 989 TFLOP/s; peak "
           f"{peak:.2f} GiB ({resident:.2f} GiB of earlier phases resident "
-          f"before the run); loop {loop_s:.1f} s with {len(hist)} steps, "
+          f"before the run); host peak RSS {host_peak:.2f} GiB (the "
+          f"process so far); loop {loop_s:.1f} s with {len(hist)} steps, "
           f"checkpoints and the restore", flush=True)
+    if cfg.moe is not None:
+        print(f"{arch} training: per step run (steps {ran}), the "
+              f"assignments each MoE layer drops in the forward "
+              f"{readings['drops']} of {batch * seq * cfg.moe.top_k} a "
+              f"layer, aux loss {readings['aux']}", flush=True)
     print(f"{arch} training: adamw_update {adam_ms:.3f} ms a step (CUDA "
           f"events around it, median of {len(adam_events) - 1} steps), "
           f"{100 * adam_ms / ms:.1f}% of the step", flush=True)
@@ -4576,13 +4710,16 @@ def wkv_bwd_rows(probes, args, launches):
 def lm_train_record_check(rec, device):
     """The port's train step on one JAX training record
     (``assets/lm_train_reference.npz``, or ``lm_encdec_reference.npz``'s
-    training record, on ``encdec_batch_for_step`` batches): the step-0
-    gradient of every leaf by its norm and its probe g . p, and each step's
-    loss, ce and grad norm, within max(RECORD_REL, E) of JAX's, E the
-    record's one-ulp sensitivity of that quantity (a probe relative to
-    |g| |p|, the rest relative to their size; for a leaf's norm and probe
-    one E for all leaves or one a leaf); the learning rate within one
-    float32 ulp.  Returns the readings."""
+    training record, on ``encdec_batch_for_step`` batches;
+    ``assets/lm_moe_train_reference.npz``): the step-0 gradient of every
+    leaf by its norm and its probe g . p, and each step's loss, ce, grad
+    norm and, where the record has it, aux loss, within max(RECORD_REL, E)
+    of JAX's, E the record's one-ulp sensitivity of that quantity (a probe
+    relative to |g| |p|, the rest relative to their size; for a leaf's
+    norm and probe one E for all leaves or one a leaf); the learning rate
+    within one float32 ulp; where the record has them, the assignments
+    each MoE layer drops in each step's forward (``_ForwardDrops``)
+    equal to JAX's.  Returns the readings."""
     import torch
 
     from repro_torch.bridge import (
@@ -4632,37 +4769,60 @@ def lm_train_record_check(rec, device):
     state = init_opt_state(model.named_leaves())
     step_fn = make_train_step(model, AdamWConfig(**rec.opt))
     rel = {"loss": [], "ce": [], "grad_norm": []}
-    for s in range(rec.steps):
-        state, met = step_fn(state, batch(s))
-        for k in rel:
-            want = float(rec.__dict__[k][s])
-            r = abs(float(met[k]) - want) / abs(want)
-            rel[k].append(r)
-            if r > max(RECORD_REL, e[k][s]):
-                raise AssertionError(f"{rec.cfg.name} record step {s}: {k} "
-                                     f"{float(met[k])!r} vs JAX {want!r} "
-                                     f"({r:.3g}, bound "
-                                     f"{max(RECORD_REL, e[k][s]):.3g})")
-        lr, want = np.float32(float(met["lr"])), rec.lr[s]
-        if abs(int(lr.view(np.int32)) - int(want.view(np.int32))) > 1:
-            raise AssertionError(f"record step {s}: lr {lr!r} vs {want!r}")
-    return {"steps": rec.steps, "grad": worst, "steps_rel": rel,
-            "grad_of_bound": {k: v[0] for k, v in excess.items()}}
+    if rec.aux is not None:
+        rel["aux"] = []
+    counter = (_ForwardDrops(model) if rec.drops is not None
+               else contextlib.nullcontext())
+    with counter:
+        for s in range(rec.steps):
+            state, met = step_fn(state, batch(s))
+            _record_step_check(rec, s, met, rel)
+    out = {"steps": rec.steps, "grad": worst, "steps_rel": rel,
+           "grad_of_bound": {k: v[0] for k, v in excess.items()}}
+    if rec.drops is not None:
+        out["drops"] = counter.groups()
+        if not np.array_equal(out["drops"], rec.drops):
+            raise AssertionError(f"{rec.cfg.name} record: drops per step "
+                                 f"{out['drops']}, JAX's "
+                                 f"{rec.drops.tolist()}")
+    return out
 
 
-def lm_train_record_phase(device):
-    """The JAX training records on the card, through the kernels."""
+def _record_step_check(rec, s, met, rel):
+    """Step ``s`` of ``lm_train_record_check``: each quantity of ``rel``
+    (appended to it) and the learning rate against the record."""
+    e = rec.sensitivity
+    for k in rel:
+        want = float(rec.__dict__[k][s])
+        r = abs(float(met[k]) - want) / abs(want)
+        rel[k].append(r)
+        if r > max(RECORD_REL, e[k][s]):
+            raise AssertionError(f"{rec.cfg.name} record step {s}: {k} "
+                                 f"{float(met[k])!r} vs JAX {want!r} "
+                                 f"({r:.3g}, bound "
+                                 f"{max(RECORD_REL, e[k][s]):.3g})")
+    lr, want = np.float32(float(met["lr"])), rec.lr[s]
+    if abs(int(lr.view(np.int32)) - int(want.view(np.int32))) > 1:
+        raise AssertionError(f"record step {s}: lr {lr!r} vs {want!r}")
+
+
+def lm_train_record_phase(device, records=None):
+    """The JAX training records (name -> record;
+    ``assets/lm_train_reference.npz``'s when None) on the card, through
+    the kernels: each launches its forward and backward kernel at least
+    once."""
     import torch
 
     from repro_torch.bridge import load_lm_train_reference
     from repro_torch.kernels import _build
 
-    for name, rec in load_lm_train_reference().items():
+    records = load_lm_train_reference() if records is None else records
+    for name, rec in records.items():
         _build.reset_launches()
         readings = lm_train_record_check(rec, device)
         torch.cuda.synchronize()
         counts = dict(_build.launches)
-        fwd = LM_KERNEL[rec.cfg.name]
+        fwd = "rwkv_wkv" if rec.cfg.mixer == "rwkv" else "flash_attention"
         if counts.get(fwd, 0) < 1 or counts.get(fwd + "_bwd", 0) < 1:
             raise AssertionError(f"training record {name}: kernels not "
                                  f"launched: {counts}")
@@ -4679,6 +4839,12 @@ def lm_train_record_phase(device):
               f"{[f'{r:.3g}' for r in readings['steps_rel']['grad_norm']]} "
               f"(E {[f'{x:.3g}' for x in e['grad_norm']]}); lr within an "
               f"ulp; launches {counts}", flush=True)
+        if rec.aux is not None:
+            print(f"JAX training record {name}: per step aux "
+                  f"{[f'{r:.3g}' for r in readings['steps_rel']['aux']]} (E "
+                  f"{[f'{x:.3g}' for x in e['aux']]}); drops per step and "
+                  f"MoE layer {readings['drops']}, equal to JAX's",
+                  flush=True)
 
 
 def lm_train_disk_run(device):
@@ -4785,7 +4951,7 @@ def lm_train_phase(probes, device="cuda"):
 
     t0 = time.perf_counter()
     rows, targets, readings = [], [], []
-    for arch in TRAIN_LAUNCHES:
+    for arch in LM_TRAIN_ARCHS:
         r, args = lm_train_run(arch, device)
         readings.append(r)
         bwd = [k for k in TRAIN_LAUNCHES[arch] if k.endswith("_bwd")][0]
@@ -5029,18 +5195,18 @@ def whisper_record_phase(device):
           f"{counts}", flush=True)
 
 
-def whisper_bwd_row(probes, args, launches):
+def flash_bwd_row(probes, args, launches, label):
     """``flash_attention_bwd`` (bf16) on layer 0's backward-kernel inputs
-    at step 1 of the whisper training run, against the plain backward
-    given the plain forward's O and log-sum-exp (``flash_bwd_check``),
-    timed beside SDPA's backward."""
+    at step 1 of a training run (``label``: whisper's, row 7gw; mixtral's,
+    row 7gm), against the plain backward given the plain forward's O and
+    log-sum-exp (``flash_bwd_check``), timed beside SDPA's backward."""
     from repro_torch.kernels.flash_attention import cuda as fcuda
 
     q, k, v, o, dout, lse = args
     b, s, H, d = q.shape
     shape = "x".join(map(str, q.shape)) + " bfloat16"
     err, plain = flash_bwd_check(q, k, v, o, dout, lse,
-                                 f"whisper {shape} (layer 0, step 1)")
+                                 f"{label} {shape} (layer 0, step 1)")
     plain_ms = device_ms(plain, reps=2, warm=1)
     lib_ms, lib_fn = sdpa_backward_ms(q, k, v, dout)
     n_bytes = (q.element_size() * (3 * q.numel() + 2 * (k.numel() + v.numel())
@@ -5049,7 +5215,7 @@ def whisper_bwd_row(probes, args, launches):
         probes, "flash_attention_bwd", _bwd_module("flash_attention_bwd"),
         launches, err, lambda: fcuda.flash_attention_bwd_cuda(*args),
         plain_ms, lib_ms, n_bytes, 5 * 2 * d * _causal_pairs(s) * b * H,
-        PEAK_BF16_OPS_S, reps=5, shape=f"whisper {shape}",
+        PEAK_BF16_OPS_S, reps=5, shape=f"{label} {shape}",
         library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
     row["backward_of"] = "row 7"
     row["kernel"] = FLASH_BWD_KERNEL["bfloat16"]
@@ -5076,8 +5242,8 @@ def whisper_phase(probes, device="cuda"):
                            ckpt_every=WHISPER_CKPT_EVERY,
                            fail_at=WHISPER_FAIL_AT,
                            want=whisper_launches(cfg, training=True))
-    bwd_row = whisper_bwd_row(probes, args, r["launches"][
-        "flash_attention_bwd"])
+    bwd_row = flash_bwd_row(probes, args, r["launches"][
+        "flash_attention_bwd"], "whisper")
     del args
     torch.cuda.empty_cache()
     targets = [(f"{WHISPER} serve call",
@@ -5111,6 +5277,17 @@ MIXTRAL_PARITY_LAYERS = 2
 # are rounded to bf16 there; 0.23 of this bound at full width on the CPU)
 MOE_BF16_REL = 2.0 ** -7
 MOE_ROWS = 64             # prefill tokens recomputed in float32 on the CPU
+# the training run: 1 of 56 layers (MIXTRAL_TRAIN_LAYERS) at full width in
+# bf16 with a float32 master: the layer and the embeddings are 2.91 B
+# parameters, 43.3 GiB with gradients, master and moments, and a second
+# layer would add 37.3 GiB; 8 x 2048 tokens a step (TRAIN_SEQ,
+# TRAIN_BATCH), 6 steps, a failure at step 5 replayed from the checkpoint
+# of step 4, as whisper's run
+MIXTRAL_TRAIN_STEPS, MIXTRAL_TRAIN_CKPT_EVERY, MIXTRAL_TRAIN_FAIL_AT = 6, 4, 5
+# the sliced AdamW against the whole-leaf update on the card: one leaf of
+# yi's embedding size, 2^27 elements or more (4 slices of
+# ``optimizer.SLICE``)
+ADAMW_SLICE_SHAPE = (64000, 4096)
 
 # -- deepseek-v2-236b: MLA and the dense prefix
 DEEPSEEK = "deepseek-v2-236b"
@@ -5695,17 +5872,139 @@ def moe_record_phase(device, arch):
           f"{counts}", flush=True)
 
 
+def adamw_slices_check(device):
+    """``adamw_update`` in slices of ``optimizer.SLICE`` elements against
+    the same update with the slice patched to the whole leaf, from the
+    same state and bf16 gradient of one ADAMW_SLICE_SHAPE leaf: the new
+    bf16 parameters, the master and both moments bit for bit."""
+    import torch
+
+    from repro_torch.train import optimizer as opt
+
+    shape = ADAMW_SLICE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def draw(scale):
+        return torch.randn(shape, device=device, generator=gen) * scale
+
+    param, mu, nu, grad = draw(1.0).bfloat16(), draw(1e-3), draw(1e-3), \
+        draw(1.0).bfloat16()
+    nu.square_()
+    cfg = opt.AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2, decay_steps=12)
+    ends, slices = [], opt.SLICE
+    for size in (grad.numel(), slices):
+        state = opt.OptState(
+            step=torch.tensor(3, dtype=torch.int32, device=device),
+            master={"w": param.float()}, mu={"w": mu.clone()},
+            nu={"w": nu.clone()})
+        out = {"w": param.clone()}
+        opt.SLICE = size
+        try:
+            opt.adamw_update(cfg, {"w": grad.clone()}, state, torch.bfloat16,
+                             out=out)
+        finally:
+            opt.SLICE = slices
+        ends.append((out["w"], state.master["w"], state.mu["w"],
+                     state.nu["w"]))
+        del state, out
+    same = [_bits_equal(a, b) for a, b in zip(*ends)]
+    if not all(same):
+        raise AssertionError(f"sliced adamw_update differs from the "
+                             f"whole-leaf one (params, master, mu, nu): "
+                             f"{same}")
+    print(f"adamw_update on one {shape[0]} x {shape[1]} leaf "
+          f"({grad.numel():,} elements) in {-(-grad.numel() // slices)} "
+          f"slices of {slices:,} == the whole-leaf update, bit for bit: "
+          "bf16 parameters, master, first and second moments", flush=True)
+
+
+def select_backward_check(cfg, device, step_ms):
+    """The expert loop's ``w[i]`` under autograd (``models.moe.
+    _expert_ffn``): each expert's select backward makes a zero tensor the
+    size of the whole (n_experts, d, f) leaf, and the leaf's gradient
+    sums n_experts of them.  On one such bf16 leaf the experts' gradients
+    go back through the selects and, for comparison, through ``unbind``
+    (one stacked buffer); the two gradients are compared and each is timed
+    by CUDA events, three leaves a MoE layer against the training step."""
+    import torch
+
+    from repro_torch.models.transformer import layer_kinds
+
+    m = cfg.moe
+    e, d, f = m.n_experts, cfg.d_model, m.d_ff_expert
+    w = torch.zeros((e, d, f), dtype=cfg.param_dtype, device=device,
+                    requires_grad=True)
+    gen = torch.Generator(device=device).manual_seed(4)
+    gs = [torch.randn((d, f), device=device, generator=gen).to(w.dtype)
+          for _ in range(e)]
+
+    def selects():
+        return torch.autograd.grad([w[i] for i in range(e)], w, gs)[0]
+
+    def unbound():
+        return torch.autograd.grad(list(w.unbind(0)), w, gs)[0]
+
+    equal = torch.equal(selects(), unbound())
+    sel_ms = device_ms(selects, reps=5, warm=1)
+    unb_ms = device_ms(unbound, reps=5, warm=1)
+    layers = sum(kind[1] == "moe" for kind in layer_kinds(cfg))
+    per_step = 3 * layers * sel_ms
+    print(f"select backward of one ({e}, {d}, {f}) {str(w.dtype)[6:]} expert "
+          f"leaf: {sel_ms:.4f} ms through {e} selects, {unb_ms:.4f} ms "
+          f"through unbind (CUDA events, mean of 5); gradients equal: "
+          f"{equal}; {3 * layers} such leaves a step: {per_step:.4f} ms, "
+          f"{100 * per_step / step_ms:.2f}% of the {step_ms:.3f} ms step "
+          f"(unbind would save {3 * layers * (sel_ms - unb_ms):.4f} ms)",
+          flush=True)
+
+
+def mixtral_train_phase(probes, device="cuda"):
+    """MoE training: mixtral-8x22b through ``train.loop.train`` at
+    MIXTRAL_TRAIN_LAYERS of 56 layers at full width (``lm_train_run``),
+    row 7gm at layer 0's step-1 backward inputs, the sliced AdamW on the
+    card, the select backward's cost and the JAX MoE training record.
+    Returns (row 7gm, the profile target)."""
+    import torch
+
+    from repro_torch.bridge import load_lm_moe_train_reference
+
+    r, args = lm_train_run(MIXTRAL, device, layers=MIXTRAL_TRAIN_LAYERS,
+                           steps=MIXTRAL_TRAIN_STEPS,
+                           ckpt_every=MIXTRAL_TRAIN_CKPT_EVERY,
+                           fail_at=MIXTRAL_TRAIN_FAIL_AT)
+    row = flash_bwd_row(probes, args, r["launches"]["flash_attention_bwd"],
+                        "mixtral")
+    del args
+    free_card()
+    adamw_slices_check(device)
+    free_card()
+    select_backward_check(mixtral_cfg(MIXTRAL_TRAIN_LAYERS), device,
+                          r["step_ms"])
+    free_card()
+    lm_train_record_phase(device, {"mixtral": load_lm_moe_train_reference()})
+    torch.cuda.empty_cache()
+    target = (f"{MIXTRAL} training step ({MIXTRAL_TRAIN_LAYERS} layer)",
+              Deferred(lambda: train_step_target(
+                  MIXTRAL, device, layers=MIXTRAL_TRAIN_LAYERS)),
+              r["step_ms"])
+    return row, target
+
+
 def mixtral_phase(probes, device="cuda"):
     """The MoE slice: the serve call, routing on the card, row 7m, float32
-    parity and the JAX record.  Returns (kernel rows, profile targets)."""
+    parity and the JAX record; then MoE training (``mixtral_train_phase``).
+    Returns (kernel rows, profile targets)."""
     t0 = time.perf_counter()
     rows, times = moe_serve_phase(probes, device, MIXTRAL)
     moe_parity_phase(device, MIXTRAL)
     moe_record_phase(device, MIXTRAL)
     free_card()
+    train_row, train_target = mixtral_train_phase(probes, device)
+    rows.append(train_row)
+    free_card()
     targets = [(f"{MIXTRAL} serve call ({MIXTRAL_LAYERS} layers)",
                 Deferred(lambda: mixtral_serve_call(device)[-1]),
-                times["serve_ms"])]
+                times["serve_ms"]), train_target]
     print(f"mixtral phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets
 

@@ -107,6 +107,7 @@ LM_ENCDEC_ASSET = ASSET.parent / "lm_encdec_reference.npz"
 LM_MOE_ASSET = ASSET.parent / "lm_moe_reference.npz"
 LM_MLA_ASSET = ASSET.parent / "lm_mla_reference.npz"
 LM_HYBRID_ASSET = ASSET.parent / "lm_hybrid_reference.npz"
+LM_MOE_TRAIN_ASSET = ASSET.parent / "lm_moe_train_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -640,7 +641,9 @@ class LMTrainRecord:
     :func:`lm_train_probe`; and each quantity's one-ulp sensitivity E (its
     move, relative to its size, when every weight moves by one ulp): a list
     per step for "loss", "ce" and "grad_norm", one number for "g_norm" (a
-    leaf's |g|) and "g_probe" (a leaf's g . p relative to |g| |p|)."""
+    leaf's |g|) and "g_probe" (a leaf's g . p relative to |g| |p|).  A MoE
+    record also holds each step's aux loss (with its E under "aux") and
+    the assignments each MoE layer drops in the step's forward."""
 
     cfg: object
     seed: int
@@ -655,6 +658,8 @@ class LMTrainRecord:
     g_sq: np.ndarray              # (leaves,) float64
     g_probe: np.ndarray           # (leaves,) float64
     sensitivity: dict             # quantity -> E
+    aux: np.ndarray | None = None     # (steps,)
+    drops: np.ndarray | None = None   # (steps, MoE layers) int
 
 
 PROBE_SEED = 7
@@ -686,6 +691,26 @@ def load_lm_train_reference(path=None) -> dict:
                 f: z[f"{name}_{f}"] for f in (
                     "loss", "ce", "grad_norm", "lr", "g_sq", "g_probe")})
     return out
+
+
+def load_lm_moe_train_reference(path=None) -> LMTrainRecord:
+    """The JAX MoE training record (``assets/lm_moe_train_reference.npz``:
+    mixtral's smoke config in float32 at the flash kernel's d_head of 128,
+    capacity factor 1.25), with each step's aux loss and drops."""
+    import json
+
+    with np.load(LM_MOE_TRAIN_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    desc = json.loads(str(z["config"]))
+    cfg = dataclasses.replace(
+        get_config(desc["arch"], smoke=desc["smoke"]),
+        param_dtype=torch.float32, **record_overrides(desc))
+    return LMTrainRecord(
+        cfg=cfg, seed=int(z["seed"]), data=desc["data"],
+        steps=int(desc["steps"]), opt=desc["opt"],
+        leaf_names=list(desc["leaves"]), sensitivity=desc["sensitivity"],
+        **{f: z[f] for f in ("loss", "ce", "grad_norm", "lr", "g_sq",
+                             "g_probe", "aux", "drops")})
 
 
 def encdec_record_frames(desc: dict) -> np.ndarray:

@@ -18,6 +18,14 @@ float32 operands.  Experts are computed one after another: each expert's
 products are independent, and a prefill's float32 gate and up for all
 experts at once would not fit.
 
+Under autograd the module is the reference's ``jax.grad`` of
+``_moe_local``.  PyTorch has no derivative for the card's bf16 product
+with a float32 output, so there it runs in :class:`_MM32`, whose backward
+is what JAX's transpose of ``dot_general`` with
+``preferred_element_type=float32`` computes: the float32 cotangent times
+the other operand in float32, rounded to the operand's dtype (on the CPU
+autograd of the float32 product computes the same).
+
 The reference computes MoE outside any Pallas kernel, so this module is
 plain PyTorch on both devices.  Its expert-parallel and tensor-parallel
 ``shard_map`` bodies (``_moe_ep_body``, ``_moe_tp_body``,
@@ -139,12 +147,41 @@ def sort_combine(expert_out, slot, keep, top_w):
     return out
 
 
+def _mm_f32_out(a, b):
+    """cuBLAS's product of two bf16 matrices with a float32 output."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _MM32(torch.autograd.Function):
+    """``_mm_f32_out`` with a derivative: the float32 cotangent g gives
+    (g @ b^T, a^T @ g) as float32 products of float32 operands, each
+    rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32_out(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().t() @ g).to(b.dtype)
+        return ga, gb
+
+
 def _mm32(a, b):
     """a @ b with float32 sums and a float32 result.  A bf16 product on
-    the card goes to cuBLAS with a float32 output; elsewhere the operands
-    are float32 (exact for bf16 values)."""
+    the card goes to cuBLAS with a float32 output (:class:`_MM32` where
+    autograd records it); elsewhere the operands are float32 (exact for
+    bf16 values)."""
     if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MM32.apply(a, b)
+        return _mm_f32_out(a, b)
     return a.float() @ b.float()
 
 

@@ -137,6 +137,12 @@ def bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
     return 1 - power.to(torch.float32)
 
 
+# elements of a leaf's flattened view that one pass of the update takes:
+# the float64 FMA emulation's temporaries are then 512 MiB each, where a
+# whole (8, 6144, 16384) expert leaf would make ~24 GiB of them at once
+SLICE = 1 << 26
+
+
 def adamw_update(cfg: AdamWConfig, grads: dict, state: OptState,
                  param_dtype=torch.bfloat16, out: dict | None = None):
     """One AdamW step.  Returns (new parameters in ``param_dtype``, new
@@ -144,12 +150,16 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: OptState,
 
     Unlike the reference, which returns new arrays, this updates the
     state's master copy and moments in place and empties ``grads`` as it
-    goes, one leaf at a time, each operation rounding as the reference's
-    does: at full width the old and new states would not both fit on the
-    card.  The moments equal jitted JAX's bit for bit; the parameters are
-    within an ulp (XLA fuses the update's last operations in a way this
-    does not reproduce at about 1 in 400 entries).  With ``out`` (name -> parameter tensor) the new parameters are
-    written into those tensors."""
+    goes, one leaf at a time and each leaf in slices of SLICE elements of
+    its flattened view, each operation rounding as the reference's does:
+    at full width the old and new states would not both fit on the card,
+    nor a large leaf's float64 temporaries.  The update is elementwise
+    with the same scalars for every slice, so the slices give the bits of
+    the whole-leaf update.  The moments equal jitted JAX's bit for bit;
+    the parameters are within an ulp (XLA fuses the update's last
+    operations in a way this does not reproduce at about 1 in 400
+    entries).  With ``out`` (name -> parameter tensor) the new parameters
+    are written into those tensors."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)     # clip_by_global_norm, a
                                                   # leaf at a time below
@@ -163,21 +173,25 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: OptState,
 
     new_params = {}
     for n in list(grads):
-        g = grads.pop(n).to(torch.float32) * scale
-        m = state.mu[n]
-        m.copy_(fma(b1, m, c1 * g))                     # b1 m + (1 - b1) g
-        v = state.nu[n]
-        v.copy_(fma(b2, v, c2 * g.square()))            # b2 v + (1 - b2) g^2
-        del g
-        u = (m / b1c).div_(sqrt_rn(v / b2c).add_(eps))  # mh / (sqrt(vh) + eps)
+        grad = grads.pop(n).reshape(-1)
         p = state.master[n]
-        u.add_(wd * p).mul_(lr)
-        p.sub_(u)                                       # p - lr (u + wd p)
-        del u
-        if out is None:
-            new_params[n] = p.to(param_dtype)
-        else:
-            new_params[n] = out[n].copy_(p)
+        flat = [t.view(-1) for t in (state.mu[n], state.nu[n], p)]
+        dst = None if out is None else out[n].view(-1)
+        for i in range(0, grad.numel(), SLICE):
+            g = grad[i:i + SLICE].to(torch.float32) * scale
+            m, v, ps = (t[i:i + SLICE] for t in flat)
+            m.copy_(fma(b1, m, c1 * g))                 # b1 m + (1 - b1) g
+            v.copy_(fma(b2, v, c2 * g.square()))        # b2 v + (1 - b2) g^2
+            del g
+            u = (m / b1c).div_(sqrt_rn(v / b2c).add_(eps))  # mh / (sqrt(vh)
+                                                            #      + eps)
+            u.add_(wd * ps).mul_(lr)
+            ps.sub_(u)                                  # p - lr (u + wd p)
+            del u
+            if dst is not None:
+                dst[i:i + SLICE].copy_(ps)
+        del grad
+        new_params[n] = p.to(param_dtype) if out is None else out[n]
     new_state = OptState(step=step, master=state.master, mu=state.mu,
                          nu=state.nu)
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

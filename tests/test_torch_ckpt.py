@@ -257,7 +257,9 @@ def test_bf16_leaves_are_written_as_jax_writes_them(tmp_path):
 
 def test_memory_checkpoints_hold_what_a_directory_holds(tmp_path):
     """chip_smoke.py's host-memory store keeps what the package's on-disk
-    store keeps."""
+    store keeps of the latest checkpoint; it holds that one alone (a
+    full-width checkpoint is up to 40.7 GB of host memory), where the
+    directory keeps the last ``keep``."""
     from chip_smoke import MemoryCheckpoints
     from repro_torch.ckpt.checkpoint import DirectoryCheckpoints
 
@@ -269,13 +271,16 @@ def test_memory_checkpoints_hold_what_a_directory_holds(tmp_path):
     for store in stores:
         for step in (2, 4, 6):
             store.save(step, tree, extra={"next_step": step})
-        tree["x"] += 1          # a save is a copy, not a view
+            tree["x"] += 1          # a save is a copy, not a view
         store.prune(2)
-        tree["x"] -= 1
+        tree["x"] -= 3
         assert store.latest_step() == 6
-        got, extra = store.restore(4, like)
-        assert extra == {"next_step": 4}
-        assert torch.equal(got["x"], torch.arange(6.0))
+        got, extra = store.restore(6, like)
+        assert extra == {"next_step": 6}
+        assert torch.equal(got["x"], torch.arange(6.0) + 2)
         assert got["h"].dtype == torch.bfloat16 and int(got["n"][0]) == 4
-    with pytest.raises(KeyError):
-        stores[0].restore(2, like)
+    got, _extra = stores[1].restore(4, like)
+    assert torch.equal(got["x"], torch.arange(6.0) + 1)
+    for step in (2, 4):
+        with pytest.raises(KeyError):
+            stores[0].restore(step, like)
