@@ -108,7 +108,9 @@ def run(fns, params, data, log, n_moe, remat):
     jax.effects_barrier()
     grad_drops = forward_drops(log, n_moe, remat)
     flat = jax.tree_util.tree_flatten_with_path(grads)[0]
-    names = ["/".join(str(k.key) for k in path) for path, _g in flat]
+    # a list's entries (deepseek's dense prefix) by their index
+    names = ["/".join(str(k.key if hasattr(k, "key") else k.idx)
+                      for k in path) for path, _g in flat]
     g = [np.asarray(x, np.float64) for _p, x in flat]
     g_sq = np.array([np.sum(x * x) for x in g])
     g_probe = np.array([np.sum(x * lm_train_probe(x.shape)) for x in g])
@@ -166,7 +168,7 @@ def sensitivity(base, moved_runs, probe_norms):
     return sens, kept, grad_draws, steps
 
 
-def main(out=OUT, desc=DESC):
+def main(out=OUT, desc=DESC, opt=OPT):
     import jax
     import jax.numpy as jnp
 
@@ -185,7 +187,7 @@ def main(out=OUT, desc=DESC):
                       seed=DATA_SEED)
     with counting_drops([]) as log:
         fns = (jax.jit(jax.value_and_grad(model.loss, has_aux=True)),
-               jax.jit(make_train_step(model, AdamWConfig(**OPT))))
+               jax.jit(make_train_step(model, AdamWConfig(**opt))))
 
         def one(t):
             return run(fns, jax.tree_util.tree_map(jnp.asarray, t), data,
@@ -201,7 +203,7 @@ def main(out=OUT, desc=DESC):
     sens, kept, grad_draws, steps = sensitivity(base, moved, probe_norms)
     meta = dict(desc, data={"vocab": cfg.vocab, "seq": SEQ,
                             "global_batch": BATCH, "seed": DATA_SEED},
-                steps=steps, opt=OPT, leaves=names, sensitivity=sens,
+                steps=steps, opt=opt, leaves=names, sensitivity=sens,
                 draws={"steps": kept[:steps].tolist(), "g": grad_draws,
                        "of": len(ULP_SEEDS)})
     np.savez_compressed(

@@ -263,17 +263,33 @@ def kernel_device_ms(fn, reps):
 
 
 def set_constants(text, values, label):
-    """``text`` with each ``constexpr int <name> = <n>;`` of ``values``
-    set to its value."""
+    """``text`` with the first ``constexpr int <name> = <n>;`` of each of
+    ``values`` set to its value: a namespace's constant, or a tile of its
+    primary ``Tiles`` (the backward's equal (d, dv) pairs; MLA's
+    specialization, which follows it, keeps its own)."""
     import re
 
     for name, value in values.items():
         text, n = re.subn(rf"constexpr int {name} = \d+;",
-                          f"constexpr int {name} = {value};", text)
+                          f"constexpr int {name} = {value};", text, count=1)
         if n != 1:
-            raise RuntimeError(f"{label}: {name} is not one constant of the "
+            raise RuntimeError(f"{label}: {name} is not a constant of the "
                                "source")
     return text
+
+
+def bwd_argtypes(source):
+    """The argtypes of ``repro_flash_attention_bwd`` in ``source``: since
+    MLA's pair was built it takes the value width after the query-key
+    width (``bwd_call_widths``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ints = 8 if "int KV, int D, int DV," in source else 7
+    return [p] * 10 + [i] * ints + [ctypes.c_float, i, p]
+
+
+def bwd_call_widths(fn, d, dv):
+    """The width arguments ``fn`` (bound by ``bwd_argtypes``) takes."""
+    return (d, dv) if len(fn.argtypes) == 21 else (d,)
 
 
 def flash_bwd_variants(nvcc, flags):
@@ -311,7 +327,7 @@ def flash_bwd_variants(nvcc, flags):
         lib = build(f"flash_bwd_{name}", src, nvcc, flags)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.repro_flash_attention_bwd
-        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.argtypes = bwd_argtypes(src)
         fn.restype = ctypes.c_int
         fns[name] = fn
         fn = lib.repro_flash_attention_bwd_scratch
@@ -325,7 +341,8 @@ def flash_bwd_variants(nvcc, flags):
         scratch = torch.empty(scratch_fns[name](b, H, s), device=q.device)
         rc = fns[name](*(t.data_ptr() for t in (q, k, v, o, dout, lse, scratch,
                                                 *out)),
-                       1, b, s, k.shape[1], H, k.shape[2], d,
+                       1, b, s, k.shape[1], H, k.shape[2],
+                       *bwd_call_widths(fns[name], d, v.shape[-1]),
                        ctypes.c_float(d ** -0.5), 0,
                        torch.cuda.current_stream().cuda_stream)
         if rc:
@@ -634,16 +651,17 @@ __device__ __forceinline__ void score(const float* X, const float* Y, int x0,
 """
 F32_ACC_HEAD = "// acc += A Z over N rows of Z, A (16 x N) in two_scores' accumulator"
 # in_order's loop head as committed
-F32_IN_ORDER_LOOP = "  for (int c = 1; c <= D / 4; ++c) {\n    const int n = c < D / 4"
+F32_IN_ORDER_LOOP = "  for (int c = 1; c <= DU / 4; ++c) {\n    const int n = c < DX / 4"
 # in_order's loop as committed (4 d an iteration), and the same 8 d an
 # iteration (the same FMAs in the same order)
 F32_IN_ORDER_BODY4 = """  // the next 4 d's loads issued before this 4's FMAs
   float4 a = ld4(q + (sq << 2)), b = ld4(k + (sk << 2));
   float4 u = ld4(g + (sq << 2)), w = ld4(v + (sk << 2));
-  for (int c = 1; c <= D / 4; ++c) {
-    const int n = c < D / 4 ? c : 0;
+  for (int c = 1; c <= DU / 4; ++c) {
+    const int n = c < DX / 4 ? c : 0;
+    const int m = c < DU / 4 ? c : 0;
     const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
-    const float4 u1 = ld4(g + ((n ^ sq) << 2)), w1 = ld4(v + ((n ^ sk) << 2));
+    const float4 u1 = ld4(g + ((m ^ sq) << 2)), w1 = ld4(v + ((m ^ sk) << 2));
     s = __fmaf_rn(a.x, b.x, s);
     s = __fmaf_rn(a.y, b.y, s);
     s = __fmaf_rn(a.z, b.z, s);
@@ -654,6 +672,15 @@ F32_IN_ORDER_BODY4 = """  // the next 4 d's loads issued before this 4's FMAs
     d = __fmaf_rn(u.w, w.w, d);
     a = a1, b = b1, u = u1, w = w1;
   }
+  for (int c = DU / 4 + 1; c <= DX / 4; ++c) {
+    const int n = c < DX / 4 ? c : 0;
+    const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
+    s = __fmaf_rn(a.x, b.x, s);
+    s = __fmaf_rn(a.y, b.y, s);
+    s = __fmaf_rn(a.z, b.z, s);
+    s = __fmaf_rn(a.w, b.w, s);
+    a = a1, b = b1;
+  }
 """
 F32_IN_ORDER_BODY8 = """  float4 a[2], b[2], u[2], w[2];
 #pragma unroll
@@ -661,15 +688,17 @@ F32_IN_ORDER_BODY8 = """  float4 a[2], b[2], u[2], w[2];
     a[h] = ld4(q + ((h ^ sq) << 2)), b[h] = ld4(k + ((h ^ sk) << 2));
     u[h] = ld4(g + ((h ^ sq) << 2)), w[h] = ld4(v + ((h ^ sk) << 2));
   }
-  for (int c = 2; c <= D / 4; c += 2) {
-    const int n = c < D / 4 ? c : 0;
+  for (int c = 2; c <= DX / 4; c += 2) {
+    const int n = c < DX / 4 ? c : 0;
+    const int m = c < DU / 4 ? c : 0;
+    const bool on = c <= DU / 4;          // these 8 d lie below DU
     float4 a1[2], b1[2], u1[2], w1[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       a1[h] = ld4(q + (((n + h) ^ sq) << 2));
       b1[h] = ld4(k + (((n + h) ^ sk) << 2));
-      u1[h] = ld4(g + (((n + h) ^ sq) << 2));
-      w1[h] = ld4(v + (((n + h) ^ sk) << 2));
+      u1[h] = ld4(g + (((m + h) ^ sq) << 2));
+      w1[h] = ld4(v + (((m + h) ^ sk) << 2));
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -677,10 +706,12 @@ F32_IN_ORDER_BODY8 = """  float4 a[2], b[2], u[2], w[2];
       s = __fmaf_rn(a[h].y, b[h].y, s);
       s = __fmaf_rn(a[h].z, b[h].z, s);
       s = __fmaf_rn(a[h].w, b[h].w, s);
-      d = __fmaf_rn(u[h].x, w[h].x, d);
-      d = __fmaf_rn(u[h].y, w[h].y, d);
-      d = __fmaf_rn(u[h].z, w[h].z, d);
-      d = __fmaf_rn(u[h].w, w[h].w, d);
+      if (on) {
+        d = __fmaf_rn(u[h].x, w[h].x, d);
+        d = __fmaf_rn(u[h].y, w[h].y, d);
+        d = __fmaf_rn(u[h].z, w[h].z, d);
+        d = __fmaf_rn(u[h].w, w[h].w, d);
+      }
       a[h] = a1[h], b[h] = b1[h], u[h] = u1[h], w[h] = w1[h];
     }
   }
@@ -693,10 +724,10 @@ FLASH_BWD_F32 = {
     "kv_rows16": ({"kKvRows": 16}, []),
     "dq_64x64": ({"kDqRows": 64, "kDqKeys": 64, "kDqRing": 2}, []),
     "kv_64x64": ({"kKvKeys": 64, "kKvRows": 64, "kKvRing": 2}, []),
-    "kk_unrolled": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
-                          "#pragma unroll\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
-    "kk_unroll2": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
-                         "#pragma unroll 2\n  for (int kk = 0; kk < D / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
+    "kk_unrolled": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < DU / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
+                          "#pragma unroll\n  for (int kk = 0; kk < DU / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
+    "kk_unroll2": ({}, [("#pragma unroll 1\n  for (int kk = 0; kk < DU / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h",
+                         "#pragma unroll 2\n  for (int kk = 0; kk < DU / 16; ++kk) {\n    const int col = 16 * kk + 4 * q;\n    // A of step h")]),
     # P and dS through shared memory (a warp's 16 rows, 18 KB a block, so
     # with a ring of two: compare with ring2) and back as the A fragment,
     # with B's rows in their natural order (k = q row q, k = q + 4 row q +
@@ -710,19 +741,21 @@ FLASH_BWD_F32 = {
     "score_4chains": ({}, [(F32_SCORE_CHAINS, F32_SCORE_4CHAINS)]),
     # accumulate's hi hi apart from the cross terms (kApart) in dq too, or
     # in neither kernel
-    "dq_apart": ({}, [("accumulate<D, kDqKeys, false>",
-                       "accumulate<D, kDqKeys, true>")]),
-    "none_apart": ({}, [("accumulate<D, kKvRows, true>",
-                         "accumulate<D, kKvRows, false>")]),
+    "dq_apart": ({}, [("accumulate<DQK, kDqKeys, false>",
+                       "accumulate<DQK, kDqKeys, true>")]),
+    "none_apart": ({}, [("accumulate<DV, kKvRows, true>",
+                         "accumulate<DV, kKvRows, false>"),
+                        ("accumulate<DQK, kKvRows, true>",
+                         "accumulate<DQK, kKvRows, false>")]),
     # S and dP (S^T and dP^T) one after the other, each its own pass over D
     "dq_one_score": ({}, [(F32_ACC_HEAD, F32_SCORE_FN + F32_ACC_HEAD), (
-        "two_scores<D, kDqKeys>(Qs, kt, Gs, Vs + st * kTile, x0, sc, dp);",
-        "score<D, kDqKeys>(Qs, kt, x0, sc);\n"
-        "    score<D, kDqKeys>(Gs, Vs + st * kTile, x0, dp);")]),
+        "two_scores<DQK, DV, kDqKeys>(Qs, kt, Gs, Vs + st * kVTile, x0, sc, dp);",
+        "score<DQK, kDqKeys>(Qs, kt, x0, sc);\n"
+        "    score<DV, kDqKeys>(Gs, Vs + st * kVTile, x0, dp);")]),
     "kv_one_score": ({}, [(F32_ACC_HEAD, F32_SCORE_FN + F32_ACC_HEAD), (
-        "two_scores<D, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);",
-        "score<D, kKvRows>(Ks, qt, x0, sc);\n"
-        "    score<D, kKvRows>(Vs, gt, x0, dp);")]),
+        "two_scores<DQK, DV, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);",
+        "score<DQK, kKvRows>(Ks, qt, x0, sc);\n"
+        "    score<DV, kKvRows>(Vs, gt, x0, dp);")]),
     # the large P's S and dP summed again in order: out of line (a call a
     # lane), never (no check, no loop: wrong at the random-weight scale),
     # above 4 instead of 1; dkdv summing its own again, not taking dq's
@@ -741,10 +774,10 @@ FLASH_BWD_F32 = {
     # in_order's loop left out, or over half of d
     "diag_no_chain": ({}, [(F32_IN_ORDER_LOOP,
                             "  for (int c = 1; c <= 0; ++c) {\n"
-                            "    const int n = c < D / 4")]),
+                            "    const int n = c < DX / 4")]),
     "diag_half_chain": ({}, [(F32_IN_ORDER_LOOP,
-                              "  for (int c = 1; c <= D / 8; ++c) {\n"
-                              "    const int n = c < D / 4")]),
+                              "  for (int c = 1; c <= DU / 8; ++c) {\n"
+                              "    const int n = c < DX / 4")]),
     # the high parts cut (tf32::split) instead of rounded: one IADD less a
     # value, about twice the error at the random-weight models' scale
     "cut_split": ({}, [("  split_rn(v.x", "  tf32::split(v.x"),
@@ -801,7 +834,7 @@ def flash_bwd_f32_variants(nvcc, flags):
                   flush=True)
             continue
         fns[name] = lib.repro_flash_attention_bwd
-        fns[name].argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
+        fns[name].argtypes = bwd_argtypes(src)
         fns[name].restype = ctypes.c_int
         scratch_fns[name] = lib.repro_flash_attention_bwd_scratch
         scratch_fns[name].argtypes = [i, i, i]
@@ -813,7 +846,8 @@ def flash_bwd_f32_variants(nvcc, flags):
         scratch = torch.empty(scratch_fns[name](b, H, s), device=q.device)
         rc = fns[name](*(t.data_ptr() for t in (q, k, v, o, dout, lse, scratch,
                                                 *out)),
-                       0, b, s, k.shape[1], H, k.shape[2], d,
+                       0, b, s, k.shape[1], H, k.shape[2],
+                       *bwd_call_widths(fns[name], d, v.shape[-1]),
                        ctypes.c_float(d ** -0.5), 0,
                        torch.cuda.current_stream().cuda_stream)
         if rc:

@@ -288,7 +288,20 @@ no tensor-core instruction, then:
    and float32; the float32 parity at 2 layers and capacity factor 32
    (above 160 / 6, so that a call of t tokens keeps all its 6 t choices)
    with nothing dropped; the JAX
-   record ``assets/lm_mla_reference.npz`` as mixtral's;
+   record ``assets/lm_mla_reference.npz`` as mixtral's.  Then MLA
+   training (``deepseek_train_phase``): ``train.loop.train`` on 1 of the
+   60 layers at full width, the dense MLA prefix layer with its SwiGLU
+   FFN (1.467 B parameters, 21.9 GiB with gradients, master and moments;
+   a second layer is a MoE layer of ~4.05 B), with mixtral's steps,
+   checkpoints and failure and every check of the LM training phase (1
+   forward and 1 backward launch a step: the prefix runs without remat,
+   as the reference's unscanned prefix), the model FLOPs with MLA's
+   products at their own widths; row 7gmla at layer 0's backward inputs
+   at step 1 (8 x 2048 x 128/128, d 192, dv 128, causal) beside SDPA's
+   cuDNN backward; row 7hmla, the float32 backward on drawn inputs at
+   8 x 4000 x 32 heads, beside SDPA's efficient backward; and the JAX MLA
+   training record ``assets/lm_mla_train_reference.npz`` through the
+   kernels in float32 as mixtral's;
 13. jamba phase — jamba-v0.1-52b, Mamba layers with an attention layer in
    every period of 8, at full width, 8 of 32 layers (one period: 7 Mamba
    layers and the attention layer 4; MoE, 16 experts top-2, on the odd
@@ -311,8 +324,8 @@ no tensor-core instruction, then:
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each (mixtral's at its 1 layer), whisper's,
-   mixtral's, deepseek's and jamba's
+   training step of each (mixtral's and deepseek's at their 1 layer),
+   whisper's, mixtral's, deepseek's and jamba's
    included (jamba's prefill alone too) (each model
    built anew when its profile runs; the card's activity alone),
    the serving dispatches' kernel launches by the profiler's names (held
@@ -389,16 +402,16 @@ def wgmma_check():
     in the forward at each of its (d, dv) pairs (d / 16 for S = Q K^T and
     16 for P V's hi and lo terms over a key tile of 128: 20 at (64, 64),
     24 at (128, 128), 28 at MLA's (192, 128)) and in both bf16 backward
-    kernels (dq and dkdv) at D 64 and 128; the float32 forward
-    holds no tensor-core instruction (HGMMA or HMMA): its products stay
-    float32 FMAs, never TF32; the float32 backward's dq and dkdv kernels
-    (``tf32x3``) hold HMMA, the ``mma.sync`` their 3xTF32 products run on,
-    at D 64 and 128, and no HGMMA.  The int8 kernels' IMMA counts are
-    printed."""
+    kernels (dq and dkdv) at each (d, dv) pair of ``BWD_PAIRS``; the
+    float32 forward holds no tensor-core instruction (HGMMA or HMMA): its
+    products stay float32 FMAs, never TF32; the float32 backward's dq and
+    dkdv kernels (``tf32x3``) hold HMMA, the ``mma.sync`` their 3xTF32
+    products run on, at each pair, and no HGMMA.  The int8 kernels' IMMA
+    counts are printed."""
     import shutil
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.cuda import PAIRS
+    from repro_torch.kernels.flash_attention.cuda import BWD_PAIRS, PAIRS
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -432,30 +445,32 @@ def wgmma_check():
     bwd_bf16 = {k: v["HGMMA"] for k, v in bwd.items() if "tensor_core" in k}
     bwd_f32 = {k: v for k, v in bwd.items() if "tf32x3" in k}
 
-    def kinds(names):
-        return {(part, d) for part in ("_dq_", "_dkdv_") for d in ("64", "128")
-                for k in names if part in k and f"ILi{d}E" in k}
+    def pair_of(name):
+        return next(p for p in BWD_PAIRS if f"ILi{p[0]}ELi{p[1]}E" in name)
 
-    if (len(bwd_bf16) != 4 or len(kinds(bwd_bf16)) != 4
-            or not all(bwd_bf16.values()) or len(bwd_f32) != 4
-            or len(kinds(bwd_f32)) != 4
+    def kinds(names):
+        return {(part, p) for part in ("_dq_", "_dkdv_") for p in BWD_PAIRS
+                for k in names if part in k and f"ILi{p[0]}ELi{p[1]}E" in k}
+
+    n = 2 * len(BWD_PAIRS)
+    if (len(bwd_bf16) != n or len(kinds(bwd_bf16)) != n
+            or not all(bwd_bf16.values()) or len(bwd_f32) != n
+            or len(kinds(bwd_f32)) != n
             or not all(v["HMMA"] and not v["HGMMA"]
                        for v in bwd_f32.values())):
         raise AssertionError("expected HGMMA in the bf16 backward's dq and "
-                             "dkdv kernels at D 64 and 128, and HMMA without "
-                             f"HGMMA in the float32 ones: {bwd_bf16}, "
-                             f"{bwd_f32}")
+                             f"dkdv kernels at each of {BWD_PAIRS}, and HMMA "
+                             f"without HGMMA in the float32 ones: {bwd_bf16},"
+                             f" {bwd_f32}")
     print("flash_attention: the bf16 kernel's SASS holds HGMMA (wgmma), 24 "
           "and 20; the float32 kernel's no HGMMA or HMMA", flush=True)
     print("flash_attention_bwd: the bf16 dq and dkdv kernels' SASS holds "
-          "HGMMA (wgmma) at D 64 and 128 ("
-          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} "
-                      f"D {'128' if 'ILi128E' in k else '64'} {n}"
+          "HGMMA (wgmma) at each (d, dv) pair ("
+          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} {pair_of(k)} {n}"
                       for k, n in sorted(bwd_bf16.items()))
           + "); the float32 ones' HMMA (3xTF32 mma.sync), no HGMMA ("
-          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} "
-                      f"D {'128' if 'ILi128E' in k else '64'} {n['HMMA']}"
-                      for k, n in sorted(bwd_f32.items()))
+          + ", ".join(f"{'dq' if '_dq_' in k else 'dkdv'} {pair_of(k)} "
+                      f"{n['HMMA']}" for k, n in sorted(bwd_f32.items()))
           + ")", flush=True)
 
 
@@ -3883,15 +3898,21 @@ TRAIN_LR = 3e-3                 # launch/train.py's --lr
 # launches per training step, predicted: each layer's forward kernel once
 # in the forward and once more where torch.utils.checkpoint recomputes the
 # layer in the backward; the backward kernel once per layer.  mixtral's
-# run is 1 of 56 layers deep (MIXTRAL_TRAIN_LAYERS, below)
-MIXTRAL_TRAIN_LAYERS = 1
+# run is 1 of 56 layers deep (MIXTRAL_TRAIN_LAYERS, below), deepseek's 1 of
+# 60 (DEEPSEEK_TRAIN_LAYERS: the dense MLA prefix layer, which runs without
+# remat, as the reference's unscanned prefix: its forward kernel once a
+# step)
+MIXTRAL_TRAIN_LAYERS = DEEPSEEK_TRAIN_LAYERS = 1
 TRAIN_LAUNCHES = {"yi-9b": {"flash_attention": 2 * TRAIN_LAYERS,
                             "flash_attention_bwd": TRAIN_LAYERS},
                   "rwkv6-7b": {"rwkv_wkv": 2 * TRAIN_LAYERS,
                                "rwkv_wkv_bwd": TRAIN_LAYERS},
                   "mixtral-8x22b": {
                       "flash_attention": 2 * MIXTRAL_TRAIN_LAYERS,
-                      "flash_attention_bwd": MIXTRAL_TRAIN_LAYERS}}
+                      "flash_attention_bwd": MIXTRAL_TRAIN_LAYERS},
+                  "deepseek-v2-236b": {
+                      "flash_attention": DEEPSEEK_TRAIN_LAYERS,
+                      "flash_attention_bwd": DEEPSEEK_TRAIN_LAYERS}}
 # the LM training phase's runs (mixtral's runs in its own phase)
 LM_TRAIN_ARCHS = ("yi-9b", "rwkv6-7b")
 REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6   # tests/test_train.py:136-138
@@ -3935,7 +3956,9 @@ WKV_BWD_DRAWN = ((8, WKV_BWD_T, 64), (2, 11, 8), (1, 200, 16))
 def train_flops(cfg, model, batch: int, seq: int) -> float:
     """Model FLOPs of one training step of ``batch`` x ``seq`` tokens: 6 per
     parameter and token it applies to, plus attention's two products (2 s
-    t d each) three times over (forward, and twice in the backward).  A
+    t d for the logits, d the query-key width, and 2 s t dv for P V, dv the
+    value width: d_head each, MLA's qk_nope + qk_rope and v_dim) three
+    times over (forward, and twice in the backward).  A
     decoder applies its active parameters (``Model.n_active_params``, the
     reference's count: a MoE layer's routed experts count top_k of
     n_experts) to every token and attends causally (half the pairs).  An encoder-decoder's encoder applies its own, and
@@ -3943,7 +3966,9 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
     enc_seq frames of every row; its encoder attends to all frame pairs
     and each decoder layer's cross-attention to all token-frame pairs."""
     tokens, frames = batch * seq, batch * cfg.enc_seq
-    per_pair = 3 * 4 * batch * cfg.n_heads * cfg.d_head
+    d, dv = ((cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_dim)
+             if cfg.attn_type == "mla" else (cfg.d_head, cfg.d_head))
+    per_pair = 3 * 2 * batch * cfg.n_heads * (d + dv)
     on_frames = 0
     if cfg.is_encdec:
         on_frames = sum(p.numel() for layer in model.enc_layers
@@ -4213,7 +4238,10 @@ def lm_train_run(arch, device, want=None, **size):
     _build.reset_launches()
     step_mod.grads_of, step_mod.adamw_update = checked_grads, timed_adamw
     store = MemoryCheckpoints()
-    drops = (_ForwardDrops(model) if cfg.moe is not None
+    # deepseek's one layer is its dense prefix: a MoE config with no MoE
+    # layer, no drops to count and an aux loss of 0
+    has_moe = any(kind[1] == "moe" for kind in model.kinds)
+    drops = (_ForwardDrops(model) if has_moe
              else contextlib.nullcontext())
     try:
         with _LastCall(ops_module, bwd_fn) as cap, drops:
@@ -4274,7 +4302,7 @@ def lm_train_run(arch, device, want=None, **size):
                 "grad_norms": [h["grad_norm"] for h in hist],
                 "replay_bit_equal": same,
                 "aux": [float(a) for a in aux]}
-    if cfg.moe is not None:
+    if has_moe:
         readings["drops"] = drops.groups()
         if len(readings["drops"]) != len(hist):
             raise AssertionError(f"{arch}: {len(readings['drops'])} "
@@ -4297,7 +4325,7 @@ def lm_train_run(arch, device, want=None, **size):
           f"before the run); host peak RSS {host_peak:.2f} GiB (the "
           f"process so far); loop {loop_s:.1f} s with {len(hist)} steps, "
           f"checkpoints and the restore", flush=True)
-    if cfg.moe is not None:
+    if has_moe:
         print(f"{arch} training: per step run (steps {ran}), the "
               f"assignments each MoE layer drops in the forward "
               f"{readings['drops']} of {batch * seq * cfg.moe.top_k} a "
@@ -4375,19 +4403,25 @@ def flash_bwd_check(q, k, v, o, dout, lse, label, window=None, f32_tol=None):
     ``lse``, against ``flash_attention_bwd_ref`` given the plain forward's
     (``flash_plain_forward``, which first holds the two forwards together),
     both computing in float32 from the same q, k, v, dout: bf16 outputs
-    within FLASH_TOL + FLASH_TOL |plain| and within FLASH_BWD_BF16_REL of
-    each output's max |plain|, float32 within ``f32_tol`` of it.  Returns
-    (max |err|, plain function)."""
+    within FLASH_TOL + FLASH_TOL |plain| (the count outside it printed)
+    and within FLASH_BWD_BF16_REL of each output's max |plain|, float32
+    within ``f32_tol`` of it.  Returns (max |err|, plain function)."""
     from repro_torch.kernels.flash_attention import cuda as fcuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
     scale = q.shape[-1] ** -0.5
     o_ref, lse_ref = flash_plain_forward(q, k, v, o, lse, label, window=window)
+    # the plain backward's query chunk: its float32 (b, H, chunk, t)
+    # logits, P, dP and dS within 4 GiB each (deepseek's 8 x 128 heads of
+    # 2,048 keys: 512)
+    chunk = 1024
+    while q.shape[0] * q.shape[2] * chunk * k.shape[1] * 4 > 2 ** 32:
+        chunk //= 2
 
     def plain():
         return flash_attention_bwd_ref(
             *(t.float() for t in (q, k, v, o_ref, dout)), lse_ref,
-            window=window, scale=scale)
+            window=window, scale=scale, chunk=chunk)
 
     got = fcuda.flash_attention_bwd_cuda(q, k, v, o, dout, lse,
                                          window=window, scale=scale)
@@ -4402,11 +4436,14 @@ def flash_bwd_check(q, k, v, o, dout, lse, label, window=None, f32_tol=None):
         top = float(b.abs().max())
         worst = max(worst, err)
         ok = err <= rel * top and bool(a.isfinite().all())
-        if f32_tol is None:             # the forward's elementwise bound too
-            ok = ok and not bool(((a.double() - b.double()).abs() > FLASH_TOL
-                                  + FLASH_TOL * b.double().abs()).any())
+        out = ""
+        if f32_tol is None:             # the forward's elementwise bound
+            n_out = int(((a.double() - b.double()).abs() > FLASH_TOL
+                         + FLASH_TOL * b.double().abs()).sum())
+            ok = ok and not n_out
+            out = f", {n_out} of {b.numel()} outside the elementwise bound"
         errs.append(f"{name} {err:.3g} (max |plain| {top:.4g}, "
-                    f"{err / top:.3g} of it)")
+                    f"{err / top:.3g} of it{out})")
         if not ok:
             bad.append(name)
     bound = (f"{FLASH_TOL:g} + {FLASH_TOL:g} |plain| and {rel:g} of max "
@@ -4427,10 +4464,11 @@ def torch_equal(a, b) -> bool:
 
 def sdpa_forward(q, k, v, window=None):
     """SDPA's forward on the model's layout, with grad: (backend, a call of
-    it, its leaves).  The flash backend in bf16, the efficient one in
-    float32 (the flash backend takes no float32, and the efficient one no
-    GQA: its k and v get the query heads' count, here); a window as a dense
-    boolean mask."""
+    it, its leaves).  The flash backend in bf16, cuDNN's in bf16 where the
+    value width is not the query-key width (MLA's: the flash backend
+    refuses it), the efficient one in float32 (the flash backend takes no
+    float32, and the efficient one no GQA: its k and v get the query
+    heads' count, here); a window as a dense boolean mask."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4438,8 +4476,10 @@ def sdpa_forward(q, k, v, window=None):
     from repro_torch.kernels.flash_attention.ops import expand_kv
 
     H, s = q.shape[2], q.shape[1]
-    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
-               and window is None else SDPBackend.EFFICIENT_ATTENTION)
+    backend = (SDPBackend.EFFICIENT_ATTENTION
+               if q.dtype != torch.bfloat16 or window is not None else
+               SDPBackend.FLASH_ATTENTION if v.shape[-1] == q.shape[-1] else
+               SDPBackend.CUDNN_ATTENTION)
     if backend == SDPBackend.EFFICIENT_ATTENTION:
         k, v = expand_kv(k, H), expand_kv(v, H)
     KV = k.shape[2]
@@ -4512,7 +4552,7 @@ def flash_bwd_rows(probes, args, launches):
     from repro_torch.kernels.flash_attention import cuda as fcuda
 
     q, k, v, o, dout, lse = args
-    KV = k.shape[2]
+    H, d, KV = q.shape[2], q.shape[3], k.shape[2]
     o_plain = fcuda.flash_attention_cuda(q, k, v)
     o_lse, lse_again = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
     if not (torch.equal(o_plain, o) and torch.equal(o_lse, o)
@@ -4522,17 +4562,14 @@ def flash_bwd_rows(probes, args, launches):
     print(f"flash_attention {tuple(q.shape)} bf16: O with the log-sum-exp "
           "requested == O without it == the training run's, bit for bit; "
           "lse == the run's", flush=True)
-    b, s, H, d = q.shape
-    n_ops = 5 * 2 * d * _causal_pairs(s) * b * H
     mod = _bwd_module("flash_attention_bwd")
     rows = []
     # 7h's bound: the same float32-accurate work as 3xTF32 on the tensor
     # cores (three TF32 products for each), the float32 CUDA cores' time for
     # it printed beside
-    for label, dtype, tol, ops, peak in (
-            ("7g", torch.bfloat16, None, n_ops, PEAK_BF16_OPS_S),
-            ("7h", torch.float32, FLASH_BWD_F32_TOL, 3 * n_ops,
-             PEAK_TF32_OPS_S)):
+    for label, dtype, tol, times, peak in (
+            ("7g", torch.bfloat16, None, 1, PEAK_BF16_OPS_S),
+            ("7h", torch.float32, FLASH_BWD_F32_TOL, 3, PEAK_TF32_OPS_S)):
         if dtype == torch.bfloat16:
             x = (q, k, v, o, dout, lse)
         else:
@@ -4545,14 +4582,12 @@ def flash_bwd_rows(probes, args, launches):
                                      f32_tol=tol)
         plain_ms = device_ms(plain, reps=1, warm=0)
         lib_ms, lib_fn = sdpa_backward_ms(x[0], x[1], x[2], x[4])
-        esize = x[0].element_size()
-        n_bytes = (esize * (3 * q.numel() + 2 * (k.numel() + v.numel())
-                            + dout.numel()) + 4 * lse.numel())
+        n_bytes, n_ops = flash_bwd_bytes_ops(x[0], x[1], x[2], x[5])
         row = kernel_row(
             probes, "flash_attention_bwd", mod,
             launches if dtype == torch.bfloat16 else 0, err,
             lambda x=x: fcuda.flash_attention_bwd_cuda(*x), plain_ms, lib_ms,
-            n_bytes, ops, peak, reps=5, shape=f"{label} {shape}",
+            n_bytes, times * n_ops, peak, reps=5, shape=f"{label} {shape}",
             library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
         row["backward_of"] = "row 7"
         row["kernel"] = FLASH_BWD_KERNEL[str(dtype).split(".")[-1]]
@@ -4748,7 +4783,7 @@ def lm_train_record_check(rec, device):
     for i, name in enumerate(rec.leaf_names):
         g = tree
         for key in name.split("/"):
-            g = g[key]
+            g = g[int(key)] if isinstance(g, list) else g[key]
         g = g.double().cpu().numpy()
         probe = lm_train_probe(g.shape)
         norm = np.sqrt(rec.g_sq[i])
@@ -5195,28 +5230,42 @@ def whisper_record_phase(device):
           f"{counts}", flush=True)
 
 
+def flash_bwd_bytes_ops(q, k, v, lse):
+    """The bytes a flash backward must move (q, k, v, o, dout and lse read
+    once, dq, dk, dv written once) and its causal operations: five
+    products, S = q k^T, dQ = dS K and dK = dS^T Q over the query-key width
+    d, dP = dO V^T and dV = P^T dO over the value width dv, 2 s t each per
+    (b, h), halved by the mask."""
+    b, s, H, d = q.shape
+    dv = v.shape[-1]
+    n_bytes = (q.element_size() * (2 * q.numel() + 2 * (k.numel() + v.numel())
+                                   + 2 * b * s * H * dv) + 4 * lse.numel())
+    return n_bytes, 2 * (3 * d + 2 * dv) * _causal_pairs(s) * b * H
+
+
 def flash_bwd_row(probes, args, launches, label):
     """``flash_attention_bwd`` (bf16) on layer 0's backward-kernel inputs
     at step 1 of a training run (``label``: whisper's, row 7gw; mixtral's,
-    row 7gm), against the plain backward given the plain forward's O and
-    log-sum-exp (``flash_bwd_check``), timed beside SDPA's backward."""
+    row 7gm; deepseek's MLA pair, row 7gmla), against the plain backward
+    given the plain forward's O and log-sum-exp (``flash_bwd_check``),
+    timed beside SDPA's backward."""
     from repro_torch.kernels.flash_attention import cuda as fcuda
 
     q, k, v, o, dout, lse = args
-    b, s, H, d = q.shape
-    shape = "x".join(map(str, q.shape)) + " bfloat16"
+    shape = "x".join(map(str, q.shape)) + (
+        f" dv {v.shape[-1]}" if v.shape[-1] != q.shape[-1] else "") + \
+        " bfloat16"
     err, plain = flash_bwd_check(q, k, v, o, dout, lse,
                                  f"{label} {shape} (layer 0, step 1)")
     plain_ms = device_ms(plain, reps=2, warm=1)
     lib_ms, lib_fn = sdpa_backward_ms(q, k, v, dout)
-    n_bytes = (q.element_size() * (3 * q.numel() + 2 * (k.numel() + v.numel())
-                                   + dout.numel()) + 4 * lse.numel())
+    n_bytes, n_ops = flash_bwd_bytes_ops(q, k, v, lse)
     row = kernel_row(
         probes, "flash_attention_bwd", _bwd_module("flash_attention_bwd"),
         launches, err, lambda: fcuda.flash_attention_bwd_cuda(*args),
-        plain_ms, lib_ms, n_bytes, 5 * 2 * d * _causal_pairs(s) * b * H,
-        PEAK_BF16_OPS_S, reps=5, shape=f"{label} {shape}",
-        library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
+        plain_ms, lib_ms, n_bytes, n_ops, PEAK_BF16_OPS_S, reps=5,
+        shape=f"{label} {shape}", library_fn=lib_fn,
+        kernel=("flash_attention_bwd", 2))
     row["backward_of"] = "row 7"
     row["kernel"] = FLASH_BWD_KERNEL["bfloat16"]
     return row
@@ -6009,21 +6058,94 @@ def mixtral_phase(probes, device="cuda"):
     return rows, targets
 
 
+def mla_bwd_f32_row(probes, device):
+    """Row 7hmla: the float32 backward (``tf32x3`` at MLA's tiles) on drawn
+    unit-normal inputs at DEEPSEEK_RAGGED (batch, a prompt ragged against
+    the tiles, 32 heads), keys of 192 and values of 128, causal, against
+    the plain backward given the plain forward's O and log-sum-exp
+    (FLASH_BWD_F32_TOL of max |plain|), timed beside SDPA's efficient
+    backward; bound as row 7h's: the products as 3xTF32 at 495 TFLOP/s.
+    Off the path (the training step is bf16): no launches counted."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+
+    b, s, H = DEEPSEEK_RAGGED
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v = (torch.randn((b, s, H, w), device=device, generator=gen)
+               for w in (192, 192, 128))
+    o, lse = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.randn(o.shape, device=device, generator=gen)
+    args = (q, k, v, o, dout, lse)
+    label = f"7hmla {b}x{s}x{H}x192 dv 128 float32"
+    err, plain = flash_bwd_check(*args, f"{label} (drawn)",
+                                 f32_tol=FLASH_BWD_F32_TOL)
+    plain_ms = device_ms(plain, reps=1, warm=0)
+    lib_ms, lib_fn = sdpa_backward_ms(q, k, v, dout)
+    n_bytes, n_ops = flash_bwd_bytes_ops(q, k, v, lse)
+    row = kernel_row(
+        probes, "flash_attention_bwd", _bwd_module("flash_attention_bwd"), 0,
+        err, lambda: fcuda.flash_attention_bwd_cuda(*args), plain_ms, lib_ms,
+        n_bytes, 3 * n_ops, PEAK_TF32_OPS_S, reps=3, shape=label,
+        library_fn=lib_fn, kernel=("flash_attention_bwd", 2))
+    row["backward_of"] = "row 7"
+    row["kernel"] = FLASH_BWD_KERNEL["float32"]
+    print(f"flash_attention_bwd 7hmla: bound {row['bound_ms']:.4f} ms "
+          "(3xTF32 at 495 TFLOP/s); the float32 CUDA cores' "
+          f"{1e3 * n_ops / PEAK_F32_OPS_S:.4f} ms (67 TFLOP/s)", flush=True)
+    return row
+
+
+def deepseek_train_phase(probes, device="cuda"):
+    """MLA training: deepseek-v2-236b through ``train.loop.train`` at
+    DEEPSEEK_TRAIN_LAYERS of 60 layers at full width (``lm_train_run``:
+    the dense MLA prefix layer with its SwiGLU FFN; a second layer is a
+    MoE layer of ~4.05 B parameters, ~60 GiB of training state, which one
+    card cannot hold beside the first), mixtral's MIXTRAL_TRAIN_* steps,
+    checkpoints and failure; row 7gmla at layer 0's step-1 backward inputs
+    (d 192, dv 128), row 7hmla, and the JAX MLA training record (float32:
+    the float32 kernels at MLA's pair, its backward too).  Returns (rows,
+    readings)."""
+    from repro_torch.bridge import load_lm_mla_train_reference
+
+    r, args = lm_train_run(DEEPSEEK, device, layers=DEEPSEEK_TRAIN_LAYERS,
+                           steps=MIXTRAL_TRAIN_STEPS,
+                           ckpt_every=MIXTRAL_TRAIN_CKPT_EVERY,
+                           fail_at=MIXTRAL_TRAIN_FAIL_AT)
+    rows = [flash_bwd_row(probes, args, r["launches"]["flash_attention_bwd"],
+                          "7gmla deepseek")]
+    del args
+    free_card()
+    rows.append(mla_bwd_f32_row(probes, device))
+    free_card()
+    lm_train_record_phase(device,
+                          {"deepseek": load_lm_mla_train_reference()})
+    free_card()
+    return rows, r
+
+
 def deepseek_phase(probes, device="cuda"):
     """The MLA slice: deepseek-v2-236b's serve call at DEEPSEEK_LAYERS of
     60 layers (the dense prefix and MoE layers), routing on the card, row
     7mla at the prefill's first flash inputs, the MLA pair on drawn
     ragged inputs in bf16 and float32, the float32 parity and the JAX
-    record.  Returns (kernel rows, profile targets)."""
+    record; then MLA training (``deepseek_train_phase``).  Returns (kernel
+    rows, profile targets)."""
     t0 = time.perf_counter()
     rows, times = moe_serve_phase(probes, device, DEEPSEEK)
     rows += mla_drawn_rows(probes, device)
     moe_parity_phase(device, DEEPSEEK)
     moe_record_phase(device, DEEPSEEK)
     free_card()
+    train_rows, r = deepseek_train_phase(probes, device)
+    rows += train_rows
     targets = [(f"{DEEPSEEK} serve call ({DEEPSEEK_LAYERS} layers)",
                 Deferred(lambda: moe_serve_call(DEEPSEEK, device)[-1]),
-                times["serve_ms"])]
+                times["serve_ms"]),
+               (f"{DEEPSEEK} training step ({DEEPSEEK_TRAIN_LAYERS} layer)",
+                Deferred(lambda: train_step_target(
+                    DEEPSEEK, device, layers=DEEPSEEK_TRAIN_LAYERS)),
+                r["step_ms"])]
     print(f"deepseek phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets
 

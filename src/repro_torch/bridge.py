@@ -108,6 +108,7 @@ LM_MOE_ASSET = ASSET.parent / "lm_moe_reference.npz"
 LM_MLA_ASSET = ASSET.parent / "lm_mla_reference.npz"
 LM_HYBRID_ASSET = ASSET.parent / "lm_hybrid_reference.npz"
 LM_MOE_TRAIN_ASSET = ASSET.parent / "lm_moe_train_reference.npz"
+LM_MLA_TRAIN_ASSET = ASSET.parent / "lm_mla_train_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -711,6 +712,15 @@ def load_lm_moe_train_reference(path=None) -> LMTrainRecord:
         leaf_names=list(desc["leaves"]), sensitivity=desc["sensitivity"],
         **{f: z[f] for f in ("loss", "ce", "grad_norm", "lr", "g_sq",
                              "g_probe", "aux", "drops")})
+
+
+def load_lm_mla_train_reference(path=None) -> LMTrainRecord:
+    """:func:`load_lm_moe_train_reference` of the JAX MLA training record
+    (``assets/lm_mla_train_reference.npz``: deepseek's smoke config in
+    float32 at the flash kernels' MLA widths, 192 / 128, capacity factor
+    1.25)."""
+    return load_lm_moe_train_reference(LM_MLA_TRAIN_ASSET if path is None
+                                       else path)
 
 
 def encdec_record_frames(desc: dict) -> np.ndarray:

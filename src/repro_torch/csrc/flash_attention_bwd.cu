@@ -15,10 +15,20 @@
 // with float32 sums from inputs in q's dtype (bf16 or float32), the
 // outputs rounded once to it.
 //
-// Layout: the model's, q, o, dO and dQ (B, S, H, D), k, v, dK and dV
-// (B, T, KV, D), lse and Dl (B, H, S) float32, all contiguous and 16-byte
-// aligned; D is 64 or 128; query head h reads kv head h / (H / KV), so GQA
-// needs no repeated copy of K and V.
+// Layout: the model's, q and dQ (B, S, H, D), o and dO (B, S, H, DV), k
+// and dK (B, T, KV, D), v and dV (B, T, KV, DV), lse and Dl (B, H, S)
+// float32, all contiguous and 16-byte aligned; (D, DV) is (64, 64),
+// (128, 128) or MLA's (192, 128) (DeepSeek-V2's queries and keys of 128 +
+// 64 with the rope key folded into every head, values of 128), the
+// forward's pairs; Dl sums over DV.  Query head h reads kv head h / (H /
+// KV), so GQA needs no repeated copy of K and V.  Both designs below are
+// templates on the pair (DQK, DV); each pair has its own tiles (`Tiles`,
+// in each namespace), which for (64, 64) and (128, 128) are the ones the
+// text below describes, and for (192, 128) are cut to fit: half the keys
+// of dq's K / V tiles and of dkdv's query tiles in bf16, half the rows
+// (keys) of a block in float32.  MLA's training step (DeepSeek-V2's 128
+// heads, B 8, S = T = 2048, causal) is 3.575e12 operations: 3.615 ms on
+// the bf16 tensor cores, against ~1.6 ms for its bytes.
 //
 // What bounds it on the card: operations.  At the yi-9b training step (B
 // 8, S = T = 2048, H 32, KV 4, D 128, causal) the five products are 2 S T
@@ -215,11 +225,7 @@ using tf32::mma_acc;
 using tf32::mma_zero;
 using tf32::split_rn;
 
-constexpr int kDqRows = 128;    // dq: query rows of a block, 16 a warp
-constexpr int kDqKeys = 32;     // dq: keys of a K / V tile
 constexpr int kDqRing = 3;      // dq: K / V ring depth
-constexpr int kKvKeys = 128;    // dkdv: keys of a block, 16 a warp
-constexpr int kKvRows = 32;     // dkdv: query rows of a Q / dO tile
 constexpr int kKvRing = 3;      // dkdv: Q / dO ring depth
 constexpr int kPad = 128;       // the lse / Dl scratch pads S to this
 // planes of a (b, h)'s rows in the scratch: lse, Dl, then the row's slot:
@@ -230,29 +236,67 @@ constexpr int kRowPlanes = 5;
 // forward's way (`in_order`): below it the 3xTF32 sums' few ulps move P by
 // under 2^-20
 constexpr float kRedo = 1.f;
-static_assert(kPad % kDqRows == 0 && kDqRows % kKvRows == 0,
-              "every row of a dkdv tile below S lies in a dq block");
-static_assert(kDqRows % 16 == 0 && kKvKeys % 16 == 0 && kDqKeys % 8 == 0 &&
-                  kKvRows % 8 == 0 && kDqRing >= 2 && kKvRing >= 2,
-              "16 rows a warp, k8 steps, a ring of at least two");
 
-// Shared memory in bytes.  dq: Q, dO (kDqRows rows), then K[kDqRing],
-// V[kDqRing] (kDqKeys rows).  dkdv: K, V (kKvKeys rows), then per stage Q,
-// dO (kKvRows rows) and the rows' kRowPlanes planes of the scratch (kKvRows
-// floats each).  Rows are D floats.
-template <int D>
+// The tiles of a (DQK, DV) pair, DQK the width of Q and K, DV of V, O and
+// dO: dq's query rows a block (16 a warp) and keys of a K / V tile, dkdv's
+// keys a block (16 a warp) and query rows of a Q / dO tile.
+template <int DQK, int DV>
+struct Tiles {
+  static constexpr int kDqRows = 128;
+  static constexpr int kDqKeys = 32;
+  static constexpr int kKvKeys = 128;
+  static constexpr int kKvRows = 32;
+};
+
+// MLA's (192, 128): at 128 rows (keys) a block the resident Q and dO (K
+// and V) and the ring would take 286,720 B (288,640 B) of the 232,448 a
+// block may have, so a block takes 64, four warps (204,800 and 206,720
+// B); the tiles in the ring stay 32 wide.  ptxas (-Xptxas -v, CUDA 12.9,
+// sm_90a): dq and dkdv 255 registers, with 152 and 384 B of spill stores
+// (116 and 256 B of loads) for dQ's 96 and dK's 96 + dV's 64 floats a
+// thread; the (128, 128) dkdv spills 216 B and the (64, 64) one 12 B.
+// The spills' cost is not measured apart: row 7hmla reads 157 ms against
+// its 20.7 ms bound at 8 x 4000 x 32 heads (PERF.md §6).
+template <>
+struct Tiles<192, 128> {
+  static constexpr int kDqRows = 64;
+  static constexpr int kDqKeys = 32;
+  static constexpr int kKvKeys = 64;
+  static constexpr int kKvRows = 32;
+};
+
+// Shared memory in bytes.  dq: Q (kDqRows rows of DQK), dO (kDqRows of
+// DV), then K[kDqRing] (kDqKeys of DQK), V[kDqRing] (kDqKeys of DV).
+// dkdv: K, V (kKvKeys rows), then per stage Q, dO (kKvRows rows) and the
+// rows' kRowPlanes planes of the scratch (kKvRows floats each).
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
-  return 4 * (2 * kDqRows * D + 2 * kDqRing * kDqKeys * D);
+  return 4 * (Tiles<DQK, DV>::kDqRows * (DQK + DV) +
+              kDqRing * Tiles<DQK, DV>::kDqKeys * (DQK + DV));
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_smem() {
-  return 4 * (2 * kKvKeys * D + kKvRing * (2 * kKvRows * D +
-                                           kRowPlanes * kKvRows));
+  return 4 * (Tiles<DQK, DV>::kKvKeys * (DQK + DV) +
+              kKvRing * (Tiles<DQK, DV>::kKvRows * (DQK + DV) +
+                         kRowPlanes * Tiles<DQK, DV>::kKvRows));
 }
 
-static_assert(dq_smem<128>() <= 232448 && dkdv_smem<128>() <= 232448,
-              "a block has at most 227 KB of shared memory");
+template <int DQK, int DV>
+constexpr bool tiles_ok() {
+  using T = Tiles<DQK, DV>;
+  return kPad % T::kDqRows == 0 && T::kDqRows % T::kKvRows == 0 &&
+         T::kDqRows % 16 == 0 && T::kKvKeys % 16 == 0 &&
+         T::kDqKeys % 8 == 0 && T::kKvRows % 8 == 0 && T::kKvRows <= 32 &&
+         T::kDqKeys <= 32 && kDqRing >= 2 && kKvRing >= 2 &&
+         dq_smem<DQK, DV>() <= 232448 && dkdv_smem<DQK, DV>() <= 232448;
+}
+
+static_assert(tiles_ok<64, 64>() && tiles_ok<128, 128>() &&
+                  tiles_ok<192, 128>(),
+              "every row of a dkdv tile below S lies in a dq block; 16 rows "
+              "a warp, k8 steps, at most 32 pairs a lane's redo mask; a ring "
+              "of at least two; at most 227 KB of shared memory a block");
 
 // Chunk c (4 floats) of tile row r lies at chunk c ^ swz(r).  A score
 // product's quarter-warp reads rows 2p, 2p + 1 at four chunks c..c + 3 (c
@@ -301,36 +345,38 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-// s = X Y^T and t = U W^T over D for the warp's 16 rows (x0.. of X and U)
-// and N columns (rows 0.. of Y and W), all swizzled tiles, in the m16n8
-// accumulator layout: s[j] holds (g, 8j + 2q), (g, 8j + 2q + 1), (g + 8,
-// 8j + 2q), (g + 8, 8j + 2q + 1) for lane 4g + q.  D runs in blocks of 16
-// at kk; k8 step h of a block takes d = 16 kk + 4 i + 2 h as logical k = i
-// and d + 1 as k = i + 4 (i = 0..3), so that a lane reads its A and B
-// values of both steps as one float4 a row.  A block's six products start
-// from zero sums and are added to s and t once, rounded to nearest (the
-// tensor cores cut each sum toward zero, which over a long sum biases it).
-template <int D, int N>
+// s = X Y^T over DX and t = U W^T over DU for the warp's 16 rows (x0.. of
+// X and U) and N columns (rows 0.. of Y and W), all swizzled tiles, in the
+// m16n8 accumulator layout: s[j] holds (g, 8j + 2q), (g, 8j + 2q + 1),
+// (g + 8, 8j + 2q), (g + 8, 8j + 2q + 1) for lane 4g + q.  d runs in
+// blocks of 16 at kk; k8 step h of a block takes d = 16 kk + 4 i + 2 h as
+// logical k = i and d + 1 as k = i + 4 (i = 0..3), so that a lane reads
+// its A and B values of both steps as one float4 a row.  A block's six
+// products start from zero sums and are added to s and t once, rounded to
+// nearest (the tensor cores cut each sum toward zero, which over a long
+// sum biases it).  Where DX > DU (MLA's) the blocks past DU sum s alone.
+template <int DX, int DU, int N>
 __device__ __forceinline__ void two_scores(const float* X, const float* Y,
                                            const float* U, const float* W,
                                            int x0, float (&s)[N / 8][4],
                                            float (&t)[N / 8][4]) {
+  static_assert(DX >= DU && DU % 16 == 0, "t's blocks are s's first ones");
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
 #pragma unroll 1
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DU / 16; ++kk) {
     const int col = 16 * kk + 4 * q;
     // A of step h: (g, k), (g + 8, k), (g, k + 4), (g + 8, k + 4)
     unsigned xh[2][4], xl[2][4], uh[2][4], ul[2][4];
     {
       unsigned h0[4], l0[4], h8[4], l8[4], m0[4], n0[4], m8[4], n8[4];
-      split4(ld4(X + at<D>(x0 + g, col)), h0, l0);
-      split4(ld4(X + at<D>(x0 + g + 8, col)), h8, l8);
-      split4(ld4(U + at<D>(x0 + g, col)), m0, n0);
-      split4(ld4(U + at<D>(x0 + g + 8, col)), m8, n8);
+      split4(ld4(X + at<DX>(x0 + g, col)), h0, l0);
+      split4(ld4(X + at<DX>(x0 + g + 8, col)), h8, l8);
+      split4(ld4(U + at<DU>(x0 + g, col)), m0, n0);
+      split4(ld4(U + at<DU>(x0 + g + 8, col)), m8, n8);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         xh[h][0] = h0[2 * h], xh[h][1] = h8[2 * h];
@@ -346,8 +392,8 @@ __device__ __forceinline__ void two_scores(const float* X, const float* Y,
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       unsigned yh[4], yl[4], wh[4], wl[4];
-      split4(ld4(Y + at<D>(8 * j + g, col)), yh, yl);
-      split4(ld4(W + at<D>(8 * j + g, col)), wh, wl);
+      split4(ld4(Y + at<DX>(8 * j + g, col)), yh, yl);
+      split4(ld4(W + at<DU>(8 * j + g, col)), wh, wl);
       // each step lo(A) hi(B), hi(A) lo(B), hi(A) hi(B); the two sums'
       // products alternate so that no product waits on the one before
       float bs[4], bt[4];
@@ -368,6 +414,37 @@ __device__ __forceinline__ void two_scores(const float* X, const float* Y,
         s[j][e] = __fadd_rn(s[j][e], bs[e]);
         t[j][e] = __fadd_rn(t[j][e], bt[e]);
       }
+    }
+  }
+#pragma unroll 1
+  for (int kk = DU / 16; kk < DX / 16; ++kk) {
+    const int col = 16 * kk + 4 * q;
+    unsigned xh[2][4], xl[2][4];
+    {
+      unsigned h0[4], l0[4], h8[4], l8[4];
+      split4(ld4(X + at<DX>(x0 + g, col)), h0, l0);
+      split4(ld4(X + at<DX>(x0 + g + 8, col)), h8, l8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xh[h][0] = h0[2 * h], xh[h][1] = h8[2 * h];
+        xh[h][2] = h0[2 * h + 1], xh[h][3] = h8[2 * h + 1];
+        xl[h][0] = l0[2 * h], xl[h][1] = l8[2 * h];
+        xl[h][2] = l0[2 * h + 1], xl[h][3] = l8[2 * h + 1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      unsigned yh[4], yl[4];
+      split4(ld4(Y + at<DX>(8 * j + g, col)), yh, yl);
+      float bs[4];
+      mma_zero(bs, xl[0], yh[0], yh[1]);
+      mma_acc(bs, xh[0], yl[0], yl[1]);
+      mma_acc(bs, xh[0], yh[0], yh[1]);
+      mma_acc(bs, xl[1], yh[2], yh[3]);
+      mma_acc(bs, xh[1], yl[2], yl[3]);
+      mma_acc(bs, xh[1], yh[2], yh[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], bs[e]);
     }
   }
 }
@@ -462,22 +539,27 @@ __device__ __forceinline__ void store_rows(float* p0, float* p8, bool ok0,
 // few pairs where P is large and the logit large: there P = exp(scale S -
 // lse) moves by |scale S| 2^-24 for each ulp of S, and the forward's lse
 // holds only against the forward's own S; dS = P (dP - Dl) cancels there,
-// so dP is summed the plain backward's way too.
-template <int D>
+// so dP is summed the plain backward's way too.  S runs over DX (Q, K), dP
+// over DU (dO, V); past DU (MLA's 192 against 128) S's FMAs go on alone,
+// in the same order: the float32 forward at (192, 128) sums S one FMA a d
+// from d = 0 up, whatever its key tile (csrc/flash_attention.cu).
+template <int DX, int DU>
 __device__ __forceinline__ float2 in_order(const float* Q, const float* K,
                                            const float* G, const float* V,
                                            int qr, int kr) {
-  const float *q = Q + qr * D, *k = K + kr * D, *g = G + qr * D,
-              *v = V + kr * D;
+  static_assert(DX >= DU, "dP's d are S's first ones");
+  const float *q = Q + qr * DX, *k = K + kr * DX, *g = G + qr * DU,
+              *v = V + kr * DU;
   const int sq = swz(qr), sk = swz(kr);
   float s = 0.f, d = 0.f;
   // the next 4 d's loads issued before this 4's FMAs
   float4 a = ld4(q + (sq << 2)), b = ld4(k + (sk << 2));
   float4 u = ld4(g + (sq << 2)), w = ld4(v + (sk << 2));
-  for (int c = 1; c <= D / 4; ++c) {
-    const int n = c < D / 4 ? c : 0;
+  for (int c = 1; c <= DU / 4; ++c) {
+    const int n = c < DX / 4 ? c : 0;
+    const int m = c < DU / 4 ? c : 0;
     const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
-    const float4 u1 = ld4(g + ((n ^ sq) << 2)), w1 = ld4(v + ((n ^ sk) << 2));
+    const float4 u1 = ld4(g + ((m ^ sq) << 2)), w1 = ld4(v + ((m ^ sk) << 2));
     s = __fmaf_rn(a.x, b.x, s);
     s = __fmaf_rn(a.y, b.y, s);
     s = __fmaf_rn(a.z, b.z, s);
@@ -488,14 +570,23 @@ __device__ __forceinline__ float2 in_order(const float* Q, const float* K,
     d = __fmaf_rn(u.w, w.w, d);
     a = a1, b = b1, u = u1, w = w1;
   }
+  for (int c = DU / 4 + 1; c <= DX / 4; ++c) {
+    const int n = c < DX / 4 ? c : 0;
+    const float4 a1 = ld4(q + ((n ^ sq) << 2)), b1 = ld4(k + ((n ^ sk) << 2));
+    s = __fmaf_rn(a.x, b.x, s);
+    s = __fmaf_rn(a.y, b.y, s);
+    s = __fmaf_rn(a.z, b.z, s);
+    s = __fmaf_rn(a.w, b.w, s);
+    a = a1, b = b1;
+  }
   return make_float2(s, d);
 }
 
 // One block: kDqRows query rows of one (b, h), 16 a warp.  Writes the
 // rows' planes to `rows` ((B, H, kRowPlanes, S padded to kPad) float32:
 // lse, Dl (0 past S), the slot), then dQ.
-template <int D>
-__global__ void __launch_bounds__(2 * kDqRows, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(2 * Tiles<DQK, DV>::kDqRows, 1)
     flash_attention_bwd_dq_kernel(const float* __restrict__ q,
                                   const float* __restrict__ k,
                                   const float* __restrict__ v,
@@ -505,12 +596,15 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
                                   float* __restrict__ rows,
                                   float* __restrict__ dq, int S, int Tk,
                                   int H, int KV, float scale, int window) {
+  constexpr int kDqRows = Tiles<DQK, DV>::kDqRows;
+  constexpr int kDqKeys = Tiles<DQK, DV>::kDqKeys;
   constexpr int kThreads = 2 * kDqRows;
-  constexpr int kTile = kDqKeys * D;         // floats of a K or V tile
+  constexpr int kTile = kDqKeys * DQK;       // floats of a K tile
+  constexpr int kVTile = kDqKeys * DV;       // and of a V tile
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + kDqRows * D;              // dO
-  float* Ks = Gs + kDqRows * D;              // K[kDqRing]
+  float* Gs = Qs + kDqRows * DQK;            // dO
+  float* Ks = Gs + kDqRows * DV;             // K[kDqRing]
   float* Vs = Ks + kDqRing * kTile;          // V[kDqRing]
 
   const int bh = blockIdx.x;
@@ -526,22 +620,26 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
   const int k_first = k_min / kDqKeys * kDqKeys;
   const int n_tiles =
       k_stop > k_min ? (k_stop - k_first + kDqKeys - 1) / kDqKeys : 0;
-  const size_t q_row = static_cast<size_t>(H) * D;
-  const size_t kv_row = static_cast<size_t>(KV) * D;
-  const size_t q_off = (static_cast<size_t>(b) * S * H + h) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * Tk * KV + kvh) * D;
+  const size_t q_row = static_cast<size_t>(H) * DQK;
+  const size_t o_row = static_cast<size_t>(H) * DV;
+  const size_t k_row = static_cast<size_t>(KV) * DQK;
+  const size_t v_row = static_cast<size_t>(KV) * DV;
+  const size_t q_off = (static_cast<size_t>(b) * S * H + h) * DQK;
+  const size_t o_off = (static_cast<size_t>(b) * S * H + h) * DV;
+  const size_t k_off = (static_cast<size_t>(b) * Tk * KV + kvh) * DQK;
+  const size_t v_off = (static_cast<size_t>(b) * Tk * KV + kvh) * DV;
 
   // K and V tile i into stage i % kDqRing
   auto issue = [&](int i) {
     const int st = i % kDqRing;
     const int k0 = k_first + i * kDqKeys;
-    load_tile<D, kThreads>(Ks + st * kTile, k + kv_off, kv_row, k0, kDqKeys,
-                           Tk);
-    load_tile<D, kThreads>(Vs + st * kTile, v + kv_off, kv_row, k0, kDqKeys,
-                           Tk);
+    load_tile<DQK, kThreads>(Ks + st * kTile, k + k_off, k_row, k0, kDqKeys,
+                             Tk);
+    load_tile<DV, kThreads>(Vs + st * kVTile, v + v_off, v_row, k0, kDqKeys,
+                            Tk);
   };
-  load_tile<D, kThreads>(Qs, q + q_off, q_row, q0, kDqRows, S);
-  load_tile<D, kThreads>(Gs, dout + q_off, q_row, q0, kDqRows, S);
+  load_tile<DQK, kThreads>(Qs, q + q_off, q_row, q0, kDqRows, S);
+  load_tile<DV, kThreads>(Gs, dout + o_off, o_row, q0, kDqRows, S);
   for (int i = 0; i < kDqRing - 1; ++i) {
     if (i < n_tiles) issue(i);
     cp_async_commit();
@@ -568,11 +666,11 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
     const int r = row + 8 * j;
     float a = 0.f;
     if (r < S) {
-      const size_t at0 = q_off + static_cast<size_t>(r) * q_row + tq * (D / 4);
+      const size_t at0 = o_off + static_cast<size_t>(r) * o_row + tq * (DV / 4);
       const float4* op = reinterpret_cast<const float4*>(o + at0);
       const float4* gp = reinterpret_cast<const float4*>(dout + at0);
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < DV / 16; ++c) {
         const float4 ov = op[c], gv = gp[c];
         a = __fmaf_rn(gv.x, ov.x, a);
         a = __fmaf_rn(gv.y, ov.y, a);
@@ -591,9 +689,9 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
   }
   bool filled[2] = {false, false};          // the rows' slots, in the quad
 
-  float acc[D / 32][4][4];                  // dQ: rows row, row + 8
+  float acc[DQK / 32][4][4];                // dQ: rows row, row + 8
 #pragma unroll
-  for (int cg = 0; cg < D / 32; ++cg)
+  for (int cg = 0; cg < DQK / 32; ++cg)
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
@@ -618,7 +716,7 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
                       (window > 0 && k0 <= rl - window);
     const float* kt = Ks + st * kTile;
     float sc[kDqKeys / 8][4], dp[kDqKeys / 8][4];
-    two_scores<D, kDqKeys>(Qs, kt, Gs, Vs + st * kTile, x0, sc, dp);
+    two_scores<DQK, DV, kDqKeys>(Qs, kt, Gs, Vs + st * kVTile, x0, sc, dp);
     // P = exp(scale S - lse), 0 where masked, into sc; where P takes S's
     // rounding, S and dP again the forward's way (`in_order`); then dS =
     // P (dP - Dl), into sc
@@ -651,8 +749,8 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
       redo &= redo - 1;
       const int jr = (i >> 1) & 1;
       const int c = 8 * (i >> 2) + 2 * tq + (i & 1);   // the tile's key
-      const float2 sd = in_order<D>(Qs, kt, Gs, Vs + st * kTile,
-                                    x0 + g + 8 * jr, c);
+      const float2 sd = in_order<DQK, DV>(Qs, kt, Gs, Vs + st * kVTile,
+                                          x0 + g + 8 * jr, c);
       const float p =
           expf(__fsub_rn(__fmul_rn(sd.x, scale), jr ? ls[1] : ls[0]));
 #pragma unroll
@@ -686,20 +784,20 @@ __global__ void __launch_bounds__(2 * kDqRows, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         sc[j][e] = __fmul_rn(sc[j][e], __fsub_rn(dp[j][e], dl[e >> 1]));
-    accumulate<D, kDqKeys, false>(acc, sc, kt);
+    accumulate<DQK, kDqKeys, false>(acc, sc, kt);
   }
   cp_async_wait<0>();
 
   // dQ = scale (dS K), rounded once
   float* qb = dq + q_off + static_cast<size_t>(row) * q_row;
-  store_rows<D>(qb, qb + 8 * q_row, row < S, row + 8 < S, acc, scale);
+  store_rows<DQK>(qb, qb + 8 * q_row, row < S, row + 8 < S, acc, scale);
 }
 
 // One block: kKvKeys keys of one (b, kv head), 16 a warp.  Walks the kv
 // head's H / KV query heads in order and, for each, the query tiles its
 // mask leaves, accumulating dK and dV.
-template <int D>
-__global__ void __launch_bounds__(2 * kKvKeys, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(2 * Tiles<DQK, DV>::kKvKeys, 1)
     flash_attention_bwd_dkdv_kernel(const float* __restrict__ q,
                                     const float* __restrict__ k,
                                     const float* __restrict__ v,
@@ -708,13 +806,16 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
                                     float* __restrict__ dk,
                                     float* __restrict__ dv, int S, int Tk,
                                     int H, int KV, float scale, int window) {
+  constexpr int kKvKeys = Tiles<DQK, DV>::kKvKeys;
+  constexpr int kKvRows = Tiles<DQK, DV>::kKvRows;
   constexpr int kThreads = 2 * kKvKeys;
-  constexpr int kTile = kKvRows * D;         // floats of a Q or dO tile
-  constexpr int kStage = 2 * kTile + kRowPlanes * kKvRows;  // Q, dO, rows
+  constexpr int kTile = kKvRows * DQK;       // floats of a Q tile
+  constexpr int kGTile = kKvRows * DV;       // and of a dO tile
+  constexpr int kStage = kTile + kGTile + kRowPlanes * kKvRows;  // Q, dO, rows
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kKvKeys * D;
-  float* ring = Vs + kKvKeys * D;
+  float* Vs = Ks + kKvKeys * DQK;
+  float* ring = Vs + kKvKeys * DV;
 
   const int bkv = blockIdx.x;
   const int b = bkv / KV;
@@ -728,9 +829,12 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
   const int q_end = window > 0 ? min(S, min(Tk, k0 + kKvKeys) - 1 + window) : S;
   const int n_q = q_end > q_begin ? (q_end - q_begin + kKvRows - 1) / kKvRows : 0;
   const int n_iters = G * n_q;
-  const size_t q_row = static_cast<size_t>(H) * D;
-  const size_t kv_row = static_cast<size_t>(KV) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * Tk * KV + kvh) * D;
+  const size_t q_row = static_cast<size_t>(H) * DQK;
+  const size_t o_row = static_cast<size_t>(H) * DV;
+  const size_t k_row = static_cast<size_t>(KV) * DQK;
+  const size_t v_row = static_cast<size_t>(KV) * DV;
+  const size_t k_off = (static_cast<size_t>(b) * Tk * KV + kvh) * DQK;
+  const size_t v_off = (static_cast<size_t>(b) * Tk * KV + kvh) * DV;
 
   // tile i of the walk (query head kvh G + i / n_q) into stage i % kKvRing:
   // Q, dO, and the tile's rows of the dq kernel's scratch (lse, Dl, slot)
@@ -739,19 +843,20 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
     const int g = i / n_q;
     const int q0 = q_begin + (i - g * n_q) * kKvRows;
     const int h = kvh * G + g;
-    const size_t q_off = (static_cast<size_t>(b) * S * H + h) * D;
-    load_tile<D, kThreads>(st, q + q_off, q_row, q0, kKvRows, S);
-    load_tile<D, kThreads>(st + kTile, dout + q_off, q_row, q0, kKvRows, S);
+    const size_t q_off = (static_cast<size_t>(b) * S * H + h) * DQK;
+    const size_t o_off = (static_cast<size_t>(b) * S * H + h) * DV;
+    load_tile<DQK, kThreads>(st, q + q_off, q_row, q0, kKvRows, S);
+    load_tile<DV, kThreads>(st + kTile, dout + o_off, o_row, q0, kKvRows, S);
     const float* src =
         rows + (static_cast<size_t>(b) * H + h) * kRowPlanes * s_pad + q0;
     for (int c = threadIdx.x; c < kRowPlanes * kKvRows / 4; c += kThreads) {
       const int plane = c / (kKvRows / 4), x = 4 * (c % (kKvRows / 4));
-      cp_async16_zfill(st + 2 * kTile + plane * kKvRows + x,
+      cp_async16_zfill(st + kTile + kGTile + plane * kKvRows + x,
                        src + plane * s_pad + x, true);
     }
   };
-  load_tile<D, kThreads>(Ks, k + kv_off, kv_row, k0, kKvKeys, Tk);
-  load_tile<D, kThreads>(Vs, v + kv_off, kv_row, k0, kKvKeys, Tk);
+  load_tile<DQK, kThreads>(Ks, k + k_off, k_row, k0, kKvKeys, Tk);
+  load_tile<DV, kThreads>(Vs, v + v_off, v_row, k0, kKvKeys, Tk);
   for (int i = 0; i < kKvRing - 1; ++i) {
     if (i < n_iters) issue(i);
     cp_async_commit();
@@ -765,13 +870,16 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
   const int kw = k0 + x0;
   const int kl = min(kw + 16, Tk) - 1;       // the warp's last key below Tk
   const int key = kw + gr;                   // and key + 8
-  float ak[D / 32][4][4], av[D / 32][4][4];  // dK, dV: keys key, key + 8
+  float ak[DQK / 32][4][4], av[DV / 32][4][4];  // dK, dV: keys key, key + 8
 #pragma unroll
-  for (int cg = 0; cg < D / 32; ++cg)
+  for (int cg = 0; cg < DQK / 32; ++cg)
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ak[cg][t][e] = av[cg][t][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        ak[cg][t][e] = 0.f;
+        if (cg < DV / 32) av[cg][t][e] = 0.f;
+      }
 
   for (int it = 0; it < n_iters; ++it) {
     cp_async_wait<kKvRing - 2>();
@@ -780,7 +888,7 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
     cp_async_commit();
     const float* qt = ring + (it % kKvRing) * kStage;
     const float* gt = qt + kTile;
-    const float* rs = qt + 2 * kTile;        // lse, Dl, slot key, S, dP
+    const float* rs = gt + kGTile;           // lse, Dl, slot key, S, dP
     const int g = it / n_q;
     const int q0 = q_begin + (it - g * n_q) * kKvRows;
     const int q1 = min(q0 + kKvRows, S) - 1;    // the last query below S
@@ -792,7 +900,7 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
     const bool edge = kl > q0 || kw + 16 > Tk || q0 + kKvRows > S ||
                       (window > 0 && kw <= q1 - window);
     float sc[kKvRows / 8][4], dp[kKvRows / 8][4];
-    two_scores<D, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);
+    two_scores<DQK, DV, kKvRows>(Ks, qt, Vs, gt, x0, sc, dp);
     // P^T = exp(scale S^T - lse), 0 where masked, into sc; where P takes
     // S's rounding, S and dP again the forward's way (`in_order`, or dq's
     // from the query's slot); then dS^T = P^T (dP^T - Dl), into dp
@@ -823,7 +931,7 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
       const float2 sd =
           __float_as_int(rs[2 * kKvRows + c]) == k0 + kr
               ? make_float2(rs[3 * kKvRows + c], rs[4 * kKvRows + c])
-              : in_order<D>(qt, Ks, gt, Vs, c, kr);
+              : in_order<DQK, DV>(qt, Ks, gt, Vs, c, kr);
       const float p = expf(__fsub_rn(__fmul_rn(sd.x, scale), rs[c]));
 #pragma unroll
       for (int n = 0; n < kKvRows / 2; ++n)
@@ -839,17 +947,18 @@ __global__ void __launch_bounds__(2 * kKvKeys, 1)
         const int c = 8 * j + 2 * tq + (e & 1);
         dp[j][e] = __fmul_rn(sc[j][e], __fsub_rn(dp[j][e], rs[kKvRows + c]));
       }
-    accumulate<D, kKvRows, true>(av, sc, gt);
-    accumulate<D, kKvRows, true>(ak, dp, qt);
+    accumulate<DV, kKvRows, true>(av, sc, gt);
+    accumulate<DQK, kKvRows, true>(ak, dp, qt);
   }
   cp_async_wait<0>();
 
   // dK = scale (dS^T Q) and dV, rounded once
-  const size_t at0 = kv_off + static_cast<size_t>(key) * kv_row;
-  store_rows<D>(dk + at0, dk + at0 + 8 * kv_row, key < Tk, key + 8 < Tk, ak,
-                scale);
-  store_rows<D>(dv + at0, dv + at0 + 8 * kv_row, key < Tk, key + 8 < Tk, av,
-                1.f);
+  const size_t at_k = k_off + static_cast<size_t>(key) * k_row;
+  const size_t at_v = v_off + static_cast<size_t>(key) * v_row;
+  store_rows<DQK>(dk + at_k, dk + at_k + 8 * k_row, key < Tk, key + 8 < Tk,
+                  ak, scale);
+  store_rows<DV>(dv + at_v, dv + at_v + 8 * v_row, key < Tk, key + 8 < Tk,
+                 av, 1.f);
 }
 
 template <typename Kernel>
@@ -864,32 +973,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int S, int Tk, int H, int KV,
            float scale, int window, cudaStream_t stream) {
+  constexpr int kDqRows = Tiles<DQK, DV>::kDqRows;
+  constexpr int kKvKeys = Tiles<DQK, DV>::kKvKeys;
   const int n_qt = (S + kDqRows - 1) / kDqRows;
   const int n_kt = (Tk + kKvKeys - 1) / kKvKeys;
   if (n_qt > 65535 || n_kt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto dq_kernel = flash_attention_bwd_dq_kernel<D>;
-  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<D>;
-  cudaError_t err = allow_smem(dq_kernel, dq_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel, dkdv_smem<D>());
+  auto dq_kernel = flash_attention_bwd_dq_kernel<DQK, DV>;
+  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<DQK, DV>;
+  cudaError_t err = allow_smem(dq_kernel, dq_smem<DQK, DV>());
+  if (err == cudaSuccess)
+    err = allow_smem(dkdv_kernel, dkdv_smem<DQK, DV>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* qt = static_cast<const float*>(q);
   const auto* kt = static_cast<const float*>(k);
   const auto* vt = static_cast<const float*>(v);
   const auto* gt = static_cast<const float*>(dout);
-  dq_kernel<<<dim3(B * H, n_qt), 2 * kDqRows, dq_smem<D>(), stream>>>(
+  dq_kernel<<<dim3(B * H, n_qt), 2 * kDqRows, dq_smem<DQK, DV>(), stream>>>(
       qt, kt, vt, static_cast<const float*>(o), gt, lse, delta,
       static_cast<float*>(dq), S, Tk, H, KV, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<dim3(B * KV, n_kt), 2 * kKvKeys, dkdv_smem<D>(), stream>>>(
-      qt, kt, vt, gt, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      S, Tk, H, KV, scale, window);
+  dkdv_kernel<<<dim3(B * KV, n_kt), 2 * kKvKeys, dkdv_smem<DQK, DV>(),
+                stream>>>(qt, kt, vt, gt, delta, static_cast<float*>(dk),
+                          static_cast<float*>(dv), S, Tk, H, KV, scale,
+                          window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -900,17 +1013,35 @@ namespace tensor_core {  // the bf16 kernels
 using namespace hopper;
 
 constexpr int kDqBQ = 128;      // dq: query rows of a block, 64 a consumer
-constexpr int kDqBK = 128;      // dq: keys of a K / V tile
 constexpr int kDqStages = 2;    // dq: K / V ring depth
 constexpr int kKvBK = 128;      // dkdv: keys of a block, 64 a consumer
-constexpr int kKvBQ = 64;       // dkdv: query rows of a Q / dO tile
 constexpr int kKvStages = 2;    // dkdv: Q / dO ring depth
 constexpr int kPTerms = 2;      // bf16 terms of P in dV = P^T dO
 constexpr int kDsTerms = 2;     // bf16 terms of dS in dQ = dS K, dK = dS^T Q
 constexpr int kRowPad = 128;    // the lse / Dl scratch pads S to this
-static_assert(kRowPad % kDqBQ == 0 && kRowPad % kKvBQ == 0,
-              "every row of a dq block and of a dkdv tile lies below S "
-              "padded");
+
+// The tiles of a (DQK, DV) pair, DQK the width of Q and K, DV of V, O and
+// dO: dq's keys of a K / V tile and dkdv's query rows of a Q / dO tile.
+template <int DQK, int DV>
+struct Tiles {
+  static constexpr int kDqBK = 128;
+  static constexpr int kKvBQ = 64;
+};
+
+// MLA's (192, 128): dq's key tiles of 128 would need 246,824 B of shared
+// memory (Q, dO and two stages of K, V), past the 232,448 a block may
+// have; tiles of 64 take 164,904 B and halve S and dP a thread (32 floats
+// each beside dQ's 96).  dkdv holds dK (96 floats a thread) and dV (64):
+// with query tiles of 64, S^T and dP^T would add 64 and take it past the
+// 255 registers a thread may have; tiles of 32 add 32, as many as at
+// (128, 128), in 124,456 B.  ptxas (-Xptxas -v, CUDA 12.9, sm_90a): dq
+// 190 registers, dkdv 245 (220 and 241 at (128, 128)), no spills.
+template <>
+struct Tiles<192, 128> {
+  static constexpr int kDqBK = 64;
+  static constexpr int kKvBQ = 32;
+};
+
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kThreads = 128 * kConsumers;  // no producer warp (see above)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -921,24 +1052,40 @@ __host__ __device__ constexpr uint32_t box_bytes(int rows) {
 }
 
 // Shared memory, from a 1024-byte boundary.  dq: Q, dO (kDqBQ rows),
-// K[kDqStages], V[kDqStages] (kDqBK rows), each D / 64 boxes, then the
-// mbarriers full[kDqStages], empty[kDqStages] and q.
-template <int D>
+// K[kDqStages], V[kDqStages] (kDqBK rows), Q and K DQK / 64 boxes each,
+// dO and V DV / 64, then the mbarriers full[kDqStages], empty[kDqStages]
+// and q.
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
-  return 1024 + (D / 64) * (2 * box_bytes(kDqBQ) +
-                            2 * kDqStages * box_bytes(kDqBK)) +
+  return 1024 + ((DQK + DV) / 64) *
+                    (box_bytes(kDqBQ) +
+                     kDqStages * box_bytes(Tiles<DQK, DV>::kDqBK)) +
          8 * (2 * kDqStages + 1);
 }
 
-// dkdv: K, V (kKvBK rows), Q[kKvStages], dO[kKvStages] (kKvBQ rows), each
-// D / 64 boxes, then the stages' rows of lse and Dl (float32), then the
+// dkdv: K, V (kKvBK rows), Q[kKvStages], dO[kKvStages] (kKvBQ rows), in
+// boxes as dq's, then the stages' rows of lse and Dl (float32), then the
 // mbarriers full[kKvStages], empty[kKvStages] and kv.
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_smem() {
-  return 1024 + (D / 64) * (2 * box_bytes(kKvBK) +
-                            2 * kKvStages * box_bytes(kKvBQ)) +
-         kKvStages * 2 * kKvBQ * 4 + 8 * (2 * kKvStages + 1);
+  return 1024 + ((DQK + DV) / 64) *
+                    (box_bytes(kKvBK) +
+                     kKvStages * box_bytes(Tiles<DQK, DV>::kKvBQ)) +
+         kKvStages * 2 * Tiles<DQK, DV>::kKvBQ * 4 + 8 * (2 * kKvStages + 1);
 }
+
+template <int DQK, int DV>
+constexpr bool tiles_ok() {
+  using T = Tiles<DQK, DV>;
+  return kRowPad % kDqBQ == 0 && kRowPad % T::kKvBQ == 0 &&
+         T::kDqBK % 16 == 0 && T::kKvBQ % 16 == 0 &&
+         dq_smem<DQK, DV>() <= 232448 && dkdv_smem<DQK, DV>() <= 232448;
+}
+
+static_assert(tiles_ok<64, 64>() && tiles_ok<128, 128>() &&
+                  tiles_ok<192, 128>(),
+              "every row of a dq block and of a dkdv tile lies below S "
+              "padded; k16 steps; at most 227 KB of shared memory a block");
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
@@ -966,7 +1113,7 @@ __device__ __forceinline__ void frag(const uint32_t (&f)[kTerms][N], int t,
 // kDqStages - 1 tiles ahead, into the slot of the tile both warpgroups have
 // just finished.  Writes the rows' lse and Dl to `rows` ((B, H, 2, S padded
 // to kRowPad) float32: lse, then Dl; 0 past S), then dQ.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                                   const __grid_constant__ CUtensorMap gmap,
@@ -979,15 +1126,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   __nv_bfloat16* __restrict__ dq, int S,
                                   int Tk, int H, int KV, float scale,
                                   int window) {
-  constexpr int NB = D / 64;                   // 64-wide d boxes
+  constexpr int kDqBK = Tiles<DQK, DV>::kDqBK;
+  constexpr int NQ = DQK / 64, NV = DV / 64;   // 64-wide d boxes
   constexpr uint32_t kQBox = box_bytes(kDqBQ), kKBox = box_bytes(kDqBK);
-  constexpr uint32_t kQTile = NB * kQBox, kKTile = NB * kKBox;
+  constexpr uint32_t kQTile = NQ * kQBox, kKTile = NQ * kKBox;
+  constexpr uint32_t kGTile = NV * kQBox, kVTile = NV * kKBox;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sG = sQ + kQTile;             // dO
-  const uint32_t sK = sG + kQTile;
+  const uint32_t sK = sG + kGTile;
   const uint32_t sV = sK + kDqStages * kKTile;
-  const uint32_t bars = sV + kDqStages * kKTile;
+  const uint32_t bars = sV + kDqStages * kVTile;
   const uint32_t q_bar = bars + 16 * kDqStages;
 
   const int bh = blockIdx.x;
@@ -1009,10 +1158,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = i % kDqStages;
     const uint32_t full = bars + 8 * s;
     const int k0 = k_first + i * kDqBK;
-    mbar_expect_tx(full, 2 * kKTile);
-    for (int x = 0; x < NB; ++x) {
+    mbar_expect_tx(full, kKTile + kVTile);
+    for (int x = 0; x < NQ; ++x) {
       tma_load(sK + s * kKTile + x * kKBox, &kmap, full, 64 * x, kvh, k0, b);
-      tma_load(sV + s * kKTile + x * kKBox, &vmap, full, 64 * x, kvh, k0, b);
+      if (x < NV)
+        tma_load(sV + s * kVTile + x * kKBox, &vmap, full, 64 * x, kvh, k0,
+                 b);
     }
   };
 
@@ -1025,10 +1176,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(q_bar, 2 * kQTile);
-    for (int x = 0; x < NB; ++x) {
+    mbar_expect_tx(q_bar, kQTile + kGTile);
+    for (int x = 0; x < NQ; ++x) {
       tma_load(sQ + x * kQBox, &qmap, q_bar, 64 * x, h, q0, b);
-      tma_load(sG + x * kQBox, &gmap, q_bar, 64 * x, h, q0, b);
+      if (x < NV) tma_load(sG + x * kQBox, &gmap, q_bar, 64 * x, h, q0, b);
     }
     for (int i = 0; i < min(kDqStages, n_tiles); ++i) issue(i);
   }
@@ -1039,7 +1190,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tq = lane & 3;                  // column pair in an 8-column group
   const int r_lo = q0 + 64 * wg;            // this warpgroup's rows
   const int row = r_lo + 16 * ((tid & 127) >> 5) + g;  // and row + 8
-  const size_t q_row = static_cast<size_t>(H) * D;
+  const size_t q_row = static_cast<size_t>(H) * DQK;
+  const size_t o_row = static_cast<size_t>(H) * DV;
   const size_t bh_s = static_cast<size_t>(bh) * S;
   const int s_pad = (S + kRowPad - 1) / kRowPad * kRowPad;
   float* rg = rows + static_cast<size_t>(bh) * 2 * s_pad;
@@ -1054,12 +1206,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r = row + 8 * j;
     float a = 0.f;
     if (r < S) {
-      const size_t at = (static_cast<size_t>(b) * S + r) * q_row +
-                        static_cast<size_t>(h) * D + tq * (D / 4);
+      const size_t at = (static_cast<size_t>(b) * S + r) * o_row +
+                        static_cast<size_t>(h) * DV + tq * (DV / 4);
       const uint4* op = reinterpret_cast<const uint4*>(o + at);
       const uint4* gp = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
+      for (int c = 0; c < DV / 32; ++c) {
         const uint4 ov = op[c], gv = gp[c];
         const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
         const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
@@ -1080,15 +1232,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  float acc[D / 2];                         // dQ: rows row, row + 8
+  float acc[DQK / 2];                       // dQ: rows row, row + 8
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
   mbar_wait(q_bar, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kDqStages;
     const int k0 = k_first + it * kDqBK;
-    const uint32_t kt = sK + s * kKTile, vt = sV + s * kKTile;
+    const uint32_t kt = sK + s * kKTile, vt = sV + s * kVTile;
     // the slot of tile it - 1 takes tile it - 1 + kDqStages once both
     // warpgroups are done with it
     if (tid == 0 && it > 0 && it - 1 + kDqStages < n_tiles) {
@@ -1099,19 +1251,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     mbar_wait(bars + 8 * s, (it / kDqStages) & 1);
 
-    // S = Q K^T and dP = dO V^T over D in steps of 16: a step is 32
-    // bytes into a box
+    // S = Q K^T over DQK and dP = dO V^T over DV in steps of 16: a step
+    // is 32 bytes into a box
     float sc[kDqBK / 2], dp[kDqBK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32 + wg * 64 * 128;
       const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32;
       wgmma_ss<kDqBK>(sc, smem_desc(sQ + qo, 16, 1024),
                       smem_desc(kt + ko, 16, 1024), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32 + wg * 64 * 128;
       const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32;
       wgmma_ss<kDqBK>(dp, smem_desc(sG + qo, 16, 1024),
@@ -1158,7 +1310,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int t = 0; t < kDsTerms; ++t) {
         uint32_t a[4];
         frag(df, t, kk, a);
-        wgmma_rs<D>(acc, a, kd);
+        wgmma_rs<DQK>(acc, a, kd);
       }
     }
     wgmma_commit();
@@ -1170,9 +1322,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // dQ = scale (dS K), rounded once
-  __nv_bfloat16* qb = dq + (static_cast<size_t>(b) * S * H + h) * D + 2 * tq;
+  __nv_bfloat16* qb = dq + (static_cast<size_t>(b) * S * H + h) * DQK + 2 * tq;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DQK / 8; ++i) {
     if (row < S)
       *reinterpret_cast<uint32_t*>(qb + row * q_row + 8 * i) =
           pack_bf16(__fmul_rn(acc[4 * i], scale),
@@ -1191,7 +1343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // with its rows of lse and Dl (bulk copies from the dq kernel's scratch)
 // kKvStages - 1 tiles ahead, into the slot of the tile both warpgroups
 // have just finished.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                                     const __grid_constant__ CUtensorMap gmap,
@@ -1202,17 +1354,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                                     __nv_bfloat16* __restrict__ dv, int S,
                                     int Tk, int H, int KV, float scale,
                                     int window) {
-  constexpr int NB = D / 64;
+  constexpr int kKvBQ = Tiles<DQK, DV>::kKvBQ;
+  constexpr int NQ = DQK / 64, NV = DV / 64;   // 64-wide d boxes
   constexpr uint32_t kKBox = box_bytes(kKvBK), kQBox = box_bytes(kKvBQ);
-  constexpr uint32_t kKTile = NB * kKBox, kQTile = NB * kQBox;
+  constexpr uint32_t kKTile = NQ * kKBox, kQTile = NQ * kQBox;
+  constexpr uint32_t kVTile = NV * kKBox, kGTile = NV * kQBox;
   constexpr uint32_t kRowBytes = kKvBQ * 4;   // a tile's lse (or Dl)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_addr(smem_raw);
   const uint32_t sK = (base + 1023) & ~1023u;
   const uint32_t sV = sK + kKTile;
-  const uint32_t sQ = sV + kKTile;
+  const uint32_t sQ = sV + kVTile;
   const uint32_t sG = sQ + kKvStages * kQTile;            // dO
-  const uint32_t sRows = sG + kKvStages * kQTile;         // lse, Dl a stage
+  const uint32_t sRows = sG + kKvStages * kGTile;         // lse, Dl a stage
   const uint32_t bars = sRows + kKvStages * 2 * kRowBytes;
   const uint32_t kv_bar = bars + 16 * kKvStages;
   const float* srows = reinterpret_cast<const float*>(smem_raw + (sRows - base));
@@ -1237,10 +1391,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = q_begin + (i - g * n_q) * kKvBQ;
     const int h = kvh * G + g;
     const uint32_t full = bars + 8 * s;
-    mbar_expect_tx(full, 2 * kQTile + 2 * kRowBytes);
-    for (int x = 0; x < NB; ++x) {
+    mbar_expect_tx(full, kQTile + kGTile + 2 * kRowBytes);
+    for (int x = 0; x < NQ; ++x) {
       tma_load(sQ + s * kQTile + x * kQBox, &qmap, full, 64 * x, h, q0, b);
-      tma_load(sG + s * kQTile + x * kQBox, &gmap, full, 64 * x, h, q0, b);
+      if (x < NV)
+        tma_load(sG + s * kGTile + x * kQBox, &gmap, full, 64 * x, h, q0, b);
     }
     const float* src = rows + (static_cast<size_t>(b) * H + h) * 2 * s_pad + q0;
     bulk_load(sRows + s * 2 * kRowBytes, src, kRowBytes, full);
@@ -1257,10 +1412,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mbar_init(kv_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(kv_bar, 2 * kKTile);
-    for (int x = 0; x < NB; ++x) {
+    mbar_expect_tx(kv_bar, kKTile + kVTile);
+    for (int x = 0; x < NQ; ++x) {
       tma_load(sK + x * kKBox, &kmap, kv_bar, 64 * x, kvh, k0, b);
-      tma_load(sV + x * kKBox, &vmap, kv_bar, 64 * x, kvh, k0, b);
+      if (x < NV) tma_load(sV + x * kKBox, &vmap, kv_bar, 64 * x, kvh, k0, b);
     }
     for (int i = 0; i < min(kKvStages, n_iters); ++i) issue(i);
   }
@@ -1271,16 +1426,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tq = lane & 3;                    // column pair in an 8-column group
   const int k_lo = k0 + 64 * wg;              // this warpgroup's keys
   const int key = k_lo + 16 * ((tid & 127) >> 5) + gr;  // and key + 8
-  float ak[D / 2], av[D / 2];                 // dK, dV: keys key, key + 8
+  float ak[DQK / 2], av[DV / 2];              // dK, dV: keys key, key + 8
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) {
+    ak[i] = 0.f;
+    if (i < DV / 2) av[i] = 0.f;
+  }
   mbar_wait(kv_bar, 0);
 
   for (int it = 0; it < n_iters; ++it) {
     const int s = it % kKvStages;
     const int g = it / n_q;
     const int q0 = q_begin + (it - g * n_q) * kKvBQ;
-    const uint32_t qt = sQ + s * kQTile, gt = sG + s * kQTile;
+    const uint32_t qt = sQ + s * kQTile, gt = sG + s * kGTile;
     // the slot of tile it - 1 takes tile it - 1 + kKvStages once both
     // warpgroups are done with it
     if (tid == 0 && it > 0 && it - 1 + kKvStages < n_iters) {
@@ -1291,18 +1449,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     mbar_wait(bars + 8 * s, (it / kKvStages) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T over D in steps of 16
+    // S^T = K Q^T over DQK and dP^T = V dO^T over DV in steps of 16
     float sc[kKvBQ / 2], dp[kKvBQ / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32 + wg * 64 * 128;
       const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32;
       wgmma_ss<kKvBQ>(sc, smem_desc(sK + ko, 16, 1024),
                       smem_desc(qt + qo, 16, 1024), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32 + wg * 64 * 128;
       const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32;
       wgmma_ss<kKvBQ>(dp, smem_desc(sV + ko, 16, 1024),
@@ -1359,13 +1517,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int t = 0; t < kPTerms; ++t) {
         uint32_t a[4];
         frag(pf, t, kk, a);
-        wgmma_rs<D>(av, a, gd);
+        wgmma_rs<DV>(av, a, gd);
       }
 #pragma unroll
       for (int t = 0; t < kDsTerms; ++t) {
         uint32_t a[4];
         frag(df, t, kk, a);
-        wgmma_rs<D>(ak, a, qd);
+        wgmma_rs<DQK>(ak, a, qd);
       }
     }
     wgmma_commit();
@@ -1380,66 +1538,72 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // dK = scale (dS^T Q) and dV, rounded once
-  const size_t kv_row = static_cast<size_t>(KV) * D;
-  const size_t at = (static_cast<size_t>(b) * Tk * KV + kvh) * D + 2 * tq;
+  const size_t k_row = static_cast<size_t>(KV) * DQK;
+  const size_t v_row = static_cast<size_t>(KV) * DV;
+  const size_t at_k = (static_cast<size_t>(b) * Tk * KV + kvh) * DQK + 2 * tq;
+  const size_t at_v = (static_cast<size_t>(b) * Tk * KV + kvh) * DV + 2 * tq;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DQK / 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int kr = key + 8 * j;
       if (kr >= Tk) continue;
-      const size_t x = at + kr * kv_row + 8 * i;
-      *reinterpret_cast<uint32_t*>(dk + x) =
+      *reinterpret_cast<uint32_t*>(dk + at_k + kr * k_row + 8 * i) =
           pack_bf16(__fmul_rn(ak[4 * i + 2 * j], scale),
                     __fmul_rn(ak[4 * i + 2 * j + 1], scale));
-      *reinterpret_cast<uint32_t*>(dv + x) =
-          pack_bf16(av[4 * i + 2 * j], av[4 * i + 2 * j + 1]);
+      if (i < DV / 8)
+        *reinterpret_cast<uint32_t*>(dv + at_v + kr * v_row + 8 * i) =
+            pack_bf16(av[4 * i + 2 * j], av[4 * i + 2 * j + 1]);
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int S, int Tk, int H, int KV,
            float scale, int window, cudaStream_t stream) {
+  constexpr int kDqBK = Tiles<DQK, DV>::kDqBK;
+  constexpr int kKvBQ = Tiles<DQK, DV>::kKvBQ;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   // each kernel's maps, in its tiles' box heights
   CUtensorMap q_dq, g_dq, k_dq, v_dq, q_kv, g_kv, k_kv, v_kv;
-  if (!make_map(&q_dq, encode, q, B, S, H, D, kDqBQ) ||
-      !make_map(&g_dq, encode, dout, B, S, H, D, kDqBQ) ||
-      !make_map(&k_dq, encode, k, B, Tk, KV, D, kDqBK) ||
-      !make_map(&v_dq, encode, v, B, Tk, KV, D, kDqBK) ||
-      !make_map(&q_kv, encode, q, B, S, H, D, kKvBQ) ||
-      !make_map(&g_kv, encode, dout, B, S, H, D, kKvBQ) ||
-      !make_map(&k_kv, encode, k, B, Tk, KV, D, kKvBK) ||
-      !make_map(&v_kv, encode, v, B, Tk, KV, D, kKvBK))
+  if (!make_map(&q_dq, encode, q, B, S, H, DQK, kDqBQ) ||
+      !make_map(&g_dq, encode, dout, B, S, H, DV, kDqBQ) ||
+      !make_map(&k_dq, encode, k, B, Tk, KV, DQK, kDqBK) ||
+      !make_map(&v_dq, encode, v, B, Tk, KV, DV, kDqBK) ||
+      !make_map(&q_kv, encode, q, B, S, H, DQK, kKvBQ) ||
+      !make_map(&g_kv, encode, dout, B, S, H, DV, kKvBQ) ||
+      !make_map(&k_kv, encode, k, B, Tk, KV, DQK, kKvBK) ||
+      !make_map(&v_kv, encode, v, B, Tk, KV, DV, kKvBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qt = (S + kDqBQ - 1) / kDqBQ;
   const int n_kt = (Tk + kKvBK - 1) / kKvBK;
   if (n_qt > 65535 || n_kt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto dq_kernel = flash_attention_bwd_dq_kernel<D>;
-  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<D>;
+  auto dq_kernel = flash_attention_bwd_dq_kernel<DQK, DV>;
+  auto dkdv_kernel = flash_attention_bwd_dkdv_kernel<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dq_smem<D>()));
+      static_cast<int>(dq_smem<DQK, DV>()));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dkdv_smem<D>()));
+        static_cast<int>(dkdv_smem<DQK, DV>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* o_t = static_cast<const __nv_bfloat16*>(o);
   const auto* g_t = static_cast<const __nv_bfloat16*>(dout);
-  dq_kernel<<<dim3(B * H, n_qt), kThreads, dq_smem<D>(), stream>>>(
+  dq_kernel<<<dim3(B * H, n_qt), kThreads, dq_smem<DQK, DV>(), stream>>>(
       q_dq, g_dq, k_dq, v_dq, o_t, g_t, lse, delta,
       static_cast<__nv_bfloat16*>(dq), S, Tk, H, KV, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<dim3(B * KV, n_kt), kThreads, dkdv_smem<D>(), stream>>>(
-      q_kv, g_kv, k_kv, v_kv, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, Tk, H, KV, scale, window);
+  dkdv_kernel<<<dim3(B * KV, n_kt), kThreads, dkdv_smem<DQK, DV>(),
+                stream>>>(q_kv, g_kv, k_kv, v_kv, delta,
+                          static_cast<__nv_bfloat16*>(dk),
+                          static_cast<__nv_bfloat16*>(dv), S, Tk, H, KV,
+                          scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1457,29 +1621,40 @@ extern "C" long long repro_flash_attention_bwd_scratch(int B, int H, int S) {
          ((S + pad - 1) / pad * pad);
 }
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  D: 64 or 128.
-// delta: float32 scratch of repro_flash_attention_bwd_scratch(B, H, S)
-// floats.  Launches the dq kernel, then the dkdv kernel, on `stream`.
-// Returns cudaErrorInvalidValue for any other dtype or D.
+// dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  (D, DV), the
+// widths of q / k and of v / o / dout: (64, 64), (128, 128) or MLA's
+// (192, 128), each kernel at its pair's tiles (`Tiles`).  delta: float32
+// scratch of repro_flash_attention_bwd_scratch(B, H, S) floats.  Launches
+// the dq kernel, then the dkdv kernel, on `stream`.  Returns
+// cudaErrorInvalidValue for any other dtype or pair.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int dtype, int B, int S, int Tk, int H, int KV, int D,
+    void* dv, int dtype, int B, int S, int Tk, int H, int KV, int D, int DV,
     float scale, int window, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Tk <= 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 128)
-    return tf32x3::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               S, Tk, H, KV, scale, window, stream);
-  if (dtype == 0 && D == 64)
-    return tf32x3::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                              S, Tk, H, KV, scale, window, stream);
-  if (dtype == 1 && D == 128)
-    return tensor_core::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+  if (dtype == 0 && D == 128 && DV == 128)
+    return tf32x3::launch<128, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                     B, S, Tk, H, KV, scale, window, stream);
-  if (dtype == 1 && D == 64)
-    return tensor_core::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, S, Tk, H, KV, scale, window, stream);
+  if (dtype == 0 && D == 64 && DV == 64)
+    return tf32x3::launch<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                  B, S, Tk, H, KV, scale, window, stream);
+  if (dtype == 0 && D == 192 && DV == 128)
+    return tf32x3::launch<192, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, S, Tk, H, KV, scale, window, stream);
+  if (dtype == 1 && D == 128 && DV == 128)
+    return tensor_core::launch<128, 128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                         dv, B, S, Tk, H, KV, scale, window,
+                                         stream);
+  if (dtype == 1 && D == 64 && DV == 64)
+    return tensor_core::launch<64, 64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, S, Tk, H, KV, scale, window,
+                                       stream);
+  if (dtype == 1 && D == 192 && DV == 128)
+    return tensor_core::launch<192, 128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                         dv, B, S, Tk, H, KV, scale, window,
+                                         stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,8 +8,7 @@ the (query-key width, value width) pairs of ``PAIRS``: (64, 64),
 ``csrc/flash_attention_bwd.cu`` (its backward): one C entry point that
 launches the dq kernel, then the dkdv kernel, for either dtype: the
 ``wgmma`` + TMA pair for bf16, the 3xTF32 ``mma.sync`` pair for float32,
-built for the pairs of ``BWD_PAIRS`` only: MLA's backward is not ported
-(ROADMAP.md queue 1, item 4b-v)."""
+built for the same pairs (``BWD_PAIRS``), MLA's at tiles of its own."""
 
 from __future__ import annotations
 
@@ -25,9 +24,10 @@ BWD_NAME = "flash_attention_bwd"
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:87"
-# (d, dv) pairs of q / k and v / o widths that the kernels are built for
+# (d, dv) pairs of q / k and v / o widths that the kernels are built for,
+# the forward and the backward alike
 PAIRS = ((64, 64), (128, 128), (192, 128))
-BWD_PAIRS = ((64, 64), (128, 128))
+BWD_PAIRS = PAIRS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -50,7 +50,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _bwd_fn = _build.bind("repro_flash_attention_bwd",
-                              [p] * 10 + [i] * 7 + [ctypes.c_float, i, p])
+                              [p] * 10 + [i] * 8 + [ctypes.c_float, i, p])
     return _bwd_fn
 
 
@@ -126,20 +126,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_cuda(q, k, v, o, dout, lse, *, window=None,
                              scale=None):
     """The backward of :func:`flash_attention_cuda`, one launch of the
-    dq and dkdv kernels.  q, o, dout: (b, s, H, d), k/v: (b, t, KV, d),
-    all CUDA in one dtype (bf16 or float32), lse: (b, H, s) float32 from
-    the forward -> (dq, dk, dv) in q's dtype.  Built for ``BWD_PAIRS``:
-    any other pair (MLA's (192, 128)) raises a ``ValueError``."""
-    if (q.shape[-1], v.shape[-1]) not in BWD_PAIRS:
-        raise ValueError(
-            f"the flash-attention backward is not built for q/k of width "
-            f"{q.shape[-1]} and v of width {v.shape[-1]} (built: "
-            f"{BWD_PAIRS}); MLA's backward is ROADMAP.md queue 1, item 4b-v")
-    b, s, H, d, _dv, t, KV = _check_inputs(q, k, v, window,
+    dq and dkdv kernels.  q: (b, s, H, d), k: (b, t, KV, d), v: (b, t, KV,
+    dv), o, dout: (b, s, H, dv), all CUDA in one dtype (bf16 or float32),
+    lse: (b, H, s) float32 from the forward -> (dq, dk, dv) in q's dtype.
+    Built for ``BWD_PAIRS``: any other (d, dv) raises a ``ValueError``."""
+    if q.dim() == 4 and v.dim() == 4:       # before the device: o has v's width
+        want = (*q.shape[:3], v.shape[3])
+        if o.shape != want or dout.shape != want:
+            raise ValueError(f"o {tuple(o.shape)} / dout {tuple(dout.shape)} "
+                             f"do not match {want}")
+    b, s, H, d, dv_, t, KV = _check_inputs(q, k, v, window,
                                            (("o", o), ("dout", dout)))
-    if o.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"o {tuple(o.shape)} / dout {tuple(dout.shape)} do "
-                         f"not match q {tuple(q.shape)}")
     _build.require(lse, "lse", torch.float32, 3, q.device)
     if lse.shape != (b, H, s):
         raise ValueError(f"lse {tuple(lse.shape)}, expected {(b, H, s)}")
@@ -151,7 +148,7 @@ def flash_attention_bwd_cuda(q, k, v, o, dout, lse, *, window=None,
                           dtype=torch.float32)
     rc = _bwd_kernel()(*(_build.ptr(x) for x in (q, k, v, o, dout, lse,
                                                   scratch, dq, dk, dv)),
-                       _DTYPE_CODE[q.dtype], b, s, t, H, KV, d,
+                       _DTYPE_CODE[q.dtype], b, s, t, H, KV, d, dv_,
                        ctypes.c_float(scale), 0 if window is None else window,
                        _build.stream_of(q))
     _build.check(rc, BWD_NAME)

@@ -325,6 +325,48 @@ def model_specs(cfg) -> dict:
     return out
 
 
+class _NextTokenCE(torch.autograd.Function):
+    """Next-token cross-entropy, mean over (b, s - 1), as the reference's
+    loss computes it (logits in float32, logsumexp less the gold logit),
+    a batch row of the float32 logits at a time: at deepseek's training
+    step the (8, 2047, 102400) float32 logits are 6.25 GiB, and autograd
+    of the whole-tensor form keeps them and makes three more of their size
+    in the backward (the softmax term, the gold logit's scatter, their
+    sum).  Here only ``logits`` (in their own dtype) and each row's
+    logsumexp are kept; the backward recomputes a row's float32 logits and
+    writes grad (exp(lg - logz) with -grad added at the gold logit, the
+    terms autograd of the whole-tensor form sums) in ``logits``' dtype.
+    Every operation is autograd's own, elementwise or over one row's
+    vocabulary, so the bits are the same
+    (tests/test_torch_mla_train.py)."""
+
+    @staticmethod
+    def forward(ctx, logits, tgt):
+        logz = torch.empty(tgt.shape, dtype=torch.float32,
+                           device=logits.device)
+        d = torch.empty_like(logz)
+        for i in range(logits.shape[0]):
+            lg = logits[i:i + 1, :-1].float()
+            logz[i:i + 1] = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, tgt[i:i + 1, :, None])[..., 0]
+            d[i:i + 1] = logz[i:i + 1] - gold
+        ctx.save_for_backward(logits, tgt, logz)
+        return d.mean()
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, tgt, logz = ctx.saved_tensors
+        # mean's backward: grad spread over the (b, s - 1) terms
+        g = grad.expand(tgt.shape) / tgt.numel()
+        out = torch.zeros_like(logits)
+        for i in range(logits.shape[0]):
+            lg = logits[i:i + 1, :-1].float()
+            e = g[i:i + 1, :, None] * (lg - logz[i:i + 1, :, None]).exp()
+            e.scatter_add_(-1, tgt[i:i + 1, :, None], -g[i:i + 1, :, None])
+            out[i:i + 1, :-1] = e
+        return out, None
+
+
 class Model(nn.Module):
     """A configured architecture on one device: specs, init, the full
     forward, prefill and decode.  Parameters are allocated on ``device``
@@ -521,12 +563,7 @@ class Model(nn.Module):
         enc_out = (self.encode(batch["enc_input"]) if self.cfg.is_encdec
                    else None)
         logits, aux = self.forward(tokens, enc_out, with_aux=True)
-        tgt = tokens[:, 1:].long()
-        lg = logits[:, :-1].float()
-        del logits
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-        ce = (logz - gold).mean()
+        ce = _NextTokenCE.apply(logits, tokens[:, 1:].long())
         return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

@@ -461,12 +461,14 @@ def jax_attention_vjp(q, k, v, g, window, scale):
     (1, 650, 8, 2, 128, None),      # group 4
     (1, 650, 8, 1, 64, 200),        # group 8, a window
     (2, 200, 4, 1, 128, 64),        # group 4, a window, d 128
+    (1, 300, 4, 4, (192, 128), None),   # MLA's (d, dv)
 ])
 def test_flash_bwd_ref_against_autograd_and_jax(b, s, H, KV, d, window):
+    d, dv = d if isinstance(d, tuple) else (d, d)
     rng = np.random.default_rng(s + H + d)
     q, k, v = (rng.standard_normal(shape).astype(np.float32)
-               for shape in ((b, s, H, d), (b, s, KV, d), (b, s, KV, d)))
-    g = rng.standard_normal((b, s, H, d)).astype(np.float32)
+               for shape in ((b, s, H, d), (b, s, KV, d), (b, s, KV, dv)))
+    g = rng.standard_normal((b, s, H, dv)).astype(np.float32)
     scale = d ** -0.5
     leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
     pos = torch.arange(s)
@@ -548,12 +550,37 @@ def _tc_namespace(text):
     return text[text.index("namespace tensor_core {"):]
 
 
-def bwd_constants():
-    """The ``constexpr int k...`` constants of the bf16 backward."""
+def pair_tiles(text, d, dv):
+    """The ``Tiles`` constants of the (d, dv) pair in ``text`` (one
+    namespace of the source): its specialization where there is one, else
+    the primary template's."""
     import re
 
+    body = re.search(rf"struct Tiles<{d}, {dv}> \{{(.*?)\}};", text, re.S)
+    if body is None:
+        body = re.search(r"template <int DQK, int DV>\nstruct Tiles \{(.*?)\};",
+                         text, re.S)
     return {m[1]: int(m[2]) for m in re.finditer(
-        r"constexpr int (k\w+) = (\d+);", _tc_namespace(_cu_text(BWD_SOURCE)))}
+        r"static constexpr int (k\w+) = (\d+);", body[1])}
+
+
+def built_pairs(namespace):
+    """The (d, dv) pairs the C entry launches in ``namespace``."""
+    import re
+
+    return sorted({(int(m[1]), int(m[2])) for m in re.finditer(
+        rf"{namespace}::launch<(\d+), (\d+)>", _cu_text(BWD_SOURCE))})
+
+
+def bwd_constants(d=128, dv=None):
+    """The bf16 backward's constants at the (d, dv) pair (dv None: d): the
+    namespace's ``constexpr int k...`` and the pair's ``Tiles``."""
+    import re
+
+    text = _tc_namespace(_cu_text(BWD_SOURCE))
+    c = {m[1]: int(m[2]) for m in re.finditer(
+        r"^constexpr int (k\w+) = (\d+);", text, re.M)}
+    return {**c, **pair_tiles(text, d, d if dv is None else dv)}
 
 
 def _c_to_py(expr):
@@ -569,33 +596,33 @@ def _c_to_py(expr):
     return expr.replace("/", "//").replace("&&", " and ")
 
 
-def bwd_rule(name, **env):
+def bwd_rule(name, pair=(128, 128), **env):
     """Evaluate ``const int <name> = ...;`` of the bf16 backward with the
-    kernel's constants and ``env`` (window 0: none)."""
+    kernel's constants at ``pair`` and ``env`` (window 0: none)."""
     import re
 
     text = _tc_namespace(_cu_text(BWD_SOURCE))
     expr = re.search(rf"const int {name} =\s*(.+?);", text, re.S)[1]
     return eval(_c_to_py(expr), {"min": min, "max": max},
-                {**bwd_constants(), **env})
+                {**bwd_constants(*pair), **env})
 
 
-def dq_key_tiles(q0, s, t, window):
+def dq_key_tiles(q0, s, t, window, pair=(128, 128)):
     """The dq block at query row q0 visits these key tiles (k0 values)."""
     env = dict(q0=q0, S=s, Tk=t, window=window or 0)
     for name in ("k_stop", "k_min", "k_first", "n_tiles"):
-        env[name] = bwd_rule(name, **env)
-    return [env["k_first"] + i * bwd_constants()["kDqBK"]
+        env[name] = bwd_rule(name, pair, **env)
+    return [env["k_first"] + i * bwd_constants(*pair)["kDqBK"]
             for i in range(env["n_tiles"])]
 
 
-def dkdv_query_tiles(k0, s, t, window):
+def dkdv_query_tiles(k0, s, t, window, pair=(128, 128)):
     """The dkdv block at key k0 visits these query tiles (q0 values), for
     each query head of its group."""
     env = dict(k0=k0, S=s, Tk=t, window=window or 0)
     for name in ("q_begin", "q_end", "n_q"):
-        env[name] = bwd_rule(name, **env)
-    return [env["q_begin"] + i * bwd_constants()["kKvBQ"]
+        env[name] = bwd_rule(name, pair, **env)
+    return [env["q_begin"] + i * bwd_constants(*pair)["kKvBQ"]
             for i in range(env["n_q"])]
 
 
@@ -635,23 +662,25 @@ def wgmma_sum(eq, a, b):
 
 def tensor_core_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
                               p_terms=None, ds_terms=None, wgmma_sums=False):
-    """q, o, dout: (b, s, H, d), k/v: (b, t, KV, d) bf16, lse (b, H, s) ->
-    (dq, dk, dv) bf16, as the bf16 kernels compute them.  ``p_terms`` /
+    """q: (b, s, H, d), k: (b, t, KV, d), v: (b, t, KV, dv), o, dout: (b,
+    s, H, dv) bf16, lse (b, H, s) -> (dq, dk, dv) bf16, as the bf16
+    kernels compute them at the (d, dv) pair's tiles.  ``p_terms`` /
     ``ds_terms`` override the source's kPTerms / kDsTerms.  The score
     products S and dP are float32 sums in the plain backward's order, which
     leaves the rounding of P and dS alone, or with ``wgmma_sums`` summed as
     the tensor cores sum them (``wgmma_sum``)."""
     score = wgmma_sum if wgmma_sums else torch.einsum
-    c = bwd_constants()
+    b, s, H, d = q.shape
+    t, KV, dv_ = k.shape[1], k.shape[2], v.shape[-1]
+    pair = (d, dv_)
+    c = bwd_constants(*pair)
     p_terms = c["kPTerms"] if p_terms is None else p_terms
     ds_terms = c["kDsTerms"] if ds_terms is None else ds_terms
-    b, s, H, d = q.shape
-    t, KV = k.shape[1], k.shape[2]
     G = H // KV
     qf, kf, vf, gf, of = (x.float().transpose(1, 2)
                           for x in (q, k, v, dout, o))   # (b, heads, n, d)
-    quarters = [_fma_rows(gf[..., i * d // 4:(i + 1) * d // 4],
-                          of[..., i * d // 4:(i + 1) * d // 4])
+    quarters = [_fma_rows(gf[..., i * dv_ // 4:(i + 1) * dv_ // 4],
+                          of[..., i * dv_ // 4:(i + 1) * dv_ // 4])
                 for i in range(4)]
     dl = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
 
@@ -665,7 +694,7 @@ def tensor_core_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
     for q0 in range(0, s, c["kDqBQ"]):
         rows = torch.arange(q0, min(s, q0 + c["kDqBQ"]))
         acc = torch.zeros((b, H, len(rows), d))
-        for k0 in dq_key_tiles(q0, s, t, window):
+        for k0 in dq_key_tiles(q0, s, t, window, pair):
             cols = torch.arange(k0, min(t, k0 + c["kDqBK"]))
             kt = kf[:, :, cols].repeat_interleave(G, dim=1)
             vt = vf[:, :, cols].repeat_interleave(G, dim=1)
@@ -678,14 +707,14 @@ def tensor_core_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
                                      bf16_terms(ds, ds_terms), kt)
         dq[:, :, rows] = acc * scale
     dk = torch.zeros((b, KV, t, d))
-    dv = torch.zeros((b, KV, t, d))
+    dv = torch.zeros((b, KV, t, dv_))
     for k0 in range(0, t, c["kKvBK"]):
         cols = torch.arange(k0, min(t, k0 + c["kKvBK"]))
         ak = torch.zeros((b, KV, len(cols), d))
-        av = torch.zeros_like(ak)
+        av = torch.zeros((b, KV, len(cols), dv_))
         for g in range(G):                 # the group's heads, in order
             hs = torch.arange(KV) * G + g
-            for q0 in dkdv_query_tiles(k0, s, t, window):
+            for q0 in dkdv_query_tiles(k0, s, t, window, pair):
                 rows = torch.arange(q0, min(s, q0 + c["kKvBQ"]))
                 qt, gt = qf[:, hs][:, :, rows], gf[:, hs][:, :, rows]
                 st = score("bhkd,bhqd->bhkq", kf[:, :, cols], qt) * scale
@@ -732,23 +761,41 @@ def assert_bwd_within(got, want, rel_bound=BWD_REL):
     return rel
 
 
+# shared memory of the bf16 kernels at each built pair, from ``dq_smem`` /
+# ``dkdv_smem``: the (64, 64) and (128, 128) instantiations as they were
+# before MLA's pair was built (D / 64 boxes of each of the two widths),
+# and MLA's at its own tiles
+BWD_SMEM = {(64, 64): (99368, 67624), (128, 128): (197672, 133160),
+            (192, 128): (164904, 124456)}
+
+
 def test_bwd_tiles_fit_shared_memory():
-    """Shared memory of both kernels at D 64 and 128, from the source's own
-    ``dq_smem`` / ``dkdv_smem`` expressions and constants, within the 227 KB
-    a block may have; the scratch's rows (S padded to kRowPad) cover every
-    row of a dq block and of a dkdv tile."""
+    """Shared memory of both kernels at each built (d, dv) pair, from the
+    source's own ``dq_smem`` / ``dkdv_smem`` expressions and each pair's
+    constants, within the 227 KB a block may have (MLA's at its own tiles:
+    at the equal pairs' it would not fit); the scratch's rows (S padded to
+    kRowPad) cover every row of a dq block and of a dkdv tile."""
     import re
 
     text = _tc_namespace(_cu_text(BWD_SOURCE))
-    c = bwd_constants()
-    assert c["kRowPad"] % c["kDqBQ"] == 0 and c["kRowPad"] % c["kKvBQ"] == 0
-    for fn in ("dq_smem", "dkdv_smem"):
-        expr = re.search(rf"constexpr size_t {fn}\(\) \{{\s*return (.+?);",
-                         text, re.S)[1]
-        for D in (64, 128):
-            need = eval(_c_to_py(expr), {"box_bytes": lambda r: 128 * r},
-                        {**c, "D": D})
-            assert 0 < need <= SMEM_PER_BLOCK, (fn, D, need)
+    assert built_pairs("tensor_core") == sorted(BWD_SMEM)
+    exprs = {fn: _c_to_py(re.search(
+        rf"constexpr size_t {fn}\(\) \{{\s*return (.+?);", text,
+        re.S)[1].replace("Tiles<DQK, DV>::", ""))
+        for fn in ("dq_smem", "dkdv_smem")}
+    for (d, dv), want in BWD_SMEM.items():
+        c = bwd_constants(d, dv)
+        assert c["kRowPad"] % c["kDqBQ"] == 0
+        assert c["kRowPad"] % c["kKvBQ"] == 0
+        need = tuple(eval(exprs[fn], {"box_bytes": lambda r: 128 * r},
+                          {**c, "DQK": d, "DV": dv})
+                     for fn in ("dq_smem", "dkdv_smem"))
+        assert need == want and max(need) <= SMEM_PER_BLOCK, (d, dv, need)
+        equal = bwd_constants(128, 128)
+        if (d, dv) != (128, 128):         # the equal pairs' tiles would not
+            over = eval(exprs["dq_smem"], {"box_bytes": lambda r: 128 * r},
+                        {**equal, "DQK": d, "DV": dv})
+            assert (over > SMEM_PER_BLOCK) == (d != dv), (d, dv, over)
 
 
 @pytest.mark.parametrize("s,t,window", [
@@ -759,7 +806,11 @@ def test_bwd_tiles_fit_shared_memory():
 def test_bwd_skip_rules_visit_exactly_the_live_tiles(s, t, window):
     """Each kernel visits exactly the tiles in which the mask leaves a
     (query, key) pair, for every block of the grid."""
-    c = bwd_constants()
+    skip_rules_check(s, t, window, (128, 128))
+
+
+def skip_rules_check(s, t, window, pair):
+    c = bwd_constants(*pair)
     rows, cols = torch.arange(s)[:, None], torch.arange(t)[None]
     mask = cols <= rows
     if window:
@@ -767,11 +818,23 @@ def test_bwd_skip_rules_visit_exactly_the_live_tiles(s, t, window):
     for q0 in range(0, s, c["kDqBQ"]):
         live = [k0 for k0 in range(0, t, c["kDqBK"])
                 if mask[q0:q0 + c["kDqBQ"], k0:k0 + c["kDqBK"]].any()]
-        assert dq_key_tiles(q0, s, t, window) == live, q0
+        assert dq_key_tiles(q0, s, t, window, pair) == live, q0
     for k0 in range(0, t, c["kKvBK"]):
         live = [q0 for q0 in range(0, s, c["kKvBQ"])
                 if mask[q0:q0 + c["kKvBQ"], k0:k0 + c["kKvBK"]].any()]
-        assert dkdv_query_tiles(k0, s, t, window) == live, k0
+        assert dkdv_query_tiles(k0, s, t, window, pair) == live, k0
+
+
+@pytest.mark.parametrize("s,t,window", [
+    (2048, 2048, None), (650, 650, None), (4000, 4000, 1024), (130, 130, 7),
+    (300, 300, 64), (200, 333, None), (333, 200, 50), (1, 1, None),
+])
+def test_bwd_skip_rules_at_mla_tiles(s, t, window):
+    """The same at MLA's (192, 128) tiles: dq's key tiles of 64, dkdv's
+    query tiles of 32."""
+    c = bwd_constants(192, 128)
+    assert (c["kDqBK"], c["kKvBQ"]) == (64, 32)
+    skip_rules_check(s, t, window, (192, 128))
 
 
 @pytest.fixture(scope="module")
@@ -883,12 +946,20 @@ def test_one_bf16_term_breaks_the_elementwise_bound_with_wgmma_sums(
     (2, 333, 6, 3, 64, 50),
     (1, 650, 8, 2, 128, 200),         # yi's group of 4 heads a kv head
     (1, 130, 2, 2, 128, 7),           # a window narrower than a tile
+    # MLA's (d, dv): a kv head a query head, ragged against dq's key tiles
+    # of 64 and dkdv's query tiles of 32; and a window with GQA
+    (2, 300, 4, 4, (192, 128), None),
+    (1, 333, 4, 2, (192, 128), 50),
 ])
 def test_tensor_core_bwd_numerics_random(b, s, H, KV, d, window):
+    d, dv = d if isinstance(d, tuple) else (d, d)
     q, k, v = bf16_qkv(b, s, H, KV, d, 14)
-    dout = bf16_qkv(b, s, H, KV, d, 15)[0]
+    if dv != d:
+        v = bf16_qkv(b, s, H, KV, dv, 16)[2]
+    dout = bf16_qkv(b, s, H, KV, dv, 15)[0]
     o, lse, want = bwd_case(q, k, v, dout, d ** -0.5, window)
     got = tensor_core_bwd_emulation(q, k, v, o, dout, lse, d ** -0.5, window)
+    assert [x.shape[-1] for x in got] == [d, d, dv]
     assert_bwd_within(got, want)
 
 

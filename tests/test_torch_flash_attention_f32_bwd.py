@@ -47,7 +47,9 @@ from test_torch_flash_attention import (
     _c_to_py,
     _cu_text,
     _fma_rows,
+    built_pairs,
     jax_attention_vjp,
+    pair_tiles,
     rel_max,
 )
 
@@ -65,14 +67,17 @@ def _f32_namespace():
 
 
 @functools.cache
-def _f32_constants():
-    return {m[1]: int(m[2]) for m in re.finditer(
-        r"constexpr int (k\w+) = (\d+);", _f32_namespace())}
+def _f32_constants(d, dv):
+    text = _f32_namespace()
+    c = {m[1]: int(m[2]) for m in re.finditer(
+        r"^constexpr int (k\w+) = (\d+);", text, re.M)}
+    return {**c, **pair_tiles(text, d, dv)}
 
 
-def f32_constants():
-    """The ``constexpr int k...`` constants of the float32 backward."""
-    return dict(_f32_constants())
+def f32_constants(pair=(128, 128)):
+    """The float32 backward's constants at the (d, dv) ``pair``: the
+    namespace's ``constexpr int k...`` and the pair's ``Tiles``."""
+    return dict(_f32_constants(*pair))
 
 
 @functools.cache
@@ -85,35 +90,35 @@ def _expr(kind, name, which=0):
     return compile(py, name, "eval")
 
 
-def f32_rule(name, which=0, **env):
+def f32_rule(name, which=0, pair=(128, 128), **env):
     return eval(_expr("int", name, which), {"min": min, "max": max},
-                {**f32_constants(), **env})
+                {**f32_constants(pair), **env})
 
 
-def dq_key_tiles(q0, s, t, window):
+def dq_key_tiles(q0, s, t, window, pair=(128, 128)):
     """The dq block at query row q0 visits these key tiles (k0 values)."""
     env = dict(q0=q0, S=s, Tk=t, window=window or 0)
     for name in ("k_stop", "k_min", "k_first", "n_tiles"):
-        env[name] = f32_rule(name, **env)
-    return [env["k_first"] + i * f32_constants()["kDqKeys"]
+        env[name] = f32_rule(name, pair=pair, **env)
+    return [env["k_first"] + i * f32_constants(pair)["kDqKeys"]
             for i in range(env["n_tiles"])]
 
 
-def dkdv_query_tiles(k0, s, t, window):
+def dkdv_query_tiles(k0, s, t, window, pair=(128, 128)):
     """The dkdv block at key k0 visits these query tiles (q0 values), for
     each query head of its group."""
     env = dict(k0=k0, S=s, Tk=t, window=window or 0)
     for name in ("q_begin", "q_end", "n_q"):
-        env[name] = f32_rule(name, **env)
-    return [env["q_begin"] + i * f32_constants()["kKvRows"]
+        env[name] = f32_rule(name, pair=pair, **env)
+    return [env["q_begin"] + i * f32_constants(pair)["kKvRows"]
             for i in range(env["n_q"])]
 
 
-def warp_rules(which, s, t, window):
+def warp_rules(which, s, t, window, pair=(128, 128)):
     """``live`` and ``edge`` of every warp part of every tile: for dq
     (which 0), indexed [row // 16, key // kDqKeys]; for dkdv (which 1),
     [key // 16, query // kKvRows]."""
-    c = f32_constants()
+    c = f32_constants(pair)
     live_e, edge_e = _expr("bool", "live", which), _expr("bool", "edge",
                                                          which)
     n_warp = -(-(s if which == 0 else t) // 16)
@@ -143,29 +148,30 @@ def visible(s, t, window):
     return mask
 
 
-def kept(s, t, window):
+def kept(s, t, window, pair=(128, 128)):
     """(s, t) masks of the (query, key) pairs whose P each kernel keeps, by
-    its visit order, warp and mask rules: dq's, then dkdv's.  Pairs outside
-    a visited tile, in a warp's part that skips the tile, or masked in an
-    edge part are 0; a part without an edge keeps every pair."""
-    c = f32_constants()
+    its visit order, warp and mask rules at ``pair``'s tiles: dq's, then
+    dkdv's.  Pairs outside a visited tile, in a warp's part that skips the
+    tile, or masked in an edge part are 0; a part without an edge keeps
+    every pair."""
+    c = f32_constants(pair)
     mask = visible(s, t, window)
     rows, cols = torch.arange(s)[:, None], torch.arange(t)[None]
     n_kt, n_qt = -(-t // c["kDqKeys"]), -(-s // c["kKvRows"])
-    dq_tiles = [dq_key_tiles(q0, s, t, window)
+    dq_tiles = [dq_key_tiles(q0, s, t, window, pair)
                 for q0 in range(0, s, c["kDqRows"])]
     visit = torch.tensor([[i * c["kDqKeys"] in tiles for i in range(n_kt)]
                           for tiles in dq_tiles])
     tile = cols // c["kDqKeys"]
-    live, edge = warp_rules(0, s, t, window)
+    live, edge = warp_rules(0, s, t, window, pair)
     dq = (visit[rows // c["kDqRows"], tile] & live[rows // 16, tile]
           & (mask | ~edge[rows // 16, tile]))
-    kv_tiles = [dkdv_query_tiles(k0, s, t, window)
+    kv_tiles = [dkdv_query_tiles(k0, s, t, window, pair)
                 for k0 in range(0, t, c["kKvKeys"])]
     visit = torch.tensor([[i * c["kKvRows"] in tiles for i in range(n_qt)]
                           for tiles in kv_tiles])
     tile = rows // c["kKvRows"]
-    live, edge = warp_rules(1, s, t, window)
+    live, edge = warp_rules(1, s, t, window, pair)
     kv = (visit[cols // c["kKvKeys"], tile] & live[cols // 16, tile]
           & (mask | ~edge[cols // 16, tile]))
     return dq, kv
@@ -337,19 +343,33 @@ def test_swizzle_gives_each_quarter_warp_32_banks(D):
                   for i in range(32)])
 
 
+# shared memory of the float32 kernels at each built pair: (64, 64) and
+# (128, 128) as before MLA's pair was built, MLA's at 64 rows (keys) a block
+F32_SMEM = {(64, 64): (114688, 116608), (128, 128): (229376, 231296),
+            (192, 128): (204800, 206720)}
+
+
 def test_tiles_fit_shared_memory():
-    """``dq_smem`` and ``dkdv_smem`` of the source, at D 64 and 128, within
-    the 227 KB a block may have; the rows a dkdv tile reads from the
-    scratch were written by a dq block."""
-    c = f32_constants()
-    assert c["kPad"] % c["kDqRows"] == 0
-    assert c["kDqRows"] % c["kKvRows"] == 0
-    for fn in ("dq_smem", "dkdv_smem"):
-        expr = re.search(rf"constexpr size_t {fn}\(\) \{{\s*return (.+?);",
-                         _f32_namespace(), re.S)[1]
-        for D in (64, 128):
-            need = eval(_c_to_py(expr), {}, {**c, "D": D})
-            assert 0 < need <= SMEM_PER_BLOCK, (fn, D, need)
+    """``dq_smem`` and ``dkdv_smem`` of the source at each built (d, dv)
+    pair and its tiles, within the 227 KB a block may have (MLA's at its
+    own tiles: at the equal pairs' it would not fit); the rows a dkdv tile
+    reads from the scratch were written by a dq block."""
+    assert built_pairs("tf32x3") == sorted(F32_SMEM)
+    exprs = {fn: _c_to_py(re.search(
+        rf"constexpr size_t {fn}\(\) \{{\s*return (.+?);",
+        _f32_namespace(), re.S)[1].replace("Tiles<DQK, DV>::", ""))
+        for fn in ("dq_smem", "dkdv_smem")}
+    equal = f32_constants((128, 128))
+    for (d, dv), want in F32_SMEM.items():
+        c = f32_constants((d, dv))
+        assert c["kPad"] % c["kDqRows"] == 0
+        assert c["kDqRows"] % c["kKvRows"] == 0
+        need = tuple(eval(exprs[fn], {}, {**c, "DQK": d, "DV": dv})
+                     for fn in ("dq_smem", "dkdv_smem"))
+        assert need == want and max(need) <= SMEM_PER_BLOCK, (d, dv, need)
+        over = [eval(exprs[fn], {}, {**equal, "DQK": d, "DV": dv})
+                for fn in ("dq_smem", "dkdv_smem")]
+        assert (min(over) > SMEM_PER_BLOCK) == (d != dv), (d, dv, over)
 
 
 @pytest.mark.parametrize("s,t,window", [
@@ -362,18 +382,33 @@ def test_skip_rules_visit_exactly_the_live_tiles(s, t, window):
     a warp's part of a visited tile is ``live`` exactly when the mask
     leaves it a pair, and not ``edge`` only when the mask leaves it every
     pair (dq: its rows below S; dkdv: its keys and queries in range)."""
-    c = f32_constants()
+    skip_rules_check(s, t, window, (128, 128))
+
+
+@pytest.mark.parametrize("s,t,window", [
+    (2048, 2048, None), (650, 650, None), (777, 777, 100), (130, 130, 7),
+    (200, 333, None), (333, 200, 50), (1, 1, None),
+])
+def test_skip_rules_at_mla_tiles(s, t, window):
+    """The same at MLA's (192, 128) tiles: 64 rows (keys) a block."""
+    c = f32_constants((192, 128))
+    assert (c["kDqRows"], c["kKvKeys"]) == (64, 64)
+    skip_rules_check(s, t, window, (192, 128))
+
+
+def skip_rules_check(s, t, window, pair):
+    c = f32_constants(pair)
     mask = visible(s, t, window)
     for q0 in range(0, s, c["kDqRows"]):
         live = [k0 for k0 in range(0, t, c["kDqKeys"])
                 if mask[q0:q0 + c["kDqRows"], k0:k0 + c["kDqKeys"]].any()]
-        assert dq_key_tiles(q0, s, t, window) == live, q0
+        assert dq_key_tiles(q0, s, t, window, pair) == live, q0
     for k0 in range(0, t, c["kKvKeys"]):
         live = [q0 for q0 in range(0, s, c["kKvRows"])
                 if mask[q0:q0 + c["kKvRows"], k0:k0 + c["kKvKeys"]].any()]
-        assert dkdv_query_tiles(k0, s, t, window) == live, k0
+        assert dkdv_query_tiles(k0, s, t, window, pair) == live, k0
     for which, tile in ((0, c["kDqKeys"]), (1, c["kKvRows"])):
-        live, edge = warp_rules(which, s, t, window)
+        live, edge = warp_rules(which, s, t, window, pair)
         part_of = mask if which == 0 else mask.T
         for w in range(live.shape[0]):
             for i in range(live.shape[1]):
@@ -488,22 +523,23 @@ def probs(s, d, keep, lse, scale, xs, ys, us, ws, redo):
 
 def tf32x3_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
                          kind="3xtf32", redo=True):
-    """q, o, dout (b, s, H, d), k, v (b, t, KV, d), lse (b, H, s) float32 ->
-    (dq, dk, dv) as the float32 kernels compute them (another ``kind`` of
+    """q (b, s, H, d), k (b, t, KV, d), v (b, t, KV, dv), o, dout (b, s, H,
+    dv), lse (b, H, s) float32 -> (dq, dk, dv) as the float32 kernels
+    compute them at the (d, dv) pair's tiles (another ``kind`` of
     ``block_sum``: the same tiles and order with those products; without
     ``redo``, no large P's S and dP summed again in order)."""
-    c = f32_constants()
     scale = torch.tensor(scale, dtype=torch.float32)     # the kernels' float
     b, s, H, d = q.shape
-    t, KV = k.shape[1], k.shape[2]
+    t, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    c = f32_constants((d, dv))
     G = H // KV
     qf, gf, of = (x.transpose(1, 2) for x in (q, dout, o))     # (b, H, s, d)
     kf, vf = (x.transpose(1, 2) for x in (k, v))               # (b, KV, t, d)
-    quarters = [_fma_rows(gf[..., i * d // 4:(i + 1) * d // 4],
-                          of[..., i * d // 4:(i + 1) * d // 4])
+    quarters = [_fma_rows(gf[..., i * dv // 4:(i + 1) * dv // 4],
+                          of[..., i * dv // 4:(i + 1) * dv // 4])
                 for i in range(4)]
     dl = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
-    keep_dq, keep_kv = kept(s, t, window)
+    keep_dq, keep_kv = kept(s, t, window, (d, dv))
 
     # dq: S = Q K^T, dP = dO V^T; dQ over the key tiles in order
     ke, ve = (x.repeat_interleave(G, dim=1) for x in (kf, vf))
@@ -518,15 +554,16 @@ def tf32x3_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
 
     # dkdv: S^T = K Q^T, dP^T = V dO^T for the group's heads; dK and dV
     # over the heads in order, each over its query tiles in order
-    qg, gg = (x.reshape(b, KV, G, s, d) for x in (qf, gf))
+    qg, gg = qf.reshape(b, KV, G, s, d), gf.reshape(b, KV, G, s, dv)
     lg, dlg = (x.reshape(b, KV, G, 1, s) for x in (lse, dl))
-    kg, vg = (x[:, :, None].expand(b, KV, G, t, d) for x in (kf, vf))
+    kg, vg = (x[:, :, None].expand(b, KV, G, t, x.shape[-1])
+              for x in (kf, vf))
     pt, dpt = probs(scores(kf[:, :, None], qg, kind),     # (b, KV, G, t, s)
                     scores(vf[:, :, None], gg, kind), keep_kv.T, lg, scale,
                     kg, qg, vg, gg, redo)
     dst = pt * (dpt - dlg)
     ak = torch.zeros((b, KV, t, d))
-    av = torch.zeros_like(ak)
+    av = torch.zeros((b, KV, t, dv))
     for g in range(G):
         for q0 in range(0, s, c["kKvRows"]):
             av = av + tile_sum(pt[:, :, g], gg[:, :, g], q0, c["kKvRows"],
@@ -536,12 +573,13 @@ def tf32x3_bwd_emulation(q, k, v, o, dout, lse, scale, window=None,
     return dq.transpose(1, 2), (ak * scale).transpose(1, 2), av.transpose(1, 2)
 
 
-def f32_inputs(b, s, H, KV, d, seed, qk=1.0, vs=1.0):
-    """numpy-drawn q, k, v, dout (float32)."""
+def f32_inputs(b, s, H, KV, d, seed, qk=1.0, vs=1.0, dv=None):
+    """numpy-drawn q, k, v, dout (float32); v and dout dv wide (None: d)."""
     rng = np.random.default_rng(seed)
+    dv = d if dv is None else dv
     return [(amp * rng.standard_normal(shape)).astype(np.float32)
             for shape, amp in (((b, s, H, d), qk), ((b, s, KV, d), qk),
-                               ((b, s, KV, d), vs), ((b, s, H, d), 1.0))]
+                               ((b, s, KV, dv), vs), ((b, s, H, dv), 1.0))]
 
 
 def plain_case(q, k, v, dout, scale, window=None):
@@ -559,9 +597,14 @@ def plain_case(q, k, v, dout, scale, window=None):
     (1, 520, 4, 1, 128, None),        # group 4 (yi's), d 128
     (1, 400, 8, 1, 64, 200),          # group 8, a window
     (2, 333, 4, 1, 128, 50),          # group 4, a window, two batches
+    # MLA's (d, dv), ragged against 64 rows (keys) a block; and a window
+    # with GQA
+    (1, 300, 4, 4, (192, 128), None),
+    (2, 200, 4, 2, (192, 128), 40),
 ])
 def test_emulation_within_the_bound_of_plain_and_jax(b, s, H, KV, d, window):
-    arrs = f32_inputs(b, s, H, KV, d, s + H + d)
+    d, dv = d if isinstance(d, tuple) else (d, d)
+    arrs = f32_inputs(b, s, H, KV, d, s + H + d, dv=dv)
     q, k, v, dout = (torch.tensor(a) for a in arrs)
     scale = d ** -0.5
     o, lse, want = plain_case(q, k, v, dout, scale, window)

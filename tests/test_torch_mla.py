@@ -175,11 +175,13 @@ def test_mla_flash_mode_against_pallas_interpret(b, s, H):
 
 
 def test_flash_wrappers_refuse_unbuilt_pairs():
-    """The forward takes (64, 64), (128, 128) and (192, 128) and a v whose
-    first three axes are k's; a built pair then needs CUDA tensors.  The
-    backward is built for the equal pairs only and names the item that
-    would port MLA's."""
+    """Both kernels, the forward and its backward, are built for (64, 64),
+    (128, 128) and MLA's (192, 128) and refuse any other pair, such as
+    (96, 128); the forward takes a v whose first three axes are k's, the
+    backward an o and a dout of v's width; a built pair then needs CUDA
+    tensors."""
     assert fcuda.PAIRS == ((64, 64), (128, 128), (192, 128))
+    assert fcuda.BWD_PAIRS == fcuda.PAIRS
     q, k = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 192)
     v = torch.zeros(1, 8, 2, 128)
     for bad in (torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 192)):
@@ -194,7 +196,13 @@ def test_flash_wrappers_refuse_unbuilt_pairs():
     with pytest.raises(ValueError, match="CUDA"):
         fcuda.flash_attention_cuda(q, k, v)
     o, lse = torch.zeros(1, 8, 2, 128), torch.zeros(1, 2, 8)
-    with pytest.raises(ValueError, match="4b-v"):
+    with pytest.raises(ValueError, match="not built"):
+        fcuda.flash_attention_bwd_cuda(q[..., :96], k[..., :96], v, o, o,
+                                       lse)
+    for bad in (q, torch.zeros(1, 8, 2, 64)):        # o of q's width
+        with pytest.raises(ValueError, match="do not match"):
+            fcuda.flash_attention_bwd_cuda(q, k, v, bad, bad, lse)
+    with pytest.raises(ValueError, match="CUDA"):
         fcuda.flash_attention_bwd_cuda(q, k, v, o, o, lse)
 
 

@@ -431,12 +431,17 @@ DENSE_FLOPS = {"yi-9b": (8, 2048, 8, 194211307585536.0),
                "whisper-medium": (None, 448, 8, 41247788630016.0)}
 
 
-@pytest.mark.parametrize("arch", sorted(DENSE_FLOPS) + [ARCH])
+@pytest.mark.parametrize("arch", sorted(DENSE_FLOPS) + [ARCH,
+                                                         "deepseek-v2-236b"])
 def test_train_flops_counts_active_parameters(arch):
     """``train_flops`` on the meta device: yi's, rwkv's and whisper's at
     their training runs' sizes as before; mixtral's (1 layer, 8 x 2048)
     6 x ``n_active_params`` a token (the reference's count, 1,094,780,928
-    of 2,906,720,256 parameters) plus causal attention."""
+    of 2,906,720,256 parameters) plus causal attention; deepseek's (1
+    layer: the dense MLA prefix, 1,466,777,088 parameters, all active) with
+    MLA's products at their own widths, 2 s t (qk_nope + qk_rope) for the
+    logits and 2 s t v_dim for P V a head (192 and 128: d_head's 2 s t 128
+    twice would count 0.8 of it)."""
     cfg = registry.get_config(arch)
     layers, seq, batch, want = DENSE_FLOPS.get(arch, (1, 2048, 8, None))
     if layers is not None:
@@ -445,6 +450,13 @@ def test_train_flops_counts_active_parameters(arch):
     got = train_flops(cfg, model, batch, seq)
     if want is not None:
         assert got == want
+        return
+    pairs = seq * (seq + 1) // 2 * cfg.n_layers
+    if cfg.attn_type == "mla":
+        assert model.n_active_params() == model.n_params() == 1_466_777_088
+        attention = 3 * 2 * batch * cfg.n_heads * (192 + 128) * pairs
+        assert got == 6.0 * model.n_active_params() * batch * seq + attention
+        assert got == 148_315_236_728_832.0
         return
     assert model.n_active_params() == 1_094_780_928
     assert model.n_params() == 2_906_720_256
