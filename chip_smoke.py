@@ -3901,8 +3901,9 @@ TRAIN_LR = 3e-3                 # launch/train.py's --lr
 # run is 1 of 56 layers deep (MIXTRAL_TRAIN_LAYERS, below), deepseek's 1 of
 # 60 (DEEPSEEK_TRAIN_LAYERS: the dense MLA prefix layer, which runs without
 # remat, as the reference's unscanned prefix: its forward kernel once a
-# step)
-MIXTRAL_TRAIN_LAYERS = DEEPSEEK_TRAIN_LAYERS = 1
+# step), jamba's 1 of 32 (JAMBA_TRAIN_LAYERS: layer 0, Mamba with a
+# SwiGLU FFN, no attention: no flash launch)
+MIXTRAL_TRAIN_LAYERS = DEEPSEEK_TRAIN_LAYERS = JAMBA_TRAIN_LAYERS = 1
 TRAIN_LAUNCHES = {"yi-9b": {"flash_attention": 2 * TRAIN_LAYERS,
                             "flash_attention_bwd": TRAIN_LAYERS},
                   "rwkv6-7b": {"rwkv_wkv": 2 * TRAIN_LAYERS,
@@ -3912,7 +3913,9 @@ TRAIN_LAUNCHES = {"yi-9b": {"flash_attention": 2 * TRAIN_LAYERS,
                       "flash_attention_bwd": MIXTRAL_TRAIN_LAYERS},
                   "deepseek-v2-236b": {
                       "flash_attention": DEEPSEEK_TRAIN_LAYERS,
-                      "flash_attention_bwd": DEEPSEEK_TRAIN_LAYERS}}
+                      "flash_attention_bwd": DEEPSEEK_TRAIN_LAYERS},
+                  "jamba-v0.1-52b": {"flash_attention": 0,
+                                     "flash_attention_bwd": 0}}
 # the LM training phase's runs (mixtral's runs in its own phase)
 LM_TRAIN_ARCHS = ("yi-9b", "rwkv6-7b")
 REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6   # tests/test_train.py:136-138
@@ -3958,13 +3961,16 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
     parameter and token it applies to, plus attention's two products (2 s
     t d for the logits, d the query-key width, and 2 s t dv for P V, dv the
     value width: d_head each, MLA's qk_nope + qk_rope and v_dim) three
-    times over (forward, and twice in the backward).  A
+    times over (forward, and twice in the backward), in each decoder layer
+    whose mixer is attention (``layer_kinds``: not RWKV's or Mamba's).  A
     decoder applies its active parameters (``Model.n_active_params``, the
     reference's count: a MoE layer's routed experts count top_k of
     n_experts) to every token and attends causally (half the pairs).  An encoder-decoder's encoder applies its own, and
     each decoder layer its cross keys' and values' projections, to the
     enc_seq frames of every row; its encoder attends to all frame pairs
     and each decoder layer's cross-attention to all token-frame pairs."""
+    from repro_torch.models.transformer import layer_kinds
+
     tokens, frames = batch * seq, batch * cfg.enc_seq
     d, dv = ((cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_dim)
              if cfg.attn_type == "mla" else (cfg.d_head, cfg.d_head))
@@ -3978,8 +3984,8 @@ def train_flops(cfg, model, batch: int, seq: int) -> float:
                          for w in ("wk", "wv"))
     flops = (6.0 * (model.n_active_params() - on_frames) * tokens
              + 6.0 * on_frames * frames)
-    if cfg.mixer != "rwkv":
-        flops += per_pair * _causal_pairs(seq) * cfg.n_layers
+    attn_layers = sum(kind[0] == "attn" for kind in layer_kinds(cfg))
+    flops += per_pair * _causal_pairs(seq) * attn_layers
     if cfg.is_encdec:
         flops += per_pair * cfg.enc_seq ** 2 * cfg.enc_layers
         flops += per_pair * seq * cfg.enc_seq * cfg.n_layers
@@ -4070,17 +4076,20 @@ def _host_copy(leaf, dst=None):
 
 class _LastCall:
     """While ``on`` is true, keeps (clones of) the arguments of the latest
-    call of ``module.name``: in a backward pass that is layer 0's."""
+    call of ``module.name``: in a backward pass that is layer 0's.
+    ``take`` makes what is kept from the call's arguments (clones of each
+    when None)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, take=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.take = take or (lambda *args: tuple(a.clone() for a in args))
         self.args, self.on = None, False
 
     def __enter__(self):
         def spy(*args, **kw):
             if self.on:
-                self.args = tuple(a.clone() for a in args)
+                self.args = self.take(*args)
             return self.fn(*args, **kw)
         setattr(self.module, self.name, spy)
         return self
@@ -4142,7 +4151,7 @@ def train_size(**size) -> dict:
             "fail_at": TRAIN_FAIL_AT, **size}
 
 
-def lm_train_run(arch, device, want=None, **size):
+def lm_train_run(arch, device, want=None, capture=None, **size):
     """``train.loop.train`` on ``arch`` at full width, ``layers`` deep (sizes
     from ``train_size(**size)``; None: the config's full depth), in bf16
     with a float32 master: ``steps``
@@ -4157,7 +4166,9 @@ def lm_train_run(arch, device, want=None, **size):
     the replayed step to the first (bits, else REPLAY_RTOL / REPLAY_ATOL),
     every weight leaf's step-0 gradient finite and nonzero, and each
     step's kernel launches to ``want`` (TRAIN_LAUNCHES[arch] when None).
-    Returns (readings, layer 0's backward-kernel inputs at step 1); the
+    Returns (readings, layer 0's backward-kernel inputs at step 1, or
+    what ``capture``, a (module, name, take) of ``_LastCall``, keeps of
+    the latest call at step 1: None where no such call ran); the
     readings hold the launches of each step, the optimizer's share of
     the step (``adamw_update`` between CUDA events, no synchronisation
     added), the card's and the host's peak memory, and for a MoE model
@@ -4190,9 +4201,9 @@ def lm_train_run(arch, device, want=None, **size):
     make = batches(DataConfig(vocab=cfg.vocab, seq=seq, global_batch=batch,
                               seed=0), model.device, cfg)
     want = TRAIN_LAUNCHES[arch] if want is None else want
-    ops_module, bwd_fn = ((wkv_ops, "rwkv_wkv_bwd_cuda")
+    capture = capture or ((wkv_ops, "rwkv_wkv_bwd_cuda", None)
                           if cfg.mixer == "rwkv" else
-                          (flash_ops, "flash_attention_bwd_cuda"))
+                          (flash_ops, "flash_attention_bwd_cuda", None))
     per_step, state, grads_seen = [], {"step": None}, {}
 
     def make_batch(step):
@@ -4244,7 +4255,7 @@ def lm_train_run(arch, device, want=None, **size):
     drops = (_ForwardDrops(model) if has_moe
              else contextlib.nullcontext())
     try:
-        with _LastCall(ops_module, bwd_fn) as cap, drops:
+        with _LastCall(*capture) as cap, drops:
             t0 = time.perf_counter()
             _m, _state, out = train(
                 model, make_batch,
@@ -4765,19 +4776,45 @@ def lm_train_record_check(rec, device):
     )
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.train import batches
+    from repro_torch.train import step as step_mod
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-    from repro_torch.train.step import grads_of, make_train_step
 
     model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
                            device=device)
     batch = batches(DataConfig(**rec.data), model.device, rec.cfg)
 
+    # the steps, the step-0 gradient kept from the first one's
+    # ``grads_of`` (the same call on the same weights and batch as a
+    # separate one before the steps)
+    grads_of, kept = step_mod.grads_of, {}
+
+    def first_grads(m, b):
+        out = grads_of(m, b)
+        if not kept:
+            kept.update((n, g.clone()) for n, g in out[2].items())
+        return out
+
+    state = init_opt_state(model.named_leaves())
+    step_fn = step_mod.make_train_step(model, AdamWConfig(**rec.opt))
+    steps_rel = {"loss": [], "ce": [], "grad_norm": []}
+    if rec.aux is not None:
+        steps_rel["aux"] = []
+    counter = (_ForwardDrops(model) if rec.drops is not None
+               else contextlib.nullcontext())
+    step_mod.grads_of = first_grads
+    try:
+        with counter:
+            for s in range(rec.steps):
+                state, met = step_fn(state, batch(s))
+                _record_step_check(rec, s, met, steps_rel)
+    finally:
+        step_mod.grads_of = grads_of
+
     e = rec.sensitivity
     e_leaf = {k: np.broadcast_to(np.asarray(e[k], np.float64),
                                  (len(rec.leaf_names),))
               for k in ("g_norm", "g_probe")}
-    _loss, _met, grads = grads_of(model, batch(0))
-    tree = to_jax_tree(model, grads)
+    tree = to_jax_tree(model, kept)
     worst = {"g_norm": 0.0, "g_probe": 0.0}
     excess = {"g_norm": (0.0, ""), "g_probe": (0.0, "")}
     for i, name in enumerate(rec.leaf_names):
@@ -4800,19 +4837,8 @@ def lm_train_record_check(rec, device):
             raise AssertionError(f"{rec.cfg.name} record: step-0 gradient "
                                  f"{k} of {name} {over:.3g} times its bound "
                                  "from JAX")
-    del grads, tree
-    state = init_opt_state(model.named_leaves())
-    step_fn = make_train_step(model, AdamWConfig(**rec.opt))
-    rel = {"loss": [], "ce": [], "grad_norm": []}
-    if rec.aux is not None:
-        rel["aux"] = []
-    counter = (_ForwardDrops(model) if rec.drops is not None
-               else contextlib.nullcontext())
-    with counter:
-        for s in range(rec.steps):
-            state, met = step_fn(state, batch(s))
-            _record_step_check(rec, s, met, rel)
-    out = {"steps": rec.steps, "grad": worst, "steps_rel": rel,
+    del kept, tree
+    out = {"steps": rec.steps, "grad": worst, "steps_rel": steps_rel,
            "grad_of_bound": {k: v[0] for k, v in excess.items()}}
     if rec.drops is not None:
         out["drops"] = counter.groups()
@@ -4841,11 +4867,12 @@ def _record_step_check(rec, s, met, rel):
         raise AssertionError(f"record step {s}: lr {lr!r} vs {want!r}")
 
 
-def lm_train_record_phase(device, records=None):
+def lm_train_record_phase(device, records=None, want=None):
     """The JAX training records (name -> record;
     ``assets/lm_train_reference.npz``'s when None) on the card, through
     the kernels: each launches its forward and backward kernel at least
-    once."""
+    once, and exactly ``want[name]`` times where ``want`` predicts it
+    (name -> {kernel: launches over the record's steps})."""
     import torch
 
     from repro_torch.bridge import load_lm_train_reference
@@ -4861,6 +4888,11 @@ def lm_train_record_phase(device, records=None):
         if counts.get(fwd, 0) < 1 or counts.get(fwd + "_bwd", 0) < 1:
             raise AssertionError(f"training record {name}: kernels not "
                                  f"launched: {counts}")
+        predicted = (want or {}).get(name)
+        if predicted is not None and {
+                k: counts.get(k, 0) for k in predicted} != predicted:
+            raise AssertionError(f"training record {name}: launches "
+                                 f"{counts}, predicted {predicted}")
         e = rec.sensitivity
         print(f"JAX training record {name} ({rec.cfg.n_layers} layers, "
               f"{rec.data['global_batch']} x {rec.data['seq']} tokens, "
@@ -4873,7 +4905,9 @@ def lm_train_record_phase(device, records=None):
               f"{[f'{x:.3g}' for x in e['loss']]}), grad norm "
               f"{[f'{r:.3g}' for r in readings['steps_rel']['grad_norm']]} "
               f"(E {[f'{x:.3g}' for x in e['grad_norm']]}); lr within an "
-              f"ulp; launches {counts}", flush=True)
+              f"ulp; launches {counts}"
+              + ("" if predicted is None else f" (predicted {predicted})"),
+              flush=True)
         if rec.aux is not None:
             print(f"JAX training record {name}: per step aux "
                   f"{[f'{r:.3g}' for r in readings['steps_rel']['aux']]} (E "
@@ -5243,12 +5277,13 @@ def flash_bwd_bytes_ops(q, k, v, lse):
     return n_bytes, 2 * (3 * d + 2 * dv) * _causal_pairs(s) * b * H
 
 
-def flash_bwd_row(probes, args, launches, label):
+def flash_bwd_row(probes, args, launches, label, source="layer 0, step 1"):
     """``flash_attention_bwd`` (bf16) on layer 0's backward-kernel inputs
     at step 1 of a training run (``label``: whisper's, row 7gw; mixtral's,
-    row 7gm; deepseek's MLA pair, row 7gmla), against the plain backward
-    given the plain forward's O and log-sum-exp (``flash_bwd_check``),
-    timed beside SDPA's backward."""
+    row 7gm; deepseek's MLA pair, row 7gmla), or on drawn inputs
+    (``source``: jamba's attention shape, row 7gj), against the plain
+    backward given the plain forward's O and log-sum-exp
+    (``flash_bwd_check``), timed beside SDPA's backward."""
     from repro_torch.kernels.flash_attention import cuda as fcuda
 
     q, k, v, o, dout, lse = args
@@ -5256,7 +5291,7 @@ def flash_bwd_row(probes, args, launches, label):
         f" dv {v.shape[-1]}" if v.shape[-1] != q.shape[-1] else "") + \
         " bfloat16"
     err, plain = flash_bwd_check(q, k, v, o, dout, lse,
-                                 f"{label} {shape} (layer 0, step 1)")
+                                 f"{label} {shape} ({source})")
     plain_ms = device_ms(plain, reps=2, warm=1)
     lib_ms, lib_fn = sdpa_backward_ms(q, k, v, dout)
     n_bytes, n_ops = flash_bwd_bytes_ops(q, k, v, lse)
@@ -5384,6 +5419,20 @@ JAMBA_SCAN_B, JAMBA_SCAN_S, JAMBA_SCAN_CHUNK = 2, 1000, 256
 # (1 + MAMBA_MARGIN) times the CPU port's own distance of each other
 MAMBA_MARGIN = 4
 MAMBA_CPU_ROWS = 1          # requests recomputed on the CPU
+# the training run: JAMBA_TRAIN_LAYERS of 32 (layer 0: Mamba with a SwiGLU
+# FFN, and the embeddings: 818,352,416 parameters, ~13.1 GB of training
+# state; layer 1, a MoE layer of 16 experts top-2, would add ~2.8 B) at
+# full width in bf16 with a float32 master, 8 x 2048 tokens a step, with
+# mixtral's steps, checkpoints and failure (MIXTRAL_TRAIN_*).  Layer 0's
+# step-1 inputs then feed the scan's backward on the card, checkpointed
+# against its earlier form at JAMBA_SCAN_B x JAMBA_SCAN_S (chunks of
+# JAMBA_SCAN_CHUNK), and layer 0's float32 gradients on MAMBA_GRAD_ROWS
+# request of 2048 tokens, card against the CPU port and float64
+MAMBA_GRAD_ROWS = 1
+SCAN_BWD_REPS = 3
+# row 7gj: the bf16 backward at jamba's attention shape (b, s, H, KV, d),
+# 32 query heads over 8 KV heads (a head group of 4), drawn
+JAMBA_ATTN = (8, 2048, 32, 8, 128)
 
 
 class _Drops:
@@ -6153,7 +6202,8 @@ def deepseek_phase(probes, device="cuda"):
 def mamba_f64(p, cfg, x):
     """The Mamba mixer over a full sequence from the zero state in float64
     (the reference's operations without its float32 roundings), on the
-    CPU -> (out, final ssm state)."""
+    CPU -> (out, final ssm state); differentiable (``mamba_grad_check``
+    takes its gradients)."""
     import torch
     import torch.nn.functional as F
 
@@ -6176,10 +6226,13 @@ def mamba_f64(p, cfg, x):
     A = -torch.exp(p["A_log"])
     h = x.new_zeros((b, xc.shape[-1], m.d_state))
     ys = []
-    for t in range(s):
-        h = (torch.exp(delta[:, t, :, None] * A) * h
-             + delta[:, t, :, None] * B[:, t, None, :] * xc[:, t, :, None])
-        ys.append((h * C[:, t, None, :]).sum(-1))
+    # each step's operands by unbind: under autograd a select's backward
+    # would fill a zero tensor of the whole sequence a step
+    for d_t, B_t, xc_t, C_t in zip(delta.unbind(1), B.unbind(1),
+                                   xc.unbind(1), C.unbind(1)):
+        h = (torch.exp(d_t[..., None] * A) * h
+             + d_t[..., None] * B_t[:, None, :] * xc_t[..., None])
+        ys.append((h * C_t[:, None, :]).sum(-1))
     y = (torch.stack(ys, 1) + p["D"] * xc) * F.silu(z)
     return y @ p["out_proj"], h
 
@@ -6265,13 +6318,258 @@ def mamba_layer_check(cfg, p, x, layer):
     return read
 
 
+def _mixer_inputs(params, cfg, m, x, *rest):
+    """What ``_LastCall`` keeps of a ``models.ssm.mamba_mixer`` call: its
+    parameters and its input, detached clones."""
+    return ({k: v.detach().clone() for k, v in params.items()},
+            x.detach().clone())
+
+
+def scan_selects(delta, A, B, xc, C, h0=None, chunk=None):
+    """The scan's form before its chunks were checkpointed: plain autograd
+    through the chunks, each step's operands read by a select, ``dA[:,
+    t]`` and ``Bx[:, t]``, whose backward fills a zero tensor of the whole
+    chunk buffer and adds it; the forward's operations and bits are
+    ``models.ssm._mamba_scan``'s."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    b, s, di = delta.shape
+    chunk = ssm.mamba_chunk(b, di, A.shape[-1]) if chunk is None else chunk
+    h = (torch.zeros((b, di, A.shape[-1]), dtype=torch.float32,
+                     device=delta.device) if h0 is None else h0)
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        dA = torch.exp(delta[:, sl, :, None] * A)
+        Bx = (delta[:, sl, :, None] * B[:, sl, None, :]) * xc[:, sl, :, None]
+        hs = []
+        for t in range(dA.shape[1]):
+            h = torch.addcmul(Bx[:, t], dA[:, t], h)
+            hs.append(h)
+        del dA, Bx
+        ys.append((torch.stack(hs, dim=1) * C[:, sl, None, :]).sum(-1))
+    return torch.cat(ys, dim=1), h
+
+
+def scan_backward_check(cfg, p, x, device):
+    """The scan's backward on the card, on layer 0's own scan inputs at
+    step 1 (the mixer rerun on its step-1 input ``x`` and weights ``p``,
+    bf16 as in the run, without grad) cut to JAMBA_SCAN_B x JAMBA_SCAN_S,
+    in chunks of JAMBA_SCAN_CHUNK, with drawn cotangents on y and on the
+    last state: ``models.ssm._mamba_scan`` (a checkpoint a chunk, steps by
+    ``unbind``) against ``scan_selects``, its form before, every gradient
+    (delta, A, B, xc, C) equal under ``torch.equal``.  Each form's
+    backward timed by CUDA events (median of SCAN_BWD_REPS, each after a
+    forward of its own) and its peak memory above what was allocated
+    before its forward.  Returns the readings."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    seen = []
+    scan = ssm._mamba_scan
+
+    def spy(*args, **kw):
+        seen.append(args[:5])
+        return scan(*args, **kw)
+
+    b, n, c = JAMBA_SCAN_B, JAMBA_SCAN_S, JAMBA_SCAN_CHUNK
+    ssm._mamba_scan = spy
+    try:
+        with torch.no_grad():
+            ssm.mamba_mixer(p, cfg, cfg.mamba, x[:b])
+    finally:
+        ssm._mamba_scan = scan
+    args = [a[:b, :n].contiguous() if a.dim() == 3 else a for a in seen[0]]
+    del seen
+    gen = torch.Generator(device=device).manual_seed(10)
+    gy = torch.randn(args[0].shape, device=device, generator=gen)
+    gh = torch.randn((b, *args[1].shape), device=device, generator=gen)
+    read, grads = {}, {}
+    for name, form in (("checkpointed", ssm._mamba_scan),
+                       ("selects", scan_selects)):
+        times, peaks = [], []
+        for _ in range(SCAN_BWD_REPS):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            leaves = [a.clone().requires_grad_() for a in args]
+            y, h = form(*leaves, chunk=c)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            g = torch.autograd.grad((y, h), leaves, (gy, gh))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            del leaves, y, h
+        grads[name] = g
+        read[name] = (statistics.median(times), max(peaks))
+        del g
+    equal = [torch.equal(a, b_) for a, b_ in zip(grads["checkpointed"],
+                                                 grads["selects"])]
+    zero = [float(a.abs().max()) == 0 for a in grads["checkpointed"]]
+    (ck_ms, ck_peak), (sel_ms, sel_peak) = (read["checkpointed"],
+                                            read["selects"])
+    print(f"{JAMBA} scan backward on the card at {b} x {n} of layer 0's "
+          f"step-1 inputs, chunks of {c} (the last {n % c}): checkpointed "
+          f"(unbind) {ck_ms:.4f} ms, peak {ck_peak / 2 ** 30:.3f} GiB; the "
+          f"earlier form (selects, no checkpoints) {sel_ms:.4f} ms, peak "
+          f"{sel_peak / 2 ** 30:.3f} GiB (CUDA events, median of "
+          f"{SCAN_BWD_REPS}; peak above the memory before the forward); "
+          f"gradients of delta, A, B, xc, C equal: {equal}", flush=True)
+    if not all(equal) or any(zero):
+        raise AssertionError(f"{JAMBA}: the checkpointed scan's gradients "
+                             f"differ from the earlier form's {equal} or "
+                             f"are zero {zero}")
+    return {"ms": ck_ms, "peak": ck_peak, "selects_ms": sel_ms,
+            "selects_peak": sel_peak}
+
+
+def mamba_grad_check(cfg, p, x, device):
+    """Layer 0's gradients in float32, card against CPU: the mixer on the
+    first MAMBA_GRAD_ROWS request of its step-1 input ``x`` (2048 tokens)
+    with its step-1 weights ``p`` in float32, the objective out . P + h_s
+    . Q (P, Q drawn); the gradient of the input and of every leaf on the
+    card, in the CPU port and in float64 autograd (``mamba_f64``).  Both
+    float32 runs round every operation of the same computation, the card's
+    backward its ``addcmul``s and products too; the card may lie
+    MAMBA_MARGIN times as far from float64 as the CPU port does, so each
+    gradient is held within (1 + MAMBA_MARGIN) D of the CPU port's, D the
+    CPU port's own distance from float64, all relative to the float64
+    gradient's largest entry.  Returns the readings."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    m = cfg.mamba
+    di = m.expand * cfg.d_model
+    xr = x[:MAMBA_GRAD_ROWS].float().cpu()
+    pc = {k: v.float().cpu() for k, v in p.items()}
+    gen = torch.Generator().manual_seed(8)
+    P = torch.randn(xr.shape, generator=gen)
+    Q = torch.randn((xr.shape[0], di, m.d_state), generator=gen)
+    names = ["x"] + sorted(pc)
+
+    def grads(params, xin, P, Q, f64=False):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        xl = xin.detach().clone().requires_grad_()
+        if f64:
+            out, h = mamba_f64(leaves, cfg, xl)
+        else:
+            out, st = ssm.mamba_mixer(leaves, cfg, m, xl)
+            h = st["ssm"]
+        loss = (out * P).sum() + (h * Q).sum()
+        g = torch.autograd.grad(loss, [xl] + [leaves[k] for k in names[1:]])
+        return {k: v.detach().cpu() for k, v in zip(names, g)}
+
+    t0 = time.perf_counter()
+    card = grads({k: v.to(device) for k, v in pc.items()}, xr.to(device),
+                 P.to(device), Q.to(device))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = grads(pc, xr, P, Q)
+    exact = grads({k: v.double() for k, v in pc.items()}, xr.double(),
+                  P.double(), Q.double(), f64=True)
+    cpu_s = time.perf_counter() - t0
+    read, bad = {}, []
+    for k in names:
+        top = float(exact[k].abs().max())
+        d_cpu = float((cpu[k].double() - exact[k]).abs().max()) / top
+        d_card = float((card[k].double() - exact[k]).abs().max()) / top
+        diff = float((card[k].double() - cpu[k].double()).abs().max()) / top
+        finite = bool(torch.isfinite(card[k]).all())
+        read[k] = (diff, (1 + MAMBA_MARGIN) * d_cpu, d_card, d_cpu, top)
+        if not finite or not diff <= read[k][1]:
+            bad.append(k)
+    print(f"{JAMBA} Mamba layer 0 float32 gradients on {tuple(xr.shape[:2])}"
+          f" of its step-1 input (card vs CPU port, of max |float64|, "
+          f"bound (1 + {MAMBA_MARGIN}) x the CPU port's own distance from "
+          f"float64; the card's own): " + "; ".join(
+              f"{k} {r[0]:.3g} <= {r[1]:.3g} ({r[2]:.3g})"
+              for k, r in read.items())
+          + f"; {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU "
+          f"(float32 and float64)", flush=True)
+    if bad:
+        raise AssertionError(f"{JAMBA} Mamba layer 0 gradients {bad}: card "
+                             "vs CPU port outside (1 + MAMBA_MARGIN) D")
+    return read
+
+
+def jamba_attn_bwd_row(probes, device):
+    """Row 7gj: the bf16 backward (``tensor_core``) at jamba's attention
+    shape JAMBA_ATTN (32 query heads over 8 KV heads: a head group of 4,
+    which no run of the path has), causal, on drawn unit-normal inputs,
+    with the forward kernel's O and log-sum-exp (``flash_bwd_row``).  No
+    timed path runs it: no launches counted."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cuda as fcuda
+
+    b, s, H, KV, d = JAMBA_ATTN
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (torch.randn((b, s, heads, d), device=device,
+                           generator=gen).bfloat16() for heads in (H, KV, KV))
+    o, lse = fcuda.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.randn(q.shape, device=device, generator=gen).bfloat16()
+    return flash_bwd_row(probes, (q, k, v, o, dout, lse), 0,
+                         f"7gj {JAMBA} {H}/{KV} heads", source="drawn")
+
+
+def jamba_train_phase(probes, device="cuda"):
+    """Mamba training: jamba-v0.1-52b through ``train.loop.train`` at
+    JAMBA_TRAIN_LAYERS of 32 layers at full width (``lm_train_run``:
+    layer 0, Mamba with a SwiGLU FFN, and the embeddings; no flash launch),
+    mixtral's MIXTRAL_TRAIN_* steps, checkpoints and failure, keeping
+    layer 0's mixer weights and input at step 1; on those the scan's
+    backward against its earlier form (``scan_backward_check``) and the
+    layer's float32 gradients against the CPU port (``mamba_grad_check``);
+    row 7gj; the JAX hybrid training record (float32: the float32 flash
+    kernels forward and backward at (128, 128), a head group of 2), its
+    launches held to the count predicted from its remat'd periods.
+    Returns (rows, readings)."""
+    from repro_torch.bridge import load_lm_hybrid_train_reference
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_kinds
+
+    r, (p, x) = lm_train_run(
+        JAMBA, device, layers=JAMBA_TRAIN_LAYERS, steps=MIXTRAL_TRAIN_STEPS,
+        ckpt_every=MIXTRAL_TRAIN_CKPT_EVERY, fail_at=MIXTRAL_TRAIN_FAIL_AT,
+        capture=(ssm, "mamba_mixer", _mixer_inputs))
+    free_card()
+    cfg = jamba_cfg(JAMBA_TRAIN_LAYERS)
+    r["scan"] = scan_backward_check(cfg, p, x, device)
+    free_card()
+    r["grads"] = mamba_grad_check(cfg, p, x, device)
+    del p, x
+    free_card()
+    rows = [jamba_attn_bwd_row(probes, device)]
+    free_card()
+    rec = load_lm_hybrid_train_reference()
+    # a step: each attention layer's forward kernel in the forward and
+    # again where remat recomputes its period, its backward kernel once
+    attn = sum(kind[0] == "attn" for kind in layer_kinds(rec.cfg))
+    want = {"flash_attention": (1 + rec.cfg.remat) * attn * rec.steps,
+            "flash_attention_bwd": attn * rec.steps}
+    lm_train_record_phase(device, {"jamba": rec}, want={"jamba": want})
+    free_card()
+    return rows, r
+
+
 def jamba_phase(probes, device="cuda"):
     """The Mamba slice: jamba-v0.1-52b's serve call at JAMBA_LAYERS of 32
     layers (``moe_serve_phase``: one flash launch, routing, row 7j), the
     last Mamba layer on the card against the CPU port and the chunked
     scan against the unchunked one, the float32 parity and the JAX
-    record.  Returns (kernel rows, profile targets: the serve call and its
-    prefill)."""
+    record; then Mamba training (``jamba_train_phase``).  Returns (kernel
+    rows, profile targets: the serve call, its prefill and a training
+    step)."""
     t0 = time.perf_counter()
     rows, times = moe_serve_phase(probes, device, JAMBA)
     p, x, layer = times.pop("mamba")
@@ -6281,6 +6579,8 @@ def jamba_phase(probes, device="cuda"):
     moe_parity_phase(device, JAMBA)
     moe_record_phase(device, JAMBA)
     free_card()
+    train_rows, r = jamba_train_phase(probes, device)
+    rows += train_rows
 
     def prefill_call():
         model, prompts, _serve = moe_serve_call(JAMBA, device)
@@ -6290,7 +6590,11 @@ def jamba_phase(probes, device="cuda"):
                 Deferred(lambda: moe_serve_call(JAMBA, device)[-1]),
                 times["serve_ms"]),
                (f"{JAMBA} prefill ({JAMBA_LAYERS} layers)",
-                Deferred(prefill_call), times["prefill_ms"])]
+                Deferred(prefill_call), times["prefill_ms"]),
+               (f"{JAMBA} training step ({JAMBA_TRAIN_LAYERS} layer)",
+                Deferred(lambda: train_step_target(
+                    JAMBA, device, layers=JAMBA_TRAIN_LAYERS)),
+                r["step_ms"])]
     print(f"jamba phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets
 

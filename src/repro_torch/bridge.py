@@ -109,6 +109,7 @@ LM_MLA_ASSET = ASSET.parent / "lm_mla_reference.npz"
 LM_HYBRID_ASSET = ASSET.parent / "lm_hybrid_reference.npz"
 LM_MOE_TRAIN_ASSET = ASSET.parent / "lm_moe_train_reference.npz"
 LM_MLA_TRAIN_ASSET = ASSET.parent / "lm_mla_train_reference.npz"
+LM_HYBRID_TRAIN_ASSET = ASSET.parent / "lm_hybrid_train_reference.npz"
 
 
 def _feature(f) -> HaarFeature:
@@ -720,6 +721,15 @@ def load_lm_mla_train_reference(path=None) -> LMTrainRecord:
     float32 at the flash kernels' MLA widths, 192 / 128, capacity factor
     1.25)."""
     return load_lm_moe_train_reference(LM_MLA_TRAIN_ASSET if path is None
+                                       else path)
+
+
+def load_lm_hybrid_train_reference(path=None) -> LMTrainRecord:
+    """:func:`load_lm_moe_train_reference` of the JAX hybrid training
+    record (``assets/lm_hybrid_train_reference.npz``: jamba's smoke config
+    in float32 with attention at the flash kernels' (128, 128), d_state
+    16, capacity factor 1.25)."""
+    return load_lm_moe_train_reference(LM_HYBRID_TRAIN_ASSET if path is None
                                        else path)
 
 

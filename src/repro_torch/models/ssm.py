@@ -14,13 +14,16 @@ a time.  The reference builds the scan's ``exp(delta A)`` and ``Bx`` whole,
 (b, s, d_inner, d_state) in float32 (17.2 GB each at 8 x 4096 tokens of
 jamba's full width); :func:`_mamba_scan` builds them one chunk of time
 steps at a time from the same elementwise products, so any chunk size
-gives the same bits.
+gives the same bits.  Under autograd each chunk runs under
+``torch.utils.checkpoint``, so that training keeps one chunk's buffers at
+a time in the backward.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv_scan.ref import wkv_step as _wkv_step
@@ -197,6 +200,22 @@ def mamba_chunk(b: int, di: int, n: int) -> int:
     return max(1, MAMBA_CHUNK_BYTES // (4 * b * di * n))
 
 
+def _scan_chunk(h, delta, A, B, xc, C):
+    """One chunk of :func:`_mamba_scan`: its ``exp(delta A)`` and ``Bx``,
+    the steps from state ``h`` and the readout -> (y of the chunk, its last
+    state).  The steps take their operands from ``unbind``, whose backward
+    is one stack (a select's is a zero fill of the whole chunk buffer and
+    an add)."""
+    dA = torch.exp(delta[..., None] * A)
+    Bx = (delta[..., None] * B[:, :, None, :]) * xc[..., None]
+    hs = []
+    for dA_t, Bx_t in zip(dA.unbind(1), Bx.unbind(1)):
+        h = torch.addcmul(Bx_t, dA_t, h)
+        hs.append(h)
+    del dA, Bx
+    return (torch.stack(hs, dim=1) * C[:, :, None, :]).sum(-1), h
+
+
 def _mamba_scan(delta, A, B, xc, C, h0=None, chunk=None):
     """The reference's ``_mamba_scan(delta, A, Bx, C, h0)`` with its Bx
     given by its factors: h_t = exp(delta_t A) h_{t-1} + Bx_t, y_t = C_t .
@@ -208,23 +227,34 @@ def _mamba_scan(delta, A, B, xc, C, h0=None, chunk=None):
     ``addcmul`` whatever the chunk, so the bits are the same at any chunk
     size; where its multiply-add is fused (PyTorch's CPU kernel, and nvcc
     contracts it on the card) it rounds once, as the reference's XLA
-    does with its FMA."""
+    does with its FMA.
+
+    Under autograd (grad enabled and an input that requires it) each chunk
+    runs under ``torch.utils.checkpoint``: the backward keeps only the
+    chunk-start states besides the inputs, and rebuilds one chunk's
+    ``exp(delta A)``, ``Bx``, states and their stack at a time, with the
+    same bits as autograd through the chunks without checkpoints.  Inside
+    ``Model.forward``'s remat of a period the scan then runs three times a
+    training step: the forward, the period's recompute and each chunk's
+    recompute in the backward.  A's gradient, a sum over b and t, is
+    summed chunk by chunk, so its last bits depend on the chunk size; no
+    other input's does."""
     b, s, di = delta.shape
     n = A.shape[-1]
     chunk = mamba_chunk(b, di, n) if chunk is None else chunk
     h = (torch.zeros((b, di, n), dtype=torch.float32, device=delta.device)
          if h0 is None else h0)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (delta, A, B, xc, C, h0))
     ys = []
     for t0 in range(0, s, chunk):
         sl = slice(t0, t0 + chunk)
-        dA = torch.exp(delta[:, sl, :, None] * A)
-        Bx = (delta[:, sl, :, None] * B[:, sl, None, :]) * xc[:, sl, :, None]
-        hs = []
-        for t in range(dA.shape[1]):
-            h = torch.addcmul(Bx[:, t], dA[:, t], h)
-            hs.append(h)
-        del dA, Bx
-        ys.append((torch.stack(hs, dim=1) * C[:, sl, None, :]).sum(-1))
+        args = (h, delta[:, sl], A, B[:, sl], xc[:, sl], C[:, sl])
+        if grad:
+            y, h = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            y, h = _scan_chunk(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
