@@ -208,7 +208,18 @@ no tensor-core instruction, then:
    kernel's); the JAX training records
    (``assets/lm_train_reference.npz``) through the kernels in float32;
    and the loop with its checkpoints on disk at the record's yi config
-   (a failure replayed bit-equal, a resume);
+   (a failure replayed bit-equal, a resume); then the compressed training
+   phase — yi-9b as above through ``make_train_step_compressed`` at one
+   pod (the int8 error-feedback exchange, its codec on the
+   ``wire_encode`` / ``wire_decode`` kernels), 4 steps from the plain
+   run's weights and batches: step 0's loss equal to the plain run's,
+   every residual within half a quantization step plus an ulp, launches
+   a step held (16 + 8 flash, one encode and one decode a call of the
+   exchange), the codec route against the plain compressor bit for bit,
+   the step's and the exchange's time, the peak, the link bytes, the
+   planner's roofline row, rows 4g / 5g on the largest gradient leaf, and
+   the JAX compressed-training record
+   (``assets/lm_compressed_train_reference.npz``) at one pod;
 10. whisper phase — whisper-medium, the encoder-decoder, at full width
    and full depth (24 + 24 layers), bf16, weights drawn on the card (seed
    0): a serve call (encode 8 x 1500 x 1024 frames drawn in bf16, seed 2;
@@ -324,7 +335,8 @@ no tensor-core instruction, then:
    device time per launch, the device time by kernel of one call at S = 1,
    S = 64, the VR rig frame, a steady-state serving tick (its device-busy
    share), the executed offload cut, one serve call of each LM and one
-   training step of each (mixtral's and deepseek's at their 1 layer),
+   training step of each (mixtral's and deepseek's at their 1 layer; yi's
+   compressed step too),
    whisper's, mixtral's, deepseek's and jamba's
    included (jamba's prefill alone too) (each model
    built anew when its profile runs; the card's activity alone),
@@ -4982,10 +4994,11 @@ class Deferred:
         self.build = build
 
 
-def train_step_target(arch, device, **size):
+def train_step_target(arch, device, compressed=False, **size):
     """One training step of ``arch`` at a training run's size
     (``train_size(**size)``), for the profile phase: (model, state and
-    batch built on the card, then the step)."""
+    batch built on the card, then the step); ``compressed``: the int8
+    error-feedback step at one pod."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -4993,7 +5006,11 @@ def train_step_target(arch, device, **size):
     from repro_torch.launch.train import batches, opt_config
     from repro_torch.models.transformer import Model
     from repro_torch.train.optimizer import init_opt_state
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import (
+        init_ef_states,
+        make_train_step,
+        make_train_step_compressed,
+    )
 
     size = train_size(**size)
     cfg = get_config(arch)
@@ -5002,10 +5019,18 @@ def train_step_target(arch, device, **size):
     model = Model(cfg, device)
     model.init(torch.Generator(device=model.device).manual_seed(0))
     state = {"opt": init_opt_state(model.named_leaves())}
-    step = make_train_step(model, opt_config(TRAIN_LR, TRAIN_STEPS))
     data = batches(DataConfig(vocab=cfg.vocab, seq=size["seq"],
                               global_batch=size["batch"], seed=0),
                    model.device, cfg)(0)
+    if compressed:
+        ef = init_ef_states(model)
+        step = make_train_step_compressed(model,
+                                          opt_config(TRAIN_LR, TRAIN_STEPS))
+
+        def one():
+            state["opt"], _ef, _met = step(state["opt"], ef, data)
+        return one
+    step = make_train_step(model, opt_config(TRAIN_LR, TRAIN_STEPS))
 
     def one():
         state["opt"], _met = step(state["opt"], data)
@@ -5038,6 +5063,392 @@ def lm_train_phase(probes, device="cuda"):
     lm_train_disk_run(device)
     print(f"LM training phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, targets, readings
+
+
+# -- the pod-scale cost stack: the int8 error-feedback exchange ------------------
+
+COMPRESSED_STEPS = 4            # steps of the compressed yi run
+COMPRESSED_KEEP_STEP = 1        # the step whose largest leaf the rows take
+                                # (its residual is nonzero)
+
+
+def ef_bound_ratio(target, residual, scale, block):
+    """max over the values of |residual| / (scale / 2 + ulp(absmax)), each
+    value against its flat block's scale and the ulp of its block's
+    largest |target|: at most 1 where every value was sent within half a
+    quantization step (a device scalar)."""
+    import torch
+
+    from repro_torch.core.reduction import flat_blocks
+
+    absmax = flat_blocks(target, block).abs().amax(dim=1, keepdim=True)
+    ulp = torch.nextafter(absmax, torch.full_like(absmax, float("inf")))
+    bound = scale / 2 + (ulp - absmax)
+    return (flat_blocks(residual, block).abs() / bound).amax()
+
+
+class _EFCalls:
+    """Counts and checks every call of ``core.reduction.ef_compress_int8``
+    while it is entered: each call's residual against ``ef_bound_ratio``
+    (kept as a device scalar; the checks' time by CUDA events), and at
+    step ``keep`` (set ``step`` before each) a copy of the largest call's
+    input and incoming residual."""
+
+    def __init__(self, keep):
+        self.keep, self.step = keep, None
+        self.ratios, self.events, self.kept = {}, {}, None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import reduction
+
+        self._mod, self._fn = reduction, reduction.ef_compress_int8
+        fn = self._fn
+
+        def checked(x, state, block=256):
+            out = fn(x, state, block=block)
+            (_q, scale), _deq, new = out
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            target = x.to(torch.float32) + state.residual
+            self.ratios.setdefault(self.step, []).append(
+                ef_bound_ratio(target, new.residual, scale, block))
+            del target
+            if self.step == self.keep and (
+                    self.kept is None or x.numel() > self.kept[0].numel()):
+                self.kept = (x.clone(), state.residual.clone())
+            end.record()
+            self.events.setdefault(self.step, []).append((start, end))
+            return out
+
+        reduction.ef_compress_int8 = checked
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ef_compress_int8 = self._fn
+
+    def worst(self, step) -> float:
+        return max(float(r) for r in self.ratios[step])
+
+    def check_ms(self, step) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events[step])
+
+
+def ef_route_check(label, x, residual, block=256):
+    """``ef_compress_int8`` through the wire codec's kernels against the
+    plain compressor (``quantize_int8`` / ``dequantize_int8``, the
+    residual by ``sub_products``) on the same card tensors: q, scale, deq
+    and the new residual bit for bit."""
+    from repro_torch.core.reduction import (
+        EFState,
+        dequantize_int8,
+        ef_compress_int8,
+        quantize_int8,
+        sub_products,
+    )
+
+    (q, scale), deq, new = ef_compress_int8(x, EFState(residual), block)
+    target = x.float() + residual
+    want_q, want_s = quantize_int8(target, block=block)
+    want_deq = dequantize_int8(want_q, want_s, x.shape)
+    same = {"q": _bits_equal(q, want_q), "scale": _bits_equal(scale, want_s),
+            "deq": _bits_equal(deq, want_deq),
+            "residual": _bits_equal(new.residual,
+                                    sub_products(target, want_q, want_s))}
+    if not all(same.values()):
+        raise AssertionError(f"ef_compress_int8 {label}: codec route vs "
+                             f"plain {same}")
+    print(f"ef_compress_int8 {label} {tuple(x.shape)}: the codec route == "
+          "the plain compressor bit for bit (q, scale, deq, residual)",
+          flush=True)
+
+
+def compressed_record_check(rec, device, pod_group=None):
+    """The port's compressed train step on the JAX compressed-training
+    record (``assets/lm_compressed_train_reference.npz``) at the pod count
+    of ``pod_group`` (None: 1 pod; this process is the pod of its rank and
+    takes its rows of each batch): each step's loss, ce, grad norm and the
+    norm of all this pod's residuals within max(RECORD_REL, E) of JAX's,
+    E the record's one-ulp sensitivity of that quantity at that step; the
+    learning rate within one float32 ulp.  Returns the readings: per
+    quantity each step's relative difference, and per step the largest
+    over leaves of a leaf's residual norm's difference ("res_leaf") and of
+    that over its own max(RECORD_REL, E) ("res_leaf_of_bound"), read, not
+    held: a leaf of a few blocks moves by whole quantization steps where a
+    code flips at a near tie, and 24 one-ulp draws need not flip as many
+    codes as the port's other summation order does (the CPU test holds
+    each code at step 0 instead)."""
+    import torch
+
+    from repro_torch.bridge import lm_params_from, numpy_lm_params
+    from repro_torch.core.reduction import pod_count
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import batches
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import (
+        init_ef_states,
+        make_train_step_compressed,
+    )
+
+    npods = pod_count(pod_group)
+    rank = 0 if pod_group is None else torch.distributed.get_rank(pod_group)
+    model = lm_params_from(numpy_lm_params(rec.cfg, rec.seed), rec.cfg,
+                           device=device)
+    make = batches(DataConfig(**rec.data), model.device, rec.cfg)
+    state = init_opt_state(model.named_leaves())
+    ef = init_ef_states(model)
+    if list(ef) != rec.leaf_names:
+        raise AssertionError(f"residual leaves {list(ef)} != the record's "
+                             f"{rec.leaf_names}")
+    step_fn = make_train_step_compressed(model, AdamWConfig(**rec.opt),
+                                         pod_group)
+    want, e = rec.runs[npods], rec.sensitivity[npods]
+    rows = rec.data["global_batch"] // npods
+    rel = {k: [] for k in ("loss", "ce", "grad_norm", "res_norm",
+                           "res_leaf", "res_leaf_of_bound")}
+    for s in range(rec.steps):
+        toks = make(s)["tokens"][rank * rows:(rank + 1) * rows]
+        state, ef, met = step_fn(state, ef, {"tokens": toks})
+        leaf = np.array([float(r.double().square().sum().sqrt())
+                         for r in ef.values()])
+        got = {k: float(met[k]) for k in ("loss", "ce", "grad_norm")}
+        got["res_norm"] = float(np.sqrt(np.sum(leaf ** 2)))
+        for k, v in got.items():
+            w, bound = want[k][s], e[k][s]
+            if k == "res_norm":             # this pod's
+                w, bound = w[rank], bound[rank]
+            r = abs(v - float(w)) / abs(float(w))
+            rel[k].append(r)
+            if r > max(RECORD_REL, bound):
+                raise AssertionError(
+                    f"compressed record, {npods} pod(s), pod {rank}, step "
+                    f"{s}: {k} {v!r} vs JAX {float(w)!r} ({r:.3g}, bound "
+                    f"{max(RECORD_REL, bound):.3g})")
+        w = want["res_leaf"][s][rank]
+        r_leaf = np.abs(leaf - w) / np.where(w > 0, w, 1.0)
+        of_bound = r_leaf / np.maximum(RECORD_REL, e["res_leaf"][s][rank])
+        rel["res_leaf"].append(float(r_leaf.max()))
+        rel["res_leaf_of_bound"].append(float(of_bound.max()))
+        lr, wlr = np.float32(float(met["lr"])), want["lr"][s]
+        if abs(int(lr.view(np.int32)) - int(wlr.view(np.int32))) > 1:
+            raise AssertionError(f"compressed record step {s}: lr {lr!r} vs "
+                                 f"{wlr!r}")
+    return rel
+
+
+def link_bytes(numels, block=256) -> tuple:
+    """(bytes one pod puts on the pod link a step: int8 codes and a
+    float32 scale a block, each call of the exchange; 2 x 4 bytes a value
+    for a float32 ring all-reduce of the same values)."""
+    coded = sum(n + 4 * -(-n // block) for n in numels)
+    return coded, 8 * sum(numels)
+
+
+def compressed_train_phase(probes, plain, device="cuda"):
+    """yi-9b at full width, TRAIN_LAYERS deep, bf16 with a float32 master,
+    TRAIN_BATCH x TRAIN_SEQ tokens a step, through
+    ``make_train_step_compressed`` at one pod (``pod_group`` None), from
+    the weights and batches of the plain yi run (``plain``, its
+    readings): every loss and grad norm finite; step 0's loss == the plain
+    run's; at every step each value's residual (at step 0 the difference
+    between the sent gradient and the float32 one) within half its block's
+    quantization step plus an ulp of the block's absmax; launches a step:
+    16 + 8 flash, and one ``wire_encode`` and one ``wire_decode`` a call of
+    the exchange (a reference leaf, or a slice where the slices hold whole
+    blocks); the codec route == the plain compressor on the step's largest
+    leaf and on a drawn tensor with all-zero blocks and a ragged tail; the
+    JAX compressed-training record at one pod.  Prints the step's ms and
+    tokens/s, the exchange's ms (CUDA events), the peak, the link bytes
+    and the planner's roofline row with the card's profile beside the
+    measured step.  Returns the rows 4g and 5g (the codec on the largest
+    leaf) and the step's profile target."""
+    import torch
+
+    from repro_torch.bridge import load_lm_compressed_train_reference
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.costmodel import H100_SXM, format_roofline_table
+    from repro_torch.core.placement import ShardingPlan, estimate_plan
+    from repro_torch.core.reduction import flat_blocks
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import batches, opt_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.optimizer import init_opt_state
+
+    t_phase = time.perf_counter()
+    arch = "yi-9b"
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    n_params = model.n_params()
+    state = init_opt_state(model.named_leaves())
+    ef = step_mod.init_ef_states(model)
+    make = batches(DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0),
+                   model.device, cfg)
+    step_fn = step_mod.make_train_step_compressed(
+        model, opt_config(TRAIN_LR, TRAIN_STEPS))
+    layout = step_mod.ef_leaves(model)
+    params = model.named_leaves()
+    calls = []                  # numels of the exchange's calls a step
+    for _name, _stacked, pnames in layout:
+        n, k = params[pnames[0]].numel(), len(pnames)
+        calls += [n * k // step_mod.n_calls(k, n)] * step_mod.n_calls(k, n)
+    want = dict(TRAIN_LAUNCHES[arch], wire_encode=len(calls),
+                wire_decode=len(calls))
+
+    exchange, ex_events = step_mod.exchange_grads, []
+
+    def timed_exchange(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = exchange(*a, **kw)
+        end.record()
+        ex_events.append((start, end))
+        return out
+
+    hist, per_step = [], []
+    step_mod.exchange_grads = timed_exchange
+    try:
+        with _EFCalls(COMPRESSED_KEEP_STEP) as efc:
+            for s in range(COMPRESSED_STEPS):
+                batch = make(s)
+                efc.step = s
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, ef, met = step_fn(state, ef, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                per_step.append(dict(_build.launches))
+                hist.append({"loss": float(met["loss"]),
+                             "grad_norm": float(met["grad_norm"]), "dt": dt})
+    finally:
+        step_mod.exchange_grads = exchange
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"compressed {arch}: non-finite loss or grad "
+                             f"norm: {hist}")
+    if hist[0]["loss"] != plain["losses"][0]:
+        raise AssertionError(f"compressed {arch}: step-0 loss "
+                             f"{hist[0]['loss']!r} != the plain run's "
+                             f"{plain['losses'][0]!r}")
+    ratios = [efc.worst(s) for s in range(COMPRESSED_STEPS)]
+    if max(ratios) > 1:
+        raise AssertionError(f"compressed {arch}: a residual beyond half a "
+                             f"quantization step + an ulp: {ratios} of the "
+                             "bound by step")
+    bad = [(s, c) for s, c in enumerate(per_step)
+           if {k: c.get(k, 0) for k in want} != want or set(c) - set(want)]
+    if bad:
+        raise AssertionError(f"compressed {arch}: launches per step "
+                             f"{per_step}, predicted {want}")
+    check_ms = [efc.check_ms(s) for s in range(COMPRESSED_STEPS)]
+    ms = [1e3 * h["dt"] - c for h, c in zip(hist, check_ms)]
+    step_ms = statistics.median(ms[1:])
+    ex_ms = statistics.median(a.elapsed_time(b) - c for (a, b), c in
+                              zip(ex_events[1:], check_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    coded, ring = link_bytes(calls)
+    print(f"{arch} compressed training, {cfg.n_layers} layers at full width "
+          f"({n_params / 1e9:.3f} B parameters, bf16 with a float32 master), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, one pod: losses "
+          f"{[h['loss'] for h in hist]}, grad norms "
+          f"{[h['grad_norm'] for h in hist]}; step-0 loss == the plain "
+          f"run's {plain['losses'][0]!r}; residuals within "
+          f"{[f'{r:.6f}' for r in ratios]} of half a quantization step + "
+          f"an ulp of the block's absmax, by step", flush=True)
+    print(f"{arch} compressed training: step {step_ms:.3f} ms (host clock, "
+          f"synchronised, median of the {COMPRESSED_STEPS - 1} steps after "
+          f"the first, less the checks' {statistics.median(check_ms[1:]):.3f}"
+          f" ms by CUDA events; the plain step {plain['step_ms']:.3f} ms), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s; the exchange "
+          f"(exchange_grads) {ex_ms:.3f} ms a step (CUDA events, less the "
+          f"checks), {100 * ex_ms / step_ms:.1f}% of the step; peak "
+          f"{peak:.2f} GiB ({resident:.2f} GiB resident before; the plain "
+          f"run's {plain['peak_gib']:.2f}); launches per step "
+          f"{per_step[0]} at every step (predicted {want})", flush=True)
+    print(f"{arch} compressed training: one pod would put {coded:,} bytes "
+          f"a step on the pod link (int8 codes + float32 scales of "
+          f"{len(calls)} calls) against {ring:,} for a float32 ring "
+          f"all-reduce (2 x 4 bytes a parameter): {ring / coded:.3f}x fewer",
+          flush=True)
+    rl = estimate_plan(
+        ShardingPlan("1chip"), name=f"{arch}|{cfg.n_layers}L train",
+        params=n_params, active_params=model.n_active_params(),
+        layer_flops=2 * model.n_active_params() * tokens, train=True,
+        tokens=tokens, d_model=cfg.d_model, seq=TRAIN_SEQ,
+        batch=TRAIN_BATCH, n_layers=cfg.n_layers, hbm_gib=80)
+    roof = dataclasses.replace(rl.roofline, chip=H100_SXM)
+    print("planner's roofline (core.placement.estimate_plan, one chip, "
+          f"hbm_gib=80, chip=H100_SXM; feasible {rl.feasible}) beside the "
+          f"measured step {step_ms / 1e3:.6f} s:\n"
+          + format_roofline_table([roof])
+          + f"\n  step_s {roof.step_s:.6f} s predicted, {step_ms / 1e3:.6f} s"
+          " measured", flush=True)
+
+    # the codec route against the plain compressor, and rows 4g / 5g on
+    # the largest leaf of step COMPRESSED_KEEP_STEP
+    x, res = efc.kept
+    del step_fn, state, ef, model, params
+    free_card()
+    ef_route_check(f"largest gradient leaf (step {COMPRESSED_KEEP_STEP})",
+                   x, res)
+    g = torch.Generator(device=device).manual_seed(34)
+    drawn = torch.randn(1000 * 256 + 77, generator=g, device=device)
+    drawn[256:3 * 256] = 0                 # all-zero blocks
+    drawn[-77:] = 0                        # and a zero ragged tail
+    ef_route_check("drawn, all-zero blocks, ragged tail", drawn,
+                   torch.zeros_like(drawn))
+    ef_route_check("drawn, nonzero blocks and residual, ragged tail",
+                   drawn * 3, torch.randn(drawn.shape, generator=g,
+                                          device=device) * 1e-3)
+    blocks = flat_blocks(x + res, step_mod.BLOCK).contiguous()
+    del x, res
+    rows = codec_kernel_rows(
+        probes, blocks, {"wire_encode": want["wire_encode"],
+                         "wire_decode": want["wire_decode"]},
+        shape=f"{blocks.shape[0]} x {blocks.shape[1]}",
+        label=f", {arch} largest gradient leaf")
+    for row, name in zip(rows, ("4g", "5g")):
+        row["table_row"] = name
+    del blocks
+
+    rec = load_lm_compressed_train_reference()
+    _build.reset_launches()
+    rel = compressed_record_check(rec, device)
+    counts = dict(_build.launches)
+    if min(counts.get(k, 0) for k in ("flash_attention",
+                                      "flash_attention_bwd", "wire_encode",
+                                      "wire_decode")) < 1:
+        raise AssertionError(f"compressed record: kernels not launched: "
+                             f"{counts}")
+    e = rec.sensitivity[1]
+    print(f"JAX compressed-training record (1 pod, {rec.cfg.n_layers} "
+          f"layers, {rec.data['global_batch']} x {rec.data['seq']} tokens, "
+          f"{rec.steps} steps, float32): per step loss "
+          f"{[f'{r:.3g}' for r in rel['loss']]} (E "
+          f"{[f'{v:.3g}' for v in e['loss']]}), grad norm "
+          f"{[f'{r:.3g}' for r in rel['grad_norm']]} (E "
+          f"{[f'{v:.3g}' for v in e['grad_norm']]}), residual norm "
+          f"{[f'{r:.3g}' for r in rel['res_norm']]} (E "
+          f"{[f'{v[0]:.3g}' for v in e['res_norm']]}); lr within an ulp; "
+          f"read, not held: a leaf's residual norm at most "
+          f"{[f'{r:.3g}' for r in rel['res_leaf_of_bound']]} of its own "
+          f"max(1e-4, E); launches {counts}", flush=True)
+    print(f"compressed training phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    target = (f"{arch} compressed training step ({TRAIN_LAYERS} layers, "
+              "one pod)", Deferred(lambda: train_step_target(
+                  arch, device, compressed=True)), step_ms)
+    return rows, [target]
 
 
 # -- whisper, the encoder-decoder ------------------------------------------------
@@ -6808,9 +7219,14 @@ def main() -> int:
     rows += lm_rows
     targets += lm_targets
     free_card()
-    train_rows, train_targets, _readings = lm_train_phase(probes)
+    train_rows, train_targets, readings = lm_train_phase(probes)
     rows += train_rows
     targets += train_targets
+    free_card()
+    compressed_rows, compressed_targets = compressed_train_phase(
+        probes, readings[0])
+    rows += compressed_rows
+    targets += compressed_targets
     free_card()
     whisper_rows, whisper_targets, _whisper = whisper_phase(probes)
     rows += whisper_rows

@@ -110,6 +110,8 @@ LM_HYBRID_ASSET = ASSET.parent / "lm_hybrid_reference.npz"
 LM_MOE_TRAIN_ASSET = ASSET.parent / "lm_moe_train_reference.npz"
 LM_MLA_TRAIN_ASSET = ASSET.parent / "lm_mla_train_reference.npz"
 LM_HYBRID_TRAIN_ASSET = ASSET.parent / "lm_hybrid_train_reference.npz"
+LM_COMPRESSED_TRAIN_ASSET = (ASSET.parent
+                             / "lm_compressed_train_reference.npz")
 
 
 def _feature(f) -> HaarFeature:
@@ -586,6 +588,23 @@ def from_jax_tree(model, tree, device=None, dtype=None) -> dict:
     return out
 
 
+def ef_from_jax_tree(model, tree, device=None) -> dict:
+    """The reference's error-feedback residual tree (``init_ef_states``'s
+    layout: the parameters' tree, anything numpy reads) as the port's
+    residuals (``train.step.init_ef_states``'s dict: JAX path joined by
+    "/" -> float32 tensor of the leaf's shape, a stacked leaf whole), on
+    ``device`` (the model's when None)."""
+    device = model.device if device is None else device
+    out = {}
+    for path, _names in leaf_layout(model):
+        a = tree
+        for k in path:
+            a = a[k]
+        out["/".join(str(k) for k in path)] = torch.tensor(
+            np.asarray(a, dtype=np.float32), device=device)
+    return out
+
+
 class StackedLeaf:
     """One leaf of a checkpoint tree over the port's per-layer tensors:
     stacked on the host only when saved (bf16 as its raw 2-byte values, as
@@ -731,6 +750,52 @@ def load_lm_hybrid_train_reference(path=None) -> LMTrainRecord:
     16, capacity factor 1.25)."""
     return load_lm_moe_train_reference(LM_HYBRID_TRAIN_ASSET if path is None
                                        else path)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMCompressedTrainRecord:
+    """The JAX compressed train step (int8 + error-feedback exchange over
+    the pod axis) on one reduced float32 config with ``numpy_lm_params(cfg,
+    seed)`` weights, at each pod count of ``runs``: per step the loss, ce,
+    global gradient norm, learning rate and, after the step, the norm of
+    all error-feedback residuals ("res_norm") and of each leaf's
+    ("res_leaf", (steps, leaves), leaves as ``leaf_names``: JAX paths
+    joined by "/"); ``sensitivity`` holds each quantity's one-ulp E a step
+    ("res_leaf": a step and leaf), per pod count."""
+
+    cfg: object
+    seed: int
+    data: dict                    # DataConfig fields
+    steps: int
+    opt: dict                     # AdamWConfig fields
+    leaf_names: list
+    runs: dict                    # pods -> quantity -> array
+    sensitivity: dict             # pods -> quantity -> array
+
+
+def load_lm_compressed_train_reference(path=None) -> LMCompressedTrainRecord:
+    """The JAX compressed-training record
+    (``assets/lm_compressed_train_reference.npz``: yi-9b's smoke config in
+    float32 at the flash kernels' d_head of 64, at 1 and 2 pods)."""
+    import json
+
+    with np.load(LM_COMPRESSED_TRAIN_ASSET if path is None else path) as z:
+        z = {k: z[k] for k in z.files}
+    desc = json.loads(str(z["config"]))
+    cfg = dataclasses.replace(
+        get_config(desc["arch"], smoke=desc["smoke"]),
+        param_dtype=torch.float32, **record_overrides(desc))
+    runs, sens = {}, {}
+    for npods in (int(p) for p in z["pods"]):
+        runs[npods] = {k: z[f"pods{npods}_{k}"] for k in (
+            "loss", "ce", "grad_norm", "lr", "res_norm", "res_leaf")}
+        sens[npods] = {k: np.asarray(v) for k, v in
+                       desc["sensitivity"][str(npods)].items()}
+        sens[npods]["res_leaf"] = z[f"pods{npods}_e_res_leaf"]
+    return LMCompressedTrainRecord(
+        cfg=cfg, seed=int(z["seed"]), data=desc["data"],
+        steps=int(desc["steps"]), opt=desc["opt"],
+        leaf_names=list(desc["leaves"]), runs=runs, sensitivity=sens)
 
 
 def encdec_record_frames(desc: dict) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Computation–communication cost model (paper §II-A, §III-D, §IV-C) —
-the port's copy of the JAX package's pure-Python ``core/costmodel.py``,
-so far the parts the §III and §IV offload controllers use.
+the port's copy of the JAX package's pure-Python ``core/costmodel.py``:
+the two camera regimes and the pod-scale three-term roofline.
 
 The paper evaluates every pipeline configuration under one of two regimes:
 
@@ -16,14 +16,17 @@ The paper evaluates every pipeline configuration under one of two regimes:
   the cut-point payload.  Real-time iff both clear 30 FPS.
 
 Both regimes consume the same inputs: a ``Pipeline`` of work descriptors
-(``core.pipeline``) and per-block ``HardwareProfile``s.
+(``core.pipeline``) and per-block ``HardwareProfile``s.  The same
+machinery scores sharding plans through the three-term roofline model
+(``Roofline``): compute, memory and collective seconds per step on a mesh
+of chips (``core.placement.estimate_plan``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+from typing import Mapping, Sequence
 
 from repro_torch.core.pipeline import Block, Pipeline
 
@@ -82,6 +85,26 @@ class HardwareProfile:
         """Average watts to run ``block`` at duty cycle ``duty`` (energy regime)."""
         duty = min(max(duty, 0.0), 1.0)
         return self.p_leak_w + duty * max(self.p_active_w - self.p_leak_w, 0.0)
+
+
+# -- The pod model ----------------------------------------------------------
+# The reference's chip and pod-to-pod link, with its values and its role:
+# the defaults of ``Roofline`` and the profiles its plan search scores.
+
+TPU_V5E = HardwareProfile(
+    name="tpu_v5e",
+    flops_per_s=197e12,
+    mem_bw=819e9,
+    link_bw=50e9,
+)
+
+POD_LINK = HardwareProfile(name="pod_link", link_bw=12.5e9)
+
+# The port's card, an H100 SXM: bf16 dense tensor-core rate and HBM3 rate,
+# the figures the kernel rows' bounds use.  It has no link rate; a
+# ``Roofline`` made with ``chip=H100_SXM`` keeps the default link.
+H100_SXM = HardwareProfile(name="h100_sxm", flops_per_s=989e12,
+                           mem_bw=3.35e12)
 
 
 # -- Paper §III profiles (Table I + calibration) -----------------------------
@@ -267,3 +290,112 @@ def throughput_cost(
         per_block_fps=tuple(per_block),
         cut_after=cut_after,
     )
+
+
+# ---------------------------------------------------------------------------
+# Roofline — the throughput regime at pod scale
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Roofline:
+    """Three-term roofline for one (arch x shape x mesh) cell.
+
+    compute_s    = flops / (chips * peak_FLOP/s)
+    memory_s     = hbm_bytes / (chips * HBM_bw)
+    collective_s = collective_bytes / (chips * link_bw)
+
+    ``flops``, ``hbm_bytes`` and ``collective_bytes`` are global
+    (whole-program) quantities; ``core.placement.estimate_plan`` makes
+    them analytically.
+    """
+
+    name: str
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float
+    n_chips: int
+    model_flops: float = 0.0            # 6*N*D (or 6*N_active*D for MoE)
+    ideal_bytes: float = 0.0            # structural minimum HBM traffic
+    chip: HardwareProfile = TPU_V5E
+    link: HardwareProfile = TPU_V5E
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / (self.n_chips * self.chip.flops_per_s)
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / (self.n_chips * self.chip.mem_bw)
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / (self.n_chips * self.link.link_bw)
+
+    @property
+    def step_s(self) -> float:
+        """Optimistic overlapped step time: the dominant term."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flop_fraction(self) -> float:
+        """model_flops / flops — catches remat / redundant compute."""
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    @property
+    def ideal_s(self) -> float:
+        """Unavoidable step time: max of the pure-model-FLOP time and the
+        structural-minimum HBM time (params + caches + boundary
+        activations).  Decode steps are memory-bound by construction —
+        judging them against a FLOP-only ideal reports 0% for every
+        possible implementation; the bytes term fixes the denominator."""
+        t_flops = (self.model_flops / (self.n_chips * self.chip.flops_per_s)
+                   if self.model_flops else 0.0)
+        t_bytes = (self.ideal_bytes / (self.n_chips * self.chip.mem_bw)
+                   if self.ideal_bytes else 0.0)
+        return max(t_flops, t_bytes)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """ideal_s / step_s."""
+        ideal = self.ideal_s
+        return ideal / self.step_s if (ideal and self.step_s) else 0.0
+
+    def row(self) -> dict:
+        return {
+            "name": self.name,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "model_flops": self.model_flops,
+            "hlo_flops": self.flops,
+            "useful_flop_fraction": self.useful_flop_fraction,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def format_roofline_table(rows: Sequence[Roofline]) -> str:
+    hdr = (
+        f"{'cell':<38s} {'compute_s':>11s} {'memory_s':>11s} "
+        f"{'collect_s':>11s} {'dominant':>10s} {'useful%':>8s} "
+        f"{'roofline%':>9s}"
+    )
+    lines = [hdr, "-" * len(hdr)]
+    for r in rows:
+        lines.append(
+            f"{r.name:<38s} {r.compute_s:>11.4e} {r.memory_s:>11.4e} "
+            f"{r.collective_s:>11.4e} {r.dominant:>10s} "
+            f"{100*r.useful_flop_fraction:>7.1f}% "
+            f"{100*r.roofline_fraction:>8.1f}%"
+        )
+    return "\n".join(lines)
